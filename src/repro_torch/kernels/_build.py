@@ -1,0 +1,125 @@
+"""Build the port's CUDA kernels with ``nvcc`` at first use; load with ctypes.
+
+Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o build/repro_torch_kernels/<name>-<hash>.so
+
+The file name carries a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one loads what is there. :func:`build` starts one
+``nvcc`` per missing library, all at once, and waits for all of them.
+Nothing is built or loaded when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Sequence
+
+import torch
+
+__all__ = ["KERNELS", "BUILD_DIR", "DTYPE_CODES", "build", "load_function",
+           "check_device", "raise_on_error"]
+
+KERNELS = ("dot_moa", "flash_attention", "paged_attention")
+_CSRC = Path(__file__).resolve().parent / "csrc"
+#: ``<repo>/build/repro_torch_kernels`` (listed in .gitignore)
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: dtype codes of the C entry points (``enum DType`` in csrc/common.cuh)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+               torch.int32: 3}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin and PATH): the CUDA kernels "
+                       "are built from source at first use")
+
+
+def _library_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(_CSRC.glob("*.cuh")) + [_CSRC / f"{name}.cu"]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
+    """Compile every library in ``names`` that is not built yet, one
+    ``nvcc`` each, all in parallel. Returns ``{name: {"path", "seconds",
+    "cached", "log"}}`` (``log`` holds nvcc's output, with ptxas's register
+    and spill report). Raises with the log if a build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out, running = {}, {}
+    for name in names:
+        path = _library_path(name)
+        if path.exists():
+            out[name] = {"path": str(path), "seconds": 0.0, "cached": True,
+                         "log": ""}
+            continue
+        tmp = path.with_suffix(f".tmp{os.getpid()}")
+        cmd = [_nvcc(), *NVCC_FLAGS, f"-I{_CSRC}", "-o", str(tmp),
+               str(_CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, path, time.monotonic())
+    failed = []
+    for name, (proc, tmp, path, t0) in running.items():
+        log, _ = proc.communicate()
+        out[name] = {"path": str(path), "seconds": time.monotonic() - t0,
+                     "cached": False, "log": log}
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
+            continue
+        os.replace(tmp, path)       # atomic: a reader never sees half a file
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return out
+
+
+def load_function(name: str, symbol: str, argtypes: Sequence):
+    """The C entry point ``symbol`` of library ``name`` (built if needed),
+    with ``argtypes`` set and an ``int`` (cudaError_t) return."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = _LIBS[name] = ctypes.CDLL(str(_library_path(name)))
+    fn = getattr(lib, symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_device(t: torch.Tensor, what: str) -> None:
+    """The kernels are built for ``sm_90a``: any other card raises (there is
+    no fallback to the plain version on a CUDA tensor)."""
+    if not t.is_cuda:
+        raise ValueError(f"{what}: the CUDA kernel needs CUDA tensors")
+    cap = torch.cuda.get_device_capability(t.device)
+    if cap != (9, 0):
+        raise RuntimeError(
+            f"{what}: the kernel is built for sm_90a (Hopper); this card "
+            f"is sm_{cap[0]}{cap[1]} ({torch.cuda.get_device_name(t.device)})")
+
+
+def raise_on_error(rc: int, what: str) -> None:
+    """A C entry point returns ``cudaGetLastError()`` after its launch."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: kernel launch failed with CUDA error "
+                           f"{rc}")

@@ -1,0 +1,38 @@
+// Shared helpers of the port's CUDA kernels: dtype codes (kept in step with
+// DTYPE_CODES in kernels/_build.py) and float conversions.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+enum DType : int { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2, DT_I32 = 3 };
+
+// The reference's masking sentinel: finite, so exp() stays defined on rows
+// whose every score is masked.
+#define REPRO_NEG_INF (-1e30f)
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+// round to nearest even, as XLA's and PyTorch's f32 -> bf16 conversion
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Round an f32 value through the dtype ``dt`` and back (the int8 pool's
+// dequantization contract: the value the gather path would materialize).
+__device__ __forceinline__ float round_through(float x, int dt) {
+  return dt == DT_BF16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+}
+
+// Dynamic shared memory above the 48 KB default needs an explicit opt-in.
+template <typename Kernel>
+static inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}

@@ -1,0 +1,77 @@
+"""Public entry points of the port's kernels — the counterpart of
+``repro/kernels/ops.py``.
+
+Dispatch follows the tensor, never a fallback: a CPU tensor runs the plain
+PyTorch version (:mod:`repro_torch.kernels.ref`); a CUDA tensor launches the
+hand-written CUDA kernel or raises (the kernels are built for ``sm_90a``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.dot_moa import dot_moa_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.paged_attention import paged_attention_cuda
+
+__all__ = ["dot_moa", "flash_attention", "paged_attention", "launch_counts",
+           "reset_launch_counts"]
+
+_WRAPPERS = {"dot_moa": dot_moa_cuda, "flash_attention": flash_attention_cuda,
+             "paged_attention": paged_attention_cuda}
+
+
+def _on_cpu(x: torch.Tensor, what: str) -> bool:
+    if x.device.type == "cpu":
+        return True
+    if x.is_cuda:
+        return False
+    raise ValueError(f"{what}: no kernel for device {x.device}")
+
+
+def dot_moa(a, b, *, block_k: int = 512, approx_bits: int = 0,
+            out_dtype: Optional[torch.dtype] = None):
+    """K-blocked matmul with serialized-MOA contraction ``(m,k)@(k,n)``."""
+    if _on_cpu(a, "dot_moa"):
+        return ref.dot_moa_ref(a, b, block_k=block_k, approx_bits=approx_bits,
+                               out_dtype=out_dtype)
+    return dot_moa_cuda(a, b, block_k=block_k, approx_bits=approx_bits,
+                        out_dtype=out_dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, q_chunk: int = 256,
+                    kv_chunk: int = 512):
+    """Flash-attention forward, ``q (B, Sq, H, D)``, ``k``/``v``
+    ``(B, Skv, Hk, D)``. ``q_chunk``/``kv_chunk`` are the plain version's
+    chunk sizes (they shape only its float reassociation); the kernel's
+    tiles are fixed in its source."""
+    if _on_cpu(q, "flash_attention"):
+        return ref.flash_attention_ref(q, k, v, causal=causal,
+                                       q_chunk=q_chunk, kv_chunk=kv_chunk)
+    return flash_attention_cuda(q, k, v, causal=causal)
+
+
+def paged_attention(q, k_pool, v_pool, block_tables, start, *, k_scale=None,
+                    v_scale=None, dequant_dtype=torch.bfloat16):
+    """Paged flash attention ``(B, T, H, D)`` over a block-table KV pool
+    (int8 pools dequantized through ``dequant_dtype``)."""
+    if _on_cpu(q, "paged_attention"):
+        return ref.paged_attention_ref(q, k_pool, v_pool, block_tables, start,
+                                       k_scale=k_scale, v_scale=v_scale,
+                                       dequant_dtype=dequant_dtype)
+    return paged_attention_cuda(q, k_pool, v_pool, block_tables, start,
+                                k_scale=k_scale, v_scale=v_scale,
+                                dequant_dtype=dequant_dtype)
+
+
+def launch_counts() -> dict:
+    """Kernel launches per wrapper since the last reset."""
+    return {name: fn.launches for name, fn in _WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in _WRAPPERS.values():
+        fn.launches = 0

@@ -1,0 +1,150 @@
+"""Serving CLI of the port: the continuous-batching engine over a paged KV
+pool, driven by a synthetic Poisson workload (the engine half of
+``repro/launch/serve.py``).
+
+  python -m repro_torch.launch.serve --arch llama3-8b --paged \
+      --param-dtype bfloat16 --requests 8 --slots 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+      --smoke --paged --device cpu
+
+Runs on the GPU unless ``--device cpu`` is given. ``--layers`` cuts the
+depth (``n_layers``) and nothing else.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+import torch
+
+from repro_torch.configs.registry import get_config, smoke_config
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.models.api import build_model
+from repro_torch.serve import GREEDY, Sampler, ServeEngine, poisson_workload
+
+__all__ = ["main"]
+
+
+def _build(args):
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke_config(cfg)
+    updates = {}
+    if args.layers:
+        updates["n_layers"] = args.layers
+    if args.param_dtype:
+        updates["param_dtype"] = args.param_dtype
+    if updates:
+        cfg = dataclasses.replace(cfg, **updates)
+    return cfg, build_model(cfg)
+
+
+def _sampler(args) -> Sampler:
+    return GREEDY if args.greedy else Sampler(args.temperature)
+
+
+def _run_engine(args):
+    device = resolve_device(args.device)
+    cfg, model = _build(args)
+    params = model.init(seed=args.seed, device=device)
+    max_len = args.max_len or (args.prompt_len + args.gen_len + 1) * 2
+    if args.paged and max_len % args.block_size:
+        max_len += args.block_size - max_len % args.block_size
+    engine = ServeEngine(
+        model, params, n_slots=args.slots, max_len=max_len,
+        paged=args.paged, block_size=args.block_size,
+        n_blocks=args.blocks or None,
+        generator=torch.Generator(device=device).manual_seed(args.seed),
+        attn_backend=args.attn_backend or None, device=device)
+    requests = poisson_workload(
+        n_requests=args.requests, vocab=cfg.vocab, rate_rps=args.rate,
+        prompt_len_range=(min(4, args.prompt_len), args.prompt_len),
+        gen_len_range=(min(2, args.gen_len), args.gen_len),
+        sampler=_sampler(args), seed=args.seed)
+    ops.reset_launch_counts()
+    results, report = engine.run(requests, warmup=not args.no_warmup)
+    print(f"[serve] arch={cfg.name} layers={cfg.n_layers} "
+          f"device={report['device']} slots={args.slots} max_len={max_len} "
+          f"requests={args.requests} rate={args.rate}/s")
+    for r in results:
+        m = r.metrics
+        print(f"[serve]   req {r.uid}: slot={r.slot} prompt={r.prompt_len} "
+              f"gen={r.tokens.size} ttft={m.ttft_s*1e3:.0f}ms "
+              f"{m.per_token_ms:.1f}ms/tok ({r.finish_reason.value})")
+    print(f"[serve] aggregate: {report['tok_per_s']:.1f} tok/s, "
+          f"ttft p50={report['ttft_ms']['p50']:.0f}ms "
+          f"p95={report['ttft_ms']['p95']:.0f}ms, "
+          f"occupancy={report['slot_occupancy']:.2f}, "
+          f"slot_reuse={report['slot_reuse']}, "
+          f"warmup={report['compile_s']*1e3:.0f}ms (kept out of wall_s)")
+    pg = report["paged"]
+    print(f"[serve] paged: {pg['n_blocks']}x{pg['block_size']}-token "
+          f"blocks, backend={pg['attn_backend']}, "
+          f"occupancy={pg['block_occupancy']:.2f}, "
+          f"prefix hits={pg['prefix_hits']}/{pg['admissions']}, "
+          f"cow={pg['cow_count']}, "
+          f"resident={pg['resident_kv_bytes']:,}B "
+          f"(dense equiv {pg['dense_equiv_kv_bytes']:,}B), "
+          f"kv read/step gathered={pg['gathered_kv_bytes_per_step']:,.0f}B "
+          f"fused={pg['fused_kv_bytes_per_step']:,.0f}B")
+    print(f"[serve] kernel launches (warmup included): "
+          f"{ops.launch_counts()}")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="Serve a registry arch through the port's paged "
+                    "continuous-batching engine")
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced CPU-runnable config")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="override n_layers (depth only; 0 = the config's)")
+    ap.add_argument("--param-dtype", default="",
+                    choices=("", "float32", "bfloat16"),
+                    help="stored weight type (default: the config's, "
+                         "float32; bfloat16 halves a full-width model and "
+                         "makes the cast at use a no-op)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to serve on (default cuda; the CPU "
+                         "runs the plain PyTorch versions of the kernels)")
+    ap.add_argument("--prompt-len", type=int, default=64,
+                    help="upper bound of the prompt-length range, tokens")
+    ap.add_argument("--gen-len", type=int, default=32,
+                    help="upper bound of the generation-length range")
+    ap.add_argument("--requests", type=int, default=8,
+                    help="number of workload requests")
+    ap.add_argument("--rate", type=float, default=50.0,
+                    help="Poisson arrival rate, requests/s")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="decode slots (in-flight requests)")
+    ap.add_argument("--max-len", type=int, default=0,
+                    help="per-slot context capacity, tokens")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV cache: shared block pool with "
+                         "ref-counted prefix caching (the only mode ported)")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="tokens per physical KV page")
+    ap.add_argument("--blocks", type=int, default=0,
+                    help="pool size in pages (0 = dense equivalent "
+                         "slots*max_len/block_size)")
+    ap.add_argument("--attn-backend", default="",
+                    choices=("", "auto", "torch", "kernel"),
+                    help="attention backend: kernel (the CUDA kernels), "
+                         "torch (plain PyTorch), auto (kernel on the GPU). "
+                         "Default: the config's (auto)")
+    ap.add_argument("--no-warmup", action="store_true",
+                    help="skip the unmeasured warmup tick (one-time costs "
+                         "then land in wall_s instead of compile_s)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy)")
+    ap.add_argument("--greedy", action="store_true",
+                    help="force greedy decode regardless of --temperature")
+    ap.add_argument("--seed", type=int, default=0)
+    _run_engine(ap.parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

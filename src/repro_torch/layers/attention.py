@@ -1,0 +1,256 @@
+"""GQA attention for the served path — the port of the pieces of
+``repro/layers/attention.py`` that prefill and paged decode use.
+
+Layouts: q ``(B, Sq, H, D)``, k/v ``(B, Skv, Hk, D)``; GQA groups
+``G = H // Hk`` stay a separate axis. Paged pools are
+``(n_phys_blocks, block_size, Hk, D)`` with int32 ``(B, n_blocks)`` tables;
+physical block 0 is the engine's write-trash page.
+
+Unlike the reference, the paged decode step writes the new K/V into the
+pool **in place** (the pool tensors are the engine's cache; returning a
+fresh copy per layer per step would double the KV traffic).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.layers.common import Params
+from repro_torch.layers.numerics import NEG_INF, kv_scale_zeros
+from repro_torch.layers.rope import apply_rope
+
+__all__ = [
+    "ATTN_BACKENDS", "attention_decode_paged",
+    "flash_attention", "full_attention", "init_kv_pool", "gather_paged_kv",
+    "prefill_attention", "quantize_kv", "dequantize_kv",
+    "resolve_attn_backend",
+]
+
+#: resolved ``attn_backend`` values: plain PyTorch or the CUDA kernels
+ATTN_BACKENDS = ("torch", "kernel")
+
+#: The plain chunked-softmax twin of the flash kernel (the reference's jnp
+#: ``flash_attention``); its implementation is the kernel's plain version.
+flash_attention = flash_attention_ref
+
+
+def resolve_attn_backend(backend: str, device) -> str:
+    """Resolve the attention backend knob for tensors on ``device``:
+    ``"auto"`` is the kernel on CUDA and the plain version on the CPU;
+    ``"kernel"`` on the CPU raises (there is no kernel to run there)."""
+    device = torch.device(device)
+    if backend == "auto":
+        return "kernel" if device.type == "cuda" else "torch"
+    if backend not in ATTN_BACKENDS:
+        raise ValueError(f"unknown attn backend {backend!r}; expected "
+                         f"'auto' or one of {ATTN_BACKENDS}")
+    if backend == "kernel" and device.type != "cuda":
+        raise ValueError("attn_backend='kernel' needs CUDA tensors; a CPU "
+                         "tensor takes 'auto' or 'torch'")
+    return backend
+
+
+def prefill_attention(q, k, v, *, causal: bool = True, q_chunk: int = 256,
+                      kv_chunk: int = 512, backend: str = "auto"):
+    """The softmax·V of a prompt (every query at once): the flash-attention
+    kernel on the ``kernel`` backend, else its plain chunked twin
+    (:func:`flash_attention`, the reference's prefill path)."""
+    if resolve_attn_backend(backend, q.device) == "kernel":
+        return ops.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=causal)
+    return flash_attention(q, k, v, causal=causal, q_chunk=q_chunk,
+                           kv_chunk=kv_chunk)
+
+
+def full_attention(q, k, v, *, causal: bool, positions_q=None,
+                   positions_kv=None, kv_len=None):
+    """One-shot attention: materializes the scores.
+
+    ``kv_len`` (scalar or ``(B,)``) limits the attended cache positions;
+    ``positions_q`` may be ``(Sq,)`` or per-sequence ``(B, Sq)``.
+    """
+    B, Sq, H, D = q.shape
+    _, Skv, Hk, _ = k.shape
+    G = H // Hk
+    dev = q.device
+    qg = q.reshape(B, Sq, Hk, G, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * (D ** -0.5)
+    if positions_q is None:
+        positions_q = torch.arange(Sq, device=dev)
+    if positions_kv is None:
+        positions_kv = torch.arange(Skv, device=dev)
+    pq = positions_q if positions_q.dim() == 2 else positions_q[None]
+    mask = torch.ones((pq.shape[0], Sq, Skv), dtype=torch.bool, device=dev)
+    if causal:
+        mask = mask & (positions_kv[None, None, :] <= pq[:, :, None])
+    if kv_len is not None:
+        kv_len = torch.as_tensor(kv_len, device=dev)
+        if kv_len.dim() == 0:
+            mask = mask & (positions_kv[None, None, :] < kv_len)
+        else:
+            mask = mask & (positions_kv[None, None, :] < kv_len[:, None, None])
+    mask = mask[:, None, None]                          # (B|1, 1, 1, Sq, Skv)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return o.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def _moa_dot(x, w, *, strategy, compute_dtype):
+    """Dense projection routed through the MOA engine (scope-aware)."""
+    from repro_torch.layers.linear import project
+
+    return project({"w": w}, x, strategy=strategy, compute_dtype=compute_dtype)
+
+
+def _project_qkv(params: Params, x, *, n_heads, n_kv_heads, head_dim,
+                 compute_dtype, strategy=None):
+    B, S, _ = x.shape
+    x = x.to(compute_dtype)
+
+    def dot(w):
+        return _moa_dot(x, w.to(compute_dtype), strategy=strategy,
+                        compute_dtype=compute_dtype)
+
+    q = dot(params["wq"])
+    k = dot(params["wk"])
+    v = dot(params["wv"])
+    if "bq" in params:
+        q = q + params["bq"].to(compute_dtype)
+        k = k + params["bk"].to(compute_dtype)
+        v = v + params["bv"].to(compute_dtype)
+    q = q.reshape(B, S, n_heads, head_dim)
+    k = k.reshape(B, S, n_kv_heads, head_dim)
+    v = v.reshape(B, S, n_kv_heads, head_dim)
+    return q, k, v
+
+
+def init_kv_pool(n_phys_blocks: int, block_size: int, n_kv_heads: int,
+                 head_dim: int, dtype=torch.bfloat16, device=None) -> Params:
+    """Paged KV pool; ``dtype=int8`` adds per-(pos, head) f32 scales.
+    Physical block 0 is the engine's write-trash page."""
+    shape = (n_phys_blocks, block_size, n_kv_heads, head_dim)
+    pool = {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if dtype == torch.int8:
+        pool["k_scale"] = kv_scale_zeros(shape[:3], device)
+        pool["v_scale"] = kv_scale_zeros(shape[:3], device)
+    return pool
+
+
+def quantize_kv(x):
+    """Per-(batch, pos, head) symmetric int8 quantization of K or V: scale
+    ``amax / 127`` (1 for an all-zero row), values rounded half to even and
+    clipped to ±127."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q, scale, dtype=torch.bfloat16):
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+def gather_paged_kv(pool: Params, block_tables, dtype=torch.bfloat16, *,
+                    live_blocks: Optional[int] = None):
+    """Materialize each sequence's logical KV view ``(B, n_blk·bs, Hk, D)``
+    from the shared pool (dequantized to ``dtype`` for an int8 pool).
+    ``live_blocks`` truncates the table to the batch's high-water block:
+    pages past every cursor are fully masked, so dropping them is exact."""
+    if live_blocks is not None:
+        block_tables = block_tables[:, :live_blocks]
+    idx = block_tables.long()
+
+    def flat(name):
+        x = pool[name][idx]                 # (B, n_blk, bs, ...)
+        return x.reshape((x.shape[0], -1) + tuple(x.shape[3:]))
+
+    k, v = flat("k"), flat("v")
+    if "k_scale" in pool:
+        k = dequantize_kv(k, flat("k_scale"), dtype)
+        v = dequantize_kv(v, flat("v_scale"), dtype)
+    return k, v
+
+
+def _paged_attention_fused(q, pool: Params, block_tables, start, *,
+                           compute_dtype=torch.bfloat16,
+                           live_blocks: Optional[int] = None):
+    """The paged score reduction through the paged-attention kernel: it
+    walks the (high-water-truncated) tables itself and dequantizes int8
+    pools in registers, rounding through ``compute_dtype`` — the dtype the
+    gather path materializes — so both backends see bit-equal KV."""
+    if live_blocks is not None:
+        block_tables = block_tables[:, :live_blocks]
+    return ops.paged_attention(
+        q, pool["k"], pool["v"], block_tables.contiguous(),
+        start.to(torch.int32).contiguous(),
+        k_scale=pool.get("k_scale"), v_scale=pool.get("v_scale"),
+        dequant_dtype=compute_dtype)
+
+
+def attention_decode_paged(params: Params, x, pool: Params, block_tables,
+                           pos, *, n_heads: int, n_kv_heads: int,
+                           head_dim: int, rope_theta: float = 10000.0,
+                           use_rope: bool = True,
+                           compute_dtype=torch.bfloat16,
+                           strategy=None, backend: str = "torch",
+                           live_blocks: Optional[int] = None,
+                           ) -> Tuple[torch.Tensor, Params]:
+    """One decode step against a paged KV pool.
+
+    The new token's K/V is written (in place) to physical page
+    ``block_tables[b, pos // bs]`` at offset ``pos % bs``; the score
+    reduction then runs over the slot's pages — the gathered view and
+    ``full_attention`` (``backend="torch"``) or the paged-attention kernel
+    (``"kernel"``). ``pos`` is the ``(B,)`` cursor vector.
+    """
+    B = x.shape[0]
+    bs = pool["k"].shape[1]
+    q, k_new, v_new = _project_qkv(
+        params, x, n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim,
+        compute_dtype=compute_dtype, strategy=strategy)
+    pos = pos[:, None]
+    if use_rope:
+        q = apply_rope(q, pos, theta=rope_theta)
+        k_new = apply_rope(k_new, pos, theta=rope_theta)
+
+    cur = pos[:, 0].long()
+    # An idle slot's cursor keeps advancing and can pass the table width;
+    # JAX clamps such an out-of-range gather to the last column, which for
+    # a cleared (all-trash) row is the trash page. PyTorch would raise, so
+    # clamp explicitly to keep the write on the trash page.
+    col = torch.clamp(cur // bs, max=block_tables.shape[1] - 1)
+    rows = torch.arange(B, device=x.device)
+    blk = block_tables[rows, col].long()
+    off = cur % bs
+    # duplicate (trash page, offset) targets from idle slots are harmless:
+    # whichever write wins, nothing live ever reads the trash page
+    if "k_scale" in pool:
+        kq, ks = quantize_kv(k_new)
+        vq, vs = quantize_kv(v_new)
+        pool["k"][blk, off] = kq[:, 0]
+        pool["v"][blk, off] = vq[:, 0]
+        pool["k_scale"][blk, off] = ks[:, 0]
+        pool["v_scale"][blk, off] = vs[:, 0]
+    else:
+        pool["k"][blk, off] = k_new[:, 0].to(pool["k"].dtype)
+        pool["v"][blk, off] = v_new[:, 0].to(pool["v"].dtype)
+
+    if resolve_attn_backend(backend, x.device) == "kernel":
+        o = _paged_attention_fused(q, pool, block_tables, cur,
+                                   compute_dtype=compute_dtype,
+                                   live_blocks=live_blocks)
+    else:
+        k_cache, v_cache = gather_paged_kv(pool, block_tables, compute_dtype,
+                                           live_blocks=live_blocks)
+        o = full_attention(q, k_cache, v_cache, causal=False, kv_len=cur + 1)
+    o = o.reshape(B, 1, n_heads * head_dim)
+    y = _moa_dot(o, params["wo"].to(compute_dtype), strategy=strategy,
+                 compute_dtype=compute_dtype)
+    return y, pool

@@ -1,0 +1,26 @@
+"""Numerics helpers — the repo's f32 upcast sites (``repro/layers/numerics.py``)."""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["NEG_INF", "f32_upcast", "silu_f32", "kv_scale_zeros"]
+
+#: finite masking sentinel: keeps exp() well-defined on all-masked rows
+NEG_INF = -1e30
+
+
+def f32_upcast(x: torch.Tensor) -> torch.Tensor:
+    """Upcast to f32 ahead of an accumulation / normalization / softmax."""
+    return x.float()
+
+
+def silu_f32(x: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
+    """SiLU evaluated in f32 (exp underflows in bf16 for moderate |x|)."""
+    y = torch.nn.functional.silu(x.float())
+    return y if out_dtype is None else y.to(out_dtype)
+
+
+def kv_scale_zeros(shape, device) -> torch.Tensor:
+    """Zero-initialized per-(pos, head) f32 scales for an int8 KV cache."""
+    return torch.zeros(shape, dtype=torch.float32, device=device)

@@ -1,0 +1,108 @@
+"""Backend execution paths for MOA strategies: plain PyTorch and kernel.
+
+* **torch** — the plain schedules of the reference's jnp path (explicit
+  binary tree, serialized cluster sums, K-chunked matmul), on any device.
+  They are the numerical oracles and the path the CPU tests compare.
+* **kernel** — :func:`kernel_dot`, the ``dot_moa`` CUDA kernel behind a
+  ``torch.autograd.Function`` whose backward is the plain f32 matmul
+  transpose rule of ``repro/moa/backends.py:138-145``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.device import is_integer
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import matmul_accum
+
+__all__ = ["tree_sum", "serial_sum", "chunked_matmul", "kernel_dot"]
+
+
+# ---------------------------------------------------------------------------
+# plain reference schedules
+# ---------------------------------------------------------------------------
+
+
+def tree_sum(x: torch.Tensor, accum_dtype) -> torch.Tensor:
+    """Explicit balanced binary adder tree over axis 0 (odd leftovers pass
+    through), fixing the float reassociation order to the tree's."""
+    x = x.to(accum_dtype)
+    while x.shape[0] > 1:
+        m = x.shape[0]
+        half = m // 2
+        paired = x[: 2 * half: 2] + x[1: 2 * half: 2]
+        if m % 2:
+            paired = torch.cat([paired, x[2 * half:]], dim=0)
+        x = paired
+    return x[0]
+
+
+def serial_sum(x: torch.Tensor, chunk: int, accum_dtype) -> torch.Tensor:
+    """§3.1 serialized MOA: clusters of ``chunk`` operands folded into one
+    ``accum_dtype`` accumulator (ragged tail zero-padded, exact for +)."""
+    n = x.shape[0]
+    chunk = min(chunk, n)
+    acc = torch.zeros(x.shape[1:], dtype=accum_dtype, device=x.device)
+    for start in range(0, n, chunk):
+        acc = acc + torch.sum(x[start:start + chunk].to(accum_dtype), dim=0)
+    return acc
+
+
+def chunked_matmul(a: torch.Tensor, b: torch.Tensor, *, chunk: int,
+                   accum_dtype=torch.float32,
+                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """K-blocked matmul ``a (..., M, K) @ b (K, N)``: the contraction runs
+    ``chunk`` operands at a time into one accumulator — the reference's
+    ``lax.scan`` over K chunks (a ragged last chunk equals a zero-padded
+    one, since padding adds exact zeros)."""
+    k = a.shape[-1]
+    if b.shape[0] != k:
+        raise ValueError(f"contraction mismatch: {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    out_dtype = out_dtype or a.dtype
+    chunk = min(chunk, k)
+    acc = torch.zeros(tuple(a.shape[:-1]) + (b.shape[-1],),
+                      dtype=accum_dtype, device=a.device)
+    for start in range(0, k, chunk):
+        acc = acc + matmul_accum(a[..., start:start + chunk],
+                                 b[start:start + chunk], accum_dtype)
+    return acc.to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel path
+# ---------------------------------------------------------------------------
+
+
+class _KernelDot(torch.autograd.Function):
+    """Forward: the ``dot_moa`` kernel. Backward: the plain f32 transpose
+    rule (the kernel's contraction is exact up to reassociation)."""
+
+    @staticmethod
+    def forward(ctx, a, b, block_k, approx_bits, out_dtype):
+        ctx.save_for_backward(a, b)
+        return ops.dot_moa(a, b, block_k=block_k, approx_bits=approx_bits,
+                           out_dtype=out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        gf = g.float()
+        da = torch.matmul(gf, b.float().t()).to(a.dtype)
+        db = torch.matmul(a.float().t(), gf).to(b.dtype)
+        return da, db, None, None, None
+
+
+def kernel_dot(a: torch.Tensor, b: torch.Tensor, *, block_k: int,
+               out_dtype: torch.dtype, approx_bits: int = 0) -> torch.Tensor:
+    """``(m, k) @ (k, n)`` through the ``dot_moa`` kernel; ``block_k`` is
+    the serialization cluster size ``n_c``. Float paths are differentiable;
+    integer paths are forward-only."""
+    a = a.contiguous()
+    if is_integer(a.dtype):
+        return ops.dot_moa(a, b, block_k=int(block_k),
+                           approx_bits=int(approx_bits), out_dtype=out_dtype)
+    return _KernelDot.apply(a, b, int(block_k), int(approx_bits), out_dtype)

@@ -1,0 +1,294 @@
+"""Dense GQA transformer LM — the port of ``repro/models/transformer.py``
+for the served path (``family="dense"``).
+
+Structure per layer (pre-norm): ``h += attn(rms(h)); h += mlp(rms(h))``.
+Layer parameters are stacked on a leading ``L`` axis exactly as the
+reference stacks them (``params["layers"]["attn"]["wq"]`` is
+``(L, d_model, H·D)``); where the reference scans over that axis the port
+loops over it, taking views.
+
+Prefill's softmax·V runs the flash-attention kernel on the ``kernel``
+attention backend (the reference calls its jnp twin there); paged decode
+runs the paged-attention kernel; every projection runs ``dot_moa`` through
+the configured MOA strategy.
+
+The paged decode step updates the cache **in place** (pool pages and the
+``pos`` cursors) and returns it, where the reference returns a new tree.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.interop import tree_map
+from repro_torch.layers import attention as attn_lib
+from repro_torch.layers.common import Params, dense_init, rms_norm
+from repro_torch.layers.embedding import embed, init_embedding, unembed
+from repro_torch.layers.mlp import swiglu
+from repro_torch.layers.rope import apply_rope
+
+__all__ = [
+    "init_params", "layer", "embed_inputs", "forward", "init_paged_cache",
+    "prefill", "prefill_suffix", "paged_decode_step",
+]
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device) -> Params:
+    """Random parameters with the reference's tree, shapes and
+    initializers (truncated normals: stddev ``1/sqrt(fan_in)`` for weights,
+    0.02 for the embedding table, ``d_model**-0.5`` for the untied
+    unembedding; norm scales 1), drawn from ``generator`` on ``device`` in
+    ``cfg.param_dtype``. The draws differ from ``jax.random``'s; parity
+    tests move the reference's parameters across with :mod:`interop`."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r}: the port serves the dense family only "
+            "(ROADMAP Queue 1, items 9-12)")
+    dt, L, d = cfg.pdtype, cfg.n_layers, cfg.d_model
+    hd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+
+    def w(d_in, d_out):
+        return dense_init(generator, (L, d_in, d_out), dt, fan_in=d_in,
+                          device=device)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dt, device=device)
+
+    attn = {"wq": w(d, hd), "wk": w(d, kvd), "wv": w(d, kvd), "wo": w(hd, d)}
+    if cfg.qkv_bias:
+        for name, width in (("bq", hd), ("bk", kvd), ("bv", kvd)):
+            attn[name] = torch.zeros((L, width), dtype=dt, device=device)
+    return {
+        "embed": init_embedding(generator, cfg.vocab, d,
+                                tie=cfg.tie_embeddings, dtype=dt,
+                                device=device),
+        "layers": {
+            "attn_norm": {"scale": ones(L, d)},
+            "attn": attn,
+            "mlp_norm": {"scale": ones(L, d)},
+            "mlp": {"w_gate": w(d, cfg.d_ff), "w_up": w(d, cfg.d_ff),
+                    "w_down": w(cfg.d_ff, d)},
+        },
+        "final_norm": {"scale": ones(d)},
+    }
+
+
+def layer(stacked: Params, i: int) -> Params:
+    """Layer ``i``'s parameters (or KV pool) as views of the stacked tree."""
+    return tree_map(lambda t: t[i], stacked)
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _attention(cfg: ModelConfig, q, k, v):
+    """Causal softmax·V over a whole prompt (``cfg.attn_impl``)."""
+    if cfg.attn_impl == "full":
+        return attn_lib.full_attention(q, k, v, causal=True)
+    return attn_lib.prefill_attention(q, k, v, causal=True,
+                                      q_chunk=cfg.q_chunk,
+                                      kv_chunk=cfg.kv_chunk,
+                                      backend=cfg.attn_backend)
+
+
+def _mlp(cfg: ModelConfig, lyr: Params, h):
+    """``h + swiglu(rms(h))``."""
+    hn = rms_norm(lyr["mlp_norm"], h)
+    return h + swiglu(lyr["mlp"], hn, strategy=cfg.moa_for("mlp"),
+                      compute_dtype=cfg.cdtype)
+
+
+def _layer_qkv(cfg: ModelConfig, lyr: Params, h, positions):
+    """RMSNorm, the q/k/v projections and RoPE of one layer."""
+    hn = rms_norm(lyr["attn_norm"], h)
+    q, k, v = attn_lib._project_qkv(
+        lyr["attn"], hn, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, compute_dtype=cfg.cdtype,
+        strategy=cfg.moa_for("attention"))
+    q = apply_rope(q, positions, theta=cfg.rope_theta)
+    k = apply_rope(k, positions, theta=cfg.rope_theta)
+    return q, k, v
+
+
+def _attn_out(cfg: ModelConfig, lyr: Params, h, o):
+    """``h + o @ wo`` (``o`` is ``(B, S, H, D)``)."""
+    B, S = o.shape[:2]
+    o = o.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    return h + attn_lib._moa_dot(o, lyr["attn"]["wo"].to(cfg.cdtype),
+                                 strategy=cfg.moa_for("attention"),
+                                 compute_dtype=cfg.cdtype)
+
+
+def embed_inputs(params: Params, batch: dict, cfg: ModelConfig):
+    """Token embedding → ``(h, positions, text_offset)`` (dense: no
+    modality prefix, so the offset is 0)."""
+    tokens = batch["tokens"]
+    h = embed(params["embed"], tokens, compute_dtype=cfg.cdtype)
+    return h, torch.arange(tokens.shape[1], device=tokens.device), 0
+
+
+def forward(params: Params, batch: dict, cfg: ModelConfig):
+    """Full causal forward → logits ``(B, S, V)`` in f32."""
+    h, positions, _ = embed_inputs(params, batch, cfg)
+    for i in range(cfg.n_layers):
+        lyr = layer(params["layers"], i)
+        q, k, v = _layer_qkv(cfg, lyr, h, positions)
+        h = _mlp(cfg, lyr, _attn_out(cfg, lyr, h, _attention(cfg, q, k, v)))
+    h = rms_norm(params["final_norm"], h)
+    return unembed(params["embed"], h, compute_dtype=cfg.cdtype)
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + paged decode
+# ---------------------------------------------------------------------------
+
+
+def kv_dtype(cfg: ModelConfig) -> torch.dtype:
+    """KV element type: int8 for a quantized cache, else the compute type."""
+    return torch.int8 if cfg.kv_cache_dtype == "int8" else cfg.cdtype
+
+
+def init_paged_cache(cfg: ModelConfig, n_slots: int, n_phys_blocks: int,
+                     block_size: int, max_blocks: int, *, device) -> Params:
+    """Paged decode state: one physical page pool per layer (stacked
+    ``(L, n_phys, bs, Hk, D)``), per-slot int32 block tables (all zeros =
+    every logical block on the write-trash page 0) and ``(n_slots,)`` int32
+    position cursors."""
+    one = attn_lib.init_kv_pool(n_phys_blocks, block_size, cfg.n_kv_heads,
+                                cfg.head_dim, dtype=kv_dtype(cfg),
+                                device=device)
+    layers = {k: v.unsqueeze(0).repeat((cfg.n_layers,) + (1,) * v.dim())
+              for k, v in one.items()}
+    return {
+        "layers": layers,
+        "block_tables": torch.zeros((n_slots, max_blocks), dtype=torch.int32,
+                                    device=device),
+        "pos": torch.zeros((n_slots,), dtype=torch.int32, device=device),
+    }
+
+
+def _kv_entry(cfg: ModelConfig, k, v) -> Params:
+    """A layer's K/V as the cache stores them (quantized for int8)."""
+    if cfg.kv_cache_dtype == "int8":
+        kq, ks = attn_lib.quantize_kv(k)
+        vq, vs = attn_lib.quantize_kv(v)
+        return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    return {"k": k, "v": v}
+
+
+def _pad_seq(t, length: int):
+    """Zero-pad the sequence axis (1) of ``t`` to ``length``."""
+    return torch.nn.functional.pad(
+        t, (0, 0) * (t.dim() - 2) + (0, length - t.shape[1]))
+
+
+def _stack(entries) -> Params:
+    """Per-layer ``{name: (B, S, ...)}`` → ``{name: (L, B, S, ...)}``."""
+    return {name: torch.stack([e[name] for e in entries])
+            for name in entries[0]}
+
+
+def _last_real_slice(h, prompt_len: Optional[int]) -> Tuple[torch.Tensor,
+                                                            int]:
+    """Hidden state at the last real prompt position ``(B, 1, d)`` and the
+    cache cursor after it (``prompt_len``, or the full length)."""
+    if prompt_len is None:
+        return h[:, -1:], h.shape[1]
+    return h[:, prompt_len - 1:prompt_len], int(prompt_len)
+
+
+def prefill(params: Params, batch: dict, cfg: ModelConfig, *, max_len: int,
+            prompt_len: Optional[int] = None):
+    """Prefill a (possibly right-padded) prompt; returns
+    ``(logits (B, 1, V) at position prompt_len - 1, cache)``.
+
+    ``cache["layers"]`` holds each layer's post-RoPE K/V padded with zeros
+    to ``max_len`` (``(L, B, max_len, Hk, D)``, int8 plus f32 scales for a
+    quantized cache); ``cache["pos"]`` is the cursor ``prompt_len`` (a
+    Python int). Positions past ``prompt_len`` are causal-masked garbage.
+    """
+    h, positions, _ = embed_inputs(params, batch, cfg)
+    entries = []
+    for i in range(cfg.n_layers):
+        lyr = layer(params["layers"], i)
+        q, k, v = _layer_qkv(cfg, lyr, h, positions)
+        h = _mlp(cfg, lyr, _attn_out(cfg, lyr, h, _attention(cfg, q, k, v)))
+        entries.append(tree_map(lambda t: _pad_seq(t, max_len),
+                                _kv_entry(cfg, k, v)))
+    h = rms_norm(params["final_norm"], h)
+    h_last, pos = _last_real_slice(h, prompt_len)
+    logits = unembed(params["embed"], h_last, compute_dtype=cfg.cdtype)
+    return logits, {"layers": _stack(entries), "pos": pos}
+
+
+def prefill_suffix(params: Params, batch: dict, cfg: ModelConfig, *,
+                   prefix: Params, prompt_len: int):
+    """Prefill only the suffix of a prompt whose leading blocks hit the
+    prefix cache; returns ``(last-position logits, suffix cache)``.
+
+    ``prefix`` holds the cached prefix K/V, ``{"k", "v"}: (L, 1, P, Hk, D)``
+    in the compute type; ``batch["tokens"]`` is the suffix right-padded to
+    a block-aligned bucket and ``prompt_len`` the *total* true length, so
+    the suffix sits at positions ``P .. prompt_len - 1``. The suffix
+    queries attend over ``concat(prefix, suffix)`` with the one-shot
+    :func:`~repro_torch.layers.attention.full_attention`: plain PyTorch,
+    as the reference runs jnp outside any kernel here — not a fallback.
+    """
+    P = prefix["k"].shape[2]
+    h, _, _ = embed_inputs(params, batch, cfg)
+    S = h.shape[1]
+    dev = h.device
+    positions_q = P + torch.arange(S, device=dev)
+    positions_kv = torch.arange(P + S, device=dev)
+    entries = []
+    for i in range(cfg.n_layers):
+        lyr = layer(params["layers"], i)
+        q, k, v = _layer_qkv(cfg, lyr, h, positions_q)
+        k_full = torch.cat([prefix["k"][i].to(cfg.cdtype), k], dim=1)
+        v_full = torch.cat([prefix["v"][i].to(cfg.cdtype), v], dim=1)
+        o = attn_lib.full_attention(q, k_full, v_full, causal=True,
+                                    positions_q=positions_q,
+                                    positions_kv=positions_kv)
+        h = _mlp(cfg, lyr, _attn_out(cfg, lyr, h, o))
+        entries.append(_kv_entry(cfg, k, v))
+    h = rms_norm(params["final_norm"], h)
+    h_last, _ = _last_real_slice(h, prompt_len - P)
+    logits = unembed(params["embed"], h_last, compute_dtype=cfg.cdtype)
+    return logits, {"layers": _stack(entries), "pos": int(prompt_len)}
+
+
+def paged_decode_step(params: Params, cache: Params, tokens,
+                      cfg: ModelConfig, *, live_blocks: Optional[int] = None):
+    """One token step for every slot against the paged cache
+    (``init_paged_cache`` layout); ``tokens (B, 1)``. Writes each slot's
+    new K/V into its page, attends over its pages (``cfg.attn_backend``:
+    the paged-attention kernel or the gathered plain path), advances every
+    cursor by one — in place — and returns ``(logits (B, 1, V), cache)``.
+    ``live_blocks`` bounds the KV walk to the batch's high-water block."""
+    pos, tables = cache["pos"], cache["block_tables"]
+    h = embed(params["embed"], tokens, compute_dtype=cfg.cdtype)
+    for i in range(cfg.n_layers):
+        lyr = layer(params["layers"], i)
+        hn = rms_norm(lyr["attn_norm"], h)
+        a, _ = attn_lib.attention_decode_paged(
+            lyr["attn"], hn, layer(cache["layers"], i), tables, pos,
+            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+            compute_dtype=cfg.cdtype, strategy=cfg.moa_for("attention"),
+            backend=cfg.attn_backend, live_blocks=live_blocks)
+        h = _mlp(cfg, lyr, h + a)
+    h = rms_norm(params["final_norm"], h)
+    logits = unembed(params["embed"], h, compute_dtype=cfg.cdtype)
+    pos.add_(1)
+    return logits, cache

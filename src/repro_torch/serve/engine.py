@@ -1,0 +1,665 @@
+"""Continuous-batching engine over a paged KV pool — the port of
+``repro/serve/engine.py`` in its ``paged=True`` FIFO mode.
+
+One engine tick = (admit arrived requests into free slots, each through a
+bucketed prefill whose K/V scatters into pool pages) + (one batched paged
+decode step over all slots). KV lives in a shared pool of fixed-size
+physical pages mapped through per-slot block tables
+(:mod:`repro_torch.serve.kv_pool`): requests sharing a prompt prefix share
+physical pages (ref-counted, copy-on-write at the first divergent write),
+admission needs a free slot **and** enough free blocks, and a prefix-cache
+hit skips the shared blocks' prefill compute (suffix prefill).
+
+The host logic is the reference's, line for line. What differs is the
+device side: PyTorch runs eagerly, so there is no compile cache, and the
+cache tensors (pool pages, block tables, cursors) are updated **in place**.
+On the GPU every projection runs the ``dot_moa`` kernel, prefill's
+softmax·V the flash-attention kernel and decode's the paged-attention
+kernel; ``attn_backend="torch"`` (with a ``backend=torch`` MOA spec) runs
+the plain PyTorch versions instead.
+
+Not ported yet, and refused with ``NotImplementedError``: the dense-slot
+mode (``paged=False``, ROADMAP Queue 1 item 6), and speculative decoding,
+chunked prefill, SLO scheduling, mesh serving and weight reloads (item 8).
+``metrics.moa_flops`` stays ``None`` until the decode costing is ported
+(item 7).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.interop import tree_leaves
+from repro_torch.layers.attention import dequantize_kv, resolve_attn_backend
+from repro_torch.models.api import Model, build_model
+from repro_torch.serve.kv_pool import TRASH_BLOCK, BlockPool, blocks_needed
+from repro_torch.serve.metrics import RequestMetrics, aggregate, paged_report
+from repro_torch.serve.request import FinishReason, Request, RequestResult
+from repro_torch.serve.sampling import sample_batch
+from repro_torch.serve.scheduler import SlotScheduler
+
+__all__ = ["ServeEngine"]
+
+
+def _not_ported(what: str, item: int, topic: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP Queue 1, item {item}: {topic})")
+
+
+@dataclasses.dataclass
+class _Inflight:
+    """Host-side state of one admitted request (device state lives in the
+    engine's batched cache at ``slot``)."""
+
+    request: Request
+    slot: int
+    generated: List[int]
+    next_token: int
+    metrics: RequestMetrics
+
+
+@dataclasses.dataclass
+class _SlotTable:
+    """Host mirror of one slot's block table.
+
+    ``shared`` marks logical blocks currently mapped to ref-shared pages
+    (writes must not land there — admission redirects them to the trash
+    page, and the reserved ``cow_spare`` absorbs the first divergent
+    write).
+    """
+
+    blocks: List[int]
+    shared: Set[int]
+    cow_spare: Optional[int] = None
+    tail_idx: Optional[int] = None
+
+
+# ---- paged device helpers (in place on the cache tensors) ------------------
+
+
+def _gather_prefix(pool, ids, *, cdtype):
+    """Cached prefix pages → dense ``(L, 1, P, Hk, D)`` K/V (compute
+    dtype; dequantized if the pool is int8)."""
+
+    def flat(name):
+        x = pool[name][:, ids]                   # (L, n, bs, ...)
+        return x.reshape((x.shape[0], 1, -1) + tuple(x.shape[3:]))
+
+    k, v = flat("k"), flat("v")
+    if "k_scale" in pool:
+        k = dequantize_kv(k, flat("k_scale"), cdtype)
+        v = dequantize_kv(v, flat("v_scale"), cdtype)
+    return {"k": k, "v": v}
+
+
+def _paged_write(cache, pre_kv, write_ids, table_row, slot: int,
+                 pre_pos: int) -> None:
+    """Scatter a prefill's K/V into the pool pages named by ``write_ids``
+    (one per written logical block; shared and overhang blocks arrive
+    redirected to the trash page, so the ids may repeat — whichever
+    duplicate write wins, nothing reads the trash page), then install the
+    slot's block-table row and cursor."""
+    nb = write_ids.shape[0]
+    for name, leaf in cache["layers"].items():
+        s = pre_kv[name][:, 0]                   # (L, S, ...)
+        s = s.reshape((s.shape[0], nb, s.shape[1] // nb)
+                      + tuple(s.shape[2:]))
+        leaf[:, write_ids] = s.to(leaf.dtype)
+    cache["block_tables"][slot] = table_row
+    cache["pos"][slot] = pre_pos
+
+
+def _cow_copy(cache, src: int, dst: int, slot: int, logical_idx: int) -> None:
+    """Copy-on-write: duplicate page ``src`` into the reserved spare
+    ``dst`` and repoint this slot's table entry, so the imminent divergent
+    write lands on a private page."""
+    for leaf in cache["layers"].values():
+        leaf[:, dst] = leaf[:, src]
+    cache["block_tables"][slot, logical_idx] = dst
+
+
+def _clear_slot(cache, slot: int) -> None:
+    """Point a freed slot's table at the trash page and rewind its cursor:
+    its (masked-out) decode writes can then never corrupt pages
+    reallocated to live requests."""
+    cache["block_tables"][slot] = TRASH_BLOCK
+    cache["pos"][slot] = 0
+
+
+class ServeEngine:
+    """Continuous-batching server over a :class:`repro_torch.models.api.
+    Model` with a paged KV pool.
+
+    Parameters follow the reference's ``ServeEngine``:
+
+    model, params:
+        A built model and its parameter tree, on ``device``.
+    n_slots, max_len, prompt_buckets:
+        Decode batch width, per-slot context capacity (tokens) and the
+        prefill shape set (default: powers of two up to ``max_len``;
+        prompts are right-padded up to a bucket).
+    paged, block_size, n_blocks:
+        ``paged`` must be True (the dense-slot mode is not ported);
+        ``block_size`` tokens per page must divide ``max_len``; ``n_blocks``
+        pages in the pool (default: the dense equivalent
+        ``n_slots * max_len / block_size``).
+    generator:
+        ``torch.Generator`` on ``device`` for temperature-sampled requests
+        (default: seeded with 0). All-greedy ticks draw nothing.
+    clock:
+        Monotonic time source in seconds (tests pass a frozen one; idle
+        gaps before the next arrival are fast-forwarded).
+    attn_backend:
+        Overrides ``cfg.attn_backend``: ``"kernel"`` the CUDA kernels,
+        ``"torch"`` the plain PyTorch versions, ``"auto"`` the kernels for
+        CUDA tensors and the plain versions on the CPU. ``None`` keeps the
+        config's.
+    device:
+        Where the engine runs: the GPU unless the caller asks for the CPU
+        (no GPU raises). ``params`` must already be there.
+    drafter, mesh, prefill_chunk_tokens, scheduling="slo":
+        Refused: ROADMAP Queue 1, item 8.
+    """
+
+    def __init__(self, model: Model, params, *, n_slots: int, max_len: int,
+                 prompt_buckets: Sequence[int] = (), paged: bool = False,
+                 block_size: int = 16, n_blocks: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None,
+                 drafter=None, mesh=None,
+                 clock: Callable[[], float] = time.monotonic,
+                 prefill_chunk_tokens: Optional[int] = None,
+                 scheduling: str = "fifo",
+                 attn_backend: Optional[str] = None,
+                 device="cuda"):
+        if not paged:
+            raise _not_ported("the dense-slot engine (paged=False)", 6,
+                              "dense-slot engine mode; pass paged=True")
+        if drafter is not None:
+            raise _not_ported("speculative decoding (drafter)", 8,
+                              "engine features")
+        if mesh is not None:
+            raise _not_ported("mesh serving", 8, "engine features")
+        if prefill_chunk_tokens is not None:
+            raise _not_ported("chunked prefill", 8, "engine features")
+        if scheduling == "slo":
+            raise _not_ported("scheduling='slo'", 8, "engine features")
+        if scheduling != "fifo":
+            raise ValueError(f"unknown scheduling {scheduling!r}; expected "
+                             "'fifo' or 'slo'")
+        self.device = resolve_device(device)
+        for path, leaf in tree_leaves(params):
+            if leaf.device != self.device:
+                raise ValueError(
+                    f"parameter {path} is on {leaf.device}, the engine runs "
+                    f"on {self.device}")
+        if attn_backend is not None:
+            model = build_model(dataclasses.replace(
+                model.cfg, attn_backend=attn_backend))
+        # resolve now: a 'kernel' request on the CPU fails at construction
+        resolve_attn_backend(model.cfg.attn_backend, self.device)
+        self.model = model
+        self.params = params
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.scheduling = scheduling
+        self.scheduler = SlotScheduler(n_slots, max_len,
+                                       [b for b in prompt_buckets
+                                        if b <= max_len])
+        self._clock = clock
+        self._gen = generator if generator is not None \
+            else torch.Generator(device=self.device).manual_seed(0)
+        self.paged = paged
+        self._init_paged(block_size, n_blocks)
+
+        self._inflight: Dict[int, _Inflight] = {}
+        self._steps = 0
+        self._occupancy_sum = 0.0
+        self._fast_forward_s = 0.0
+        self._t_start = self._clock()
+        self._compile_s = 0.0
+        self._log_start = 0
+
+    # ---- paged setup -------------------------------------------------------
+    def _init_paged(self, block_size: int, n_blocks: Optional[int]) -> None:
+        if self.max_len % block_size:
+            raise ValueError(
+                f"block_size {block_size} must divide max_len "
+                f"{self.max_len} so the gathered paged view matches the "
+                "dense cache shape exactly")
+        self.block_size = block_size
+        self._max_blocks = self.max_len // block_size
+        self.n_blocks = n_blocks if n_blocks is not None \
+            else self.n_slots * self._max_blocks
+        self._pool = BlockPool(self.n_blocks, block_size)
+        self._tables: Dict[int, _SlotTable] = {}
+        # dense family: prefix hits skip prefill compute via suffix prefill,
+        # so partial-tail sharing (and with it CoW) never triggers here
+        self._match_tail = False
+        self._spec = self.model.cache_spec()
+        # physical pages: pool blocks 1..n plus the id-0 trash page
+        self.cache = self.model.init_paged_cache(
+            self.n_slots, self.n_blocks + 1, block_size, self._max_blocks,
+            device=self.device)
+        self._prefix_hits = 0
+        self._shared_block_hits = 0
+        self._cow_count = 0
+        self._admissions = 0
+        self._block_occ_sum = 0.0
+        self._peak_blocks = 0
+        # attention KV traffic, priced per tick from the same cursors
+        # whichever backend ran: gathered = what the plain gather path
+        # streams (n_slots × high-water bucket), fused = the live blocks the
+        # paged kernel touches
+        self._gathered_kv_bytes = 0
+        self._fused_kv_bytes = 0
+        self._kv_step_log: List[Tuple[int, int]] = []
+
+    def _dev(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, device=self.device)
+
+    # ---- live-block bucketing ----------------------------------------------
+    def _hw_buckets(self) -> List[int]:
+        """The block-count buckets decode runs against: powers of two up
+        to the table width, plus the width itself."""
+        buckets = []
+        b = 1
+        while b < self._max_blocks:
+            buckets.append(b)
+            b <<= 1
+        buckets.append(self._max_blocks)
+        return buckets
+
+    def _live_blocks(self, window: int) -> int:
+        """Bucketed high-water block count covering every in-flight slot's
+        cursor plus ``window`` rows written this tick, rounded up to a
+        power of two (capped at the table width)."""
+        need = 1
+        for inf in self._inflight.values():
+            top = inf.metrics.prompt_tokens + len(inf.generated) + window - 1
+            need = max(need, top // self.block_size + 1)
+        b = 1
+        while b < need:
+            b <<= 1
+        return min(b, self._max_blocks)
+
+    def _kv_bytes_tick(self, hw: int, window: int) -> Tuple[int, int]:
+        """(gathered, fused) attention KV bytes for one tick at bucket
+        ``hw``: the gather path materializes ``n_slots × hw`` blocks
+        whether live or not; the paged kernel touches only each slot's live
+        blocks."""
+        blk = self._spec.kv_block_bytes(self.block_size)
+        gathered = self.n_slots * hw * blk
+        fused = 0
+        for inf in self._inflight.values():
+            top = inf.metrics.prompt_tokens + len(inf.generated) + window - 1
+            fused += (top // self.block_size + 1) * blk
+        return gathered, fused
+
+    # ---- time --------------------------------------------------------------
+    def _now(self, t_start: float) -> float:
+        """Engine clock in seconds: wall time plus fast-forwarded idle."""
+        return (self._clock() - t_start) + self._fast_forward_s
+
+    # ---- lifecycle ---------------------------------------------------------
+    def _block_gate(self, req: Request) -> bool:
+        """Admission needs enough free pool blocks for the request's
+        worst-case lifetime (prefix hits count as free)."""
+        return self._pool.can_admit(req.prompt, req.max_new_tokens,
+                                    match_tail=self._match_tail)
+
+    def _plan_tables(self, req: Request):
+        """Reserve pool pages for one admission: share matched prefix
+        pages, allocate the rest (plus the CoW spare for a matched tail),
+        and build the slot's logical→physical table."""
+        pool = self._pool
+        plan = pool.plan(req.prompt, req.max_new_tokens,
+                         match_tail=self._match_tail)
+        # share before alloc: a matched evictable page must be revived
+        # before allocation can consider evicting it
+        for b in plan.full_matched:
+            pool.share(b)
+        if plan.tail_matched is not None:
+            pool.share(plan.tail_matched)
+        fresh = iter(pool.alloc(plan.new_needed))
+        n_full = len(plan.full_matched)
+        table = _SlotTable(blocks=list(plan.full_matched),
+                           shared=set(range(n_full)))
+        if plan.tail_matched is not None:
+            table.tail_idx = n_full              # == prompt_len // bs
+        for i in range(n_full, plan.n_logical):
+            if i == table.tail_idx:
+                table.blocks.append(plan.tail_matched)
+                table.shared.add(i)
+            else:
+                table.blocks.append(next(fresh))
+        if plan.tail_matched is not None:
+            table.cow_spare = next(fresh)
+        return plan, table
+
+    def _register_prompt_blocks(self, req: Request, plan,
+                                table: _SlotTable) -> None:
+        """Publish this admission's privately-written prompt pages in the
+        prefix trie (matched pages are already registered)."""
+        bs, p = self.block_size, req.prompt_len
+        for i in range(len(plan.full_matched), p // bs):
+            self._pool.register(table.blocks[i], req.prompt[: (i + 1) * bs])
+        if self._match_tail and p % bs and plan.tail_matched is None:
+            self._pool.register(table.blocks[p // bs], req.prompt)
+
+    def _paged_prefill(self, slot: int, req: Request):
+        """Prefill under the paged cache; returns ``(first-token logits,
+        cached prompt tokens)``.
+
+        With a prefix hit, gather the cached prefix pages and run the
+        suffix-only prefill (the prefix's compute is skipped). Otherwise a
+        full bucketed prefill; shared logical blocks write to the trash
+        page so cached content is never clobbered.
+        """
+        bs, p = self.block_size, req.prompt_len
+        plan, table = self._plan_tables(req)
+        self._admissions += 1
+        if plan.n_shared:
+            self._prefix_hits += 1
+            self._shared_block_hits += plan.n_shared
+        prompt = req.prompt_array()
+        # recompute at least one position so the last-token logits exist
+        # even when every prompt block matched
+        n_pref = min(len(plan.full_matched), (p - 1) // bs)
+        if n_pref > 0:
+            prefix = _gather_prefix(
+                self.cache["layers"], self._dev(table.blocks[:n_pref]),
+                cdtype=self.model.cfg.cdtype)
+            suffix = prompt[0, n_pref * bs:]
+            pad = -len(suffix) % bs
+            toks = np.zeros((1, len(suffix) + pad), np.int32)
+            toks[0, : len(suffix)] = suffix
+            logits, pre = self.model.prefill_suffix(
+                self.params, {"tokens": self._dev(toks)}, prefix=prefix,
+                prompt_len=p)
+            first_logical = n_pref
+        else:
+            bucket = self.scheduler.bucket_for(p)
+            toks = np.zeros((1, bucket), np.int32)
+            toks[0, :p] = prompt[0]
+            logits, pre = self.model.prefill(
+                self.params, {"tokens": self._dev(toks)},
+                max_len=self.max_len, prompt_len=p)
+            first_logical = 0
+        kv, _ = self.model.split_prefill_cache(pre)
+        n_written = kv["k"].shape[2] // bs
+        write_ids = []
+        for i in range(first_logical, first_logical + n_written):
+            if i >= len(table.blocks) or i in table.shared:
+                write_ids.append(TRASH_BLOCK)
+            else:
+                write_ids.append(table.blocks[i])
+        row = np.full((self._max_blocks,), TRASH_BLOCK, np.int32)
+        row[: len(table.blocks)] = table.blocks
+        _paged_write(self.cache, kv, self._dev(write_ids), self._dev(row),
+                     slot, pre["pos"])
+        self._register_prompt_blocks(req, plan, table)
+        self._tables[slot] = table
+        return logits, n_pref * bs
+
+    def _apply_cow(self, slot: int) -> None:
+        """First divergent write is imminent (the request enters the decode
+        loop): copy the shared tail page into the reserved spare."""
+        table = self._tables[slot]
+        if table.cow_spare is None:
+            return
+        src, dst = table.blocks[table.tail_idx], table.cow_spare
+        _cow_copy(self.cache, src, dst, slot, table.tail_idx)
+        self._pool.free(src)
+        table.blocks[table.tail_idx] = dst
+        table.shared.discard(table.tail_idx)
+        table.cow_spare = None
+        self._cow_count += 1
+
+    def _release_paged(self, slot: int) -> None:
+        table = self._tables.pop(slot)
+        for b in table.blocks:
+            self._pool.free(b)
+        if table.cow_spare is not None:
+            self._pool.free(table.cow_spare)
+        _clear_slot(self.cache, slot)
+
+    def _admit(self, slot: int, req: Request, now_s: float,
+               results: List[RequestResult]) -> None:
+        """Bind ``req`` to ``slot``: prefill in one shot and seed its first
+        token."""
+        logits, cached_tokens = self._paged_prefill(slot, req)
+        self._seed(slot, req, logits, now_s, cached_tokens, results)
+
+    def _seed(self, slot: int, req: Request, logits, admitted_s: float,
+              cached_tokens: int, results: List[RequestResult]) -> None:
+        """Sample the first token from prefill logits and move the request
+        into the decode set (or finish it on the spot)."""
+        first = int(req.sampler(
+            logits[:, -1], None if req.sampler.greedy else self._gen)[0])
+        t_first = self._now(self._t_start)
+        metrics = RequestMetrics(arrival_s=req.arrival_s,
+                                 admitted_s=admitted_s,
+                                 first_token_s=t_first,
+                                 prompt_tokens=req.prompt_len,
+                                 cached_prompt_tokens=cached_tokens)
+        inf = _Inflight(request=req, slot=slot, generated=[first],
+                        next_token=first, metrics=metrics)
+        if first == req.eos_id or req.max_new_tokens == 1:
+            self._finish(inf, t_first, results)
+        else:
+            self._apply_cow(slot)
+            self._inflight[slot] = inf
+
+    def _finish(self, inf: _Inflight, now_s: float,
+                results: List[RequestResult]) -> None:
+        """Close out a request: metrics and slot release."""
+        m = inf.metrics
+        m.finished_s = now_s
+        m.new_tokens = len(inf.generated)
+        reason = (FinishReason.EOS
+                  if inf.generated[-1] == inf.request.eos_id
+                  else FinishReason.LENGTH)
+        results.append(RequestResult(
+            uid=inf.request.uid,
+            tokens=np.asarray(inf.generated, np.int32),
+            prompt_len=m.prompt_tokens, slot=inf.slot,
+            finish_reason=reason, metrics=m))
+        self._release_paged(inf.slot)
+        self.scheduler.release(inf.slot)
+        self._inflight.pop(inf.slot, None)
+
+    def _sample(self, logits, temps, greedy):
+        return sample_batch(logits, self._dev(temps), self._dev(greedy),
+                            self._gen).cpu().numpy()
+
+    def _decode_tick(self, results: List[RequestResult]) -> None:
+        """One batched decode step over all slots; advance active requests."""
+        toks = np.zeros((self.n_slots, 1), np.int32)
+        temps = np.zeros((self.n_slots,), np.float32)
+        greedy = np.ones((self.n_slots,), bool)
+        for slot, inf in self._inflight.items():
+            toks[slot, 0] = inf.next_token
+            temps[slot] = max(inf.request.sampler.temperature, 0.0)
+            greedy[slot] = inf.request.sampler.greedy
+        hw = self._live_blocks(1)
+        logits, self.cache = self.model.paged_decode_step(
+            self.params, self.cache, self._dev(toks), live_blocks=hw)
+        next_toks = self._sample(logits[:, -1], temps, greedy)
+        self._steps += 1
+        self._occupancy_sum += len(self._inflight) / self.n_slots
+        self._block_occ_sum += self._pool.in_use / self.n_blocks
+        self._peak_blocks = max(self._peak_blocks, self._pool.in_use)
+        g, f = self._kv_bytes_tick(hw, 1)
+        self._gathered_kv_bytes += g
+        self._fused_kv_bytes += f
+        self._kv_step_log.append((g, f))
+        now = self._now(self._t_start)
+        for slot in sorted(self._inflight):
+            inf = self._inflight[slot]
+            tok = int(next_toks[slot])
+            inf.generated.append(tok)
+            inf.next_token = tok
+            if tok == inf.request.eos_id \
+                    or len(inf.generated) >= inf.request.max_new_tokens:
+                self._finish(inf, now, results)
+
+    # ---- warmup ------------------------------------------------------------
+    def _warmup_tick(self) -> None:
+        """Run every tick-critical path once with throwaway inputs before
+        the engine clock starts: one prefill per prompt bucket, the paged
+        write / CoW / release helpers, and one decode per live-block
+        bucket. One-time costs (kernel builds, CUDA context, library
+        handles, allocator growth) then land in ``compile_s`` instead of
+        ``wall_s`` / TTFT. All writes are harmless by construction: they
+        land on the trash page, and idle cursors are reset at admission.
+        Not covered: the prefix-hit gather and suffix prefill."""
+        n = self.n_slots
+        pre = None
+        for bucket in self.scheduler.buckets:
+            toks = torch.zeros((1, bucket), dtype=torch.int32,
+                               device=self.device)
+            _, pre = self.model.prefill(self.params, {"tokens": toks},
+                                        max_len=self.max_len,
+                                        prompt_len=bucket)
+        if pre is not None:
+            kv, _ = self.model.split_prefill_cache(pre)
+            n_written = kv["k"].shape[2] // self.block_size
+            trash = torch.full((n_written,), TRASH_BLOCK, dtype=torch.int32,
+                               device=self.device)
+            row = torch.full((self._max_blocks,), TRASH_BLOCK,
+                             dtype=torch.int32, device=self.device)
+            _paged_write(self.cache, kv, trash, row, 0, 0)
+        # copying page 0 onto itself and re-clearing an empty slot are
+        # no-ops by construction
+        _cow_copy(self.cache, TRASH_BLOCK, TRASH_BLOCK, 0, 0)
+        _clear_slot(self.cache, 0)
+        toks0 = torch.zeros((n, 1), dtype=torch.int32, device=self.device)
+        for hw in self._hw_buckets():
+            logits, self.cache = self.model.paged_decode_step(
+                self.params, self.cache, toks0, live_blocks=hw)
+        self._sample(logits[:, -1], np.zeros((n,), np.float32),
+                     np.ones((n,), bool))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ---- public API --------------------------------------------------------
+    def submit(self, request: Request) -> None:
+        """Queue a request (admitted when arrived, a slot frees up, and the
+        pool can cover its worst-case block need)."""
+        need = blocks_needed(request.prompt_len, request.max_new_tokens,
+                             self.block_size)
+        if need > self.n_blocks:
+            raise ValueError(
+                f"request {request.uid}: needs {need} blocks but the "
+                f"pool only has {self.n_blocks} — it could never be "
+                "admitted")
+        self.scheduler.submit(request)
+
+    def reload_params(self, params) -> None:
+        raise _not_ported("reload_params", 8, "engine features")
+
+    @torch.no_grad()
+    def start_run(self, *, warmup: bool = False,
+                  t_origin: Optional[float] = None) -> None:
+        """Reset per-run counters and start the engine clock (optionally
+        after an unmeasured warmup tick, whose time is ``compile_s``)."""
+        self._compile_s = 0.0
+        if warmup:
+            t0 = self._clock()
+            self._warmup_tick()
+            self._compile_s = self._clock() - t0
+        self._steps = 0
+        self._occupancy_sum = 0.0
+        self._fast_forward_s = 0.0
+        self._prefix_hits = 0
+        self._shared_block_hits = 0
+        self._cow_count = 0
+        self._admissions = 0
+        self._block_occ_sum = 0.0
+        self._peak_blocks = 0
+        self._gathered_kv_bytes = 0
+        self._fused_kv_bytes = 0
+        self._kv_step_log = []
+        self._log_start = len(self.scheduler.admission_log)
+        self._t_start = self._clock() if t_origin is None else t_origin
+
+    @torch.no_grad()
+    def tick(self, results: List[RequestResult]) -> None:
+        """One scheduling tick: admit what arrived, then one decode step.
+        Appends newly finished requests to ``results``; a no-op when the
+        scheduler has no work."""
+        if self.scheduler.done:
+            return
+        now = self._now(self._t_start)
+        if not self.scheduler.active and not self.scheduler.has_ready \
+                and self.scheduler.next_arrival_s > now:
+            # idle: fast-forward the engine clock to the next arrival
+            self._fast_forward_s += self.scheduler.next_arrival_s - now
+            now = self._now(self._t_start)
+        while True:
+            # one at a time so each admission's block allocation is
+            # visible to the next gate evaluation
+            admitted = self.scheduler.admit_ready(now, gate=self._block_gate,
+                                                  limit=1)
+            if not admitted:
+                break
+            self._admit(admitted[0][0], admitted[0][1], now, results)
+        if self._inflight:
+            self._decode_tick(results)
+
+    def run(self, requests: Sequence[Request] = (),
+            max_steps: Optional[int] = None, *, warmup: bool = False
+            ) -> Tuple[List[RequestResult], dict]:
+        """Serve until every submitted request completes; returns
+        ``(results sorted by uid, report)`` — the reference's aggregate
+        plus ``slot_reuse``, the ``paged`` sub-report and the ``device``
+        the run used. ``max_steps`` is a runaway backstop (default 1e6
+        decode ticks)."""
+        self.start_run(warmup=warmup)
+        for r in requests:
+            self.submit(r)
+        results: List[RequestResult] = []
+        limit = max_steps if max_steps is not None else 1_000_000
+        while not self.scheduler.done:
+            self.tick(results)
+            if self._steps >= limit:
+                raise RuntimeError(
+                    f"serve engine exceeded {limit} decode steps with "
+                    f"{len(self._inflight)} requests still in flight")
+        return self.finish_run(results)
+
+    def finish_run(self, results: List[RequestResult]
+                   ) -> Tuple[List[RequestResult], dict]:
+        """Build the run report; the closing half of the tick-level API."""
+        wall = self._now(self._t_start)
+        report = aggregate(results, n_slots=self.n_slots,
+                           decode_steps=self._steps,
+                           occupancy_sum=self._occupancy_sum, wall_s=wall,
+                           compile_s=self._compile_s)
+        report["slot_reuse"] = self.scheduler.slot_reuse_count(
+            self._log_start)
+        report["arch"] = self.model.cfg.name
+        report["moa"] = self.model.cfg.moa_strategy.spec
+        report["scheduling"] = self.scheduling
+        report["device"] = (torch.cuda.get_device_name(self.device)
+                            if self.device.type == "cuda" else "cpu")
+        report["paged"] = paged_report(
+            spec=self._spec, n_slots=self.n_slots, max_len=self.max_len,
+            block_size=self.block_size, n_blocks=self.n_blocks,
+            admissions=self._admissions, prefix_hits=self._prefix_hits,
+            shared_block_hits=self._shared_block_hits,
+            cow_count=self._cow_count,
+            block_occ_sum=self._block_occ_sum, decode_steps=self._steps,
+            peak_blocks=self._peak_blocks,
+            attn_backend=resolve_attn_backend(self.model.cfg.attn_backend,
+                                              self.device),
+            gathered_kv_bytes=self._gathered_kv_bytes,
+            fused_kv_bytes=self._fused_kv_bytes)
+        results.sort(key=lambda r: r.uid)
+        return results, report

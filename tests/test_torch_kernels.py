@@ -1,0 +1,260 @@
+"""The port's kernel entry points against the JAX reference's kernels.
+
+On the CPU, ``repro_torch.kernels.ops`` runs each kernel's plain PyTorch
+version (the CUDA kernels need the card, where ``chip_smoke.py`` holds them
+against these same plain versions). The reference runs its Pallas kernels
+in interpret mode through ``repro.kernels.ops``. Inputs are made once with
+numpy from a seed and handed to both.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+#: bf16 outputs: both sides accumulate in f32 (in different orders) and
+#: round once to bf16, so they may differ by one bf16 ulp, at most
+#: 2**-7 of the larger magnitude
+BF16_RTOL = 2.0 ** -7
+
+
+def _both(x: np.ndarray, dtype: str):
+    """One numpy array as a JAX array and a torch tensor of ``dtype`` (the
+    two round f32 → bf16 the same way: to nearest, ties to even)."""
+    t = torch.from_numpy(x)
+    j = jnp.asarray(x)
+    if dtype == "bfloat16":
+        return j.astype(jnp.bfloat16), t.to(torch.bfloat16)
+    if dtype == "int8":
+        return j.astype(jnp.int8), t.to(torch.int8)
+    if dtype == "int32":
+        return j.astype(jnp.int32), t.to(torch.int32)
+    return j, t
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy() if x.is_floating_point() else x.numpy()
+    return np.asarray(x.astype(jnp.float32) if jnp.issubdtype(
+        x.dtype, jnp.floating) else x)
+
+
+def _assert_bf16_close(got, want):
+    g, w = _np(got), _np(want)
+    np.testing.assert_array_less(np.abs(g - w),
+                                 BF16_RTOL * np.maximum(np.abs(g), np.abs(w))
+                                 + 1e-30)
+
+
+# ---------------------------------------------------------------------------
+# dot_moa
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,k,n", [(32, 64, 16), (100, 700, 130),
+                                   (17, 33, 9)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dot_moa_float(m, k, n, dtype):
+    rs = np.random.default_rng(0)
+    ja, ta = _both(rs.standard_normal((m, k), np.float32), dtype)
+    jb, tb = _both(rs.standard_normal((k, n), np.float32), dtype)
+    want = jops.dot_moa(ja, jb, block_m=64, block_n=64, block_k=256)
+    got = tops.dot_moa(ta, tb, block_k=256)
+    assert got.dtype == ta.dtype and tuple(got.shape) == (m, n)
+    if dtype == "bfloat16":
+        _assert_bf16_close(got, want)
+    else:
+        # f32: the same K clusters, reassociated inside each cluster
+        np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("block_k", [64, 128, 512])
+def test_dot_moa_int8_exact(block_k):
+    rs = np.random.default_rng(1)
+    ja, ta = _both(rs.integers(-8, 8, (64, 512)), "int8")
+    jb, tb = _both(rs.integers(-8, 8, (512, 48)), "int8")
+    want = jops.dot_moa(ja, jb, block_k=block_k)
+    got = tops.dot_moa(ta, tb, block_k=block_k)
+    assert got.dtype == torch.int32
+    # integer accumulation: bit-exact
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+@pytest.mark.parametrize("dtype,lo,hi", [("int8", -127, 128),
+                                         ("int32", 0, 8)])
+@pytest.mark.parametrize("l", [1, 4])
+def test_dot_moa_loa_bit_exact(dtype, lo, hi, l):
+    """Every K-block partial after the first folds through the LOA
+    combine; the int32 arithmetic (arithmetic right shifts on negative
+    partials included) must match bit for bit."""
+    rs = np.random.default_rng(2)
+    ja, ta = _both(rs.integers(lo, hi, (16, 512)), dtype)
+    jb, tb = _both(rs.integers(lo, hi, (512, 24)), dtype)
+    want = jops.dot_moa(ja, jb, block_k=128, approx_bits=l)
+    got = tops.dot_moa(ta, tb, block_k=128, approx_bits=l)
+    np.testing.assert_array_equal(_np(got), _np(want))
+    exact = _np(ta).astype(np.int64) @ _np(tb).astype(np.int64)
+    assert not np.array_equal(_np(got), exact)   # the approximation bites
+
+
+def test_dot_moa_loa_needs_whole_blocks():
+    a = torch.ones((4, 100), dtype=torch.int8)
+    with pytest.raises(ValueError, match="multiple of block_k"):
+        tops.dot_moa(a, torch.ones((100, 4), dtype=torch.int8), block_k=64,
+                     approx_bits=2)
+
+
+def test_loa_combine_matches_reference_adder():
+    """The fold itself on signed int32 pairs, against the reference's."""
+    from repro.kernels.dot_moa import _loa_combine
+
+    rs = np.random.default_rng(3)
+    x = rs.integers(-2 ** 20, 2 ** 20, 4096).astype(np.int32)
+    y = rs.integers(-2 ** 20, 2 ** 20, 4096).astype(np.int32)
+    for l in (1, 3, 8):
+        want = _loa_combine(jnp.asarray(x), jnp.asarray(y), approx_bits=l)
+        got = tref.loa_combine(torch.from_numpy(x), torch.from_numpy(y), l)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("sq,skv,d,causal", [
+    (64, 64, 32, True), (100, 100, 16, True),          # causal: sq == skv
+    (64, 64, 32, False), (100, 100, 16, False), (128, 256, 64, False),
+    (37, 53, 32, False)])
+def test_flash_attention(sq, skv, d, causal):
+    rs = np.random.default_rng(4)
+    q = rs.standard_normal((3, sq, d), np.float32)
+    k = rs.standard_normal((3, skv, d), np.float32)
+    v = rs.standard_normal((3, skv, d), np.float32)
+    want = jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal=causal, block_q=32,
+                                block_k=32)
+    # the port's layout is (B, S, H, D): the reference's BH rows as B
+    got = tops.flash_attention(*(torch.from_numpy(x)[:, :, None]
+                                 for x in (q, k, v)), causal=causal,
+                               q_chunk=32, kv_chunk=32)
+    # online-softmax tile order and f32 reassociation
+    np.testing.assert_allclose(got[:, :, 0].numpy(), np.asarray(want),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_gqa(dtype):
+    """GQA is indexed in the port (kv head = h // G); the reference's
+    kernel takes the expanded heads."""
+    B, S, H, Hk, D = 2, 48, 4, 2, 16
+    rs = np.random.default_rng(5)
+    q = rs.standard_normal((B, S, H, D), np.float32)
+    k = rs.standard_normal((B, S, Hk, D), np.float32)
+    v = rs.standard_normal((B, S, Hk, D), np.float32)
+
+    def bh(x):          # (B, S, heads, D) -> (B·H, S, D), GQA expanded
+        x = np.repeat(x, H // x.shape[2], axis=2)
+        return np.moveaxis(x, 2, 1).reshape(B * H, S, D)
+
+    want = jops.flash_attention(*(_both(bh(x), dtype)[0] for x in (q, k, v)),
+                                block_q=16, block_k=16)
+    got = tops.flash_attention(*(_both(x, dtype)[1] for x in (q, k, v)),
+                               q_chunk=16, kv_chunk=16)
+    got = got.float().permute(0, 2, 1, 3).reshape(B * H, S, D)
+    if dtype == "bfloat16":
+        _assert_bf16_close(got, want)
+    else:
+        np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-4,
+                                   atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# paged attention
+# ---------------------------------------------------------------------------
+
+
+def _pool_problem(T, *, B=3, Hk=2, G=2, D=16, bs=8, n_blocks=4):
+    """Uneven depths (the reference suite's problem); dead table entries
+    point at page 0, the engine's trash page."""
+    rs = np.random.default_rng(6 + T)
+    n_phys = B * n_blocks + 1
+    q = rs.standard_normal((B, T, Hk * G, D), np.float32)
+    k_pool = rs.standard_normal((n_phys, bs, Hk, D), np.float32)
+    v_pool = rs.standard_normal((n_phys, bs, Hk, D), np.float32)
+    start = np.asarray([0, 5, n_blocks * bs - T], np.int32)
+    tables = np.zeros((B, n_blocks), np.int32)
+    for b in range(B):
+        n_live = (int(start[b]) + T - 1) // bs + 1
+        tables[b, :n_live] = 1 + b * n_blocks + np.arange(n_live)
+    return q, k_pool, v_pool, tables, start
+
+
+@pytest.mark.parametrize("T", [1, 4])
+@pytest.mark.parametrize("pool", ["float32", "bfloat16"])
+def test_paged_attention(T, pool):
+    q, kp, vp, tables, start = _pool_problem(T)
+    jq, tq = _both(q, pool)
+    jk, tk = _both(kp, pool)
+    jv, tv = _both(vp, pool)
+    want = jops.paged_attention(jq, jk, jv, jnp.asarray(tables),
+                                jnp.asarray(start))
+    got = tops.paged_attention(tq, tk, tv, torch.from_numpy(tables),
+                               torch.from_numpy(start))
+    if pool == "bfloat16":
+        _assert_bf16_close(got, want)
+    else:
+        # online (kernel) vs one-shot (gather) softmax reassociation
+        np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dequant", ["float32", "bfloat16"])
+def test_paged_attention_int8_pool(dequant):
+    """int8 pages dequantize as ``(x * scale)`` rounded through
+    ``dequant_dtype``, in both packages."""
+    q, kp, _, tables, start = _pool_problem(2)
+    rs = np.random.default_rng(9)
+    k8 = rs.integers(-127, 128, kp.shape)
+    v8 = rs.integers(-127, 128, kp.shape)
+    ks = rs.uniform(0.01, 0.1, kp.shape[:3]).astype(np.float32)
+    vs = rs.uniform(0.01, 0.1, kp.shape[:3]).astype(np.float32)
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dequant]
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dequant]
+    want = jops.paged_attention(
+        jnp.asarray(q), _both(k8, "int8")[0], _both(v8, "int8")[0],
+        jnp.asarray(tables), jnp.asarray(start), k_scale=jnp.asarray(ks),
+        v_scale=jnp.asarray(vs), dequant_dtype=jdt)
+    got = tops.paged_attention(
+        torch.from_numpy(q), _both(k8, "int8")[1], _both(v8, "int8")[1],
+        torch.from_numpy(tables), torch.from_numpy(start),
+        k_scale=torch.from_numpy(ks), v_scale=torch.from_numpy(vs),
+        dequant_dtype=tdt)
+    # the same dequantized KV on both sides; f32 softmax reassociation
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """A CPU tensor never reaches a CUDA kernel: the wrappers raise (the
+    dispatch in ``ops`` sends CPU tensors to the plain versions)."""
+    from repro_torch.kernels.dot_moa import dot_moa_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+
+    a = torch.zeros((2, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        dot_moa_cuda(a, a.t().contiguous(), block_k=8)
+    q = torch.zeros((1, 4, 2, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_attention_cuda(q[:, :1], torch.zeros((2, 4, 2, 8)),
+                             torch.zeros((2, 4, 2, 8)),
+                             torch.zeros((1, 1), dtype=torch.int32),
+                             torch.zeros((1,), dtype=torch.int32))
+    for counter in tops.launch_counts().values():
+        assert counter == 0
