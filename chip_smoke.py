@@ -8,15 +8,18 @@
 Phases, in order; each prints JSON lines and any failure ends the run with
 a non-zero exit:
 
-1. build    — compile the three CUDA kernels from ``src/repro_torch/
-              kernels/csrc`` with nvcc for sm_90a (one nvcc per source, all
-              at once); print the card's name and power limit.
-2. kernels  — each kernel against its plain PyTorch version on the card, at
-              the served model's full-width shapes plus ragged edge cases:
-              error against a stated tolerance, and the kernel's, the plain
-              version's and (where one PyTorch call computes the same
-              function) the library call's time, beside the least time the
-              card could take (``bound_ms``).
+1. build    — compile the CUDA kernels from ``src/repro_torch/kernels/
+              csrc`` with nvcc for sm_90a (one nvcc per source, all at
+              once); print the card's name and power limit.
+2. kernels  — each of the six kernels against its plain PyTorch version on
+              the card, at the shapes its path gives it (the served model's
+              projections and attention; every contraction, reduction
+              and LOA add of the paper path) plus ragged and wrapping
+              edge cases: error against a stated tolerance (integer and LOA
+              rows bit-exact), and the kernel's, the plain version's and
+              (where one PyTorch call computes the same function) the
+              library call's time, beside the least time the card could
+              take (``bound_ms``).
 3. serve    — llama3-8b at full width and full depth (bf16 weights from
               the port's own initializer, seed 0) served through the
               paged engine: 8 Poisson requests into 4 slots. Every kernel
@@ -30,6 +33,18 @@ a non-zero exit:
               on the f32 and int8 KV pools, bf16 compute on the bf16 pool.
               Greedy tokens must agree (a divergence passes only at a
               near-tie of the top-2 logits).
+5. paper    — the paper path, ``repro_torch.launch.paper_repro``, on the
+              card: Table 1, Fig. 4 (serial ``moa_reduce``), Fig. 5 (LOA
+              MRED, ``loa_add``, the LOA MOA through ``loa_reduce``) and the
+              strategy sweep, whose deterministic values must equal the
+              reference example's; the LOA conv at AlexNet conv3's shape
+              (batch 16), kernel route bit-exact against its plain version,
+              MRED per l on both routes; LeNet-5 and full-width AlexNet
+              (batch 16, f32) under ``im2col`` with ``tree`` and
+              ``serial?chunk=256`` against ``conv``. Every kernel of the
+              path must have been launched by that run, and every launch,
+              at its operand type, shapes and options, must be one that a
+              ``kernels`` row held against its plain version.
 
 The last lines are the kernel summary (JSON), the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -40,6 +55,8 @@ and prints no result. It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -52,15 +69,53 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 #: H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and
-#: operations/s by operand type (f32 is the CUDA-core rate)
+#: operations/s by operand type (f32 is the CUDA-core rate). int32 has no
+#: data-sheet rate: 132 SMs x 1.98 GHz x 64 int32 lanes per SM per clock
+#: (CUDA C++ Programming Guide, instruction throughput, compute capability
+#: 9.0) gives 16.7e12 adds or logic ops/s ("int32_alu") and 33.5e12 ops/s
+#: counting a multiply-add as 2, as the f32 rate does ("int32").
 HBM_BPS = 3.35e12
-PEAK_OPS = {"bfloat16": 989e12, "int8": 1979e12, "float32": 67e12}
+PEAK_OPS = {"bfloat16": 989e12, "int8": 1979e12, "float32": 67e12,
+            "int32": 33.5e12, "int32_alu": 16.7e12}
 
-#: TPU kernel each port replaces (the function that reaches pl.pallas_call)
-REPLACES = {
-    "dot_moa": "src/repro/kernels/dot_moa.py:71",
-    "flash_attention": "src/repro/kernels/flash_attention.py:86",
-    "paged_attention": "src/repro/kernels/paged_attention.py:119",
+#: One port: the TPU kernel it replaces (the function that reaches
+#: ``pl.pallas_call``), its CUDA source under ``kernels/csrc``, its
+#: ``__global__`` functions, and the paths that launch it (the first one's
+#: count is the summary's).
+Kernel = collections.namedtuple("Kernel", "replaces source symbols paths")
+
+
+KERNELS = {
+    "dot_moa": Kernel("src/repro/kernels/dot_moa.py:71", "dot_moa",
+                      ("dot_moa_kernel",), ("serve", "paper")),
+    "flash_attention": Kernel("src/repro/kernels/flash_attention.py:86",
+                              "flash_attention", ("flash_kernel",),
+                              ("serve",)),
+    "paged_attention": Kernel("src/repro/kernels/paged_attention.py:119",
+                              "paged_attention", ("paged_kernel",),
+                              ("serve",)),
+    "moa_reduce": Kernel("src/repro/kernels/moa_reduce.py:47", "moa_reduce",
+                         ("segment_sums", "fold_clusters"), ("paper",)),
+    "loa_reduce": Kernel("src/repro/kernels/loa_add.py:92", "loa_add",
+                         ("segment_sums", "fold_clusters"), ("paper",)),
+    "loa_add": Kernel("src/repro/kernels/loa_add.py:48", "loa_add",
+                      ("loa_add_kernel",), ("paper",)),
+}
+
+
+def path_kernels(path: str) -> list:
+    return [name for name, k in KERNELS.items() if path in k.paths]
+
+
+#: the reference example's deterministic values (examples/paper_repro.py
+#: through benchmarks/*.py; tests/test_torch_paper.py holds the port's
+#: runners equal to them on the CPU)
+PAPER_DERIVED = {
+    "table1_moa_counts": {"max_nopd_err": "0.16%",
+                          "conv1_moa_frac": "0.690(paper:0.69)"},
+    "fig4_serialization": {"fpga_serial_wins": "0/11(paper:0)",
+                           "tpu_vmem_reduction": "8x"},
+    "fig5_loa": {"alm_flat": "True", "tpu_loa_cost": "6x"},
 }
 
 _LOG = None
@@ -97,6 +152,29 @@ class Timer:
         self.torch = torch
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
 
+    def device(self, fn, kernel: str, iters: int = 10) -> float:
+        """Mean device time (ms) per call of ``kernel``'s CUDA functions
+        that ``fn`` launches, from ``torch.profiler``'s kernel events, each
+        call after the same L2 flush. This is the kernel alone: the event
+        pair of ``__call__`` also holds the host time of the wrapper when
+        the wrapper takes longer than the flush before it."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                self.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        cuda = torch.autograd.DeviceType.CUDA
+        total = sum(e.device_time_total for e in prof.key_averages()
+                    if e.device_type == cuda
+                    and any(sym in e.key for sym in KERNELS[kernel].symbols))
+        return total / 1e3 / iters
+
     def __call__(self, fn, iters: int = 10) -> float:
         torch = self.torch
         fn()
@@ -125,11 +203,65 @@ def nvidia_smi() -> str:
 # ---------------------------------------------------------------------------
 
 
-def check(row: dict) -> dict:
+#: ``call_key`` of every launch a kernels-phase row held against its plain
+#: version (filled by ``check``)
+CHECKED = set()
+
+
+def call_key(kernel: str, x, *rest, **kw) -> tuple:
+    """What a launch of ``kernel``'s wrapper depends on besides the operand
+    values: operand type, shapes and options, block sizes as the wrapper
+    clips them. ``x, *rest, **kw`` are the wrapper's arguments."""
+    if kernel == "dot_moa":
+        (m, k), n = x.shape, rest[0].shape[1]
+        return (kernel, str(x.dtype), m, k, n, min(int(kw["block_k"]), k),
+                int(kw.get("approx_bits", 0)))
+    if kernel == "moa_reduce":
+        n, f = x.shape
+        return (kernel, str(x.dtype), n, f,
+                min(int(kw.get("block_n", 512)), n))
+    if kernel == "loa_add":
+        return (kernel, x.numel(), int(kw["approx_bits"]))
+    if kernel == "loa_reduce":
+        n, f = x.shape
+        return (kernel, n, f, int(kw.get("block_n", 256)),
+                int(kw["approx_bits"]))
+    raise KeyError(kernel)
+
+
+@contextlib.contextmanager
+def recorded_calls(ops, kernels):
+    """Record the ``call_key`` of every launch of ``kernels`` that goes
+    through ``ops`` (the dispatch every caller of the port uses) while the
+    block runs; the wrappers, and so their launch counts, are unchanged."""
+    calls = set()
+    saved = {name: getattr(ops, f"{name}_cuda") for name in kernels}
+
+    def recorder(name, fn):
+        def call(*args, **kw):
+            calls.add(call_key(name, *args, **kw))
+            return fn(*args, **kw)
+        return call
+
+    for name, fn in saved.items():
+        setattr(ops, f"{name}_cuda", recorder(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, f"{name}_cuda", fn)
+
+
+def check(row: dict, key: tuple = None) -> dict:
+    """Emit a row; fail if its error is over its tolerance; else record
+    ``key`` (its launch's ``call_key``, where the paper path runs the
+    kernel) as checked."""
     emit(dict({"phase": "kernels"}, **row))
     if not row["max_abs_err"] <= row["tol"]:
         raise AssertionError(f"{row['kernel']} {row['case']}: max_abs_err "
                              f"{row['max_abs_err']} > tol {row['tol']}")
+    if key is not None:
+        CHECKED.add(key)
     return row
 
 
@@ -208,10 +340,12 @@ def kernel_phase(torch, timer):
             "kernel": "dot_moa", "case": f"{name} l={l}",
             "shape": {"m": m, "k": k, "n": n, "block_k": bk},
             "max_abs_err": err(got, want), "tol": tol, "tol_reason": why,
-            "kernel_ms": timer(run), "plain_ms": timer(plain, 5),
+            "kernel_ms": timer(run),
+            "device_ms": timer.device(run, "dot_moa"),
+            "plain_ms": timer(plain, 5),
             "library_ms": timer(library) if library else None,
             "bound_ms": b_ms, "bound_by": b_by,
-        })
+        }, call_key("dot_moa", a, b, block_k=bk, approx_bits=l))
         if (m, k, n, dt) == (4, 4096, 14336, torch.bfloat16):
             summary["dot_moa"] = row          # decode's w_gate / w_up
 
@@ -249,7 +383,9 @@ def kernel_phase(torch, timer):
             "shape": {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "Hk": Hk,
                       "D": D},
             "max_abs_err": err(got, want), "tol": tol, "tol_reason": why,
-            "kernel_ms": timer(run), "plain_ms": timer(plain, 5),
+            "kernel_ms": timer(run),
+            "device_ms": timer.device(run, "flash_attention"),
+            "plain_ms": timer(plain, 5),
             "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
         })
         if Sq == 512:
@@ -316,11 +452,205 @@ def kernel_phase(torch, timer):
             "shape": {"B": B, "T": T, "H": H, "Hk": Hk, "D": D, "bs": bs,
                       "n_blocks": n_blocks, "start": list(starts)},
             "max_abs_err": err(got, want), "tol": tol, "tol_reason": why,
-            "kernel_ms": timer(run), "plain_ms": timer(plain, 5),
+            "kernel_ms": timer(run),
+            "device_ms": timer.device(run, "paged_attention"),
+            "plain_ms": timer(plain, 5),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
         })
         if pdt == torch.bfloat16:
             summary["paged_attention"] = row
+    return summary
+
+
+def paper_kernel_phase(torch, timer):
+    """The paper path's kernels against their plain versions: rows of the
+    kernels phase. Returns the summary row of each kernel."""
+    from repro_torch.kernels import dot_moa as dm
+    from repro_torch.kernels import loa_add as la
+    from repro_torch.kernels import moa_reduce as mr
+    from repro_torch.kernels import ref
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(1)
+    summary = {}
+
+    def randint(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, device=dev, generator=g,
+                             dtype=torch.int32)
+
+    def err(got, want):
+        if got.dtype != want.dtype or got.shape != want.shape:
+            return math.inf
+        return float((got.double() - want.double()).abs().max())
+
+    exact_why = ("integer arithmetic is exact: int32 sums wrap modulo 2**32 "
+                 "in both, the LOA folds in the same order")
+
+    def exact_adder(l, call, fn):
+        """The exact adder's time: the library call of an LOA kernel at
+        l = 0, where it computes the same function; at l > 0 there is none,
+        and it is the paper's exact-adder comparison."""
+        if l == 0:
+            return {"library_ms": timer(fn), "library": call}
+        return {"library_ms": None, "exact_adder_ms": timer(fn),
+                "library": f"none (LOA); exact_adder_ms is {call}, the "
+                           f"paper's exact-adder comparison"}
+
+    # ---- dot_moa: every contraction of the paper path --------------------
+    # (m, k, n, block_k, approx_bits, operands, where the path launches it).
+    # int32 operands: unsigned 8-bit activations and 4-bit weights, as the
+    # LOA conv quantizes them; float32: unit normals against k**-0.5
+    # normals. block_k is the strategy's: tree min(k, 2048), serial
+    # min(chunk, 2048), LOA chunk=256 where it divides k, else k.
+    conv3 = (2704, 2304, 384)      # AlexNet conv3 at batch 16: 16*13*13
+    cases = [(*conv3, 256, l, "q8x4", "LOA conv, conv3") for l in (0, 2, 4, 6)]
+    cases += [(*conv3, 2048, 0, "q8x4", "exact (tree) conv, conv3")]
+    cases += [(144, 75, 8, 75, l, "q8x4", "LOA conv, paper example 16x16x3")
+              for l in (0, 2, 4, 6)]
+    cases += [(64, 512, 64, 256, l, "u3", "strategy sweep, loa")
+              for l in (0, 4)]
+    cases += [(256, 4096, 256, bk, 0, "f32", "strategy sweep, tree/serial")
+              for bk in (2048, 1024, 512, 256)]
+    cases += [(48400, 363, 96, bk, 0, "f32", "AlexNet conv1, batch 16")
+              for bk in (363, 256)]
+    cases += [(*conv3, bk, 0, "f32", "AlexNet conv3, batch 16")
+              for bk in (2048, 256)]
+    cases += [(12544, 25, 6, 25, 0, "f32", "LeNet-5 conv1, batch 16"),
+              (1600, 150, 16, 150, 0, "f32", "LeNet-5 conv2, batch 16")]
+    # edge cases: full-range int32 products that wrap, and 2**20 * 2**6
+    # summed 4096 times = 2**38, which wraps to 0
+    cases += [(64, 384, 40, 128, 3, "full", "edge: full-range wrap"),
+              (2, 4096, 3, 4096, 0, "2**38", "edge: sum wraps to 0")]
+    for m, k, n, bk, l, operands, where in cases:
+        if operands == "f32":
+            a = torch.randn((m, k), device=dev, generator=g)
+            b = torch.randn((k, n), device=dev, generator=g) * k ** -0.5
+        else:
+            (alo, ahi), (blo, bhi) = {
+                "q8x4": ((0, 256), (0, 16)), "u3": ((0, 8), (0, 8)),
+                "full": ((-2 ** 31, 2 ** 31 - 1),) * 2,
+                "2**38": ((2 ** 20, 2 ** 20 + 1), (64, 65))}[operands]
+            a, b = randint(alo, ahi, m, k), randint(blo, bhi, k, n)
+        run = lambda: dm.dot_moa_cuda(a, b, block_k=bk, approx_bits=l)
+        plain = lambda: ref.dot_moa_ref(a, b, block_k=bk, approx_bits=l)
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        if operands == "2**38" and (want.any() or got.any()):
+            raise AssertionError("dot_moa int32: 2**38 must wrap to 0")
+        name = "float32" if operands == "f32" else "int32"
+        b_ms, b_by = bound(4 * (m * k + k * n + m * n), 2.0 * m * k * n,
+                           name)
+        if operands == "f32":
+            tol = 1e-4 + 1e-5 * float(want.abs().max())
+            why = ("f32 reassociation inside the K clusters: atol 1e-4 + "
+                   "rtol 1e-5 of max|ref|, as tests/test_kernels.py")
+            lib = {"library_ms": timer(lambda: torch.matmul(a, b)),
+                   "library": "torch.matmul, TF32 off"}
+        else:
+            tol, why = 0.0, exact_why
+            lib = {"library_ms": None,
+                   "library": "none: PyTorch has no int32 matmul on CUDA"}
+        check({"kernel": "dot_moa", "case": f"{name} l={l}", "where": where,
+               "shape": {"m": m, "k": k, "n": n, "block_k": bk},
+               "max_abs_err": err(got, want), "tol": tol,
+               "tol_reason": why, "kernel_ms": timer(run),
+               "device_ms": timer.device(run, "dot_moa"),
+               "plain_ms": timer(plain, 5), **lib,
+               "bound_ms": b_ms, "bound_by": b_by},
+              call_key("dot_moa", a, b, block_k=bk, approx_bits=l))
+
+    # ---- moa_reduce: Fig. 4's serialized sum and the tree's one cluster --
+    cases = [(4096, 256, 512, torch.float32), (4096, 256, 4096, torch.float32),
+             (4096, 256, 512, torch.bfloat16), (4096, 256, 512, torch.int32),
+             (4096, 256, 512, torch.int8), (777, 130, 64, torch.float32),
+             (513, 129, 100, torch.int32), (70000, 4, 1, torch.int32),
+             (4096, 8, 512, "wrap")]
+    for n, f, bn, dt in cases:
+        if dt == "wrap":           # 4096 * 2**20 = 2**32 wraps to 0
+            x, dt = torch.full((n, f), 2 ** 20, device=dev,
+                               dtype=torch.int32), torch.int32
+        elif dt.is_floating_point:
+            x = torch.randn((n, f), device=dev, generator=g).to(dt)
+        else:
+            x = randint(-100, 100, n, f).to(dt)
+        run = lambda: mr.moa_reduce_cuda(x, block_n=bn)
+        plain = lambda: ref.moa_reduce_ref(x, block_n=bn)
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        name = str(dt).replace("torch.", "")
+        if dt.is_floating_point:
+            tol = 1e-4 + 1e-5 * float(want.abs().max())
+            why = ("f32 reassociation inside the clusters: atol 1e-4 + "
+                   "rtol 1e-5 of max|ref|, as tests/test_kernels.py")
+            accum = torch.float32
+        else:
+            tol, why, accum = 0.0, exact_why, torch.int32
+        b_ms, b_by = bound(x.numel() * x.element_size() + f * 4,
+                           float(x.numel()),
+                           "float32" if dt.is_floating_point else "int32_alu")
+        row = check({
+            "kernel": "moa_reduce", "case": f"{name} block_n={bn}",
+            "shape": {"n": n, "f": f, "block_n": bn},
+            "max_abs_err": err(got, want), "tol": tol, "tol_reason": why,
+            "kernel_ms": timer(run),
+            "device_ms": timer.device(run, "moa_reduce"),
+            "plain_ms": timer(plain, 5),
+            "library_ms": timer(lambda: torch.sum(x, dim=0, dtype=accum)),
+            "library": "torch.sum(x, 0) in the accumulator type",
+            "bound_ms": b_ms, "bound_by": b_by},
+            call_key("moa_reduce", x, block_n=bn))
+        if (n, f, bn, dt) == (4096, 256, 512, torch.float32):
+            summary["moa_reduce"] = row    # Fig. 4's serial?chunk=512
+
+    # ---- loa_add: Fig. 5's element-wise LOA ------------------------------
+    cases = [(1 << 16, 4, 0), (1 << 16, 0, 0), (1 << 24, 4, 0),
+             (5003, 6, 0), ((1 << 16) + 1, 3, 1)]    # odd length; offset view
+    for n, l, off in cases:
+        xb, yb = randint(0, 256, n + off), randint(0, 256, n + off)
+        x, y = xb[off:], yb[off:]
+        run = lambda: la.loa_add_cuda(x, y, approx_bits=l)
+        plain = lambda: ref.loa_add_ref(x, y, approx_bits=l)
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        b_ms, b_by = bound(12.0 * n, 8.0 * n, "int32_alu")
+        row = check({
+            "kernel": "loa_add", "case": f"l={l}" + (" unaligned" if off
+                                                      else ""),
+            "shape": {"n": n},
+            "max_abs_err": err(got, want), "tol": 0.0,
+            "tol_reason": exact_why, "kernel_ms": timer(run),
+            "device_ms": timer.device(run, "loa_add"),
+            "plain_ms": timer(plain, 5),
+            **exact_adder(l, "x + y", lambda: x + y),
+            "bound_ms": b_ms, "bound_by": b_by},
+            call_key("loa_add", x, y, approx_bits=l))
+        if (n, l) == (1 << 16, 4):
+            summary["loa_add"] = row       # Fig. 5's timing shape
+
+    # ---- loa_reduce: the LOA MOA of conv3's fan-in (Fig. 5's l sweep) -----
+    cases = [(2304, 4096, 256, l) for l in (4, 0, 2, 6)]
+    cases += [(1024, 256, 256, 2), (4096, 7, 64, 8)]
+    for n, f, bn, l in cases:
+        x = randint(0, 256, n, f)
+        run = lambda: la.loa_reduce_cuda(x, approx_bits=l, block_n=bn)
+        plain = lambda: ref.loa_reduce_ref(x, approx_bits=l, block_n=bn)
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        b_ms, b_by = bound(4.0 * (n * f + f), float(n * f)
+                           + 8.0 * f * (n // bn - 1), "int32_alu")
+        row = check({
+            "kernel": "loa_reduce", "case": f"l={l} block_n={bn}",
+            "shape": {"n": n, "f": f, "block_n": bn},
+            "max_abs_err": err(got, want), "tol": 0.0,
+            "tol_reason": exact_why, "kernel_ms": timer(run),
+            "device_ms": timer.device(run, "loa_reduce"),
+            "plain_ms": timer(plain, 5),
+            **exact_adder(l, "torch.sum(x, 0) in int32",
+                          lambda: torch.sum(x, dim=0, dtype=torch.int32)),
+            "bound_ms": b_ms, "bound_by": b_by},
+            call_key("loa_reduce", x, approx_bits=l, block_n=bn))
+        if (n, f, l) == (2304, 4096, 4):
+            summary["loa_reduce"] = row
     return summary
 
 
@@ -441,7 +771,7 @@ def serve_phase(torch):
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "paged": report["paged"], "launches": launches,
           "tokens": {r.uid: r.tokens.tolist() for r in results}})
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in path_kernels("serve") if launches[k] == 0]
     if missing:
         raise AssertionError(f"the served run launched no {missing}")
     # a fresh engine: the first one's prefix cache holds every prompt of
@@ -509,7 +839,8 @@ def parity_phase(torch):
                 ops.reset_launch_counts()
                 runs[path] = engine.run(workload())
                 counts = ops.launch_counts()
-                if (path == "kernel") != all(counts.values()) or (
+                served = [counts[k] for k in path_kernels("serve")]
+                if (path == "kernel") != all(served) or (
                         path == "torch" and any(counts.values())):
                     raise AssertionError(f"{path} path launches: {counts}")
             divergences = []
@@ -537,6 +868,75 @@ def parity_phase(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the paper path
+# ---------------------------------------------------------------------------
+
+
+def paper_phase(torch):
+    """``paper_repro.run_all`` on the card, checked; returns its launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import paper_repro
+    from repro_torch.paper.timing import parse_derived
+
+    t0 = time.monotonic()
+    ops.reset_launch_counts()
+    with recorded_calls(ops, path_kernels("paper")) as calls:
+        out = paper_repro.run_all("cuda", batch=16, verbose=False)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    seconds = time.monotonic() - t0
+    # every launch of the run, at its type, shapes and options, must be one
+    # that a kernels-phase row held against its plain version
+    unchecked = sorted(calls - CHECKED)
+    if unchecked:
+        raise AssertionError(f"the paper run launched kernels at {unchecked}"
+                             f", which no kernels-phase row checked")
+    for name, us, derived in out["benchmarks"]:
+        d = parse_derived(derived)
+        emit({"phase": "paper", "what": name, "us_per_call": us,
+              "derived": derived})
+        for key, want in PAPER_DERIVED.get(name, {}).items():
+            if d[key] != want:
+                raise AssertionError(f"{name}: {key}={d[key]}, the "
+                                     f"reference example gives {want}")
+        if name == "fig5_loa":
+            mred8 = float(d["mred8bit_max"].split("(")[0])
+            if not mred8 < 0.10:
+                raise AssertionError(f"fig5: MRED(8-bit) {mred8} >= 0.10")
+        if name == "fig4_serialization" and d["route"] != "kernel":
+            raise AssertionError(f"fig4 ran on the {d['route']} route")
+        if name == "moa_strategies":
+            # the exact strategies' f32 products against float64, K = 4096
+            # unit-normal products: a random walk of K roundings at
+            # ulp(|partial| < 256) = 2**-16 gives sqrt(K) * 2**-17 = 4.9e-4;
+            # the limit is 4 times that (a dropped product moves an entry
+            # by ~1)
+            limit = 4 * math.sqrt(4096) * 2.0 ** -17
+            if not float(d["strategy_max_err"]) < limit:
+                raise AssertionError(f"moa_strategies: strategy_max_err "
+                                     f"{d['strategy_max_err']} >= {limit}")
+    for row in out["loa_conv"]:
+        emit(dict({"phase": "paper", "what": "loa_conv"}, **row))
+        # exact at l = 0 on both routes, and on the kernel route wherever K
+        # is one cluster (no LOA fold: the paper example's K = 75)
+        if not row["bit_exact_vs_plain"] or (
+                row["l"] == 0 and any(row["mred"].values())) or (
+                row["loa_folds"] == 0 and row["mred"]["kernel"]):
+            raise AssertionError(f"loa_conv {row['shape']} l={row['l']}: "
+                                 f"{row}")
+    for row in out["cnn"]:
+        emit(dict({"phase": "paper", "what": "cnn"}, **row))
+        if row["route"] != "kernel":
+            raise AssertionError(f"cnn {row['net']} ran on {row['route']}")
+    emit({"phase": "paper", "what": "launches", "launches": launches,
+          "distinct_calls_checked": len(calls), "seconds": seconds})
+    missing = [k for k in path_kernels("paper") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the paper run launched no {missing}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -558,6 +958,9 @@ def main() -> int:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
         return 2
+    if set(KERNELS) != set(ops.launch_counts()):
+        raise AssertionError(f"KERNELS names {sorted(KERNELS)}, the port "
+                             f"counts {sorted(ops.launch_counts())}")
     if args.log:
         os.makedirs(os.path.dirname(os.path.abspath(args.log)), exist_ok=True)
         _LOG = open(args.log, "a")
@@ -579,20 +982,24 @@ def main() -> int:
 
     timer = Timer(torch)
     rows = kernel_phase(torch, timer)
-    launches = serve_phase(torch)
+    rows.update(paper_kernel_phase(torch, timer))
+    served = serve_phase(torch)
     parity_phase(torch)
+    paper = paper_phase(torch)
 
-    sources = {"dot_moa": "src/repro_torch/kernels/csrc/dot_moa.cu",
-               "flash_attention":
-                   "src/repro_torch/kernels/csrc/flash_attention.cu",
-               "paged_attention":
-                   "src/repro_torch/kernels/csrc/paged_attention.cu"}
+    # each kernel's launches come from the first path that runs it
+    # (dot_moa runs on both: the served count, with the paper path's beside)
+    by_path = {"serve": served, "paper": paper}
     summary = []
-    for name, row in rows.items():
+    for name, k in KERNELS.items():
+        row = rows[name]
         summary.append({
-            "name": name, "route": "cuda", "source": sources[name],
-            "replaces": REPLACES[name], "launches": launches[name],
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{k.source}.cu",
+            "replaces": k.replaces, "launches": by_path[k.paths[0]][name],
+            "launches_by_path": {p: by_path[p][name] for p in k.paths},
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
+            "device_ms": row["device_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"], "case": row["case"]})

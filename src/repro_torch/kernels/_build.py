@@ -28,7 +28,8 @@ import torch
 __all__ = ["KERNELS", "BUILD_DIR", "DTYPE_CODES", "build", "load_function",
            "check_device", "raise_on_error"]
 
-KERNELS = ("dot_moa", "flash_attention", "paged_attention")
+KERNELS = ("dot_moa", "flash_attention", "paged_attention", "moa_reduce",
+           "loa_add")
 _CSRC = Path(__file__).resolve().parent / "csrc"
 #: ``<repo>/build/repro_torch_kernels`` (listed in .gitignore)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"

@@ -5,12 +5,14 @@
 // slices and each slice's partial is folded into an accumulator held in
 // VMEM. Here one CUDA block owns one BM x 64 output tile and walks K itself:
 // every block_k slice is summed into a fresh register partial, and the
-// partial is then folded into the accumulator -- by + (floats, int8) or by
+// partial is then folded into the accumulator -- by + (floats, ints) or by
 // the LOA combine (approx_bits > 0, ints). That is the paper's serialized
 // MOA with n_c = block_k; it is never one running sum.
 //
 // Instances: f32 -> f32 and bf16 -> bf16 (f32 accumulator), int8 -> int32
-// (int32 accumulator, exact or LOA fold).
+// and int32 -> int32 (int32 accumulator, exact or LOA fold; products and
+// sums wrap modulo 2**32 as XLA's int32 dot). block_k may be any K, ragged
+// ones included (the LOA route folds a whole ragged K as one cluster).
 // The output is converted once, at the end. Ragged m, n and k are masked
 // here (the Pallas wrapper zero-pads instead, which adds exact zeros).
 //
@@ -39,20 +41,9 @@ template <> struct Fold<float> {
   }
 };
 
-// int32 fold: exact add, or the Lower-part-OR adder of the reference
-// (src/repro/kernels/dot_moa.py:38-46). Adds and the left shift run on
-// unsigned words (two's-complement wrap without undefined behaviour); the
-// right shifts stay on int, which is arithmetic as jnp's >> on int32.
+// int32 fold: exact add or the Lower-part-OR adder (loa_fold, common.cuh).
 template <> struct Fold<int> {
-  __device__ static __forceinline__ int apply(int x, int y, int l) {
-    if (l == 0) return static_cast<int>(static_cast<unsigned>(x) + static_cast<unsigned>(y));
-    const int mask = (1 << l) - 1;
-    const int low = (x & mask) | (y & mask);
-    const int cin = ((x >> (l - 1)) & (y >> (l - 1))) & 1;
-    const unsigned high = static_cast<unsigned>(x >> l) + static_cast<unsigned>(y >> l) +
-                          static_cast<unsigned>(cin);
-    return static_cast<int>((high << l) | static_cast<unsigned>(low));
-  }
+  __device__ static __forceinline__ int apply(int x, int y, int l) { return loa_fold(x, y, l); }
 };
 
 template <typename T, typename Acc> __device__ __forceinline__ Acc load_as(const T& x);
@@ -61,6 +52,7 @@ template <> __device__ __forceinline__ float load_as<__nv_bfloat16, float>(const
   return __bfloat162float(x);
 }
 template <> __device__ __forceinline__ int load_as<int8_t, int>(const int8_t& x) { return x; }
+template <> __device__ __forceinline__ int load_as<int, int>(const int& x) { return x; }
 
 template <typename Acc> __device__ __forceinline__ Acc mac(Acc a, Acc b, Acc c);
 template <> __device__ __forceinline__ float mac<float>(float a, float b, float c) {
@@ -184,6 +176,8 @@ extern "C" int repro_dot_moa(const void* a, const void* b, void* out, int M, int
     launch<__nv_bfloat16, float, __nv_bfloat16>(a, b, out, M, N, K, block_k, 0, st);
   } else if (in_dtype == DT_I8 && out_dtype == DT_I32) {
     launch<int8_t, int, int>(a, b, out, M, N, K, block_k, approx_bits, st);
+  } else if (in_dtype == DT_I32 && out_dtype == DT_I32) {
+    launch<int, int, int>(a, b, out, M, N, K, block_k, approx_bits, st);
   } else {
     return cudaErrorInvalidValue;
   }

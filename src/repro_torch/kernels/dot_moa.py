@@ -21,7 +21,7 @@ __all__ = ["dot_moa_cuda"]
 
 # (operand dtype, output dtype) pairs the kernel is instantiated for
 _SUPPORTED = {(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-              (torch.int8, torch.int32)}
+              (torch.int8, torch.int32), (torch.int32, torch.int32)}
 
 
 @functools.lru_cache(maxsize=None)

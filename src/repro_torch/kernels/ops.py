@@ -15,13 +15,17 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.dot_moa import dot_moa_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.loa_add import loa_add_cuda, loa_reduce_cuda
+from repro_torch.kernels.moa_reduce import moa_reduce_cuda
 from repro_torch.kernels.paged_attention import paged_attention_cuda
 
-__all__ = ["dot_moa", "flash_attention", "paged_attention", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["dot_moa", "flash_attention", "paged_attention", "moa_reduce",
+           "loa_add", "loa_reduce", "launch_counts", "reset_launch_counts"]
 
 _WRAPPERS = {"dot_moa": dot_moa_cuda, "flash_attention": flash_attention_cuda,
-             "paged_attention": paged_attention_cuda}
+             "paged_attention": paged_attention_cuda,
+             "moa_reduce": moa_reduce_cuda, "loa_add": loa_add_cuda,
+             "loa_reduce": loa_reduce_cuda}
 
 
 def _on_cpu(x: torch.Tensor, what: str) -> bool:
@@ -65,6 +69,38 @@ def paged_attention(q, k_pool, v_pool, block_tables, start, *, k_scale=None,
     return paged_attention_cuda(q, k_pool, v_pool, block_tables, start,
                                 k_scale=k_scale, v_scale=v_scale,
                                 dequant_dtype=dequant_dtype)
+
+
+def moa_reduce(x, *, block_n: int = 512):
+    """Blocked MOA reduction ``(n, f) → (f,)``: f32 accumulation for float
+    operands, int32 for integer ones."""
+    if _on_cpu(x, "moa_reduce"):
+        return ref.moa_reduce_ref(x, block_n=block_n)
+    return moa_reduce_cuda(x.contiguous(), block_n=block_n)
+
+
+def loa_add(x, y, *, approx_bits: int, width: int = 8):
+    """Element-wise LOA addition on int32 containers (``width`` is carried
+    by the operand values, as in the reference)."""
+    del width
+    if x.shape != y.shape:
+        raise ValueError(f"shape mismatch {tuple(x.shape)} vs "
+                         f"{tuple(y.shape)}")
+    if _on_cpu(x, "loa_add"):
+        return ref.loa_add_ref(x, y, approx_bits=approx_bits)
+    return loa_add_cuda(x.to(torch.int32).contiguous(),
+                        y.to(torch.int32).contiguous(),
+                        approx_bits=approx_bits)
+
+
+def loa_reduce(x, *, approx_bits: int, width: int = 8, block_n: int = 256):
+    """Approximate serialized MOA ``(n, f) → (f,)`` int32; ``n`` must be a
+    multiple of ``block_n``."""
+    del width
+    if _on_cpu(x, "loa_reduce"):
+        return ref.loa_reduce_ref(x, approx_bits=approx_bits, block_n=block_n)
+    return loa_reduce_cuda(x.to(torch.int32).contiguous(),
+                           approx_bits=approx_bits, block_n=block_n)
 
 
 def launch_counts() -> dict:

@@ -1,10 +1,10 @@
-"""Plain PyTorch versions of the port's three CUDA kernels.
+"""Plain PyTorch versions of the port's CUDA kernels.
 
 Each function computes what its kernel computes, in the same fold order
 where the order is part of the contract (the ``dot_moa`` K clusters, the
-LOA combine). On a CPU tensor the kernel wrappers in :mod:`ops` run these;
-on the card ``chip_smoke.py`` holds each kernel against them. They work on
-any device.
+``moa_reduce`` / ``loa_reduce`` operand clusters, the LOA combine). On a
+CPU tensor the kernel wrappers in :mod:`ops` run these; on the card
+``chip_smoke.py`` holds each kernel against them. They work on any device.
 """
 
 from __future__ import annotations
@@ -16,20 +16,52 @@ import torch
 from repro_torch.device import as_dtype, is_integer
 from repro_torch.layers.numerics import NEG_INF
 
-__all__ = ["matmul_accum", "loa_combine", "dot_moa_ref",
-           "flash_attention_ref", "paged_attention_ref"]
+__all__ = ["matmul_accum", "loa_combine", "dot_moa_ref", "moa_reduce_ref",
+           "loa_add_ref", "loa_reduce_ref", "flash_attention_ref",
+           "paged_attention_ref"]
+
+#: K slice of the exact integer product: 2**20 products of magnitude below
+#: 2**32 sum to below 2**52, so every float64 partial is an exact integer
+_INT_K_SLICE = 1 << 20
+
+
+def _wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 → int32 modulo 2**32 (two's complement)."""
+    x = x & 0xFFFFFFFF
+    return (x - ((x >> 31) << 32)).to(torch.int32)
+
+
+def _int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact integer ``a @ b`` modulo 2**32, as int64 in [0, 2**32)
+    residues, on any device (PyTorch has no integer matmul on CUDA).
+
+    Each int32 operand splits into a signed high and an unsigned low 16-bit
+    half, ``x = hi·2**16 + lo``. Modulo 2**32 the product is
+    ``lo·lo + 2**16·(hi·lo + lo·hi)`` (the ``hi·hi`` term is a multiple of
+    2**32), three float64 matmuls whose every partial is an exact integer
+    below 2**53 (see ``_INT_K_SLICE``)."""
+    a, b = a.long(), b.long()
+    a_hi, a_lo = (a >> 16).double(), (a & 0xFFFF).double()
+    b_hi, b_lo = (b >> 16).double(), (b & 0xFFFF).double()
+    acc = None
+    for s in range(0, a.shape[-1], _INT_K_SLICE):
+        k = slice(s, s + _INT_K_SLICE)
+        lolo = torch.matmul(a_lo[..., k], b_lo[k]).long()
+        mid = (torch.matmul(a_hi[..., k], b_lo[k]).long()
+               + torch.matmul(a_lo[..., k], b_hi[k]).long())
+        part = (lolo & 0xFFFFFFFF) + ((mid & 0xFFFF) << 16)
+        acc = part if acc is None else acc + part
+    return acc & 0xFFFFFFFF
 
 
 def matmul_accum(a: torch.Tensor, b: torch.Tensor,
                  accum_dtype: torch.dtype) -> torch.Tensor:
     """``a @ b`` with the result in ``accum_dtype`` (the reference's
     ``preferred_element_type``). Floats: the operands upcast to f32, summed
-    in f32, the result cast once. Integers: through float64, which is exact
-    while every partial sum stays below 2**53 (int8 products over any K
-    the models use), and runs on CUDA, where PyTorch has no integer
-    matmul."""
+    in f32, the result cast once. Integers: exact, and modulo 2**32 as
+    XLA's int32 dot (products and sums wrap in two's complement)."""
     if is_integer(accum_dtype):
-        return torch.matmul(a.double(), b.double()).to(accum_dtype)
+        return _wrap_int32(_int_matmul(a, b)).to(accum_dtype)
     return torch.matmul(a.float(), b.float()).to(accum_dtype)
 
 
@@ -76,6 +108,51 @@ def dot_moa_ref(a: torch.Tensor, b: torch.Tensor, *, block_k: int = 512,
         part = matmul_accum(a[:, s:s + block_k], b[s:s + block_k], accum)
         acc = part if acc is None else loa_combine(acc, part, approx_bits)
     return acc.to(out_dtype)
+
+
+def _cluster_sums(x: torch.Tensor, block_n: int, accum: torch.dtype):
+    """``(n, f)`` → the sums of its ``block_n``-row clusters in ``accum``
+    (a ragged last cluster is summed as it stands: zero rows add exact
+    zeros)."""
+    return [torch.sum(x[s:s + block_n].to(accum), dim=0, dtype=accum)
+            for s in range(0, x.shape[0], block_n)]
+
+
+def moa_reduce_ref(x: torch.Tensor, *, block_n: int = 512) -> torch.Tensor:
+    """``(n, f) → (f,)``: each ``block_n``-row cluster summed, the cluster
+    sums folded in order into one accumulator — f32 for float operands,
+    int32 (wrapping) for integer ones, whose sum modulo 2**32 no order
+    changes (so it is one sum)."""
+    if is_integer(x.dtype):
+        return torch.sum(x, dim=0, dtype=torch.int32)
+    accum = torch.float32
+    acc = torch.zeros(x.shape[1:], dtype=accum, device=x.device)
+    for part in _cluster_sums(x, max(min(block_n, x.shape[0]), 1), accum):
+        acc = acc + part
+    return acc
+
+
+def loa_add_ref(x: torch.Tensor, y: torch.Tensor, *,
+                approx_bits: int) -> torch.Tensor:
+    """Element-wise Lower-part-OR addition on int32 (any shape)."""
+    return loa_combine(x.to(torch.int32), y.to(torch.int32), approx_bits)
+
+
+def loa_reduce_ref(x: torch.Tensor, *, approx_bits: int,
+                   block_n: int = 256) -> torch.Tensor:
+    """Approximate serialized MOA ``(n, f) → (f,)`` int32: each
+    ``block_n``-row cluster summed exactly, the cluster sums folded in
+    order through the LOA combine. ``n`` must be a multiple of
+    ``block_n``: a zero-padded cluster would add one more LOA fold."""
+    n = x.shape[0]
+    block_n = min(block_n, n)
+    if block_n < 1 or n % block_n:
+        raise ValueError(f"n={n} not a multiple of block_n={block_n}")
+    parts = _cluster_sums(x, block_n, torch.int32)
+    acc = parts[0]
+    for part in parts[1:]:
+        acc = loa_combine(acc, part, approx_bits)
+    return acc
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, q_chunk: int = 256,

@@ -3,8 +3,8 @@
 Public surface::
 
     from repro_torch.moa import (MOAStrategy, TreeStrategy, SerialStrategy,
-                                 register_strategy, resolve, moa_scope,
-                                 active_strategy)
+                                 LOAStrategy, register_strategy, resolve,
+                                 moa_scope, active_strategy)
 """
 
 from repro_torch.moa.base import BACKENDS, MOAStrategy, resolved_backend
@@ -12,10 +12,11 @@ from repro_torch.moa.backends import chunked_matmul
 from repro_torch.moa.registry import (active_strategy, available_strategies,
                                       get_strategy_class, moa_scope,
                                       register_strategy, resolve)
-from repro_torch.moa.strategies import SerialStrategy, TreeStrategy
+from repro_torch.moa.strategies import (LOAStrategy, SerialStrategy,
+                                        TreeStrategy)
 
 __all__ = [
-    "MOAStrategy", "TreeStrategy", "SerialStrategy",
+    "MOAStrategy", "TreeStrategy", "SerialStrategy", "LOAStrategy",
     "BACKENDS", "resolved_backend", "chunked_matmul",
     "register_strategy", "resolve", "available_strategies",
     "get_strategy_class", "moa_scope", "active_strategy",

@@ -5,7 +5,9 @@
   They are the numerical oracles and the path the CPU tests compare.
 * **kernel** — :func:`kernel_dot`, the ``dot_moa`` CUDA kernel behind a
   ``torch.autograd.Function`` whose backward is the plain f32 matmul
-  transpose rule of ``repro/moa/backends.py:138-145``.
+  transpose rule of ``repro/moa/backends.py:138-145``; :func:`kernel_sum`,
+  the ``moa_reduce`` CUDA kernel behind one whose backward broadcasts the
+  cotangent (``repro/moa/backends.py:165-188``).
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ from repro_torch.device import is_integer
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import matmul_accum
 
-__all__ = ["tree_sum", "serial_sum", "chunked_matmul", "kernel_dot"]
+__all__ = ["tree_sum", "serial_sum", "chunked_matmul", "kernel_dot",
+           "kernel_sum"]
 
 
 # ---------------------------------------------------------------------------
@@ -47,7 +50,8 @@ def serial_sum(x: torch.Tensor, chunk: int, accum_dtype) -> torch.Tensor:
     chunk = min(chunk, n)
     acc = torch.zeros(x.shape[1:], dtype=accum_dtype, device=x.device)
     for start in range(0, n, chunk):
-        acc = acc + torch.sum(x[start:start + chunk].to(accum_dtype), dim=0)
+        acc = acc + torch.sum(x[start:start + chunk].to(accum_dtype), dim=0,
+                              dtype=accum_dtype)
     return acc
 
 
@@ -101,8 +105,32 @@ def kernel_dot(a: torch.Tensor, b: torch.Tensor, *, block_k: int,
     """``(m, k) @ (k, n)`` through the ``dot_moa`` kernel; ``block_k`` is
     the serialization cluster size ``n_c``. Float paths are differentiable;
     integer paths are forward-only."""
-    a = a.contiguous()
+    a, b = a.contiguous(), b.contiguous()
     if is_integer(a.dtype):
         return ops.dot_moa(a, b, block_k=int(block_k),
                            approx_bits=int(approx_bits), out_dtype=out_dtype)
     return _KernelDot.apply(a, b, int(block_k), int(approx_bits), out_dtype)
+
+
+class _KernelSum(torch.autograd.Function):
+    """Forward: the ``moa_reduce`` kernel. Backward: every operand's
+    cotangent is the output's, broadcast and cast to the operand dtype."""
+
+    @staticmethod
+    def forward(ctx, x, block_n):
+        ctx.shape, ctx.dtype = x.shape, x.dtype
+        return ops.moa_reduce(x, block_n=block_n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.expand(ctx.shape).to(ctx.dtype), None
+
+
+def kernel_sum(x: torch.Tensor, *, block_n: int) -> torch.Tensor:
+    """``(n, f) → (f,)`` through the ``moa_reduce`` kernel; ``block_n`` is
+    the cluster size ``n_c``. Accumulates in f32 (floats) or int32 (ints);
+    float paths are differentiable, integer paths forward-only."""
+    x = x.contiguous()
+    if is_integer(x.dtype):
+        return ops.moa_reduce(x, block_n=int(block_n))
+    return _KernelSum.apply(x, int(block_n))

@@ -49,6 +49,8 @@ class MOAStrategy(abc.ABC):
 
     #: registry key; set by each concrete subclass
     name: ClassVar[str] = ""
+    #: True for strategies whose arithmetic is defined on integers only
+    integer_only: ClassVar[bool] = False
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -78,6 +80,17 @@ class MOAStrategy(abc.ABC):
         if is_integer(as_dtype(operand_dtype)):
             return torch.int32
         return as_dtype(getattr(self, "accum", "float32"))
+
+    def _check_operands(self, dtype) -> None:
+        if self.integer_only and not is_integer(as_dtype(dtype)):
+            raise TypeError(f"{self.name!r} strategy requires integer "
+                            f"operands, got {dtype}")
+
+    @classmethod
+    def bench_specs(cls) -> tuple:
+        """Representative spec strings for the registry-driven sweep
+        (``repro_torch.paper.moa_strategies``). Default: the bare name."""
+        return (cls.name,)
 
     # ---- the strategy interface -------------------------------------------
     @abc.abstractmethod

@@ -1,1 +1,2 @@
-"""Model families of the port (dense only so far) and the uniform API."""
+"""Model families of the port (the dense decoder, the paper's CNNs) and the
+uniform API."""

@@ -238,6 +238,160 @@ def test_paged_attention_int8_pool(dequant):
     np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
 
 
+# ---------------------------------------------------------------------------
+# dot_moa on int32 operands (the LOA conv's unsigned 8-bit activations and
+# 4-bit weights do not fit int8)
+# ---------------------------------------------------------------------------
+
+
+_INT32_DOTS = [
+    (16, 512, 24, 128, 0, 256),            # the paper's operand ranges
+    (9, 75, 8, 75, 0, 256),                # one ragged cluster (K = 75)
+    (5, 363, 7, 363, 0, 256),              # AlexNet conv1's K, one cluster
+    (12, 384, 10, 128, -2 ** 31, 2 ** 31),  # full range: products wrap
+]
+
+
+@pytest.mark.parametrize("m,k,n,block_k,lo,hi,l", [
+    case + (l,) for case in _INT32_DOTS for l in (0, 1, 4)])
+def test_dot_moa_int32(m, k, n, block_k, lo, hi, l):
+    """int32 operands, exact and LOA folds, bit for bit against the Pallas
+    kernel (XLA's int32 dot wraps modulo 2**32; so must the port)."""
+    rs = np.random.default_rng(m * k + l)
+    ja, ta = _both(rs.integers(lo, hi, (m, k)), "int32")
+    jb, tb = _both(rs.integers(lo if lo else 0, hi if lo else 16, (k, n)),
+                   "int32")
+    want = jops.dot_moa(ja, jb, block_k=block_k, approx_bits=l)
+    got = tops.dot_moa(ta, tb, block_k=block_k, approx_bits=l)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+def test_dot_moa_int32_wraps_as_xla():
+    """2**20 · 2**6 · 4096 = 2**38: the int32 sum wraps to 0 in XLA; the
+    plain matmul once went through float64 and saturated instead."""
+    a = np.full((2, 4096), 2 ** 20, np.int32)
+    b = np.full((4096, 3), 2 ** 6, np.int32)
+    want = jops.dot_moa(jnp.asarray(a), jnp.asarray(b), block_k=4096)
+    got = tops.dot_moa(torch.from_numpy(a), torch.from_numpy(b), block_k=4096)
+    np.testing.assert_array_equal(_np(got), _np(want))
+    assert not got.any()
+    got = tref.matmul_accum(torch.from_numpy(a), torch.from_numpy(b),
+                            torch.int32)
+    np.testing.assert_array_equal(got.numpy(), 0)
+
+
+def test_dot_moa_int32_conv3_shape():
+    """The LOA conv's contraction at AlexNet conv3's shape: (169, 2304) @
+    (2304, 384), 9 clusters of 256, 8 LOA folds."""
+    rs = np.random.default_rng(11)
+    ja, ta = _both(rs.integers(0, 256, (169, 2304)), "int32")
+    jb, tb = _both(rs.integers(0, 8, (2304, 384)), "int32")
+    want = jops.dot_moa(ja, jb, block_k=256, approx_bits=4)
+    got = tops.dot_moa(ta, tb, block_k=256, approx_bits=4)
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+# ---------------------------------------------------------------------------
+# moa_reduce (the shapes and types of tests/test_kernels.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(8, 16), (100, 33), (1000, 256),
+                                   (4096, 128), (7, 5), (513, 129)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
+def test_moa_reduce(shape, dtype):
+    rs = np.random.default_rng(shape[0])
+    if dtype == "int32":
+        x = rs.integers(-100, 100, shape)
+    else:
+        x = rs.standard_normal(shape).astype(np.float32)
+    jx, tx = _both(x, dtype)
+    want = jops.moa_reduce(jx)
+    got = tops.moa_reduce(tx)
+    if dtype == "int32":
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(_np(got), _np(want))
+    else:
+        # f32 accumulation in both (of the same bf16 values): the cluster
+        # sums reassociate, as tests/test_kernels.py allows
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("block_n", [64, 512, 128, 1024])
+def test_moa_reduce_block_invariance(block_n):
+    """The cluster size n_c must not change the result."""
+    x = np.random.default_rng(5).standard_normal((777, 130)).astype(
+        np.float32)
+    want = jops.moa_reduce(jnp.asarray(x), block_n=block_n)
+    got = tops.moa_reduce(torch.from_numpy(x), block_n=block_n)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(_np(got), x.astype(np.float64).sum(0),
+                               rtol=1e-5, atol=1e-4)
+
+
+def test_moa_reduce_int_wraps():
+    x = np.full((4096, 8), 2 ** 20, np.int32)      # sum 2**32 wraps to 0
+    want = jops.moa_reduce(jnp.asarray(x))
+    got = tops.moa_reduce(torch.from_numpy(x))
+    np.testing.assert_array_equal(_np(got), _np(want))
+    assert not got.any()
+
+
+# ---------------------------------------------------------------------------
+# loa_add / loa_reduce (bit for bit; tests/test_kernels.py's cases)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [16, 100, 1024, 5000])
+@pytest.mark.parametrize("l", [0, 1, 3, 6, 8])
+def test_loa_add(n, l):
+    rs = np.random.default_rng(n + l)
+    jx, tx = _both(rs.integers(0, 256, n), "int32")
+    jy, ty = _both(rs.integers(0, 256, n), "int32")
+    want = jops.loa_add(jx, jy, approx_bits=l)
+    got = tops.loa_add(tx, ty, approx_bits=l)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+def test_loa_add_signed_words_and_shape():
+    """Full-range int32 words (arithmetic shifts, wrapping adds), 2-D."""
+    rs = np.random.default_rng(7)
+    jx, tx = _both(rs.integers(-2 ** 31, 2 ** 31, (33, 17)), "int32")
+    jy, ty = _both(rs.integers(-2 ** 31, 2 ** 31, (33, 17)), "int32")
+    for l in (1, 5, 17, 31):
+        want = jops.loa_add(jx, jy, approx_bits=l, width=32)
+        got = tops.loa_add(tx, ty, approx_bits=l, width=32)
+        assert tuple(got.shape) == (33, 17)
+        np.testing.assert_array_equal(_np(got), _np(want))
+
+
+@pytest.mark.parametrize("shape", [(256, 64), (512, 100), (1024, 256)])
+@pytest.mark.parametrize("l", [0, 2, 4])
+def test_loa_reduce(shape, l):
+    rs = np.random.default_rng(shape[1] + l)
+    jx, tx = _both(rs.integers(0, 128, shape), "int32")
+    want = jops.loa_reduce(jx, approx_bits=l, block_n=min(256, shape[0]))
+    got = tops.loa_reduce(tx, approx_bits=l, block_n=min(256, shape[0]))
+    np.testing.assert_array_equal(_np(got), _np(want))
+    if l:
+        assert not np.array_equal(_np(got), _np(tx).sum(0)) or \
+            shape[0] == 256                          # one cluster: exact
+
+
+def test_loa_reduce_exact_at_l0_and_needs_whole_clusters():
+    x = np.random.default_rng(8).integers(0, 128, (512, 32))
+    got = tops.loa_reduce(torch.from_numpy(x).to(torch.int32), approx_bits=0,
+                          block_n=128)
+    np.testing.assert_array_equal(_np(got), x.sum(0))
+    with pytest.raises(ValueError, match="multiple of block_n"):
+        tops.loa_reduce(torch.zeros((300, 4), dtype=torch.int32),
+                        approx_bits=2, block_n=256)
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     """A CPU tensor never reaches a CUDA kernel: the wrappers raise (the
     dispatch in ``ops`` sends CPU tensors to the plain versions)."""
@@ -251,6 +405,16 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     q = torch.zeros((1, 4, 2, 8))
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_cuda(q, q, q)
+    from repro_torch.kernels.loa_add import loa_add_cuda, loa_reduce_cuda
+    from repro_torch.kernels.moa_reduce import moa_reduce_cuda
+
+    i = torch.zeros((8, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        moa_reduce_cuda(i)
+    with pytest.raises(ValueError, match="CUDA"):
+        loa_add_cuda(i, i, approx_bits=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        loa_reduce_cuda(i, approx_bits=2, block_n=4)
     with pytest.raises(ValueError, match="CUDA"):
         paged_attention_cuda(q[:, :1], torch.zeros((2, 4, 2, 8)),
                              torch.zeros((2, 4, 2, 8)),
