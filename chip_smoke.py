@@ -19,7 +19,12 @@ a non-zero exit:
               rows bit-exact), and the kernel's, the plain version's and
               (where one PyTorch call computes the same function) the
               library call's time, beside the least time the card could
-              take (``bound_ms``).
+              take (``bound_ms``); the kernel's and the library call's
+              also as device time alone. Each ``dot_moa`` row also names
+              its plan (body, tile, split) and the CUDA functions the call
+              launched with the device time of each, and fails if any is
+              not one of ``dot_moa``'s own; a last row gives the wrapper's
+              host time per call.
 3. serve    — llama3-8b at full width and full depth (bf16 weights from
               the port's own initializer, seed 0) served through the
               paged engine: 8 Poisson requests into 4 slots. Every kernel
@@ -86,8 +91,9 @@ Kernel = collections.namedtuple("Kernel", "replaces source symbols paths")
 
 
 KERNELS = {
-    "dot_moa": Kernel("src/repro/kernels/dot_moa.py:71", "dot_moa",
-                      ("dot_moa_kernel",), ("serve", "paper")),
+    "dot_moa": Kernel("src/repro/kernels/dot_moa.py:108", "dot_moa",
+                      ("dot_moa_stream", "dot_moa_wgmma", "dot_moa_tc",
+                       "dot_moa_simt", "dot_moa_fold"), ("serve", "paper")),
     "flash_attention": Kernel("src/repro/kernels/flash_attention.py:86",
                               "flash_attention", ("flash_kernel",),
                               ("serve",)),
@@ -144,36 +150,71 @@ def bf16_ulp(x: float) -> float:
 
 
 class Timer:
-    """Median device time of single launches, each after a write of 64 MiB
+    """Median device time of single launches, each after a read of 64 MiB
     that evicts the 50 MB L2 (the served model streams ~14 GB of weights
-    per decode step, so its kernels find their operands cold)."""
+    per decode step, so its kernels find their operands cold). A read and
+    not a write: a write leaves up to 50 MB of dirty lines, whose write-back
+    the timed kernel would pay; the served path's L2 holds clean weights."""
 
     def __init__(self, torch):
-        self.torch = torch
-        self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        from torch.profiler import ProfilerActivity, profile
 
-    def device(self, fn, kernel: str, iters: int = 10) -> float:
+        self.torch = torch
+        self.flush = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            self.evict()
+            torch.cuda.synchronize()
+        cuda = torch.autograd.DeviceType.CUDA
+        self.flush_kernels = {e.key for e in prof.key_averages()
+                              if e.device_type == cuda}
+        #: what the last :meth:`device` call saw launched: the kernel's own
+        #: CUDA functions with the device ms of each per call, and any other
+        #: (neither the kernel's nor the flush's)
+        self.kernels, self.foreign = {}, []
+
+    def evict(self) -> None:
+        self.flush.max()
+
+    def device(self, fn, kernel: str = None, iters: int = 10) -> float:
         """Mean device time (ms) per call of ``kernel``'s CUDA functions
-        that ``fn`` launches, from ``torch.profiler``'s kernel events, each
-        call after the same L2 flush. This is the kernel alone: the event
-        pair of ``__call__`` also holds the host time of the wrapper when
-        the wrapper takes longer than the flush before it."""
+        that ``fn`` launches (``kernel=None``: of every one but the
+        flush's, as for a library call), from ``torch.profiler``'s kernel
+        events, each call after the same L2 flush. This is the device work
+        alone: the event pair of ``__call__`` also holds the host time of
+        the call when it takes longer than the flush before it."""
         from torch.profiler import ProfilerActivity, profile
 
         torch = self.torch
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                self.flush.zero_()
-                fn()
-            torch.cuda.synchronize()
         cuda = torch.autograd.DeviceType.CUDA
-        total = sum(e.device_time_total for e in prof.key_averages()
-                    if e.device_type == cuda
-                    and any(sym in e.key for sym in KERNELS[kernel].symbols))
-        return total / 1e3 / iters
+        symbols = KERNELS[kernel].symbols if kernel else ()
+        for _ in range(3):   # the profiler now and then returns no events
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    self.evict()
+                    fn()
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages()
+                      if e.device_type == cuda]
+            own = [e for e in events
+                   if any(sym in e.key for sym in symbols)
+                   or not kernel and e.key not in self.flush_kernels]
+            if own:
+                break
+        else:
+            raise AssertionError(f"the profiler saw no {kernel or 'call'} "
+                                 "kernel in three tries")
+        self.kernels = {}
+        for e in own:
+            name = e.key[:100]
+            self.kernels[name] = (self.kernels.get(name, 0.0)
+                                  + e.device_time_total / 1e3 / iters)
+        self.foreign = sorted({e.key[:100] for e in events if e not in own
+                               and e.key not in self.flush_kernels})
+        return sum(e.device_time_total for e in own) / 1e3 / iters
 
     def __call__(self, fn, iters: int = 10) -> float:
         torch = self.torch
@@ -182,12 +223,32 @@ class Timer:
         ev = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
         for start, end in ev:
-            self.flush.zero_()
+            self.evict()
             start.record()
             fn()
             end.record()
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in ev)
+
+
+def ptxas_report(log: str) -> list:
+    """``[function, registers, spill bytes (stores + loads)]`` per compiled
+    ``__global__`` function, from ptxas's ``-v`` output."""
+    import re
+
+    out, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            out.append([name, None, 0])
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and out:
+            out[-1][2] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and out:
+            out[-1][1] = int(m.group(1))
+    return out
 
 
 def nvidia_smi() -> str:
@@ -265,6 +326,55 @@ def check(row: dict, key: tuple = None) -> dict:
     return row
 
 
+def plan_info(p) -> dict:
+    """The body and grid a ``dot_moa`` plan chose."""
+    return {"body": p.body, "tile": [p.tile_m, p.tile_n], "sub": p.sub,
+            "splits": p.splits, "blocks": p.blocks,
+            "workspace_mb": p.workspace * 4 / 1e6}
+
+
+def own_kernels(timer, kernel: str) -> dict:
+    """The CUDA functions the last timed call launched, with the device ms
+    of each per call; fail on one that is not the kernel's own (a library
+    product, a copy, a fill)."""
+    if timer.foreign:
+        raise AssertionError(f"{kernel} launched {timer.foreign}, which are "
+                             f"not its own kernels {KERNELS[kernel].symbols}")
+    return {"device_kernels": timer.kernels}
+
+
+def host_path(torch, iters: int = 1000) -> dict:
+    """Host time per call of the ``dot_moa`` wrapper and of the MOA
+    backend's ``kernel_dot`` under ``torch.no_grad()`` (as the engine calls
+    it), at the decode shape 4 x 4096 @ 4096 x 1024 bf16: the host clock
+    over ``iters`` enqueued calls, then one synchronise (``wall``)."""
+    from repro_torch.kernels import dot_moa as dm
+    from repro_torch.moa import backends
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    a = torch.randn((4, 4096), device="cuda", generator=g).bfloat16()
+    b = (torch.randn((4096, 1024), device="cuda", generator=g)
+         * 4096 ** -0.5).bfloat16()
+    calls = {"dot_moa_cuda": lambda: dm.dot_moa_cuda(a, b, block_k=2048),
+             "kernel_dot": lambda: backends.kernel_dot(
+                 a, b, block_k=2048, out_dtype=torch.bfloat16)}
+    out = {}
+    with torch.no_grad():
+        for name, fn in calls.items():
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            out[name] = {"host_us_per_call": (t1 - t0) / iters * 1e6,
+                         "wall_us_per_call": (t2 - t0) / iters * 1e6}
+    return out
+
+
 def kernel_phase(torch, timer):
     from repro_torch.kernels import dot_moa as dm
     from repro_torch.kernels import flash_attention as fa
@@ -300,9 +410,35 @@ def kernel_phase(torch, timer):
               (37, 1000, 333, 256, torch.bfloat16, 0),
               (37, 1000, 333, 256, torch.int8, 0),
               (37, 1024, 333, 256, torch.int8, 4)]
+    # the bodies' edges (kernels/dot_moa.py: plan): B is streamed while m
+    # rows fit one row group (m <= 16 f32 / int32, 8 bf16, 4 int8); above,
+    # the tensor cores (bf16, int8) or the tiled CUDA-core body (f32,
+    # int32); the prefill down-projection is among the m = 64 rows
+    cases += [(m, 4096, 14336, block_k, torch.bfloat16, 0)
+              for m in (1, 8, 9, 16, 17)]
+    # a ragged k whose block_k (1000) is not a multiple of the sub-range
+    cases += [(m, 5000, 4096, 1000, torch.bfloat16, 0) for m in (4, 64)]
+    # int8 at block_k 256, l = 4: 16 LOA folds, on both int8 bodies
+    cases += [(m, 4096, 4096, 256, torch.int8, 4) for m in (4, 16, 64)]
+    # float32 compute (the parity phase's decode and prefill shapes) and
+    # every other instance: stream rows per block 4 / 8 / 16, int32
+    cases += [(4, 4096, 4096, block_k, torch.float32, 0),
+              (16, 4096, 4096, block_k, torch.float32, 0),
+              (64, 4096, 14336, block_k, torch.float32, 0),
+              (8, 1000, 333, 256, torch.float32, 0),
+              (3, 1000, 333, 256, torch.int32, 0),
+              (8, 1024, 256, 256, torch.int32, 2),
+              (16, 2048, 1024, 512, torch.int32, 4)]
+    names = {torch.bfloat16: "bfloat16", torch.float32: "float32",
+             torch.int8: "int8", torch.int32: "int32"}
     for m, k, n, bk, dt, l in cases:
         if dt == torch.int8:
             a, b = randint8(m, k), randint8(k, n)
+        elif dt == torch.int32:
+            a = torch.randint(-1000, 1000, (m, k), device=dev, generator=g,
+                              dtype=torch.int32)
+            b = torch.randint(-1000, 1000, (k, n), device=dev, generator=g,
+                              dtype=torch.int32)
         else:
             a, b = randn(m, k, dtype=dt), randn(k, n, scale=k ** -0.5,
                                                 dtype=dt)
@@ -311,11 +447,10 @@ def kernel_phase(torch, timer):
         got, want = run(), plain()
         torch.cuda.synchronize()
         item = a.element_size()
-        name = {torch.bfloat16: "bfloat16", torch.float32: "float32",
-                torch.int8: "int8"}[dt]
+        name = names[dt]
         b_ms, b_by = bound((m * k + k * n) * item + m * n
                            * got.element_size(), 2.0 * m * k * n, name)
-        if dt == torch.int8:
+        if not dt.is_floating_point:
             tol, why = 0.0, ("integer accumulation is exact: int32 K-block "
                              "partials, folded by + or the LOA combine")
         elif dt == torch.bfloat16:
@@ -329,21 +464,25 @@ def kernel_phase(torch, timer):
         # for floats; for exact int8 (l=0) torch._int_mm, an int32 product
         # (needs m > 16 and k, n multiples of 8); none for LOA
         library = None
-        if dt != torch.int8:
+        if dt.is_floating_point:
             library = lambda: torch.matmul(a, b)
-        elif l == 0 and m > 16 and k % 8 == 0 and n % 8 == 0:
+        elif (dt == torch.int8 and l == 0 and m > 16 and k % 8 == 0
+              and n % 8 == 0):
             library = lambda: torch._int_mm(a, b)
             if not torch.equal(library(), want):
                 raise AssertionError(f"torch._int_mm != dot_moa_ref at "
                                      f"{m}x{k}x{n}")
+        p = dm.plan(m, n, k, min(bk, k), dt)
         row = check({
             "kernel": "dot_moa", "case": f"{name} l={l}",
             "shape": {"m": m, "k": k, "n": n, "block_k": bk},
+            "plan": plan_info(p),
             "max_abs_err": err(got, want), "tol": tol, "tol_reason": why,
             "kernel_ms": timer(run),
             "device_ms": timer.device(run, "dot_moa"),
+            **own_kernels(timer, "dot_moa"),
             "plain_ms": timer(plain, 5),
-            "library_ms": timer(library) if library else None,
+            "library_ms": timer.device(library) if library else None,
             "bound_ms": b_ms, "bound_by": b_by,
         }, call_key("dot_moa", a, b, block_k=bk, approx_bits=l))
         if (m, k, n, dt) == (4, 4096, 14336, torch.bfloat16):
@@ -375,7 +514,7 @@ def kernel_phase(torch, timer):
         lib = None
         if causal and dt == torch.bfloat16:
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            lib = timer(lambda: F.scaled_dot_product_attention(
+            lib = timer.device(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True))
         row = check({
             "kernel": "flash_attention",
@@ -491,8 +630,8 @@ def paper_kernel_phase(torch, timer):
         l = 0, where it computes the same function; at l > 0 there is none,
         and it is the paper's exact-adder comparison."""
         if l == 0:
-            return {"library_ms": timer(fn), "library": call}
-        return {"library_ms": None, "exact_adder_ms": timer(fn),
+            return {"library_ms": timer.device(fn), "library": call}
+        return {"library_ms": None, "exact_adder_ms": timer.device(fn),
                 "library": f"none (LOA); exact_adder_ms is {call}, the "
                            f"paper's exact-adder comparison"}
 
@@ -544,7 +683,7 @@ def paper_kernel_phase(torch, timer):
             tol = 1e-4 + 1e-5 * float(want.abs().max())
             why = ("f32 reassociation inside the K clusters: atol 1e-4 + "
                    "rtol 1e-5 of max|ref|, as tests/test_kernels.py")
-            lib = {"library_ms": timer(lambda: torch.matmul(a, b)),
+            lib = {"library_ms": timer.device(lambda: torch.matmul(a, b)),
                    "library": "torch.matmul, TF32 off"}
         else:
             tol, why = 0.0, exact_why
@@ -552,9 +691,11 @@ def paper_kernel_phase(torch, timer):
                    "library": "none: PyTorch has no int32 matmul on CUDA"}
         check({"kernel": "dot_moa", "case": f"{name} l={l}", "where": where,
                "shape": {"m": m, "k": k, "n": n, "block_k": bk},
+               "plan": plan_info(dm.plan(m, n, k, min(bk, k), a.dtype)),
                "max_abs_err": err(got, want), "tol": tol,
                "tol_reason": why, "kernel_ms": timer(run),
                "device_ms": timer.device(run, "dot_moa"),
+               **own_kernels(timer, "dot_moa"),
                "plain_ms": timer(plain, 5), **lib,
                "bound_ms": b_ms, "bound_by": b_by},
               call_key("dot_moa", a, b, block_k=bk, approx_bits=l))
@@ -595,7 +736,8 @@ def paper_kernel_phase(torch, timer):
             "kernel_ms": timer(run),
             "device_ms": timer.device(run, "moa_reduce"),
             "plain_ms": timer(plain, 5),
-            "library_ms": timer(lambda: torch.sum(x, dim=0, dtype=accum)),
+            "library_ms": timer.device(
+                lambda: torch.sum(x, dim=0, dtype=accum)),
             "library": "torch.sum(x, 0) in the accumulator type",
             "bound_ms": b_ms, "bound_by": b_by},
             call_key("moa_reduce", x, block_n=bn))
@@ -784,14 +926,18 @@ def serve_phase(torch):
     return launches
 
 
-def _greedy_gap(torch, model, params, prompt, generated) -> float:
-    """Top-2 logit gap of the plain path's next-token logits after
-    ``prompt + generated`` (full causal forward)."""
+def _greedy_gap(torch, models, params, prompt, generated) -> dict:
+    """At a divergence: the top-2 logit gap of the plain path's next-token
+    logits after ``prompt + generated`` (full causal forward, no KV cache),
+    and the largest difference between the kernel path's and the plain
+    path's logits of that forward (``models``: plain, kernel)."""
     toks = torch.tensor([list(prompt) + list(generated)], device="cuda")
     with torch.no_grad():
-        logits = model.forward(params, {"tokens": toks})[0, -1]
-    top = torch.topk(logits.float(), 2).values
-    return float(top[0] - top[1])
+        plain, kernel = (m.forward(params, {"tokens": toks})[0, -1].float()
+                         for m in models)
+    top = torch.topk(plain, 2).values
+    return {"gap": float(top[0] - top[1]),
+            "forward_logit_diff": float((kernel - plain).abs().max())}
 
 
 def parity_phase(torch):
@@ -850,13 +996,15 @@ def parity_phase(torch):
                     continue
                 i = next(j for j, (x, y) in enumerate(zip(a.tokens, b.tokens))
                          if x != y)
-                gap = _greedy_gap(torch, build_model(plain_cfg), params,
-                                  req.prompt, a.tokens[:i])
-                divergences.append({"uid": a.uid, "index": i, "gap": gap})
+                probe = _greedy_gap(torch, (build_model(plain_cfg),
+                                            build_model(cfg)), params,
+                                    req.prompt, a.tokens[:i])
+                gap = probe["gap"]
+                divergences.append({"uid": a.uid, "index": i, **probe})
                 if gap > gap_tol:
                     raise AssertionError(
                         f"parity {pool}/{wl}: uid {a.uid} diverges at token "
-                        f"{i} with top-2 gap {gap} > {gap_tol}")
+                        f"{i} with top-2 gap {gap} > {gap_tol} ({probe})")
             emit({"phase": "parity", "pool": pool, "workload": wl,
                   "n_layers": 2, "compute_dtype": compute,
                   "requests": len(runs["torch"][0]),
@@ -975,14 +1123,14 @@ def main() -> int:
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "kernels": {name: {"seconds": b["seconds"], "cached": b["cached"],
-                             "ptxas": [ln.strip() for ln in
-                                       b["log"].splitlines()
-                                       if "Used" in ln]}
+                             "ptxas": ptxas_report(b["log"])}
                       for name, b in built.items()}})
 
     timer = Timer(torch)
     rows = kernel_phase(torch, timer)
     rows.update(paper_kernel_phase(torch, timer))
+    emit({"phase": "kernels", "kernel": "dot_moa", "case": "host path",
+          "iters": 1000, **host_path(torch)})
     served = serve_phase(torch)
     parity_phase(torch)
     paper = paper_phase(torch)

@@ -15,6 +15,7 @@ Nothing is built or loaded when this module is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -107,12 +108,18 @@ def load_function(name: str, symbol: str, argtypes: Sequence):
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _capability(index: int):
+    return torch.cuda.get_device_capability(index)
+
+
 def check_device(t: torch.Tensor, what: str) -> None:
     """The kernels are built for ``sm_90a``: any other card raises (there is
-    no fallback to the plain version on a CUDA tensor)."""
+    no fallback to the plain version on a CUDA tensor). The capability is
+    read once per device."""
     if not t.is_cuda:
         raise ValueError(f"{what}: the CUDA kernel needs CUDA tensors")
-    cap = torch.cuda.get_device_capability(t.device)
+    cap = _capability(t.device.index)
     if cap != (9, 0):
         raise RuntimeError(
             f"{what}: the kernel is built for sm_90a (Hopper); this card "

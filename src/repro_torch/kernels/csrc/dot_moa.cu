@@ -3,183 +3,256 @@
 // Replaces the TPU kernel src/repro/kernels/dot_moa.py: dot_moa_pallas
 // (body _dot_moa_kernel). There the trailing grid axis walks K in block_k
 // slices and each slice's partial is folded into an accumulator held in
-// VMEM. Here one CUDA block owns one BM x 64 output tile and walks K itself:
-// every block_k slice is summed into a fresh register partial, and the
-// partial is then folded into the accumulator -- by + (floats, ints) or by
-// the LOA combine (approx_bits > 0, ints). That is the paper's serialized
-// MOA with n_c = block_k; it is never one running sum.
+// VMEM. The contract kept here: every block_k slice of K is summed into a
+// fresh partial in the accumulator type (f32 for floats, int32 for ints);
+// the partials are folded into the accumulator in slice order, by + or by
+// the LOA combine (approx_bits > 0, ints); the result is converted once.
+// Inside a slice the order of the sum is free (the Pallas body's jnp.dot
+// fixes none); across slices it is not: the fold is a separate, ordered
+// step, never one running sum -- the paper's serialized MOA with
+// n_c = block_k. Integer products and sums wrap modulo 2**32.
 //
 // Instances: f32 -> f32 and bf16 -> bf16 (f32 accumulator), int8 -> int32
-// and int32 -> int32 (int32 accumulator, exact or LOA fold; products and
-// sums wrap modulo 2**32 as XLA's int32 dot). block_k may be any K, ragged
-// ones included (the LOA route folds a whole ragged K as one cluster).
-// The output is converted once, at the end. Ragged m, n and k are masked
-// here (the Pallas wrapper zero-pads instead, which adds exact zeros).
+// and int32 -> int32 (int32 accumulator, exact or LOA fold). Ragged m, n, k
+// and a ragged last slice are masked or zero-filled here (the Pallas
+// wrapper zero-pads, which adds exact zeros); LOA needs k % block_k == 0.
 //
-// Bound on the H100: at the decode shapes (m = slots, k = 4096..14336) the
-// weight matrix dominates the bytes and the kernel is bound by reading it
-// once (3.35 TB/s). This first version computes on the CUDA cores in f32
-// FMA from shared-memory tiles (64 x 32 of B per step), with BM = 16 rows
-// per block for small m so few lanes idle; prefill-sized m runs BM = 64.
-// Tensor cores (wgmma) and TMA are later work.
+// Split-K, the one mechanism for every body. The grid is output tiles x K
+// sub-ranges. In direct mode (one sub-range: all of K) a block walks every
+// slice, summing each into a register partial and folding it into a
+// register accumulator. In split mode each sub-range lies inside one
+// slice (sub-range j of slice s is [s*bk + j*sub, ...) cut at the slice's
+// end); its block writes its partial to an f32/int32 workspace, and
+// dot_moa_fold sums each slice's sub-partials in sub-range order (exact for
+// ints, the same order every run for floats), folds the slices in slice
+// order by + or loa_fold, and converts. The LOA fold only ever sees whole
+// slices.
+//
+// Dispatch (kernels/dot_moa.py: plan, which also picks the split):
+//   small m           dot_moa_stream (any operand type): the decode shapes,
+//                     bound by reading B once; split mode always, as much
+//                     K a block as keeps the grid within one wave of 2
+//                     blocks per SM. CUDA-core FMA: at m <= 16 a weight
+//                     byte feeds at most 16 flops, far under the tensor
+//                     cores' ridge.
+//   else, bf16        dot_moa_wgmma: wgmma tensor cores, 64 x 128 tiles.
+//   else, int8        dot_moa_tc: mma.sync tensor cores, 64 x 128 tiles
+//                     (wgmma takes 8-bit operands K-major only).
+//   else, f32/int32   dot_moa_simt: register-blocked CUDA cores, 128 x 96
+//                     or 128 x 64 tiles (the one that pads n least),
+//                     64 x 128 at m <= 64 (no TF32: the f32 contract; no
+//                     int32 tensor-core product).
+// Small m is what one row group holds: a stream thread keeps at most 64
+// accumulators (m <= 16 rows of f32/int32, 8 of bf16, 4 of int8). More
+// rows would take more groups, each reading B again, while one 64-row
+// tile of the other bodies reads it once for up to 64 rows. A split is
+// used where the tiles alone are fewer than 2 x 132 (wgmma: 132 / 2,
+// measured: each further sub-range costs workspace traffic and a tail
+// more than its blocks gain) and the workspace stays under max(5 % of the
+// operand bytes, 16 MiB); else direct mode (stream: always split).
 //
 // Launch counting is done by the Python wrapper (kernels/dot_moa.py).
 
-#include "common.cuh"
+#include <type_traits>
 
-namespace {
+#include "dot_moa_simt.cuh"
+#include "dot_moa_stream.cuh"
+#include "dot_moa_tc.cuh"
+#include "dot_moa_wgmma.cuh"
 
-constexpr int BN = 64;
-constexpr int BK = 32;
-constexpr int THREADS = 256;   // 16 x 16 threads; each owns (BM/16) x 4 outputs
+namespace dm {
 
-template <typename Acc> struct Fold;
+enum Body : int { BODY_STREAM = 0, BODY_TC = 1, BODY_SIMT = 2, BODY_WGMMA = 3 };
 
-template <> struct Fold<float> {
-  __device__ static __forceinline__ float apply(float acc, float part, int) {
-    return acc + part;
-  }
-};
-
-// int32 fold: exact add or the Lower-part-OR adder (loa_fold, common.cuh).
-template <> struct Fold<int> {
-  __device__ static __forceinline__ int apply(int x, int y, int l) { return loa_fold(x, y, l); }
-};
-
-template <typename T, typename Acc> __device__ __forceinline__ Acc load_as(const T& x);
-template <> __device__ __forceinline__ float load_as<float, float>(const float& x) { return x; }
-template <> __device__ __forceinline__ float load_as<__nv_bfloat16, float>(const __nv_bfloat16& x) {
-  return __bfloat162float(x);
-}
-template <> __device__ __forceinline__ int load_as<int8_t, int>(const int8_t& x) { return x; }
-template <> __device__ __forceinline__ int load_as<int, int>(const int& x) { return x; }
-
-template <typename Acc> __device__ __forceinline__ Acc mac(Acc a, Acc b, Acc c);
-template <> __device__ __forceinline__ float mac<float>(float a, float b, float c) {
-  return fmaf(a, b, c);
-}
-template <> __device__ __forceinline__ int mac<int>(int a, int b, int c) {
-  return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b) +
-                          static_cast<unsigned>(c));
-}
-
-template <typename OutT, typename Acc> __device__ __forceinline__ OutT store_as(Acc x);
-template <> __device__ __forceinline__ float store_as<float, float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 store_as<__nv_bfloat16, float>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <> __device__ __forceinline__ int store_as<int, int>(int x) { return x; }
-
-template <typename T, typename Acc, typename OutT, int BM>
+// Sum each slice's sub-partials in sub-range order, fold the slices in
+// slice order, convert once. ws: [slices * splits][M][N].
+template <typename Acc, typename OutT>
 __global__ void __launch_bounds__(THREADS)
-dot_moa_kernel(const T* __restrict__ A, const T* __restrict__ B, OutT* __restrict__ C,
-               int M, int N, int K, int block_k, int approx_bits) {
-  constexpr int TM = BM / 16;
-  constexpr int TN = BN / 16;
-  __shared__ Acc As[BK][BM + 1];   // A tile, transposed (padded: no bank conflicts)
-  __shared__ Acc Bs[BK][BN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;     // output columns tx + 16 j
-  const int ty = tid / 16;     // output rows ty + 16 i
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-
-  Acc acc[TM][TN] = {};
-  for (int s0 = 0; s0 < K; s0 += block_k) {
-    const int s1 = min(s0 + block_k, K);
-    Acc part[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) part[i][j] = Acc(0);
-
-    for (int k0 = s0; k0 < s1; k0 += BK) {
-      // A tile: BM rows x BK columns, consecutive threads on consecutive k
-#pragma unroll
-      for (int e = tid; e < BM * BK; e += THREADS) {
-        const int r = e / BK, c = e % BK;
-        const int gr = m0 + r, gk = k0 + c;
-        As[c][r] = (gr < M && gk < s1) ? load_as<T, Acc>(A[(size_t)gr * K + gk]) : Acc(0);
-      }
-      // B tile: BK rows x BN columns, consecutive threads on consecutive n
-#pragma unroll
-      for (int e = tid; e < BK * BN; e += THREADS) {
-        const int r = e / BN, c = e % BN;
-        const int gk = k0 + r, gc = n0 + c;
-        Bs[r][c] = (gk < s1 && gc < N) ? load_as<T, Acc>(B[(size_t)gk * N + gc]) : Acc(0);
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < BK; ++kk) {
-        Acc a[TM], b[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) part[i][j] = mac<Acc>(a[i], b[j], part[i][j]);
-      }
-      __syncthreads();
-    }
-
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j)
-        acc[i][j] = (s0 == 0) ? part[i][j] : Fold<Acc>::apply(acc[i][j], part[i][j], approx_bits);
+dot_moa_fold(const Acc* __restrict__ ws, OutT* __restrict__ C, long long MN, int K, int bk,
+             int sub, int splits, int approx_bits) {
+  const long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (idx >= MN) return;
+  const int slices = (K + bk - 1) / bk;
+  Acc acc = Acc(0);
+  for (int s = 0; s < slices; ++s) {
+    const int len = min(bk, K - s * bk);
+    const int cnt = (len + sub - 1) / sub;
+    const Acc* p = ws + (size_t)s * splits * MN + idx;
+    Acc part = p[0];
+    for (int j = 1; j < cnt; ++j) part = add(part, p[(size_t)j * MN]);
+    acc = s == 0 ? part : fold(acc, part, approx_bits);
   }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = m0 + ty + 16 * i;
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = n0 + tx + 16 * j;
-      if (c < N) C[(size_t)r * N + c] = store_as<OutT, Acc>(acc[i][j]);
-    }
-  }
+  C[idx] = store_as<OutT>(acc);
 }
 
+// Dynamic shared memory above 48 KB, opted into once per kernel and device
+// (``done``: a bit per device, a static of the kernel's own launcher).
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, size_t bytes, unsigned& done) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 32 && (done >> dev) & 1u) return cudaSuccess;
+  const cudaError_t rc = allow_smem(kernel, bytes);
+  if (rc == cudaSuccess && dev < 32) done |= 1u << dev;
+  return rc;
+}
+
+struct Args {
+  const void *a, *b;
+  void *out, *ws;
+  int M, N, K, bk, l, tile_m, tile_n, sub, splits, a_aligned, b_aligned, one_slice;
+  cudaStream_t st;
+  dim3 grid(int bm, int bn) const {
+    return dim3((N + bn - 1) / bn, (M + bm - 1) / bm, ws ? ((K + bk - 1) / bk) * splits : 1);
+  }
+};
+
+template <typename T, typename Acc, int MR>
+cudaError_t launch_stream_mr(const Args& g) {
+  auto kern = dot_moa_stream<T, Acc, MR>;
+  if (g.ws == nullptr || g.sub > stream_submax<MR>()) return cudaErrorInvalidValue;
+  static unsigned done = 0;
+  const cudaError_t rc = prepare(kern, STREAM_SMEM, done);
+  if (rc != cudaSuccess) return rc;
+  kern<<<g.grid(MR, 32 * Unpack16<T, Acc>::N), THREADS, STREAM_SMEM, g.st>>>(
+      static_cast<const T*>(g.a), static_cast<const T*>(g.b), static_cast<Acc*>(g.ws), g.M, g.N,
+      g.K, g.bk, g.sub, g.splits, g.b_aligned);
+  return cudaGetLastError();
+}
+
+template <typename T, typename Acc>
+cudaError_t launch_stream(const Args& g) {
+  constexpr int VEC = Unpack16<T, Acc>::N;
+  switch (g.tile_m) {   // MR: rows of A a block holds, MR * VEC <= 64
+    case 4: return launch_stream_mr<T, Acc, 4>(g);
+    case 8: if constexpr (8 * VEC <= 64) return launch_stream_mr<T, Acc, 8>(g); break;
+    case 16: if constexpr (16 * VEC <= 64) return launch_stream_mr<T, Acc, 16>(g); break;
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t launch_tc(const Args& g) {
+  using Acc = typename TcTraits<T>::Acc;
+  using Out = typename TcTraits<T>::Out;
+  auto kern = dot_moa_tc<T>;
+  if (g.tile_m != TC_BM || g.tile_n != TC_BN) return cudaErrorInvalidValue;
+  static unsigned done = 0;
+  const cudaError_t rc = prepare(kern, tc_smem<T>(), done);
+  if (rc != cudaSuccess) return rc;
+  kern<<<g.grid(TC_BM, TC_BN), THREADS, tc_smem<T>(), g.st>>>(
+      static_cast<const T*>(g.a), static_cast<const T*>(g.b), static_cast<Out*>(g.out),
+      static_cast<Acc*>(g.ws), g.M, g.N, g.K, g.bk, g.sub, g.splits, g.a_aligned, g.b_aligned,
+      g.l);
+  return cudaGetLastError();
+}
+
+template <bool ONE>
+cudaError_t launch_wgmma_one(const Args& g) {
+  auto kern = dot_moa_wgmma<ONE>;
+  static unsigned done = 0;
+  constexpr size_t smem = wg_smem<ONE>();
+  const cudaError_t rc = prepare(kern, smem, done);
+  if (rc != cudaSuccess) return rc;
+  const dim3 grid = g.grid(WG_BM, WG_BN);
+  // row tiles fastest: the blocks that read one column strip of B run together
+  kern<<<dim3(grid.y, grid.x, grid.z), THREADS, smem, g.st>>>(
+      static_cast<const __nv_bfloat16*>(g.a), static_cast<const __nv_bfloat16*>(g.b),
+      static_cast<__nv_bfloat16*>(g.out), static_cast<float*>(g.ws), g.M, g.N, g.K, g.bk, g.sub,
+      g.splits, g.a_aligned, g.b_aligned);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_wgmma(const Args& g) {
+  if (g.tile_m != WG_BM || g.tile_n != WG_BN) return cudaErrorInvalidValue;
+  if (g.one_slice) {   // the wrapper's word that every block's range is one slice
+    if (g.ws == nullptr && g.K > g.bk) return cudaErrorInvalidValue;
+    return launch_wgmma_one<true>(g);
+  }
+  return launch_wgmma_one<false>(g);
+}
+
+template <typename T, int BM, int BN, bool ONE>
+cudaError_t launch_simt_tile(const Args& g) {
+  auto kern = dot_moa_simt<T, BM, BN, ONE>;
+  static unsigned done = 0;
+  const cudaError_t rc = prepare(kern, simt_smem<BM, BN>(), done);
+  if (rc != cudaSuccess) return rc;
+  kern<<<g.grid(BM, BN), THREADS, simt_smem<BM, BN>(), g.st>>>(
+      static_cast<const T*>(g.a), static_cast<const T*>(g.b), static_cast<T*>(g.out),
+      static_cast<T*>(g.ws), g.M, g.N, g.K, g.bk, g.sub, g.splits, g.a_aligned, g.b_aligned, g.l);
+  return cudaGetLastError();
+}
+
+template <typename T, bool ONE>
+cudaError_t launch_simt_one(const Args& g) {
+  if (g.tile_m == 128 && g.tile_n == 64) return launch_simt_tile<T, 128, 64, ONE>(g);
+  if (g.tile_m == 128 && g.tile_n == 96) return launch_simt_tile<T, 128, 96, ONE>(g);
+  if (g.tile_m == 64 && g.tile_n == 128) return launch_simt_tile<T, 64, 128, ONE>(g);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t launch_simt(const Args& g) {
+  // one_slice: the wrapper's word that every block's range is one slice
+  if (g.one_slice) {
+    if (g.ws == nullptr && g.K > g.bk) return cudaErrorInvalidValue;
+    return launch_simt_one<T, true>(g);
+  }
+  return launch_simt_one<T, false>(g);
+}
+
+template <typename Acc, typename OutT>
+cudaError_t launch_fold(const Args& g) {
+  const long long mn = (long long)g.M * g.N;
+  dot_moa_fold<Acc, OutT><<<(unsigned)((mn + THREADS - 1) / THREADS), THREADS, 0, g.st>>>(
+      static_cast<const Acc*>(g.ws), static_cast<OutT*>(g.out), mn, g.K, g.bk, g.sub, g.splits,
+      g.l);
+  return cudaGetLastError();
+}
+
+// One operand type: the body, then (split mode) the fold.
 template <typename T, typename Acc, typename OutT>
-void launch(const void* a, const void* b, void* out, int M, int N, int K, int block_k,
-            int approx_bits, cudaStream_t stream) {
-  const T* A = static_cast<const T*>(a);
-  const T* B = static_cast<const T*>(b);
-  OutT* C = static_cast<OutT*>(out);
-  if (M <= 16) {
-    dim3 grid((N + BN - 1) / BN, (M + 15) / 16);
-    dot_moa_kernel<T, Acc, OutT, 16><<<grid, THREADS, 0, stream>>>(A, B, C, M, N, K, block_k,
-                                                                    approx_bits);
-  } else {
-    dim3 grid((N + BN - 1) / BN, (M + 63) / 64);
-    dot_moa_kernel<T, Acc, OutT, 64><<<grid, THREADS, 0, stream>>>(A, B, C, M, N, K, block_k,
-                                                                    approx_bits);
+cudaError_t run(int body, const Args& g) {
+  cudaError_t rc = cudaErrorInvalidValue;
+  if (body == BODY_STREAM) {
+    rc = launch_stream<T, Acc>(g);
+  } else if (body == BODY_TC) {
+    if constexpr (std::is_same<T, int8_t>::value) rc = launch_tc<T>(g);
+  } else if (body == BODY_WGMMA) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) rc = launch_wgmma(g);
+  } else if (body == BODY_SIMT) {
+    if constexpr (std::is_same<T, float>::value || std::is_same<T, int>::value)
+      rc = launch_simt<T>(g);
   }
+  if (rc != cudaSuccess || g.ws == nullptr) return rc;
+  return launch_fold<Acc, OutT>(g);
 }
 
-}  // namespace
+}  // namespace dm
 
 // C entry point. a (M, K), b (K, N), out (M, N): contiguous, row-major, on the
-// current device. Returns cudaGetLastError() after the launch.
-extern "C" int repro_dot_moa(const void* a, const void* b, void* out, int M, int N, int K,
-                             int block_k, int approx_bits, int in_dtype, int out_dtype,
+// current device. ws: the split-mode workspace, (K / block_k slices rounded
+// up) * splits * M * N accumulators, or null for direct mode (the stream
+// body always needs it). p: 15 ints from the wrapper's plan -- M, N, K,
+// block_k, approx_bits, operand and output dtype codes, body, tile_m, tile_n,
+// sub, splits, a_aligned, b_aligned (the rows of A / B, block_k and sub allow
+// 16-byte copies), one_slice (every block's K range is one slice). Returns
+// cudaGetLastError() after the last launch, or cudaErrorInvalidValue for a
+// combination no body takes.
+extern "C" int repro_dot_moa(const void* a, const void* b, void* out, void* ws, const int* p,
                              void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using namespace dm;
+  const int M = p[0], N = p[1], K = p[2], block_k = p[3], in_dtype = p[5], out_dtype = p[6],
+            body = p[7];
   if (M <= 0 || N <= 0 || K <= 0 || block_k <= 0) return cudaErrorInvalidValue;
-  if (in_dtype == DT_F32 && out_dtype == DT_F32) {
-    launch<float, float, float>(a, b, out, M, N, K, block_k, 0, st);
-  } else if (in_dtype == DT_BF16 && out_dtype == DT_BF16) {
-    launch<__nv_bfloat16, float, __nv_bfloat16>(a, b, out, M, N, K, block_k, 0, st);
-  } else if (in_dtype == DT_I8 && out_dtype == DT_I32) {
-    launch<int8_t, int, int>(a, b, out, M, N, K, block_k, approx_bits, st);
-  } else if (in_dtype == DT_I32 && out_dtype == DT_I32) {
-    launch<int, int, int>(a, b, out, M, N, K, block_k, approx_bits, st);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  const Args g{a,    b,    out,  ws,    M,     N,     K,     block_k, p[4],
+               p[8], p[9], p[10], p[11], p[12], p[13], p[14], static_cast<cudaStream_t>(stream)};
+  if (ws != nullptr && (g.sub <= 0 || g.splits <= 0)) return cudaErrorInvalidValue;
+  if (in_dtype == DT_F32 && out_dtype == DT_F32) return run<float, float, float>(body, g);
+  if (in_dtype == DT_BF16 && out_dtype == DT_BF16)
+    return run<__nv_bfloat16, float, __nv_bfloat16>(body, g);
+  if (in_dtype == DT_I8 && out_dtype == DT_I32) return run<int8_t, int, int>(body, g);
+  if (in_dtype == DT_I32 && out_dtype == DT_I32) return run<int, int, int>(body, g);
+  return cudaErrorInvalidValue;
 }

@@ -103,10 +103,12 @@ class _KernelDot(torch.autograd.Function):
 def kernel_dot(a: torch.Tensor, b: torch.Tensor, *, block_k: int,
                out_dtype: torch.dtype, approx_bits: int = 0) -> torch.Tensor:
     """``(m, k) @ (k, n)`` through the ``dot_moa`` kernel; ``block_k`` is
-    the serialization cluster size ``n_c``. Float paths are differentiable;
+    the serialization cluster size ``n_c``. Float paths are differentiable
+    (the ``autograd.Function`` is entered only where a gradient is wanted);
     integer paths are forward-only."""
     a, b = a.contiguous(), b.contiguous()
-    if is_integer(a.dtype):
+    if is_integer(a.dtype) or not (torch.is_grad_enabled() and (
+            a.requires_grad or b.requires_grad)):
         return ops.dot_moa(a, b, block_k=int(block_k),
                            approx_bits=int(approx_bits), out_dtype=out_dtype)
     return _KernelDot.apply(a, b, int(block_k), int(approx_bits), out_dtype)
