@@ -20,11 +20,12 @@ a non-zero exit:
               (where one PyTorch call computes the same function) the
               library call's time, beside the least time the card could
               take (``bound_ms``); the kernel's and the library call's
-              also as device time alone. Each ``dot_moa`` row also names
-              its plan (body, tile, split) and the CUDA functions the call
-              launched with the device time of each, and fails if any is
-              not one of ``dot_moa``'s own; a last row gives the wrapper's
-              host time per call.
+              also as device time alone. Each ``dot_moa`` and
+              ``flash_attention`` row also names its plan (body, tile,
+              blocks) and the CUDA functions the call launched with the
+              device time of each, and fails if any is not one of the
+              kernel's own; a last row gives the wrapper's host time per
+              call.
 3. serve    — llama3-8b at full width and full depth (bf16 weights from
               the port's own initializer, seed 0) served through the
               paged engine: 8 Poisson requests into 4 slots. Every kernel
@@ -32,12 +33,18 @@ a non-zero exit:
               is served again, by a fresh engine (an empty prefix cache),
               with each tick under torch.profiler: device
               time by kernel of the decode and admission ticks, against
-              the host clock.
+              the host clock; and one 512-token prefill of the same model
+              under torch.profiler (flash attention's share of it).
 4. parity   — the same engine at full width with 2 layers, once on the
               kernels and once on the plain PyTorch path: float32 compute
               on the f32 and int8 KV pools, bf16 compute on the bf16 pool.
-              Greedy tokens must agree (a divergence passes only at a
-              near-tie of the top-2 logits).
+              f32 and bf16 pools: greedy tokens must agree (a divergence
+              passes only at a near-tie of the top-2 logits). int8 pool:
+              the free runs' divergences are printed; the kernel path is
+              then fed the plain path's tokens (teacher forcing), and at
+              every step its logits must stay within the move one int8
+              quantum can cause, and its greedy token may differ only at
+              a top-2 gap within twice the logits' difference.
 5. paper    — the paper path, ``repro_torch.launch.paper_repro``, on the
               card: Table 1, Fig. 4 (serial ``moa_reduce``), Fig. 5 (LOA
               MRED, ``loa_add``, the LOA MOA through ``loa_reduce``) and the
@@ -95,8 +102,8 @@ KERNELS = {
                       ("dot_moa_stream", "dot_moa_wgmma", "dot_moa_tc",
                        "dot_moa_simt", "dot_moa_fold"), ("serve", "paper")),
     "flash_attention": Kernel("src/repro/kernels/flash_attention.py:86",
-                              "flash_attention", ("flash_kernel",),
-                              ("serve",)),
+                              "flash_attention",
+                              ("flash_wgmma", "flash_simt"), ("serve",)),
     "paged_attention": Kernel("src/repro/kernels/paged_attention.py:119",
                               "paged_attention", ("paged_kernel",),
                               ("serve",)),
@@ -489,10 +496,13 @@ def kernel_phase(torch, timer):
             summary["dot_moa"] = row          # decode's w_gate / w_up
 
     # ---- flash attention: prefill's causal softmax·V ----------------------
-    cases = [(1, 64, 64, 32, 8, 128, torch.bfloat16, True),
-             (1, 512, 512, 32, 8, 128, torch.bfloat16, True),
-             (2, 100, 100, 4, 2, 64, torch.float32, True),
-             (2, 37, 53, 4, 2, 64, torch.float32, False)]
+    # the served prefills (prompts padded to the buckets 16 / 32 / 64 / 96),
+    # S = 512 and 2048, a ragged 100; f32 rows for the parity phase's f32
+    # compute and a full (non-causal) Sq != Skv edge
+    cases = [(1, s, s, 32, 8, 128, torch.bfloat16, True)
+             for s in (16, 32, 64, 96, 100, 512, 2048)]
+    cases += [(2, 100, 100, 4, 2, 64, torch.float32, True),
+              (2, 37, 53, 4, 2, 64, torch.float32, False)]
     for B, Sq, Skv, H, Hk, D, dt, causal in cases:
         q = randn(B, Sq, H, D, dtype=dt)
         k, v = randn(B, Skv, Hk, D, dtype=dt), randn(B, Skv, Hk, D, dtype=dt)
@@ -501,33 +511,40 @@ def kernel_phase(torch, timer):
                                                 q_chunk=256, kv_chunk=512)
         got, want = run(), plain()
         torch.cuda.synchronize()
-        pairs = (Sq * (Sq + 1) // 2) if causal else Sq * Skv
+        pairs = (sum(min(i + 1, Skv) for i in range(Sq)) if causal
+                 else Sq * Skv)
         name = "bfloat16" if dt == torch.bfloat16 else "float32"
         b_ms, b_by = bound((2 * B * Sq * H + 2 * B * Skv * Hk) * D
                            * q.element_size(), 4.0 * B * H * D * pairs, name)
         if dt == torch.bfloat16:
             tol = bf16_ulp(float(want.float().abs().max()))
             why = ("1 bf16 ulp at max|ref|: f32 online softmax in both, "
-                   "other tile orders, one rounding to bf16")
+                   "other tile orders, p rounded to bf16 for p·v in the "
+                   "kernel, one rounding to bf16")
         else:
             tol, why = 1e-5, "f32 reassociation of dot products and sums"
-        lib = None
-        if causal and dt == torch.bfloat16:
-            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            lib = timer.device(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True))
+        # SDPA computes the same function (causal: top-left aligned, as
+        # here, Sq == Skv); its device time is the yardstick
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib = timer.device(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True))
+        p = fa.plan(B, Sq, Skv, H, Hk, D, dt, causal)
         row = check({
             "kernel": "flash_attention",
             "case": f"{name} {'causal' if causal else 'full'}",
             "shape": {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "Hk": Hk,
                       "D": D},
+            "plan": {"body": p.body, "tile": [p.block_q, p.block_kv],
+                     "blocks": p.blocks, "smem_kb": p.smem / 1024},
             "max_abs_err": err(got, want), "tol": tol, "tol_reason": why,
             "kernel_ms": timer(run),
             "device_ms": timer.device(run, "flash_attention"),
+            **own_kernels(timer, "flash_attention"),
             "plain_ms": timer(plain, 5),
-            "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib, "library": "scaled_dot_product_attention",
+            "bound_ms": b_ms, "bound_by": b_by,
         })
-        if Sq == 512:
+        if (Sq, dt) == (512, torch.bfloat16):
             summary["flash_attention"] = row
 
     # ---- paged attention: decode over block tables ------------------------
@@ -873,6 +890,45 @@ def profile_served(torch, engine, requests) -> None:
         emit(line)
 
 
+def profile_prefill(torch, model, params, n_tokens: int = 512) -> None:
+    """Device time by kernel of one ``model.prefill`` of an ``n_tokens``
+    prompt (random tokens, seed 3) under ``torch.profiler``, after one
+    unprofiled call: flash attention's share of a real prefill."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    toks = torch.randint(0, model.cfg.vocab, (1, n_tokens), device="cuda",
+                         generator=g, dtype=torch.int32)
+
+    def run():
+        with torch.no_grad():
+            return model.prefill(params, {"tokens": toks}, max_len=n_tokens,
+                                 prompt_len=n_tokens)
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        run()
+        torch.cuda.synchronize()
+        host_ms = (time.monotonic() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = {e.key: (e.device_time_total / 1e3, e.count)
+               for e in prof.key_averages() if e.device_type == cuda}
+    device_ms = sum(ms for ms, _ in kernels.values())
+    flash = [(ms, n) for key, (ms, n) in kernels.items()
+             if any(sym in key for sym in KERNELS["flash_attention"].symbols)]
+    flash_ms = sum(ms for ms, _ in flash)
+    emit({"phase": "profile", "what": f"prefill {n_tokens} tokens",
+          "n_layers": model.cfg.n_layers, "host_ms": host_ms,
+          "device_ms": device_ms, "flash_ms": flash_ms,
+          "flash_calls": sum(n for _, n in flash),
+          "flash_share": flash_ms / device_ms,
+          "top": [{"name": k[:80], "ms": ms, "calls": n} for k, (ms, n)
+                  in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]]})
+
+
 def serve_phase(torch):
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops
@@ -923,6 +979,7 @@ def serve_phase(torch):
                          block_size=16, device="cuda")
     engine.run([], warmup=True)
     profile_served(torch, engine, workload())
+    profile_prefill(torch, model, params)
     return launches
 
 
@@ -940,6 +997,165 @@ def _greedy_gap(torch, models, params, prompt, generated) -> dict:
             "forward_logit_diff": float((kernel - plain).abs().max())}
 
 
+def _replay(torch, engine, logits_by_step, forced=None) -> None:
+    """Wrap ``engine``'s sampling (the first token in ``_seed``, each decode
+    step's in ``_sample``): record every request's next-token logits by
+    ``(uid, step)`` and, with ``forced`` (``{uid: tokens}``), hand the
+    engine those tokens instead of its own choice (teacher forcing)."""
+    seed, sample = engine._seed, engine._sample
+
+    def _seed(slot, req, logits, *rest):
+        logits_by_step[(req.uid, 0)] = logits[0, -1].float().clone()
+        if forced is not None:     # one finite logit: greedy takes it
+            logits = torch.full_like(logits, -math.inf)
+            logits[0, -1, int(forced[req.uid][0])] = 0.0
+        return seed(slot, req, logits, *rest)
+
+    def _sample(logits, temps, greedy):
+        toks = sample(logits, temps, greedy)
+        for slot, inf in engine._inflight.items():
+            step = len(inf.generated)
+            logits_by_step[(inf.request.uid, step)] = \
+                logits[slot].float().clone()
+            if forced is not None:
+                toks[slot] = forced[inf.request.uid][step]
+        return toks
+
+    engine._seed, engine._sample = _seed, _sample
+
+
+def _int8_step_bound(torch, cfg, model, params, requests, tokens) -> dict:
+    """How far one int8 pool entry moving by one quantum can move any logit,
+    to first order, at each step of each request.
+
+    One quantum is ``q = max|x| / 127`` of the entry's (position, head)
+    row; ``q_max`` is the largest over the run (K and V of both layers, from
+    a no-cache forward of the plain path over prompt + tokens). The final
+    norm turns a residual move ``dr`` at a position of rms ``rms`` into
+    ``dz_i = u_i . (g * (dr - n (n . dr) / d)) / rms`` (``n`` the normed
+    residual, ``|n| = sqrt(d)``, ``u_i`` the unembedding row of logit i,
+    ``g`` the final-norm scale), so ``|dz_i| <= (|u_i . (g * dr)| + |z_i|
+    |dr| / sqrt(d)) / rms``. ``G = n_heads / n_kv_heads`` query heads read
+    one KV entry, each with weight ``p <= 1``:
+
+    * a V entry moves each head's output by ``p q`` along one dimension c,
+      which ``wo`` turns into ``dr = q sum_h p_h wo[h D + c]``: ``|dz_i| <=
+      G q (m_v + z_max w_row / sqrt(d)) / rms``, with ``m_v`` the largest
+      ``|u_i . (g * wo[row])|`` over every row of ``wo`` and every logit
+      and ``w_row`` the largest row norm of ``wo``;
+    * a K entry moves one score by ``|q_c| q / sqrt(D) <= a_max q /
+      sqrt(D)``, and the head's output by ``p (1 - p) |ds| |v_j - o| <=
+      k q`` with ``k = a_max v_max / (2 sqrt(D))`` (``|v_j - o| <= 2
+      (1 - p) v_max``; ``a_max`` the largest |query entry|, ``v_max`` the
+      largest value-row norm): ``|dz_i| <= G q k (m_k + z_max sigma /
+      sqrt(d)) / rms``, with ``m_k`` the largest ``|wo_h (g * u_i)|`` over
+      heads and logits and ``sigma`` the largest spectral norm of a head's
+      block ``wo_h``;
+    * an entry of layer 0 reaches the final norm through layer 1, whose
+      residual connections carry ``dr`` unchanged and whose attention and
+      MLP (projections at std fan_in**-0.5 after an RMSNorm) add responses
+      taken as no larger than ``dr`` and, like the rows of ``wo`` at this
+      initialization, uncorrelated with the unembedding: a factor 3.
+
+    ``m_v``, ``m_k``, ``w_row`` and ``sigma`` come from the weights,
+    ``q_max``, ``a_max`` and ``v_max`` from the run, ``z_max`` and ``rms``
+    from each step. Returns the parts and each request's ``rms`` by
+    step; :func:`_step_bound` puts them together."""
+    from repro_torch.models import transformer as T
+
+    G, D, d = cfg.n_heads // cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    g = params["final_norm"]["scale"].float()
+    wo = params["layers"]["attn"]["wo"].float().reshape(-1, d)  # (L·H·D, d)
+    emb = params["embed"]
+    u = emb.get("unembed", emb["table"]).float()                # (V, d)
+    m_v = m_k = 0.0
+    for i in range(0, u.shape[0], 16384):
+        proj = (wo * g) @ u[i:i + 16384].t()                    # (L·H·D, n)
+        m_v = max(m_v, float(proj.abs().max()))
+        m_k = max(m_k, float(proj.reshape(-1, D, proj.shape[1]).norm(
+            dim=1).max()))
+        del proj
+    parts = {"G": G, "D": D, "d": d, "m_v": m_v, "m_k": m_k,
+             "w_row": float(wo.norm(dim=-1).max()),
+             "sigma": float(torch.linalg.matrix_norm(
+                 wo.reshape(-1, D, d), ord=2).max()),
+             "layer_factor": 3}
+    got, rms = {}, {}
+    q_max = a_max = v_max = 0.0
+    qkv, norm = T._layer_qkv, T.rms_norm
+
+    def layer_qkv(c, lyr, h, positions):
+        out = qkv(c, lyr, h, positions)
+        got.setdefault("qkv", []).append(out)
+        return out
+
+    def rms_norm(p, x, **kw):
+        if p is params["final_norm"]:
+            got["final"] = x
+        return norm(p, x, **kw)
+
+    T._layer_qkv, T.rms_norm = layer_qkv, rms_norm
+    try:
+        for req in requests:
+            got.clear()
+            seq = list(req.prompt) + tokens[req.uid][:-1].tolist()
+            with torch.no_grad():
+                model.forward(params, {"tokens": torch.tensor(
+                    [seq], device=wo.device)})
+            r = got["final"][0, req.prompt_len - 1:].float()
+            rms[req.uid] = r.pow(2).mean(-1).sqrt().tolist()
+            for qh, k, v in got["qkv"]:
+                a_max = max(a_max, float(qh.abs().max()))
+                v_max = max(v_max, float(v.float().norm(dim=-1).max()))
+                q_max = max(q_max, float(k.abs().amax(-1).max()) / 127,
+                            float(v.abs().amax(-1).max()) / 127)
+    finally:
+        T._layer_qkv, T.rms_norm = qkv, norm
+    parts.update(q_max=q_max, a_max=a_max, v_max=v_max,
+                 k=a_max * v_max / (2 * math.sqrt(D)))
+    return {"parts": parts, "rms": rms}
+
+
+def _step_bound(parts: dict, z_max: float, rms: float) -> float:
+    """The one-quantum bound of :func:`_int8_step_bound` at one step."""
+    p = parts
+    root = math.sqrt(p["d"])
+    v_path = p["m_v"] + z_max * p["w_row"] / root
+    k_path = p["k"] * (p["m_k"] + z_max * p["sigma"] / root)
+    return p["layer_factor"] * p["G"] * p["q_max"] * max(v_path, k_path) / rms
+
+
+def _teacher_forced(torch, plain, kernel, bound) -> dict:
+    """Compare the plain path's and the teacher-forced kernel path's
+    next-token logits at every request's every step: fail where the
+    largest difference exceeds the one-quantum bound, or where the greedy
+    tokens differ at a top-2 gap over twice that difference."""
+    if set(plain) != set(kernel):
+        raise AssertionError(f"teacher-forced steps differ: "
+                             f"{sorted(set(plain) ^ set(kernel))}")
+    worst, flips, bad, least = None, [], [], math.inf
+    for (uid, step), zp in sorted(plain.items()):
+        zk = kernel[(uid, step)]
+        diff = float((zk - zp).abs().max())
+        lim = _step_bound(bound["parts"], float(zp.abs().max()),
+                          bound["rms"][uid][step])
+        top = torch.topk(zp, 2)
+        gap = float(top.values[0] - top.values[1])
+        row = {"uid": uid, "step": step, "diff": diff, "bound": lim,
+               "gap": gap}
+        least = min(least, lim)
+        if worst is None or diff / lim > worst["diff"] / worst["bound"]:
+            worst = row
+        if int(zk.argmax()) != int(top.indices[0]):
+            flips.append(row)
+            if gap > 2 * diff:
+                bad.append(row)
+        if diff > lim:
+            bad.append(row)
+    return {"steps": len(plain), "worst": worst, "greedy_flips": flips,
+            "failed": bad, "bound_min": least}
+
+
 def parity_phase(torch):
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops
@@ -947,17 +1163,23 @@ def parity_phase(torch):
     from repro_torch.serve import (ServeEngine, poisson_workload,
                                    shared_prefix_workload)
 
-    #: pool -> (compute type, KV cache type, near-tie bound). A divergence
-    #: passes only if the plain path's top-2 logits are closer than the
-    #: bound. float32: kernel and plain differ by f32 reassociation (~1e-5
-    #: relative after 2 layers) and the logits are O(1). bfloat16: each
-    #: projection's output may round one bf16 ulp apart (the kernels
-    #: phase's bound), and a few ulps of the hidden state through the
-    #: unembedding move a logit by ~0.01 -- the CPU tests' 0.05 bound.
-    #: (Under float32 compute the reference keeps a non-int8 pool in the
-    #: compute type, so the bf16 pool needs bf16 compute.)
+    #: pool -> (compute type, KV cache type, near-tie bound). f32 and
+    #: bf16 pools run free and a divergence passes only if the plain
+    #: path's top-2 logits are closer than the bound. float32: kernel and
+    #: plain differ by f32 reassociation (~1e-5 relative after 2 layers)
+    #: and the logits are O(1). bfloat16: each projection's output may
+    #: round one bf16 ulp apart (the kernels phase's bound), and a few ulps
+    #: of the hidden state through the unembedding move a logit by ~0.01 --
+    #: the CPU tests' 0.05 bound. (Under float32 compute the reference
+    #: keeps a non-int8 pool in the compute type, so the bf16 pool needs
+    #: bf16 compute.) int8: the two paths quantize K and V from f32 values
+    #: that differ by reassociation, so an entry near a rounding boundary
+    #: lands one quantum apart and a free run can split at any near-tie;
+    #: the decision is the teacher-forced comparison against the one-step
+    #: bound of ``_int8_step_bound`` (the free runs' divergences are still
+    #: printed).
     pools = {"f32": ("float32", "bfloat16", 1e-3),
-             "int8": ("float32", "int8", 1e-3),
+             "int8": ("float32", "int8", None),
              "bf16": ("bfloat16", "bfloat16", 0.05)}
     for pool, (compute, kv, gap_tol) in pools.items():
         cfg = dataclasses.replace(
@@ -977,18 +1199,25 @@ def parity_phase(torch):
                     n_requests=6, vocab=cfg.vocab, rate_rps=50.0,
                     n_prefixes=2, prefix_len=32, suffix_len_range=(1, 16),
                     gen_len_range=(8, 16), seed=2)
-            runs = {}
-            for path, c in (("kernel", cfg), ("torch", plain_cfg)):
+
+            def serve(path, c, logits=None, forced=None):
                 engine = ServeEngine(build_model(c), params, n_slots=4,
                                      max_len=96, paged=True, block_size=16,
                                      device="cuda")
+                if logits is not None:
+                    _replay(torch, engine, logits, forced)
                 ops.reset_launch_counts()
-                runs[path] = engine.run(workload())
+                out = engine.run(workload())
                 counts = ops.launch_counts()
                 served = [counts[k] for k in path_kernels("serve")]
                 if (path == "kernel") != all(served) or (
                         path == "torch" and any(counts.values())):
                     raise AssertionError(f"{path} path launches: {counts}")
+                return out
+
+            plain_logits = {} if gap_tol is None else None
+            runs = {"torch": serve("torch", plain_cfg, plain_logits),
+                    "kernel": serve("kernel", cfg)}
             divergences = []
             for req, a, b in zip(workload(), runs["torch"][0],
                                  runs["kernel"][0]):
@@ -1001,16 +1230,37 @@ def parity_phase(torch):
                                     req.prompt, a.tokens[:i])
                 gap = probe["gap"]
                 divergences.append({"uid": a.uid, "index": i, **probe})
-                if gap > gap_tol:
+                if gap_tol is not None and gap > gap_tol:
                     raise AssertionError(
                         f"parity {pool}/{wl}: uid {a.uid} diverges at token "
                         f"{i} with top-2 gap {gap} > {gap_tol} ({probe})")
-            emit({"phase": "parity", "pool": pool, "workload": wl,
-                  "n_layers": 2, "compute_dtype": compute,
-                  "requests": len(runs["torch"][0]),
-                  "identical": not divergences, "divergences": divergences,
-                  "gap_tol": gap_tol,
-                  "prefix_hits": runs["kernel"][1]["paged"]["prefix_hits"]})
+            line = {"phase": "parity", "pool": pool, "workload": wl,
+                    "n_layers": 2, "compute_dtype": compute,
+                    "requests": len(runs["torch"][0]),
+                    "identical": not divergences, "divergences": divergences,
+                    "gap_tol": gap_tol,
+                    "prefix_hits": runs["kernel"][1]["paged"]["prefix_hits"]}
+            if gap_tol is None:
+                tokens = {r.uid: r.tokens for r in runs["torch"][0]}
+                kernel_logits = {}
+                serve("kernel", cfg, kernel_logits, forced=tokens)
+                bound = _int8_step_bound(torch, cfg, build_model(plain_cfg),
+                                         params, workload(), tokens)
+                tf = _teacher_forced(torch, plain_logits, kernel_logits,
+                                     bound)
+                line["teacher_forced"] = {
+                    "steps": tf["steps"], "worst": tf["worst"],
+                    "greedy_flips": tf["greedy_flips"],
+                    "bound_min": tf["bound_min"],
+                    "bound_parts": bound["parts"],
+                    "rms_min": min(min(r) for r in bound["rms"].values())}
+                emit(line)
+                if tf["failed"]:
+                    raise AssertionError(f"parity {pool}/{wl}: teacher-forced"
+                                         f" logits out of bound at "
+                                         f"{tf['failed'][:5]}")
+            else:
+                emit(line)
         del params
         torch.cuda.empty_cache()
 

@@ -1,9 +1,10 @@
-// Pieces shared by the dot_moa bodies (dot_moa_{stream,tc,simt}.cuh): the
-// accumulator arithmetic, cp.async with zero fill, and the cursor that walks
-// K stage by stage without ever letting a stage cross a block_k boundary.
+// Pieces shared by the dot_moa bodies (dot_moa_{stream,tc,simt,wgmma}.cuh):
+// the accumulator arithmetic and the cursor that walks K stage by stage
+// without ever letting a stage cross a block_k boundary (cp.async and the
+// wgmma helpers are in sm90.cuh).
 #pragma once
 
-#include "common.cuh"
+#include "sm90.cuh"
 
 namespace dm {
 
@@ -80,26 +81,6 @@ template <> struct Unpack16<int8_t, int> {
         o[4 * i + j] = static_cast<int>(w[i] << (24 - 8 * j)) >> 24;   // sign-extend byte j
   }
 };
-
-// ---- cp.async (sm_80+) ----------------------------------------------------
-// ``src_bytes`` < the copy size fills the rest of the destination with zeros:
-// that is how a stage is padded past a slice's end or the matrix edge.
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // ---- the K walk -----------------------------------------------------------
 // A block walks [k0, stop) in stages of ``step`` rows of K. A stage never

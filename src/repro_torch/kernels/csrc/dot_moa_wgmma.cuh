@@ -32,8 +32,6 @@
 // K-major only, and B is N-major (a row of the weight is a row of K).
 #pragma once
 
-#include <cstdint>
-
 #include "dot_moa_common.cuh"
 
 namespace dm {
@@ -49,47 +47,6 @@ template <bool ONE> __host__ __device__ constexpr int wg_stages() { return ONE ?
 // + 1024: the swizzle atoms (8 rows of 128 bytes) start on 1024 bytes
 template <bool ONE> __host__ __device__ constexpr size_t wg_smem() {
   return size_t(wg_stages<ONE>()) * WG_STAGE + 1024;
-}
-
-// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
-// byte offset (unused by these shapes), stride byte offset between groups
-// of 8 rows, in 16-byte units.
-__device__ __forceinline__ uint64_t wg_desc(const void* p, unsigned lbo, unsigned sbo) {
-  return uint64_t((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
-         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (uint64_t(1) << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// the ring's generic-proxy writes (cp.async, stores) made visible to wgmma
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// d (64 x 64 f32, the warpgroup's fragment) = A . B + (scale_d ? d : 0)
-__device__ __forceinline__ void wgmma_64x64(float (&d)[32], uint64_t da, uint64_t db,
-                                            int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31""}, %32, %33, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 template <bool ONE>
@@ -183,8 +140,8 @@ dot_moa_wgmma(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restri
     wg_fence();
 #pragma unroll
     for (int ks = 0; ks < WG_BK / 16; ++ks)   // 16 values of K: 32 bytes along A's rows,
-      wgmma_64x64(part, wg_desc(As + ks * 32, 16, 1024),   // 16 rows of B
-                  wg_desc(Bs + ks * 2048, WG_BK * 128, 1024), fresh && ks == 0 ? 0 : 1);
+      wgmma_64x64_ss<1>(part, wg_desc(As + ks * 32, 16, 1024),   // 16 rows of B
+                        wg_desc(Bs + ks * 2048, WG_BK * 128, 1024), fresh && ks == 0 ? 0 : 1);
     wg_commit();
     wg_wait_all();
     fresh = false;

@@ -422,3 +422,19 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                              torch.zeros((1,), dtype=torch.int32))
     for counter in tops.launch_counts().values():
         assert counter == 0
+
+
+@pytest.mark.parametrize("d", [8, 24, 72, 136])
+def test_flash_wrapper_refuses_bf16_head_dims_off_16(d):
+    """The bf16 body steps D by wgmma's k16: a head_dim that is not a
+    multiple of 16 (or above 128) raises before any launch or device
+    check; an f32 one of 24 or 72 reaches the device check."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    q = torch.zeros((1, 4, 2, d), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        flash_attention_cuda(q, q, q)
+    if d % 4 == 0 and d <= 128:
+        with pytest.raises(ValueError, match="CUDA"):
+            flash_attention_cuda(q.float(), q.float(), q.float())
+    assert tops.launch_counts()["flash_attention"] == 0
