@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--log PATH]
+    python3 chip_smoke.py [--log PATH] [--parent DIR]
 
-``--log`` also appends every JSON line to a file.
+``--log`` also appends every JSON line to a file. ``--parent`` names a
+checkout of the parent tree (``git archive`` unpacked): its paged-attention
+kernel is built from its own sources and timed beside every paged row, and
+a second ``decode_long`` line serves the same requests through it.
 
 Phases, in order; each prints JSON lines and any failure ends the run with
 a non-zero exit:
@@ -20,12 +23,15 @@ a non-zero exit:
               (where one PyTorch call computes the same function) the
               library call's time, beside the least time the card could
               take (``bound_ms``); the kernel's and the library call's
-              also as device time alone. Each ``dot_moa`` and
-              ``flash_attention`` row also names its plan (body, tile,
-              blocks) and the CUDA functions the call launched with the
-              device time of each, and fails if any is not one of the
-              kernel's own; a last row gives the wrapper's host time per
-              call.
+              also as device time alone. Each ``dot_moa``,
+              ``flash_attention`` and ``paged_attention`` row also names its
+              plan (body, tile, splits, blocks) and the CUDA functions the
+              call launched with the device time of each, and fails if any
+              is not one of the kernel's own; paged rows also fail on a
+              read of a dead page (NaN-poisoned) or two calls that differ
+              in a bit. Paged rows run at the served decode, long context
+              (to 4096 tokens, and 16 slots to 8192) and the T = 4 verify
+              shape. A last row gives the wrapper's host time per call.
 3. serve    — llama3-8b at full width and full depth (bf16 weights from
               the port's own initializer, seed 0) served through the
               paged engine: 8 Poisson requests into 4 slots. Every kernel
@@ -33,8 +39,11 @@ a non-zero exit:
               is served again, by a fresh engine (an empty prefix cache),
               with each tick under torch.profiler: device
               time by kernel of the decode and admission ticks, against
-              the host clock; and one 512-token prefill of the same model
-              under torch.profiler (flash attention's share of it).
+              the host clock; one 512-token prefill of the same model
+              under torch.profiler (flash attention's share of it); and
+              ``decode_long``: an engine at max_len 4096 serving 4 greedy
+              requests of 3000-4000 prompt tokens, 8 new tokens each, every
+              tick profiled (paged attention's share of a decode tick).
 4. parity   — the same engine at full width with 2 layers, once on the
               kernels and once on the plain PyTorch path: float32 compute
               on the f32 and int8 KV pools, bf16 compute on the bf16 pool.
@@ -105,7 +114,7 @@ KERNELS = {
                               "flash_attention",
                               ("flash_wgmma", "flash_simt"), ("serve",)),
     "paged_attention": Kernel("src/repro/kernels/paged_attention.py:119",
-                              "paged_attention", ("paged_kernel",),
+                              "paged_attention", ("paged_split",),
                               ("serve",)),
     "moa_reduce": Kernel("src/repro/kernels/moa_reduce.py:47", "moa_reduce",
                          ("segment_sums", "fold_clusters"), ("paper",)),
@@ -118,6 +127,41 @@ KERNELS = {
 
 def path_kernels(path: str) -> list:
     return [name for name, k in KERNELS.items() if path in k.paths]
+
+
+#: the CUDA function of the parent tree's paged-attention kernel
+#: (``--parent``), timed beside each paged row
+PARENT_PAGED_SYMBOLS = ("paged_kernel",)
+
+
+def parent_paged(root: str):
+    """``paged_attention_cuda`` of the checkout at ``root`` (``--parent``),
+    with the same signature as this tree's: its ``kernels/_build.py`` and
+    ``kernels/paged_attention.py`` loaded under other names, so that it
+    builds its own ``csrc`` into ``root/build``. Returns the wrapper and
+    the nvcc build record."""
+    import importlib.util
+
+    from repro_torch import kernels as pkg
+
+    kdir = os.path.join(os.path.abspath(root), "src", "repro_torch",
+                        "kernels")
+
+    def load(name, path):
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    build = load("parent_repro_torch_build", os.path.join(kdir, "_build.py"))
+    built = build.build(["paged_attention"])["paged_attention"]
+    own, pkg._build = pkg._build, build   # its ``from ... import _build``
+    try:
+        mod = load("parent_paged_attention",
+                   os.path.join(kdir, "paged_attention.py"))
+    finally:
+        pkg._build = own
+    return mod.paged_attention_cuda, built
 
 
 #: the reference example's deterministic values (examples/paper_repro.py
@@ -183,10 +227,12 @@ class Timer:
     def evict(self) -> None:
         self.flush.max()
 
-    def device(self, fn, kernel: str = None, iters: int = 10) -> float:
+    def device(self, fn, kernel: str = None, iters: int = 10,
+               symbols: tuple = None) -> float:
         """Mean device time (ms) per call of ``kernel``'s CUDA functions
         that ``fn`` launches (``kernel=None``: of every one but the
-        flush's, as for a library call), from ``torch.profiler``'s kernel
+        flush's, as for a library call; ``symbols`` names other CUDA
+        functions, as the parent tree's), from ``torch.profiler``'s kernel
         events, each call after the same L2 flush. This is the device work
         alone: the event pair of ``__call__`` also holds the host time of
         the call when it takes longer than the flush before it."""
@@ -196,7 +242,9 @@ class Timer:
         fn()
         torch.cuda.synchronize()
         cuda = torch.autograd.DeviceType.CUDA
-        symbols = KERNELS[kernel].symbols if kernel else ()
+        if symbols is None:
+            symbols = KERNELS[kernel].symbols if kernel else ()
+        kernel = kernel or (symbols[0] if symbols else None)
         for _ in range(3):   # the profiler now and then returns no events
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -382,7 +430,10 @@ def host_path(torch, iters: int = 1000) -> dict:
     return out
 
 
-def kernel_phase(torch, timer):
+def kernel_phase(torch, timer, parent=None):
+    """The served path's kernels against their plain versions; ``parent``:
+    the parent tree's ``paged_attention_cuda``, timed beside each paged
+    row. Returns the summary row of each kernel."""
     from repro_torch.kernels import dot_moa as dm
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
@@ -548,12 +599,27 @@ def kernel_phase(torch, timer):
             summary["flash_attention"] = row
 
     # ---- paged attention: decode over block tables ------------------------
+    # the served decode (depths 5..511), the same with an int8 pool, long
+    # context (depths to 4095, and 16 slots to 8191), the verify shape (T 4
+    # over ~2-4k tokens) and an f32 instance; H32/8 D128 bs16 unless said;
+    # two edges: rows of 384 and 144 bytes (copied in 16-byte chunks that
+    # do not divide a warp), G 3, and 16 query rows of a head_dim that
+    # takes two 8-row tiles
+    long = (1023, 2047, 3071, 4095)
     cases = [(4, 1, 32, 8, 128, 16, (5, 70, 200, 511), torch.bfloat16,
               torch.bfloat16),
              (4, 1, 32, 8, 128, 16, (5, 70, 200, 511), torch.bfloat16,
               torch.int8),
              (4, 4, 4, 2, 64, 16, (0, 13, 40, 60), torch.float32,
-              torch.float32)]
+              torch.float32),
+             (4, 1, 32, 8, 128, 16, long, torch.bfloat16, torch.bfloat16),
+             (4, 1, 32, 8, 128, 16, long, torch.bfloat16, torch.int8),
+             (16, 1, 32, 8, 128, 16, (2047, 4095, 6143, 8191) * 4,
+              torch.bfloat16, torch.bfloat16),
+             (4, 4, 32, 8, 128, 16, (2044, 2732, 3412, 4092), torch.bfloat16,
+              torch.bfloat16),
+             (2, 2, 12, 4, 96, 16, (100, 700), torch.bfloat16, torch.float32),
+             (2, 4, 16, 4, 36, 8, (10, 60), torch.float32, torch.float32)]
     for B, T, H, Hk, D, bs, starts, qdt, pdt in cases:
         n_blocks = (max(starts) + T - 1) // bs + 1
         n_blocks = 1 << (n_blocks - 1).bit_length()   # a live-block bucket
@@ -580,14 +646,20 @@ def kernel_phase(torch, timer):
         plain = lambda: ref.paged_attention_ref(q, kp, vp, tables, start,
                                                 dequant_dtype=qdt, **scales)
         got, want = run(), plain()
+        if not torch.equal(run(), got):
+            raise AssertionError("paged_attention: two calls gave other bits")
         # pages past a slot's deepest query must never be read: point the
-        # dead table entries at a page of NaNs and expect the same bits
-        if pdt != torch.int8:
+        # dead table entries at a page of NaNs (an int8 pool: NaN scales)
+        # and expect the same bits
+        if pdt == torch.int8:
+            scales["k_scale"][-1] = scales["v_scale"][-1] = float("nan")
+        else:
             kp[-1], vp[-1] = float("nan"), float("nan")
-            poisoned = torch.where(tables == 0, n_phys - 1, tables)
-            if not torch.equal(pa.paged_attention_cuda(q, kp, vp, poisoned,
-                                                       start), got):
-                raise AssertionError("paged_attention read a dead page")
+        poisoned = torch.where(tables == 0, n_phys - 1, tables)
+        if not torch.equal(pa.paged_attention_cuda(
+                q, kp, vp, poisoned, start, dequant_dtype=qdt, **scales),
+                got):
+            raise AssertionError("paged_attention read a dead page")
         torch.cuda.synchronize()
         tokens = sum(s + T for s in starts)
         kv_bytes = tokens * Hk * D * 2 * kp.element_size() + (
@@ -599,22 +671,38 @@ def kernel_phase(torch, timer):
         if qdt == torch.bfloat16:
             tol = bf16_ulp(float(want.float().abs().max()))
             why = ("1 bf16 ulp at max|ref|: the same dequantized KV, f32 "
-                   "online vs one-shot softmax, one rounding to bf16")
+                   "split online vs one-shot softmax, one rounding to bf16")
         else:
-            tol, why = 1e-5, "f32 online vs one-shot softmax reassociation"
-        row = check({
+            tol = 1e-5
+            why = "f32 split online vs one-shot softmax reassociation"
+        p = pa.plan(B, T, H, Hk, D, bs, n_blocks, pdt)
+        row = {
             "kernel": "paged_attention",
             "case": f"pool={str(pdt)[6:]} T={T}",
             "shape": {"B": B, "T": T, "H": H, "Hk": Hk, "D": D, "bs": bs,
                       "n_blocks": n_blocks, "start": list(starts)},
+            "plan": {"splits": p.splits, "pages": p.pages,
+                     "warps": p.warps, "stages": p.stages, "rows": p.rows,
+                     "cols": p.cols, "blocks": p.blocks,
+                     "blocks_per_sm": p.blocks_per_sm,
+                     "smem_kb": p.smem / 1024,
+                     "workspace_mb": p.workspace / 1e6},
             "max_abs_err": err(got, want), "tol": tol, "tol_reason": why,
             "kernel_ms": timer(run),
             "device_ms": timer.device(run, "paged_attention"),
+            **own_kernels(timer, "paged_attention"),
             "plain_ms": timer(plain, 5),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-        })
-        if pdt == torch.bfloat16:
-            summary["paged_attention"] = row
+        }
+        if parent is not None:
+            old = lambda: parent(q, kp, vp, tables, start, dequant_dtype=qdt,
+                                 **scales)
+            row.update(parent_max_abs_err=err(old(), want),
+                       parent_kernel_ms=timer(old),
+                       parent_device_ms=timer.device(
+                           old, symbols=PARENT_PAGED_SYMBOLS))
+        check(row)
+        summary.setdefault("paged_attention", row)   # the served decode
     return summary
 
 
@@ -818,7 +906,7 @@ def paper_kernel_phase(torch, timer):
 # ---------------------------------------------------------------------------
 
 
-def profile_served(torch, engine, requests) -> None:
+def profile_served(torch, engine, requests, label: str = "served") -> None:
     """Device time by kernel of the ticks of a served run, each tick under
     its own ``torch.profiler``, against the host clock.
 
@@ -826,9 +914,12 @@ def profile_served(torch, engine, requests) -> None:
     decode tick attends over the depths the workload really reaches. Ticks
     fall into two classes: decode only, and admission (one or more
     prefills, then the decode step). Each class prints one line with its
-    mean per tick: host time, kernel time, idle share, the ten heaviest
-    kernels, and for decode the attended KV lengths (``prompt + generated``
-    per live slot) and live-block buckets. The profiler's own launch
+    mean per tick: host time, kernel time, idle share, the twelve heaviest
+    kernels, ``paged_attention``'s device time and share, and for decode
+    the attended KV lengths (``prompt + generated`` per live slot) and
+    live-block buckets. Lines are named ``{label} decode ticks`` and
+    ``{label} admission ticks``; the decode line of ``label``
+    ``decode_long`` is named ``decode_long``. The profiler's own launch
     overhead is inside the host time; its setup and read-out are not."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -872,13 +963,22 @@ def profile_served(torch, engine, requests) -> None:
     engine.finish_run(results)
     for what, c in classes.items():
         n = c["ticks"]
-        rows = sorted(c["kernels"].items(), key=lambda kv: -kv[1][0])[:10]
-        line = {"phase": "profile", "what": f"served {what} ticks",
+        rows = sorted(c["kernels"].items(), key=lambda kv: -kv[1][0])[:12]
+        paged = [(ms, cnt) for k, (ms, cnt) in c["kernels"].items()
+                 if any(sym in k for sym in PARENT_PAGED_SYMBOLS
+                        + KERNELS["paged_attention"].symbols)]
+        paged_ms = sum(ms for ms, _ in paged) / n
+        name = (label if (label, what) == ("decode_long", "decode")
+                else f"{label} {what} ticks")
+        line = {"phase": "profile", "what": name,
                 "ticks": n, "prefills": c["prefills"],
                 "prefix_hits": engine._prefix_hits,
                 "host_ms": c["host_ms"] / n, "device_ms": c["device_ms"] / n,
                 "device_idle_share": max(0.0, 1.0 - c["device_ms"]
                                          / c["host_ms"]),
+                "paged_ms": paged_ms,
+                "paged_calls": sum(cnt for _, cnt in paged) / n,
+                "paged_share": paged_ms / (c["device_ms"] / n),
                 "top": [{"name": k[:80], "ms": ms / n, "calls": cnt / n}
                         for k, (ms, cnt) in rows]}
         if what == "decode":
@@ -929,7 +1029,41 @@ def profile_prefill(torch, model, params, n_tokens: int = 512) -> None:
                   in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]]})
 
 
-def serve_phase(torch):
+def decode_long(torch, model, params, parent=None) -> None:
+    """The ``decode_long`` profile line: one engine at ``max_len`` 4096 with
+    4 slots serves 4 seeded greedy requests of 3000-4000 prompt tokens and
+    8 new tokens each, every tick profiled (so the decode ticks attend over
+    3000-4000 tokens a slot). With ``parent`` (``--parent``) the same
+    requests are then served by a fresh engine whose paged attention is the
+    parent tree's kernel (``decode_long parent``)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeEngine, poisson_workload
+
+    def workload():
+        return poisson_workload(n_requests=4, vocab=model.cfg.vocab,
+                                rate_rps=1000.0,
+                                prompt_len_range=(3000, 4000),
+                                gen_len_range=(8, 8), seed=4)
+
+    def serve(label):
+        engine = ServeEngine(model, params, n_slots=4, max_len=4096,
+                             paged=True, block_size=16, device="cuda")
+        engine.run([], warmup=True)
+        profile_served(torch, engine, workload(), label=label)
+        del engine
+        torch.cuda.empty_cache()
+
+    serve("decode_long")
+    if parent is not None:
+        own = ops.paged_attention_cuda
+        ops.paged_attention_cuda = parent
+        try:
+            serve("decode_long parent")
+        finally:
+            ops.paged_attention_cuda = own
+
+
+def serve_phase(torch, parent=None):
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops
     from repro_torch.models.api import build_model
@@ -979,7 +1113,10 @@ def serve_phase(torch):
                          block_size=16, device="cuda")
     engine.run([], warmup=True)
     profile_served(torch, engine, workload())
+    del engine
+    torch.cuda.empty_cache()
     profile_prefill(torch, model, params)
+    decode_long(torch, model, params, parent)
     return launches
 
 
@@ -1342,6 +1479,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log", default="",
                     help="also append every JSON line to this file")
+    ap.add_argument("--parent", default="",
+                    help="a checkout of the parent tree: its paged-attention "
+                         "kernel is built and timed beside each paged row "
+                         "and in a second decode_long line")
     args = ap.parse_args()
 
     import torch
@@ -1376,12 +1517,20 @@ def main() -> int:
                              "ptxas": ptxas_report(b["log"])}
                       for name, b in built.items()}})
 
+    parent = None
+    if args.parent:
+        t0 = time.monotonic()
+        parent, pbuilt = parent_paged(args.parent)
+        emit({"phase": "build", "parent": args.parent,
+              "seconds": time.monotonic() - t0,
+              "ptxas": ptxas_report(pbuilt["log"])})
+
     timer = Timer(torch)
-    rows = kernel_phase(torch, timer)
+    rows = kernel_phase(torch, timer, parent)
     rows.update(paper_kernel_phase(torch, timer))
     emit({"phase": "kernels", "kernel": "dot_moa", "case": "host path",
           "iters": 1000, **host_path(torch)})
-    served = serve_phase(torch)
+    served = serve_phase(torch, parent)
     parity_phase(torch)
     paper = paper_phase(torch)
 

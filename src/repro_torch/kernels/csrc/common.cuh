@@ -23,12 +23,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(x);
 }
 
-// Round an f32 value through the dtype ``dt`` and back (the int8 pool's
-// dequantization contract: the value the gather path would materialize).
-__device__ __forceinline__ float round_through(float x, int dt) {
-  return dt == DT_BF16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
-}
-
 // Lower-part-OR fold of two int32 words, the reference's _loa_combine
 // (src/repro/kernels/loa_add.py:32-41): OR of the low l bits, AND of bit
 // l-1 as carry-in, exact add of the high parts; l == 0 is the exact add.

@@ -6,34 +6,235 @@ Replaces the TPU kernel
 ``paged_flash_decode`` / ``paged_flash_prefill`` instances): for each slot,
 ``T`` queries at ``start[b] .. start[b]+T-1`` attend causally over the pages
 named by ``block_tables[b]``, with int8 pools dequantized in registers
-through ``dequant_dtype``. ``paged_attention_cuda.launches`` counts launches.
+through ``dequant_dtype``. :func:`plan` splits each slot's page walk over
+several blocks from the shapes alone; the blocks' partials are folded in
+split order inside the launch. ``paged_attention_cuda.launches`` counts
+launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["paged_attention_cuda"]
+__all__ = ["Plan", "plan", "live_pages", "paged_attention_cuda"]
 
-_MAX_SMEM = 227 * 1024       # dynamic shared memory a block may use on sm_90
+#: streaming multiprocessors of the H100
+SMS = 132
+#: shared memory of one SM, and the most one block may take (sm_90)
+SMEM_SM = 228 * 1024
+MAX_SMEM = 227 * 1024
+#: the warps' page rings of a block stay under this, so that three blocks
+#: share an SM where pages are small (measured on the H100: more resident
+#: warps beat deeper rings)
+RING_BUDGET = 64 * 1024
+#: resident blocks an SM holds by registers (``__launch_bounds__`` in the
+#: source, by query rows a block)
+REG_BLOCKS = {4: 3, 8: 3, 16: 2}
+#: most splits of one slot (the combine's statistics live in shared
+#: memory; ``MAX_SPLITS`` in the source)
+S_MAX = 64
+#: head dims a warp row group covers (``D_MAX``), and a row group's p
+#: buffer (``PBUF``)
+_D_MAX = 128
+_PBUF = 64 + 16
+
+
+def _row_groups(rows: int) -> int:
+    """Row groups of a warp (``row_groups`` in the source): 16 query rows
+    take two groups of 16 lanes, 8 rows each."""
+    return 2 if rows == 16 else 1
+
+
+def _cols(rows: int) -> int:
+    """Page positions of one online update: ``npart`` scores a lane (64,
+    or 32 at 16 rows) over the rows of its row group."""
+    return (32 if rows == 16 else 64) * _row_groups(rows) // rows
+
+
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def live_pages(start: int, T: int, bs: int, n_blocks: int) -> int:
+    """Pages a slot's walk reads: those up to its deepest query
+    ``start + T - 1``, within the table's ``n_blocks``."""
+    deepest = start + T - 1
+    return 0 if deepest < 0 else min(n_blocks, deepest // bs + 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one call runs. Block ``(s, h * row_tiles + rt, b)`` of ``grid``
+    walks pages ``[s * pages, (s + 1) * pages)`` of slot ``b``, KV head
+    ``h``, for query rows ``rt * rows ..`` (rows ordered ``(t, g)``); its
+    ``warps`` warps take the pages in turn, each through a ring of
+    ``stages`` page slots, and the online update runs every ``cols`` page
+    positions. A split past a slot's live pages returns at once."""
+
+    splits: int
+    pages: int
+    warps: int
+    stages: int
+    rows: int
+    row_tiles: int
+    cols: int
+    smem: int            # dynamic shared memory of a block, bytes
+    workspace: int       # f32 partials, bytes (0 with one split)
+    tickets: int         # int32 tickets (0 with one split)
+    grid: Tuple[int, int, int]
+    blocks_per_sm: int   # resident blocks an SM (shared memory, registers)
+
+    @property
+    def threads(self) -> int:
+        return 32 * self.warps
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+    @property
+    def wave(self) -> int:
+        """Blocks the card holds at once."""
+        return SMS * self.blocks_per_sm
+
+    def live_splits(self, n_live: int) -> int:
+        """Splits that walk a page of a slot with ``n_live`` live pages (at
+        least one: a slot with none writes zeros)."""
+        return max(1, -(-n_live // self.pages))
+
+    def split_pages(self, s: int, n_live: int) -> range:
+        return range(s * self.pages, min((s + 1) * self.pages, n_live))
+
+    def warp_pages(self, s: int, w: int, n_live: int) -> range:
+        r = self.split_pages(s, n_live)
+        return range(r.start + w, r.stop, self.warps)
+
+
+def _layout(item: int, quant: bool, bs: int, D: int, rows: int, warps: int,
+            stages: int) -> int:
+    """Shared memory of a block (``layout`` in the source)."""
+    slot = _align16(2 * bs * D * item + (8 * bs if quant else 0))
+    ring = warps * stages * slot
+    comb = warps * (rows * D + 2 * rows) * 4
+    off_p = _align16(max(ring, comb)) + rows * D * 4
+    off_w = off_p + warps * 2 * _row_groups(rows) * _PBUF * 4
+    return off_w + (2 * S_MAX * rows + 2 * rows) * 4
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(B: int, T: int, H: int, Hk: int, D: int, bs: int, n_blocks: int,
+         pool_dtype: torch.dtype) -> Plan:
+    """The split walk of ``q (B, T, H, D)`` over pools ``(n_phys, bs, Hk,
+    D)`` of ``pool_dtype`` and a table ``n_blocks`` wide. It reads no
+    ``start`` and no table (nothing is synchronised): the live pages are
+    found on the device.
+
+    * ``rows``: the query rows of a block, 4, 8 or 16 (the least that holds
+      ``R = T * H / Hk``; 16 needs ``D % 8 == 0``, else 8; more rows take
+      several row tiles); ``cols``: page positions per online update
+      (16 at 4 rows, 8 at 8, 4 at 16).
+    * ``warps`` 4 (2 or 1 where two page slots a warp do not fit), and the
+      ring depth ``stages``: the most of 4, 3 whose rings stay within
+      ``RING_BUDGET``, else 2.
+    * ``pages``: the least power of two from one page a warp whose grid
+      stays within two resident waves (``2 * SMS * blocks_per_sm``
+      blocks, counting every split of a full-depth table), raised where
+      ``n_blocks`` would need more than ``S_MAX`` splits.
+
+    Raises ``ValueError`` for a shape the kernel does not take: ``D`` a
+    multiple of 4 up to 128, or a block over 227 KB of shared memory."""
+    if min(B, T, H, Hk, D, bs, n_blocks) < 1 or H % Hk:
+        raise ValueError(f"paged_attention: no plan for B={B} T={T} H={H} "
+                         f"Hk={Hk} D={D} bs={bs} n_blocks={n_blocks}")
+    if D % 4 or D > _D_MAX:
+        raise ValueError(f"paged_attention: head_dim {D} must be a multiple "
+                         f"of 4 and at most {_D_MAX}")
+    if pool_dtype not in (torch.float32, torch.bfloat16, torch.int8):
+        raise TypeError(f"paged_attention: no kernel for pool {pool_dtype}")
+    R = T * (H // Hk)
+    rows = next((r for r in (4, 8, 16) if r >= R), 16)
+    if rows == 16 and D % 8:
+        rows = 8
+    row_tiles = -(-R // rows)
+    item = pool_dtype.itemsize
+    quant = pool_dtype == torch.int8
+    slot = _align16(2 * bs * D * item + (8 * bs if quant else 0))
+    for warps in (4, 2, 1):
+        stages = next((n for n in (4, 3) if warps * n * slot <= RING_BUDGET),
+                      2)
+        smem = _layout(item, quant, bs, D, rows, warps, stages)
+        if smem <= MAX_SMEM:
+            break
+    else:
+        raise ValueError(f"paged_attention: T={T}, G={H // Hk}, D={D}, "
+                         f"bs={bs} needs {smem} B of shared memory per block "
+                         f"(at most {MAX_SMEM})")
+    per_sm = min(SMEM_SM // (smem + 1024), 2048 // (32 * warps),
+                 REG_BLOCKS[rows])
+    heads = B * Hk * row_tiles
+    pages = warps
+    while heads * -(-n_blocks // pages) > 2 * SMS * per_sm:
+        pages *= 2
+    pages = max(pages, -(-n_blocks // S_MAX))
+    splits = -(-n_blocks // pages)
+    grid = (splits, Hk * row_tiles, B)
+    ws = heads * splits * (rows * D + 2 * rows) * 4 if splits > 1 else 0
+    return Plan(splits=splits, pages=pages, warps=warps, stages=stages,
+                rows=rows, row_tiles=row_tiles, cols=_cols(rows),
+                smem=smem, workspace=ws,
+                tickets=heads if splits > 1 else 0, grid=grid,
+                blocks_per_sm=per_sm)
 
 
 @functools.lru_cache(maxsize=None)
-def _fns():
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    run = _build.load_function(
+def _fn():
+    p = ctypes.c_void_p
+    return _build.load_function(
         "paged_attention", "repro_paged_attention",
-        [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, i, i, p])
-    smem = _build.load_function("paged_attention",
-                                "repro_paged_attention_smem", [i] * 5)
-    smem.restype = ctypes.c_longlong
-    return run, smem
+        [p] * 11 + [ctypes.c_float, p])
+
+
+@functools.lru_cache(maxsize=1024)
+def _launch(B, T, H, Hk, D, bs, n_blocks, q_dtype, pool_dtype, dequant_dtype,
+            aligned16):
+    """The plan of a call and the C entry's ints for it (built once per
+    signature). ``aligned16``: both pools' data pointers are 16-byte
+    aligned, so rows of a multiple of 16 bytes are copied 16 bytes at a
+    time (else 4)."""
+    p = plan(B, T, H, Hk, D, bs, n_blocks, pool_dtype)
+    cp = 16 if aligned16 and D * pool_dtype.itemsize % 16 == 0 else 4
+    codes = _build.DTYPE_CODES
+    ints = (B, T, H, Hk, D, bs, n_blocks, codes[q_dtype], codes[pool_dtype],
+            codes[dequant_dtype], p.splits, p.pages, p.warps, p.stages,
+            p.rows, cp, p.smem)
+    return p, (ctypes.c_int * len(ints))(*ints)
+
+
+#: split partials and tickets per (device, stream), grown to the largest
+#: call: the calls of one stream run in order, and every call leaves the
+#: tickets it used at zero, so one pair serves them all
+_WORKSPACE = {}
+
+
+def _workspace(index: int, stream: int, p: Plan):
+    ws, tickets = _WORKSPACE.get((index, stream), (None, None))
+    if ws is None or ws.numel() * 4 < p.workspace \
+            or tickets.numel() < p.tickets:
+        dev = torch.device("cuda", index)
+        if ws is None or ws.numel() * 4 < p.workspace:
+            ws = torch.empty(p.workspace // 4, dtype=torch.float32,
+                             device=dev)
+        if tickets is None or tickets.numel() < p.tickets:
+            tickets = torch.zeros(p.tickets, dtype=torch.int32, device=dev)
+        _WORKSPACE[(index, stream)] = ws, tickets
+    return ws, tickets
 
 
 def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
@@ -84,25 +285,29 @@ def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError("paged_attention: all inputs must share a device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention: inputs must be contiguous")
-    run, smem = _fns()
-    need = smem(T, H, Hk, D, bs)
-    if need > _MAX_SMEM:
-        raise ValueError(f"paged_attention: T={T}, G={H // Hk}, D={D}, "
-                         f"bs={bs} needs {need} B of shared memory per block "
-                         f"(at most {_MAX_SMEM})")
     out = torch.empty_like(q)
     n_blocks = block_tables.shape[1]
-    if B == 0 or n_blocks == 0:
+    if B == 0 or T == 0 or n_blocks == 0:
         return out
-    codes = _build.DTYPE_CODES
-    with torch.cuda.device(q.device):
-        rc = run(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 k_scale.data_ptr() if quantized else None,
-                 v_scale.data_ptr() if quantized else None,
-                 block_tables.data_ptr(), start.data_ptr(), out.data_ptr(),
-                 B, T, H, Hk, D, bs, n_blocks, float(D ** -0.5),
-                 codes[q.dtype], codes[k_pool.dtype], codes[dequant_dtype],
-                 torch.cuda.current_stream().cuda_stream)
+    k_ptr, v_ptr = k_pool.data_ptr(), v_pool.data_ptr()
+    p, ints = _launch(B, T, H, Hk, D, bs, n_blocks, q.dtype, k_pool.dtype,
+                      dequant_dtype, k_ptr % 16 == 0 and v_ptr % 16 == 0)
+    index = q.device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    ws = tickets = None
+    if p.splits > 1:
+        w, t = _workspace(index, stream, p)
+        ws, tickets = w.data_ptr(), t.data_ptr()
+    args = (q.data_ptr(), k_ptr, v_ptr,
+            k_scale.data_ptr() if quantized else None,
+            v_scale.data_ptr() if quantized else None,
+            block_tables.data_ptr(), start.data_ptr(), out.data_ptr(), ws,
+            tickets, ints, float(D ** -0.5), stream)
+    if index == torch.cuda.current_device():
+        rc = _fn()(*args)
+    else:
+        with torch.cuda.device(index):
+            rc = _fn()(*args)
     _build.raise_on_error(rc, "paged_attention")
     paged_attention_cuda.launches += 1
     return out

@@ -32,7 +32,15 @@ def unembed(params: Params, x: torch.Tensor, *,
             compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Logits ``(B, S, d) -> (B, S, V)`` in f32 from ``compute_dtype``
     operands — the reference's einsum with ``preferred_element_type=f32``,
-    outside any kernel there too, so it stays a plain ``torch.matmul``."""
-    table = params.get("unembed", params["table"])
-    return torch.matmul(x.to(compute_dtype).float(),
-                        table.to(compute_dtype).float().t())
+    outside any kernel there too, so it stays a library product. On CUDA a
+    bf16 contraction is one bf16 product with f32 output (``aten::mm.dtype``:
+    the table is read once in bf16, never copied to f32); CPU tensors, which
+    have no kernel for that overload, and f32 compute take the f32 product
+    of the same operands."""
+    table = params.get("unembed", params["table"]).to(compute_dtype)
+    x = x.to(compute_dtype)
+    if x.is_cuda and compute_dtype == torch.bfloat16:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), table.t(),
+                       out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], table.shape[0])
+    return torch.matmul(x.float(), table.float().t())
