@@ -27,7 +27,7 @@ from typing import Dict, Iterable, Sequence
 import torch
 
 __all__ = ["KERNELS", "BUILD_DIR", "DTYPE_CODES", "build", "load_function",
-           "check_device", "raise_on_error"]
+           "check_device", "raise_on_error", "workspace"]
 
 KERNELS = ("dot_moa", "flash_attention", "paged_attention", "moa_reduce",
            "loa_add")
@@ -131,3 +131,26 @@ def raise_on_error(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: kernel launch failed with CUDA error "
                            f"{rc}")
+
+
+#: scratch and int32 tickets per (device, stream), grown to the largest
+#: call: the calls of one stream run in order, and every call leaves the
+#: tickets it used at zero, so one pair serves every kernel whose last block
+#: finishes the launch (``paged_attention``, ``moa_reduce``, ``loa_reduce``)
+_WORKSPACE: Dict[tuple, tuple] = {}
+
+
+def workspace(index: int, stream: int, nbytes: int, tickets: int):
+    """``(scratch, tickets)`` for ``stream`` on device ``index``: at least
+    ``nbytes`` of scratch and ``tickets`` int32 tickets, zeroed when they
+    are allocated. Allocates only where a call needs more than the pair
+    holds."""
+    ws, tk = _WORKSPACE.get((index, stream), (None, None))
+    if ws is None or ws.numel() * 4 < nbytes or tk.numel() < tickets:
+        dev = torch.device("cuda", index)
+        if ws is None or ws.numel() * 4 < nbytes:
+            ws = torch.empty(-(-nbytes // 4), dtype=torch.int32, device=dev)
+        if tk is None or tk.numel() < tickets:
+            tk = torch.zeros(tickets, dtype=torch.int32, device=dev)
+        _WORKSPACE[(index, stream)] = ws, tk
+    return ws, tk

@@ -11,11 +11,15 @@
 //    MOA (n, f) -> (f,) int32 -- each block_n-row cluster summed exactly
 //    (wrapping), the cluster sums folded in cluster order through the LOA
 //    combine. n is a multiple of block_n (checked by the wrapper, as the
-//    Pallas wrapper does). Two passes: cluster_reduce.cuh. Bound by reading
-//    x once.
+//    Pallas wrapper does). One launch: cluster_reduce.cuh. Bound by reading
+//    x once, and for l > 0 by the fold chain of n / block_n dependent LOA
+//    folds a column; at l = 0 the fold is the exact add, and the rows split
+//    freely (the assoc route).
 //
 // Both use loa_fold (common.cuh), the dot_moa kernel's fold too. Launch
 // counting is done by the Python wrapper (kernels/loa_add.py).
+
+#include <algorithm>
 
 #include "cluster_reduce.cuh"
 
@@ -50,6 +54,12 @@ struct LOA {
   }
 };
 
+template <int VEC>
+__global__ void __launch_bounds__(cluster::kThreads, cluster::kMinBlocks)
+loa_reduce_kernel(const cluster::Params p) {
+  cluster::reduce<int, int, LOA, VEC>(p);
+}
+
 }  // namespace
 
 // x, y, out: n contiguous int32 words. 0 <= approx_bits <= 31.
@@ -66,12 +76,14 @@ extern "C" int repro_loa_add(const void* x, const void* y, void* out, long long 
   return cudaGetLastError();
 }
 
-// x (n, f) int32 contiguous, n % block_n == 0; scratch holds
-// (n / block_n) * ceil(block_n / 64) * f int32; out (f,) int32.
-extern "C" int repro_loa_reduce(const void* x, void* scratch, void* out, long long n, int f,
-                                int block_n, int approx_bits, void* stream) {
-  if (n <= 0 || f <= 0 || block_n <= 0 || n % block_n || approx_bits < 0 || approx_bits > 31)
-    return cudaErrorInvalidValue;
-  return cluster::reduce<int, int, LOA>(x, scratch, out, n, f, block_n, approx_bits,
-                                        static_cast<cudaStream_t>(stream));
+// x (n, f) int32 contiguous, n % block_n == 0; ws, tickets and plan as
+// repro_moa_reduce's (moa_reduce.cu), approx_bits in the plan; out (f,) int32.
+extern "C" int repro_loa_reduce(const void* x, void* ws, void* tickets, void* out,
+                                const long long* plan, void* stream) {
+  const cluster::Launch l = cluster::launch_of(x, ws, tickets, out, plan);
+  if (!cluster::valid(l)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (l.vec == 4) return cluster::run(loa_reduce_kernel<4>, l, st);
+  if (l.vec == 1) return cluster::run(loa_reduce_kernel<1>, l, st);
+  return cudaErrorInvalidValue;
 }

@@ -7,8 +7,12 @@
 // cluster is summed as it stands (the Pallas wrapper zero-pads, which adds
 // exact zeros).
 //
-// Design and bound: cluster_reduce.cuh (two passes: segment sums in
-// parallel, then one ordered fold per column). Bound by reading x once.
+// Bound on the H100: reading x once (bytes / 3.35 TB/s); on the ordered
+// route (f32 accumulation over several clusters) also the fold chain of
+// n / block_n dependent f32 adds a column. Integer sums take the assoc
+// route: a wrapping int32 sum has the same bits in any order, so the rows
+// split freely over the card. Design: cluster_reduce.cuh (one launch, 16-byte
+// loads, the last block of a column tile folds the partials in order).
 // Launch counting is done by the Python wrapper (kernels/moa_reduce.py).
 
 #include "cluster_reduce.cuh"
@@ -22,21 +26,36 @@ struct Add {
   }
 };
 
+template <typename T, typename Acc, int VEC>
+__global__ void __launch_bounds__(cluster::kThreads, cluster::kMinBlocks)
+moa_reduce_kernel(const cluster::Params p) {
+  cluster::reduce<T, Acc, Add, VEC>(p);
+}
+
+template <typename T, typename Acc>
+cudaError_t launch(const cluster::Launch& l, cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (l.vec == kVec) return cluster::run(moa_reduce_kernel<T, Acc, kVec>, l, stream);
+  if (l.vec == 1) return cluster::run(moa_reduce_kernel<T, Acc, 1>, l, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// C entry point. x (n, f) contiguous row-major; scratch holds
-// ceil(n / block_n) * ceil(block_n / 64) * f accumulator values (f32 or
-// int32); out (f,) f32 for float operands, int32 for integer ones.
-extern "C" int repro_moa_reduce(const void* x, void* scratch, void* out, long long n, int f,
-                                int block_n, int in_dtype, void* stream) {
+// C entry point. x (n, f) contiguous row-major; ws and tickets: the plan's
+// workspace (null where it has one split) and its tickets, all 0; out (f,)
+// f32 for float operands, int32 for integer ones; plan: cluster::kArgs
+// values (kernels/moa_reduce.py:Plan.c_args).
+extern "C" int repro_moa_reduce(const void* x, void* ws, void* tickets, void* out,
+                                const long long* plan, int in_dtype, void* stream) {
+  const cluster::Launch l = cluster::launch_of(x, ws, tickets, out, plan);
+  if (!cluster::valid(l) || l.p.approx_bits != 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n <= 0 || f <= 0 || block_n <= 0) return cudaErrorInvalidValue;
   switch (in_dtype) {
-    case DT_F32: return cluster::reduce<float, float, Add>(x, scratch, out, n, f, block_n, 0, st);
-    case DT_BF16:
-      return cluster::reduce<__nv_bfloat16, float, Add>(x, scratch, out, n, f, block_n, 0, st);
-    case DT_I8: return cluster::reduce<int8_t, int, Add>(x, scratch, out, n, f, block_n, 0, st);
-    case DT_I32: return cluster::reduce<int, int, Add>(x, scratch, out, n, f, block_n, 0, st);
+    case DT_F32: return launch<float, float>(l, st);
+    case DT_BF16: return launch<__nv_bfloat16, float>(l, st);
+    case DT_I8: return launch<int8_t, int>(l, st);
+    case DT_I32: return launch<int, int>(l, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -7,7 +7,8 @@ Replace the TPU kernels of ``src/repro/kernels/loa_add.py``:
   tensors of any one shape;
 * ``loa_reduce_pallas`` → :func:`loa_reduce_cuda`: ``(n, f) → (f,)`` int32,
   exact ``block_n``-row cluster sums folded in order through the LOA
-  combine; ``n`` must be a multiple of ``block_n``.
+  combine; ``n`` must be a multiple of ``block_n``. It runs on the plan
+  and the workspace of :mod:`repro_torch.kernels.moa_reduce`.
 
 ``approx_bits`` is the paper's ``l`` (0 is the exact add). Each wrapper
 counts its launches in ``.launches``.
@@ -21,7 +22,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.moa_reduce import check_reduce_operand, scratch_rows
+from repro_torch.kernels.moa_reduce import check_reduce_operand, run_reduce
 
 __all__ = ["loa_add_cuda", "loa_reduce_cuda", "check_approx_bits"]
 
@@ -33,11 +34,10 @@ def check_approx_bits(approx_bits: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _fn(symbol: str):
+def _fn():
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    argtypes = {"repro_loa_add": [p, p, p, ll, i, p],
-                "repro_loa_reduce": [p, p, p, ll, i, i, i, p]}[symbol]
-    return _build.load_function("loa_add", symbol, argtypes)
+    return _build.load_function("loa_add", "repro_loa_add",
+                                [p, p, p, ll, i, p])
 
 
 def loa_add_cuda(x: torch.Tensor, y: torch.Tensor, *,
@@ -58,9 +58,8 @@ def loa_add_cuda(x: torch.Tensor, y: torch.Tensor, *,
     if x.numel() == 0:
         return out
     with torch.cuda.device(x.device):
-        rc = _fn("repro_loa_add")(x.data_ptr(), y.data_ptr(), out.data_ptr(),
-                                  x.numel(), l,
-                                  torch.cuda.current_stream().cuda_stream)
+        rc = _fn()(x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(), l,
+                   torch.cuda.current_stream().cuda_stream)
     _build.raise_on_error(rc, "loa_add")
     loa_add_cuda.launches += 1
     return out
@@ -81,13 +80,7 @@ def loa_reduce_cuda(x: torch.Tensor, *, approx_bits: int,
     out = torch.empty((f,), dtype=torch.int32, device=x.device)
     if f == 0:
         return out
-    scratch = torch.empty((scratch_rows(n, block_n), f), dtype=torch.int32,
-                          device=x.device)
-    with torch.cuda.device(x.device):
-        rc = _fn("repro_loa_reduce")(x.data_ptr(), scratch.data_ptr(),
-                                     out.data_ptr(), n, f, block_n, l,
-                                     torch.cuda.current_stream().cuda_stream)
-    _build.raise_on_error(rc, "loa_reduce")
+    run_reduce("repro_loa_reduce", x, out, block_n, l)
     loa_reduce_cuda.launches += 1
     return out
 

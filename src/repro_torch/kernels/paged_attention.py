@@ -217,26 +217,6 @@ def _launch(B, T, H, Hk, D, bs, n_blocks, q_dtype, pool_dtype, dequant_dtype,
     return p, (ctypes.c_int * len(ints))(*ints)
 
 
-#: split partials and tickets per (device, stream), grown to the largest
-#: call: the calls of one stream run in order, and every call leaves the
-#: tickets it used at zero, so one pair serves them all
-_WORKSPACE = {}
-
-
-def _workspace(index: int, stream: int, p: Plan):
-    ws, tickets = _WORKSPACE.get((index, stream), (None, None))
-    if ws is None or ws.numel() * 4 < p.workspace \
-            or tickets.numel() < p.tickets:
-        dev = torch.device("cuda", index)
-        if ws is None or ws.numel() * 4 < p.workspace:
-            ws = torch.empty(p.workspace // 4, dtype=torch.float32,
-                             device=dev)
-        if tickets is None or tickets.numel() < p.tickets:
-            tickets = torch.zeros(p.tickets, dtype=torch.int32, device=dev)
-        _WORKSPACE[(index, stream)] = ws, tickets
-    return ws, tickets
-
-
 def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                          v_pool: torch.Tensor, block_tables: torch.Tensor,
                          start: torch.Tensor, *,
@@ -296,7 +276,7 @@ def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     stream = torch._C._cuda_getCurrentRawStream(index)
     ws = tickets = None
     if p.splits > 1:
-        w, t = _workspace(index, stream, p)
+        w, t = _build.workspace(index, stream, p.workspace, p.tickets)
         ws, tickets = w.data_ptr(), t.data_ptr()
     args = (q.data_ptr(), k_ptr, v_ptr,
             k_scale.data_ptr() if quantized else None,
