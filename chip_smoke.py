@@ -40,20 +40,35 @@ a non-zero exit:
               A last row gives the wrapper's host time per call.
 3. serve    — llama3-8b at full width and full depth (bf16 weights from
               the port's own initializer, seed 0) served through the
-              paged engine: 8 Poisson requests into 4 slots. Every kernel
-              must have been launched by that run. Then the same workload
-              is served again, by a fresh engine (an empty prefix cache),
-              with each tick under torch.profiler: device
-              time by kernel of the decode and admission ticks, against
-              the host clock; one 512-token prefill of the same model
-              under torch.profiler (flash attention's share of it); and
-              ``decode_long``: an engine at max_len 4096 serving 4 greedy
-              requests of 3000-4000 prompt tokens, 8 new tokens each, every
-              tick profiled (paged attention's share of a decode tick).
+              paged engine, 8 requests into 4 slots, twice in one
+              process: every tick eager (``cuda_graphs=False``), then
+              replaying the CUDA graphs captured at warmup. First with
+              every request arriving at 0 (``graphs`` line): the run fails
+              on any token, any bit of any step's logits or any launch
+              count that differs, on a kernel workspace that grew after
+              the captured engine's warmup, and on a served kernel
+              launched no time. Then as the Poisson workload arrives
+              (``serve`` lines, one a path: tok/s, TTFT, host ms by tick
+              class, warmup and capture seconds, the graph pool's MB,
+              launches a replay). Then the same workload is served again
+              by fresh engines (an empty prefix cache), eager and
+              captured, each tick under torch.profiler: device time by
+              kernel of the decode and admission ticks, against the host
+              clock; one 512-token prefill of the same model under
+              torch.profiler (flash attention's share of it); and
+              ``decode_long``: a captured engine at max_len 4096 (its
+              warmup and capture cost on a line of its own) serving 4
+              greedy requests of 3000-4000 prompt tokens, 8 new tokens
+              each, every tick profiled (paged attention's share of a
+              decode tick).
 4. parity   — the same engine at full width with 2 layers, once on the
-              kernels and once on the plain PyTorch path: float32 compute
-              on the f32 and int8 KV pools, bf16 compute on the bf16 pool.
-              f32 and bf16 pools: greedy tokens must agree (a divergence
+              kernels (captured, each bucket at its first tick) and once
+              on the plain PyTorch path (eager): float32 compute on the
+              f32 and int8 KV pools, bf16 compute on the bf16 pool. On
+              the f32 and int8 pools the kernel path first serves each
+              workload eager and captured, held bit for bit as in phase
+              3 (``graphs`` lines). f32 and bf16 pools: greedy tokens
+              must agree (a divergence
               passes only at a near-tie of the top-2 logits). int8 pool:
               the free runs' divergences are printed; the kernel path is
               then fed the plain path's tokens (teacher forcing), and at
@@ -85,6 +100,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -1124,6 +1140,7 @@ def profile_served(torch, engine, requests, label: str = "served") -> None:
         name = (label if (label, what) == ("decode_long", "decode")
                 else f"{label} {what} ticks")
         line = {"phase": "profile", "what": name,
+                "cuda_graphs": engine._graphs is not None,
                 "ticks": n, "prefills": c["prefills"],
                 "prefix_hits": engine._prefix_hits,
                 "host_ms": c["host_ms"] / n, "device_ms": c["device_ms"] / n,
@@ -1198,27 +1215,130 @@ def decode_long(torch, model, params, parent=None) -> None:
                                 prompt_len_range=(3000, 4000),
                                 gen_len_range=(8, 8), seed=4)
 
-    def serve(label):
+    def serve(label, cuda_graphs):
         engine = ServeEngine(model, params, n_slots=4, max_len=4096,
-                             paged=True, block_size=16, device="cuda")
-        engine.run([], warmup=True)
+                             paged=True, block_size=16, device="cuda",
+                             cuda_graphs=cuda_graphs)
+        _, warm = engine.run([], warmup=True)
+        emit({"phase": "serve", "what": f"{label} warmup",
+              "warmup_s": warm["compile_s"], "graphs": warm["graphs"]})
         profile_served(torch, engine, workload(), label=label)
         del engine
+        gc.collect()
         torch.cuda.empty_cache()
 
-    serve("decode_long")
+    serve("decode_long", True)
     if parent is not None:
+        # eager: the parent's wrapper keeps its own workspaces, which no
+        # graph cache of this tree holds
         own = ops.paged_attention_cuda
         ops.paged_attention_cuda = parent
         try:
-            serve("decode_long parent")
+            serve("decode_long parent", False)
         finally:
             ops.paged_attention_cuda = own
 
 
+def workspaces() -> dict:
+    """The kernels' workspaces now held, by (device, stream, owner): the
+    address and size of each tensor."""
+    from repro_torch.kernels import _build
+
+    return {key: tuple((t.data_ptr(), t.numel()) for t in pair)
+            for key, pair in _build._WORKSPACE.items()}
+
+
+def timed_ticks(engine) -> dict:
+    """Wrap ``engine.tick`` to keep each tick's host ms (a tick ends in
+    the sampling's copy to the host) by class: ``admission`` (one or more
+    prefills, then the decode step) or ``decode``."""
+    ticks = {"decode": [], "admission": []}
+    tick = engine.tick
+
+    def timed(results):
+        admissions, steps = engine._admissions, engine._steps
+        t0 = time.monotonic()
+        tick(results)
+        ms = (time.monotonic() - t0) * 1e3
+        if engine._admissions > admissions:
+            ticks["admission"].append(ms)
+        elif engine._steps > steps:
+            ticks["decode"].append(ms)
+
+    engine.tick = timed
+    return ticks
+
+
+def serve_once(torch, engine, requests, *, warmup: bool,
+               logits: dict = None) -> dict:
+    """Serve ``requests`` on ``engine`` (after its warmup, with
+    ``warmup``), with each step's logits recorded into ``logits`` as
+    :func:`_replay` does when it is given. Returns the results, report,
+    launches, tick host ms (:func:`timed_ticks`), the warmup's report and
+    whether a kernel workspace grew after the warmup."""
+    from repro_torch.kernels import ops
+
+    warm = engine.run([], warmup=True)[1] if warmup else None
+    held = workspaces()
+    if logits is not None:
+        _replay(torch, engine, logits)
+    ticks = timed_ticks(engine)
+    ops.reset_launch_counts()
+    results, report = engine.run(requests)
+    return {"results": results, "report": report, "warm": warm,
+            "launches": ops.launch_counts(), "ticks": ticks,
+            "grew": workspaces() != held}
+
+
+def eager_vs_captured(torch, make_engine, workload, *, warmup: bool,
+                      what: str) -> None:
+    """Serve ``workload()`` twice in this process: by ``make_engine(False)``
+    (every tick eager), then by ``make_engine(True)`` (CUDA graphs, captured
+    at warmup, or at each bucket's first tick without ``warmup``), every
+    step's logits recorded as :func:`_replay` does. Every request arrives
+    at 0, so both engines admit in the same order whatever their speed: the
+    same batches, live-block buckets and kernel plans. Fails on a token, a
+    logit bit or a launch count that differs, on a served kernel launched
+    no time, and, with ``warmup``, on a kernel workspace that grew after the
+    captured engine's warmup. Emits one ``graphs`` line."""
+    runs, logits = {}, {}
+    for path, cuda_graphs in (("eager", False), ("captured", True)):
+        engine = make_engine(cuda_graphs)
+        logits[path] = {}
+        runs[path] = serve_once(
+            torch, engine, [dataclasses.replace(r, arrival_s=0.0)
+                            for r in workload()],
+            warmup=warmup, logits=logits[path])
+        del engine
+        gc.collect()
+    eager, captured = runs["eager"], runs["captured"]
+    tokens = [r.uid for r, c in zip(eager["results"], captured["results"])
+              if r.tokens.tolist() != c.tokens.tolist()]
+    steps = set(logits["eager"]) | set(logits["captured"])
+    differ = sorted(k for k in steps if not (
+        k in logits["eager"] and k in logits["captured"]
+        and torch.equal(logits["eager"][k], logits["captured"][k])))
+    missing = {path: [k for k in path_kernels("serve")
+                      if run["launches"][k] == 0]
+               for path, run in runs.items()}
+    grew = warmup and captured["grew"]
+    emit({"phase": "graphs", "what": what, "warmup": warmup,
+          "requests": len(eager["results"]), "logit_steps": len(steps),
+          "differing_tokens": tokens, "differing_logits": differ[:10],
+          "launches": {p: run["launches"] for p, run in runs.items()},
+          "workspace_grew": grew,
+          "graphs": captured["report"]["graphs"]})
+    if tokens or differ or eager["launches"] != captured["launches"] \
+            or grew or any(missing.values()):
+        raise AssertionError(
+            f"{what}: the captured engine differs from the eager one: "
+            f"tokens of {tokens}, logits at {differ[:10]}, launches "
+            f"{eager['launches']} / {captured['launches']}, workspace grew "
+            f"{grew}, kernels launched no time {missing}")
+
+
 def serve_phase(torch, parent=None):
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import ops
     from repro_torch.models.api import build_model
     from repro_torch.serve import ServeEngine, poisson_workload
 
@@ -1229,48 +1349,67 @@ def serve_phase(torch, parent=None):
     params = model.init(seed=0, device="cuda")
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
-    engine = ServeEngine(model, params, n_slots=4, max_len=96, paged=True,
-                         block_size=16, device="cuda")
-    _, warm = engine.run([], warmup=True)
+
+    def engine(cuda_graphs):
+        return ServeEngine(model, params, n_slots=4, max_len=96, paged=True,
+                           block_size=16, device="cuda",
+                           cuda_graphs=cuda_graphs)
+
     def workload():
         return poisson_workload(n_requests=8, vocab=cfg.vocab, rate_rps=50.0,
                                 prompt_len_range=(16, 64),
                                 gen_len_range=(8, 16), seed=0)
-    requests = workload()
-    ops.reset_launch_counts()
-    results, report = engine.run(requests)
-    launches = ops.launch_counts()
-    for req, r in zip(requests, results):
-        if r.tokens.shape != (req.max_new_tokens,) or not (
-                (r.tokens >= 0) & (r.tokens < cfg.vocab)).all():
-            raise AssertionError(f"request {r.uid}: bad tokens {r.tokens}")
-    emit({"phase": "serve", "arch": cfg.name, "n_layers": cfg.n_layers,
-          "d_model": cfg.d_model, "param_dtype": cfg.param_dtype,
-          "n_params": model.param_count(), "init_s": init_s,
-          "warmup_s": warm["compile_s"], "device": report["device"],
-          "tok_per_s": report["tok_per_s"], "wall_s": report["wall_s"],
-          "ttft_ms": report["ttft_ms"], "per_token_ms": report["per_token_ms"],
-          "decode_steps": report["decode_steps"],
-          "total_new_tokens": report["total_new_tokens"],
-          "slot_occupancy": report["slot_occupancy"],
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "paged": report["paged"], "launches": launches,
-          "tokens": {r.uid: r.tokens.tolist() for r in results}})
-    missing = [k for k in path_kernels("serve") if launches[k] == 0]
-    if missing:
-        raise AssertionError(f"the served run launched no {missing}")
-    # a fresh engine: the first one's prefix cache holds every prompt of
-    # the workload, which would turn the profiled prefills into prefix hits
-    del engine
-    engine = ServeEngine(model, params, n_slots=4, max_len=96, paged=True,
-                         block_size=16, device="cuda")
-    engine.run([], warmup=True)
-    profile_served(torch, engine, workload())
-    del engine
+
+    eager_vs_captured(torch, engine, workload, warmup=True, what="serve")
+    # the served workload as it arrives, timed: eager, then captured
+    runs = {}
+    for path, cuda_graphs in (("eager", False), ("captured", True)):
+        e = engine(cuda_graphs)
+        run = runs[path] = serve_once(torch, e, workload(), warmup=True)
+        del e
+        gc.collect()
+        report = run["report"]
+        for req, r in zip(workload(), run["results"]):
+            if r.tokens.shape != (req.max_new_tokens,) or not (
+                    (r.tokens >= 0) & (r.tokens < cfg.vocab)).all():
+                raise AssertionError(f"{path} request {r.uid}: bad tokens "
+                                     f"{r.tokens}")
+        emit({"phase": "serve", "path": path, "arch": cfg.name,
+              "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+              "param_dtype": cfg.param_dtype,
+              "n_params": model.param_count(), "init_s": init_s,
+              "warmup_s": run["warm"]["compile_s"],
+              "graphs": run["warm"]["graphs"], "device": report["device"],
+              "tok_per_s": report["tok_per_s"], "wall_s": report["wall_s"],
+              "ttft_ms": report["ttft_ms"],
+              "per_token_ms": report["per_token_ms"],
+              "tick_host_ms": {what: {"ticks": len(ms),
+                                      "mean": statistics.mean(ms),
+                                      "min": min(ms), "max": max(ms)}
+                               for what, ms in run["ticks"].items() if ms},
+              "decode_steps": report["decode_steps"],
+              "total_new_tokens": report["total_new_tokens"],
+              "slot_occupancy": report["slot_occupancy"],
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "paged": report["paged"], "launches": run["launches"],
+              "tokens": {r.uid: r.tokens.tolist() for r in run["results"]}})
+        missing = [k for k in path_kernels("serve")
+                   if run["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"the {path} served run launched no "
+                                 f"{missing}")
+    # fresh engines: the first ones' prefix caches hold every prompt of the
+    # workload, which would turn the profiled prefills into prefix hits
+    for path, cuda_graphs in (("eager", False), ("captured", True)):
+        e = engine(cuda_graphs)
+        e.run([], warmup=True)
+        profile_served(torch, e, workload(), label=f"served {path}")
+        del e
+        gc.collect()
     torch.cuda.empty_cache()
     profile_prefill(torch, model, params)
     decode_long(torch, model, params, parent)
-    return launches
+    return runs["captured"]["launches"]
 
 
 def _greedy_gap(torch, models, params, prompt, generated) -> dict:
@@ -1490,14 +1629,19 @@ def parity_phase(torch):
                     n_prefixes=2, prefix_len=32, suffix_len_range=(1, 16),
                     gen_len_range=(8, 16), seed=2)
 
+            def engine(c, cuda_graphs=None):
+                return ServeEngine(build_model(c), params, n_slots=4,
+                                   max_len=96, paged=True, block_size=16,
+                                   device="cuda", cuda_graphs=cuda_graphs)
+
             def serve(path, c, logits=None, forced=None):
-                engine = ServeEngine(build_model(c), params, n_slots=4,
-                                     max_len=96, paged=True, block_size=16,
-                                     device="cuda")
+                # the plain path runs eagerly; the kernel path is captured,
+                # each bucket at its first tick (no warmup)
+                eng = engine(c, False if path == "torch" else None)
                 if logits is not None:
-                    _replay(torch, engine, logits, forced)
+                    _replay(torch, eng, logits, forced)
                 ops.reset_launch_counts()
-                out = engine.run(workload())
+                out = eng.run(workload())
                 counts = ops.launch_counts()
                 served = [counts[k] for k in path_kernels("serve")]
                 if (path == "kernel") != all(served) or (
@@ -1506,6 +1650,9 @@ def parity_phase(torch):
                 return out
 
             plain_logits = {} if gap_tol is None else None
+            if pool != "bf16":   # the kernel path eager, then captured
+                eager_vs_captured(torch, lambda g: engine(cfg, g), workload,
+                                  warmup=False, what=f"parity {pool}/{wl}")
             runs = {"torch": serve("torch", plain_cfg, plain_logits),
                     "kernel": serve("kernel", cfg)}
             divergences = []

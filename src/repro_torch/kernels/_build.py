@@ -27,7 +27,8 @@ from typing import Dict, Iterable, Sequence
 import torch
 
 __all__ = ["KERNELS", "BUILD_DIR", "DTYPE_CODES", "build", "load_function",
-           "check_device", "raise_on_error", "workspace"]
+           "check_device", "raise_on_error", "workspace",
+           "stream_workspaces"]
 
 KERNELS = ("dot_moa", "flash_attention", "paged_attention", "moa_reduce",
            "loa_add")
@@ -133,24 +134,46 @@ def raise_on_error(rc: int, what: str) -> None:
                            f"{rc}")
 
 
-#: scratch and int32 tickets per (device, stream), grown to the largest
-#: call: the calls of one stream run in order, and every call leaves the
-#: tickets it used at zero, so one pair serves every kernel whose last block
-#: finishes the launch (``paged_attention``, ``moa_reduce``, ``loa_reduce``)
+#: scratch and int32 tickets per (device, stream, owner), grown to the
+#: largest call: the calls of one stream run in order, and every call leaves
+#: the tickets it used at zero, so one pair serves every kernel whose last
+#: block finishes the launch (``paged_attention``, ``moa_reduce``,
+#: ``loa_reduce``; owner ``"shared"``), and ``dot_moa``'s split partials
+#: have a scratch of their own (owner ``"dot_moa"``)
 _WORKSPACE: Dict[tuple, tuple] = {}
 
 
-def workspace(index: int, stream: int, nbytes: int, tickets: int):
+def workspace(index: int, stream: int, nbytes: int, tickets: int = 0, *,
+              owner: str = "shared"):
     """``(scratch, tickets)`` for ``stream`` on device ``index``: at least
     ``nbytes`` of scratch and ``tickets`` int32 tickets, zeroed when they
     are allocated. Allocates only where a call needs more than the pair
-    holds."""
-    ws, tk = _WORKSPACE.get((index, stream), (None, None))
+    holds, and never while the stream is being captured into a CUDA graph:
+    the graph would bind a buffer from its own pool, and an earlier graph
+    would keep the address of the buffer it replaced. A graph's owner sizes
+    the pair by running the body eagerly on the capture stream first."""
+    key = (index, stream, owner)
+    ws, tk = _WORKSPACE.get(key, (None, None))
     if ws is None or ws.numel() * 4 < nbytes or tk.numel() < tickets:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"kernel workspace ({owner}) would grow to {nbytes} bytes "
+                f"and {tickets} tickets during CUDA graph capture; run the "
+                "body eagerly on the capture stream before capturing it")
         dev = torch.device("cuda", index)
         if ws is None or ws.numel() * 4 < nbytes:
             ws = torch.empty(-(-nbytes // 4), dtype=torch.int32, device=dev)
         if tk is None or tk.numel() < tickets:
             tk = torch.zeros(tickets, dtype=torch.int32, device=dev)
-        _WORKSPACE[(index, stream)] = ws, tk
+        _WORKSPACE[key] = ws, tk
     return ws, tk
+
+
+def stream_workspaces(index: int, stream: int) -> list:
+    """Every workspace tensor now held for ``stream`` on device ``index``.
+    A CUDA graph captured on that stream binds their addresses, so its
+    owner keeps these references for the graph's life: a later growth
+    replaces the entry here, and the old buffer stays out of the
+    allocator while the graph may still write to it."""
+    return [t for (i, s, _), pair in _WORKSPACE.items()
+            if (i, s) == (index, stream) for t in pair]

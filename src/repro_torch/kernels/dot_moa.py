@@ -236,19 +236,6 @@ def _launch(m: int, n: int, k: int, block_k: int, approx_bits: int,
     return p, (ctypes.c_int * len(ints))(*ints)
 
 
-#: split-mode workspace per (device, stream), grown to the largest call:
-#: the calls of one stream run in order, so one buffer serves them all
-_WORKSPACE = {}
-
-
-def _workspace(index: int, stream: int, numel: int) -> torch.Tensor:
-    ws = _WORKSPACE.get((index, stream))
-    if ws is None or ws.numel() < numel:
-        ws = _WORKSPACE[(index, stream)] = torch.empty(
-            numel, dtype=torch.int32, device=torch.device("cuda", index))
-    return ws
-
-
 def dot_moa_cuda(a: torch.Tensor, b: torch.Tensor, *, block_k: int,
                  approx_bits: int = 0,
                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -285,8 +272,8 @@ def dot_moa_cuda(a: torch.Tensor, b: torch.Tensor, *, block_k: int,
                       a_ptr % 16 == 0, b_ptr % 16 == 0)
     index = a.device.index
     stream = torch._C._cuda_getCurrentRawStream(index)
-    ws = _workspace(index, stream, p.workspace).data_ptr() if p.splits \
-        else None
+    ws = _build.workspace(index, stream, 4 * p.workspace,
+                          owner="dot_moa")[0].data_ptr() if p.splits else None
     if index == torch.cuda.current_device():
         rc = _fn()(a_ptr, b_ptr, out.data_ptr(), ws, ints, stream)
     else:

@@ -20,7 +20,8 @@ from repro_torch.kernels.moa_reduce import moa_reduce_cuda
 from repro_torch.kernels.paged_attention import paged_attention_cuda
 
 __all__ = ["dot_moa", "flash_attention", "paged_attention", "moa_reduce",
-           "loa_add", "loa_reduce", "launch_counts", "reset_launch_counts"]
+           "loa_add", "loa_reduce", "launch_counts", "reset_launch_counts",
+           "add_launch_counts"]
 
 _WRAPPERS = {"dot_moa": dot_moa_cuda, "flash_attention": flash_attention_cuda,
              "paged_attention": paged_attention_cuda,
@@ -111,3 +112,11 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS.values():
         fn.launches = 0
+
+
+def add_launch_counts(counts: dict) -> None:
+    """Add ``counts`` (``{wrapper name: launches}``) to the wrappers' counts.
+    A CUDA graph's replay launches its kernels without calling the
+    wrappers, so it adds here the launches its capture recorded."""
+    for name, n in counts.items():
+        _WRAPPERS[name].launches += n

@@ -8,7 +8,10 @@ pool, driven by a synthetic Poisson workload (the engine half of
       --smoke --paged --device cpu
 
 Runs on the GPU unless ``--device cpu`` is given. ``--layers`` cuts the
-depth (``n_layers``) and nothing else.
+depth (``n_layers``) and nothing else. On the GPU the engine replays CUDA
+graphs of its decode and full-prompt prefill (captured at warmup, or at the
+first tick of each bucket with ``--no-warmup``); ``--eager`` runs every
+tick eagerly instead.
 """
 
 from __future__ import annotations
@@ -57,7 +60,8 @@ def _run_engine(args):
         paged=args.paged, block_size=args.block_size,
         n_blocks=args.blocks or None,
         generator=torch.Generator(device=device).manual_seed(args.seed),
-        attn_backend=args.attn_backend or None, device=device)
+        attn_backend=args.attn_backend or None, device=device,
+        cuda_graphs=False if args.eager else None)
     requests = poisson_workload(
         n_requests=args.requests, vocab=cfg.vocab, rate_rps=args.rate,
         prompt_len_range=(min(4, args.prompt_len), args.prompt_len),
@@ -78,7 +82,15 @@ def _run_engine(args):
           f"p95={report['ttft_ms']['p95']:.0f}ms, "
           f"occupancy={report['slot_occupancy']:.2f}, "
           f"slot_reuse={report['slot_reuse']}, "
-          f"warmup={report['compile_s']*1e3:.0f}ms (kept out of wall_s)")
+          f"warmup={report['compile_s']*1e3:.0f}ms (kept out of wall_s), "
+          f"path={'cuda-graphs' if report['cuda_graphs'] else 'eager'}")
+    gr = report["graphs"]
+    if gr is not None:
+        print(f"[serve] graphs: {gr['graphs']} captured in "
+              f"{gr['capture_s']:.2f}s, pool={gr['pool_mb']:.1f}MB, "
+              f"replays={gr['replays']}, eager first runs="
+              f"{gr['eager_runs']}, launches/replay="
+              f"{gr['launches_per_replay']}")
     pg = report["paged"]
     print(f"[serve] paged: {pg['n_blocks']}x{pg['block_size']}-token "
           f"blocks, backend={pg['attn_backend']}, "
@@ -135,6 +147,9 @@ def main(argv=None):
                     help="attention backend: kernel (the CUDA kernels), "
                          "torch (plain PyTorch), auto (kernel on the GPU). "
                          "Default: the config's (auto)")
+    ap.add_argument("--eager", action="store_true",
+                    help="run every tick eagerly (no CUDA graphs; the CPU "
+                         "always does)")
     ap.add_argument("--no-warmup", action="store_true",
                     help="skip the unmeasured warmup tick (one-time costs "
                          "then land in wall_s instead of compile_s)")

@@ -146,7 +146,10 @@ class Model(nn.Module):
         return pre["layers"], None
 
     def prefill(self, params: Params, batch: dict, *, max_len: int,
-                prompt_len: Optional[int] = None):
+                prompt_len: Union[int, torch.Tensor, None] = None):
+        """``prompt_len``: a Python int, or a 0-d int32 tensor on the
+        tokens' device (the last real row is then picked on the device, as
+        a CUDA graph of the prefill needs)."""
         return transformer.prefill(params, batch, self.cfg, max_len=max_len,
                                    prompt_len=prompt_len)
 

@@ -18,7 +18,7 @@ The paged decode step updates the cache **in place** (pool pages and the
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Union
 
 import torch
 
@@ -199,24 +199,33 @@ def _stack(entries) -> Params:
             for name in entries[0]}
 
 
-def _last_real_slice(h, prompt_len: Optional[int]) -> Tuple[torch.Tensor,
-                                                            int]:
+def _last_real_slice(h, prompt_len):
     """Hidden state at the last real prompt position ``(B, 1, d)`` and the
-    cache cursor after it (``prompt_len``, or the full length)."""
+    cache cursor after it (``prompt_len``, or the full length).
+
+    ``prompt_len`` is a Python int, ``None``, or a 0-d int32 tensor on
+    ``h``'s device: then the row is picked on the device (the reference's
+    ``lax.dynamic_slice_in_dim`` on a traced length) and the cursor is that
+    tensor, so a CUDA graph of the prefill serves every length of its
+    bucket."""
     if prompt_len is None:
         return h[:, -1:], h.shape[1]
+    if isinstance(prompt_len, torch.Tensor):
+        return h.index_select(1, (prompt_len - 1).reshape(1)), prompt_len
     return h[:, prompt_len - 1:prompt_len], int(prompt_len)
 
 
 def prefill(params: Params, batch: dict, cfg: ModelConfig, *, max_len: int,
-            prompt_len: Optional[int] = None):
+            prompt_len: Union[int, torch.Tensor, None] = None):
     """Prefill a (possibly right-padded) prompt; returns
     ``(logits (B, 1, V) at position prompt_len - 1, cache)``.
 
     ``cache["layers"]`` holds each layer's post-RoPE K/V padded with zeros
     to ``max_len`` (``(L, B, max_len, Hk, D)``, int8 plus f32 scales for a
     quantized cache); ``cache["pos"]`` is the cursor ``prompt_len`` (a
-    Python int). Positions past ``prompt_len`` are causal-masked garbage.
+    Python int, or the 0-d int32 tensor given as ``prompt_len``: see
+    :func:`_last_real_slice`). Positions past ``prompt_len`` are
+    causal-masked garbage.
     """
     h, positions, _ = embed_inputs(params, batch, cfg)
     entries = []

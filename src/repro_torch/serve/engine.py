@@ -11,12 +11,18 @@ admission needs a free slot **and** enough free blocks, and a prefix-cache
 hit skips the shared blocks' prefill compute (suffix prefill).
 
 The host logic is the reference's, line for line. What differs is the
-device side: PyTorch runs eagerly, so there is no compile cache, and the
-cache tensors (pool pages, block tables, cursors) are updated **in place**.
-On the GPU every projection runs the ``dot_moa`` kernel, prefill's
-softmax·V the flash-attention kernel and decode's the paged-attention
-kernel; ``attn_backend="torch"`` (with a ``backend=torch`` MOA spec) runs
-the plain PyTorch versions instead.
+device side. The cache tensors (pool pages, block tables, cursors) are
+updated **in place**. The reference's compile cache becomes CUDA graphs
+(:mod:`repro_torch.serve.graphs`, on by default for a CUDA engine): the
+paged decode is captured once per live-block bucket and the full-prompt
+prefill, with its scatter into the pool, once per prompt bucket, and each
+tick replays them; the prefix-hit (suffix) prefill runs eagerly.
+``cuda_graphs=False`` runs every tick eagerly, as the yardstick: the
+captured engine runs the same kernels in the same order on the same
+buffers. On the GPU every projection runs the ``dot_moa`` kernel,
+prefill's softmax·V the flash-attention kernel and decode's the
+paged-attention kernel; ``attn_backend="torch"`` (with a ``backend=torch``
+MOA spec) runs the plain PyTorch versions instead.
 
 Not ported yet, and refused with ``NotImplementedError``: the dense-slot
 mode (``paged=False``, ROADMAP Queue 1 item 6), and speculative decoding,
@@ -38,6 +44,7 @@ from repro_torch.device import resolve_device
 from repro_torch.interop import tree_leaves
 from repro_torch.layers.attention import dequantize_kv, resolve_attn_backend
 from repro_torch.models.api import Model, build_model
+from repro_torch.serve import graphs
 from repro_torch.serve.kv_pool import TRASH_BLOCK, BlockPool, blocks_needed
 from repro_torch.serve.metrics import RequestMetrics, aggregate, paged_report
 from repro_torch.serve.request import FinishReason, Request, RequestResult
@@ -98,21 +105,29 @@ def _gather_prefix(pool, ids, *, cdtype):
     return {"k": k, "v": v}
 
 
-def _paged_write(cache, pre_kv, write_ids, table_row, slot: int,
-                 pre_pos: int) -> None:
+def _paged_write(cache, pre_kv, write_ids, table_row, slot, pre_pos) -> None:
     """Scatter a prefill's K/V into the pool pages named by ``write_ids``
     (one per written logical block; shared and overhang blocks arrive
     redirected to the trash page, so the ids may repeat — whichever
     duplicate write wins, nothing reads the trash page), then install the
-    slot's block-table row and cursor."""
+    slot's block-table row and cursor.
+
+    ``slot`` and ``pre_pos`` are Python ints, or a CUDA graph's static
+    inputs: a ``(1,)`` and a 0-d int32 device tensor, installed by
+    ``index_copy_`` on the device."""
     nb = write_ids.shape[0]
     for name, leaf in cache["layers"].items():
         s = pre_kv[name][:, 0]                   # (L, S, ...)
         s = s.reshape((s.shape[0], nb, s.shape[1] // nb)
                       + tuple(s.shape[2:]))
         leaf[:, write_ids] = s.to(leaf.dtype)
-    cache["block_tables"][slot] = table_row
-    cache["pos"][slot] = pre_pos
+    if isinstance(slot, torch.Tensor):
+        slot = slot.long()
+        cache["block_tables"].index_copy_(0, slot, table_row[None])
+        cache["pos"].index_copy_(0, slot, pre_pos.reshape(1))
+    else:
+        cache["block_tables"][slot] = table_row
+        cache["pos"][slot] = pre_pos
 
 
 def _cow_copy(cache, src: int, dst: int, slot: int, logical_idx: int) -> None:
@@ -160,6 +175,11 @@ class ServeEngine:
         ``"torch"`` the plain PyTorch versions, ``"auto"`` the kernels for
         CUDA tensors and the plain versions on the CPU. ``None`` keeps the
         config's.
+    cuda_graphs:
+        Capture the paged decode and the full-prompt prefill in CUDA graphs
+        (:mod:`repro_torch.serve.graphs`) and replay them each tick.
+        ``None``: on for a CUDA engine, off on the CPU; ``True`` on the CPU
+        raises; ``False`` runs every tick eagerly.
     device:
         Where the engine runs: the GPU unless the caller asks for the CPU
         (no GPU raises). ``params`` must already be there.
@@ -176,7 +196,7 @@ class ServeEngine:
                  prefill_chunk_tokens: Optional[int] = None,
                  scheduling: str = "fifo",
                  attn_backend: Optional[str] = None,
-                 device="cuda"):
+                 device="cuda", cuda_graphs: Optional[bool] = None):
         if not paged:
             raise _not_ported("the dense-slot engine (paged=False)", 6,
                               "dense-slot engine mode; pass paged=True")
@@ -216,6 +236,7 @@ class ServeEngine:
             else torch.Generator(device=self.device).manual_seed(0)
         self.paged = paged
         self._init_paged(block_size, n_blocks)
+        self._graphs = self._init_graphs(cuda_graphs)
 
         self._inflight: Dict[int, _Inflight] = {}
         self._steps = 0
@@ -259,6 +280,20 @@ class ServeEngine:
         self._gathered_kv_bytes = 0
         self._fused_kv_bytes = 0
         self._kv_step_log: List[Tuple[int, int]] = []
+
+    def _init_graphs(self, cuda_graphs: Optional[bool]
+                     ) -> Optional[graphs.GraphCache]:
+        if cuda_graphs is None:
+            cuda_graphs = graphs.API.supports(self.device)
+        elif cuda_graphs and not graphs.API.supports(self.device):
+            raise ValueError(f"cuda_graphs=True needs a CUDA engine; this "
+                             f"one runs on {self.device}")
+        if not cuda_graphs:
+            return None
+        return graphs.GraphCache(
+            self._decode_body, self._prefill_body, n_slots=self.n_slots,
+            max_blocks=self._max_blocks,
+            max_bucket=max(self.scheduler.buckets), device=self.device)
 
     def _dev(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)
@@ -368,6 +403,8 @@ class ServeEngine:
             self._prefix_hits += 1
             self._shared_block_hits += plan.n_shared
         prompt = req.prompt_array()
+        row = np.full((self._max_blocks,), TRASH_BLOCK, np.int32)
+        row[: len(table.blocks)] = table.blocks
         # recompute at least one position so the last-token logits exist
         # even when every prompt block matched
         n_pref = min(len(plan.full_matched), (p - 1) // bs)
@@ -382,30 +419,31 @@ class ServeEngine:
             logits, pre = self.model.prefill_suffix(
                 self.params, {"tokens": self._dev(toks)}, prefix=prefix,
                 prompt_len=p)
-            first_logical = n_pref
+            kv, _ = self.model.split_prefill_cache(pre)
+            write_ids = self._write_ids(table, n_pref, kv["k"].shape[2] // bs)
+            _paged_write(self.cache, kv, self._dev(write_ids),
+                         self._dev(row), slot, pre["pos"])
         else:
             bucket = self.scheduler.bucket_for(p)
             toks = np.zeros((1, bucket), np.int32)
             toks[0, :p] = prompt[0]
-            logits, pre = self.model.prefill(
-                self.params, {"tokens": self._dev(toks)},
-                max_len=self.max_len, prompt_len=p)
-            first_logical = 0
-        kv, _ = self.model.split_prefill_cache(pre)
-        n_written = kv["k"].shape[2] // bs
-        write_ids = []
-        for i in range(first_logical, first_logical + n_written):
-            if i >= len(table.blocks) or i in table.shared:
-                write_ids.append(TRASH_BLOCK)
-            else:
-                write_ids.append(table.blocks[i])
-        row = np.full((self._max_blocks,), TRASH_BLOCK, np.int32)
-        row[: len(table.blocks)] = table.blocks
-        _paged_write(self.cache, kv, self._dev(write_ids), self._dev(row),
-                     slot, pre["pos"])
+            # the padded prefill writes every logical block of max_len
+            logits = self._prefill(
+                toks, self._write_ids(table, 0, self._max_blocks), row, slot,
+                p)
         self._register_prompt_blocks(req, plan, table)
         self._tables[slot] = table
         return logits, n_pref * bs
+
+    @staticmethod
+    def _write_ids(table: _SlotTable, first_logical: int,
+                   n_written: int) -> List[int]:
+        """The pool page of each of ``n_written`` logical blocks a prefill
+        writes from ``first_logical`` on: shared and overhang blocks go to
+        the trash page."""
+        return [TRASH_BLOCK if i >= len(table.blocks) or i in table.shared
+                else table.blocks[i]
+                for i in range(first_logical, first_logical + n_written)]
 
     def _apply_cow(self, slot: int) -> None:
         """First divergent write is imminent (the request enters the decode
@@ -488,9 +526,8 @@ class ServeEngine:
             temps[slot] = max(inf.request.sampler.temperature, 0.0)
             greedy[slot] = inf.request.sampler.greedy
         hw = self._live_blocks(1)
-        logits, self.cache = self.model.paged_decode_step(
-            self.params, self.cache, self._dev(toks), live_blocks=hw)
-        next_toks = self._sample(logits[:, -1], temps, greedy)
+        next_toks = self._sample(self._decode(hw, toks)[:, -1], temps,
+                                 greedy)
         self._steps += 1
         self._occupancy_sum += len(self._inflight) / self.n_slots
         self._block_occ_sum += self._pool.in_use / self.n_blocks
@@ -509,40 +546,66 @@ class ServeEngine:
                     or len(inf.generated) >= inf.request.max_new_tokens:
                 self._finish(inf, now, results)
 
+    # ---- tick bodies (eager, or captured by the graph cache) --------------
+    def _decode_body(self, tokens: torch.Tensor, hw: int) -> torch.Tensor:
+        logits, _ = self.model.paged_decode_step(
+            self.params, self.cache, tokens, live_blocks=hw)
+        return logits
+
+    def _prefill_body(self, tokens, write_ids, row, slot, prompt_len
+                      ) -> torch.Tensor:
+        """The full-prompt prefill of ``tokens (1, bucket)`` and its paged
+        write (:func:`_paged_write`); ``slot`` and ``prompt_len`` are
+        Python ints, or device tensors in a graph."""
+        logits, pre = self.model.prefill(
+            self.params, {"tokens": tokens}, max_len=self.max_len,
+            prompt_len=prompt_len)
+        kv, _ = self.model.split_prefill_cache(pre)
+        _paged_write(self.cache, kv, write_ids, row, slot, pre["pos"])
+        return logits
+
+    def _decode(self, hw: int, toks: np.ndarray) -> torch.Tensor:
+        """Logits ``(n_slots, 1, V)`` of one paged decode step over ``hw``
+        live blocks: a graph's replay, or the eager step."""
+        if self._graphs is not None:
+            return self._graphs.decode(hw, toks)
+        return self._decode_body(self._dev(toks), hw)
+
+    def _prefill(self, toks: np.ndarray, write_ids: Sequence[int],
+                 row: np.ndarray, slot: int, p: int) -> torch.Tensor:
+        """Logits ``(1, 1, V)`` of the full-prompt prefill of ``toks (1,
+        bucket)`` after its K/V went to the pool pages ``write_ids`` and
+        ``slot``'s table row and cursor ``p`` were installed: a graph's
+        replay, or the eager body."""
+        if self._graphs is not None:
+            return self._graphs.prefill(toks, write_ids, row, slot, p)
+        return self._prefill_body(self._dev(toks), self._dev(write_ids),
+                                  self._dev(row), slot, p)
+
     # ---- warmup ------------------------------------------------------------
     def _warmup_tick(self) -> None:
         """Run every tick-critical path once with throwaway inputs before
         the engine clock starts: one prefill per prompt bucket, the paged
         write / CoW / release helpers, and one decode per live-block
         bucket. One-time costs (kernel builds, CUDA context, library
-        handles, allocator growth) then land in ``compile_s`` instead of
-        ``wall_s`` / TTFT. All writes are harmless by construction: they
-        land on the trash page, and idle cursors are reset at admission.
+        handles, allocator growth, graph captures) then land in
+        ``compile_s`` instead of ``wall_s`` / TTFT. All writes are harmless
+        by construction: they land on the trash page, and idle cursors are
+        reset at admission. With CUDA graphs each bucket's prefill (with
+        its paged write to the trash page) and decode is captured here.
         Not covered: the prefix-hit gather and suffix prefill."""
         n = self.n_slots
-        pre = None
+        trash = np.full((self._max_blocks,), TRASH_BLOCK, np.int32)
         for bucket in self.scheduler.buckets:
-            toks = torch.zeros((1, bucket), dtype=torch.int32,
-                               device=self.device)
-            _, pre = self.model.prefill(self.params, {"tokens": toks},
-                                        max_len=self.max_len,
-                                        prompt_len=bucket)
-        if pre is not None:
-            kv, _ = self.model.split_prefill_cache(pre)
-            n_written = kv["k"].shape[2] // self.block_size
-            trash = torch.full((n_written,), TRASH_BLOCK, dtype=torch.int32,
-                               device=self.device)
-            row = torch.full((self._max_blocks,), TRASH_BLOCK,
-                             dtype=torch.int32, device=self.device)
-            _paged_write(self.cache, kv, trash, row, 0, 0)
+            self._prefill(np.zeros((1, bucket), np.int32), trash, trash, 0,
+                          bucket)
         # copying page 0 onto itself and re-clearing an empty slot are
         # no-ops by construction
         _cow_copy(self.cache, TRASH_BLOCK, TRASH_BLOCK, 0, 0)
         _clear_slot(self.cache, 0)
-        toks0 = torch.zeros((n, 1), dtype=torch.int32, device=self.device)
+        toks0 = np.zeros((n, 1), np.int32)
         for hw in self._hw_buckets():
-            logits, self.cache = self.model.paged_decode_step(
-                self.params, self.cache, toks0, live_blocks=hw)
+            logits = self._decode(hw, toks0)
         self._sample(logits[:, -1], np.zeros((n,), np.float32),
                      np.ones((n,), bool))
         if self.device.type == "cuda":
@@ -649,6 +712,9 @@ class ServeEngine:
         report["scheduling"] = self.scheduling
         report["device"] = (torch.cuda.get_device_name(self.device)
                             if self.device.type == "cuda" else "cpu")
+        report["cuda_graphs"] = self._graphs is not None
+        report["graphs"] = (self._graphs.report()
+                            if self._graphs is not None else None)
         report["paged"] = paged_report(
             spec=self._spec, n_slots=self.n_slots, max_len=self.max_len,
             block_size=self.block_size, n_blocks=self.n_blocks,

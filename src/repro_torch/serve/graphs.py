@@ -1,0 +1,243 @@
+"""CUDA graphs of one serve engine: the port's counterpart of the
+reference's compile cache (``repro/serve/engine.py``: ``_cached_jit``,
+``_build``, ``_decode_for``).
+
+The reference never runs a tick eagerly. It jits every tick path once per
+shape: one paged decode per live-block bucket, one padded prefill per
+prompt bucket with ``prompt_len`` traced. On the card a CUDA graph per
+shape stands for ``jax.jit``. :class:`GraphCache` captures
+
+* the paged decode step, once per live-block bucket: tokens ``(n_slots,
+  1)`` in, logits ``(n_slots, 1, V)`` out;
+* the full-prompt prefill **and** its scatter into the pool, once per
+  prompt bucket: tokens, ``write_ids``, the table row, ``slot`` and
+  ``prompt_len`` in, the ``(1, 1, V)`` logits out. The padded ``(L, 1,
+  max_len, Hk, D)`` K/V stack stays inside the graph, so no bucket keeps
+  one alive.
+
+A prefix-hit (suffix) prefill has a prefix length that varies, so it stays
+eager.
+
+**One engine's graphs.** A graph binds addresses: of the parameters, of
+the engine's cache tensors, of the static input buffers here and of the
+kernels' workspaces for the capture stream. So a cache belongs to one
+engine, where the reference's module cache is shared by engines of one
+layout. Nothing may reassign a tensor of the engine's cache: every write is
+in place. The cache holds the workspaces its graphs bind
+(:func:`repro_torch.kernels._build.stream_workspaces`), so a later growth
+cannot hand their memory back to the allocator.
+
+**Capture.** The first call of a ``(path, bucket)`` runs the body eagerly
+on the capture stream: at warmup on throwaway inputs, or as the real tick
+of an engine run without warmup. That sizes the kernels' workspaces and
+cuBLAS's handle for the stream. The capture follows and executes nothing;
+later calls copy their inputs into the static buffers and replay. No body
+runs twice on live state, and nothing falls back: a capture or a replay
+that fails raises.
+
+**Launch counts.** A capture runs the kernel wrappers' Python but no
+kernel; a replay runs kernels without calling Python. So the counts are
+restored after a capture, the difference is kept as the graph's launches,
+and every replay adds them (:func:`repro_torch.kernels.ops.
+add_launch_counts`).
+
+**Memory.** All graphs of one engine share one pool: they are replayed one
+at a time on one stream, and each graph's output lives as long as the
+graph, so no later capture takes its memory.
+
+The graph API is :data:`API`. A test injects a double with the same
+members to run the bodies on CPU tensors.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import dataclasses
+import time
+from typing import Callable, Dict, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build, ops
+
+__all__ = ["API", "GraphCache", "TorchGraphs"]
+
+
+class TorchGraphs:
+    """``torch.cuda``'s graphs, as :class:`GraphCache` uses them."""
+
+    def supports(self, device: torch.device) -> bool:
+        return device.type == "cuda"
+
+    def new_stream(self, device: torch.device):
+        return torch.cuda.Stream(device)
+
+    def new_pool(self):
+        return torch.cuda.graph_pool_handle()
+
+    @contextlib.contextmanager
+    def on(self, stream):
+        """Run the block on ``stream``, after the current stream's work so
+        far and before its work to come."""
+        current = torch.cuda.current_stream(stream.device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            yield
+        current.wait_stream(stream)
+
+    def capture(self, body: Callable[[], torch.Tensor], *, stream, pool
+                ) -> Callable[[], torch.Tensor]:
+        """Capture ``body()`` on ``stream`` into a graph of ``pool``.
+        Returns ``replay()``: it launches the graph on the current stream
+        and returns the body's output, the same tensor every time."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool, stream=stream):
+            out = body()
+
+        def replay() -> torch.Tensor:
+            graph.replay()
+            return out
+
+        return replay
+
+    def bound_buffers(self, stream) -> list:
+        """The kernel workspaces a graph captured on ``stream`` binds."""
+        return _build.stream_workspaces(stream.device.index,
+                                        stream.cuda_stream)
+
+    def pool_bytes(self, pool) -> int:
+        """Bytes of the allocator's segments that belong to ``pool``."""
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg["segment_pool_id"]) == tuple(pool))
+
+
+#: the graph API every new :class:`GraphCache` uses
+API = TorchGraphs()
+
+
+@dataclasses.dataclass
+class _Graph:
+    """One captured body: ``replay`` and the launches its capture
+    recorded."""
+
+    replay: Callable[[], torch.Tensor]
+    launches: Dict[str, int]
+
+    def __call__(self) -> torch.Tensor:
+        out = self.replay()
+        ops.add_launch_counts(self.launches)
+        return out
+
+
+class GraphCache:
+    """The graphs of one engine's paged decode (per live-block bucket) and
+    full-prompt prefill (per prompt bucket).
+
+    The bodies are the engine's: ``decode(tokens (n_slots, 1), hw)`` and
+    ``prefill(tokens (1, bucket), write_ids, row, slot, prompt_len)``, both
+    returning logits; here they get the static buffers, ``slot`` as a
+    ``(1,)`` and ``prompt_len`` as a 0-d int32 device tensor.
+    ``max_bucket`` is the largest prompt bucket. Counters: ``eager_runs``,
+    ``captures`` and ``replays`` per ``(path, bucket)``, and ``capture_s``
+    in all.
+    """
+
+    def __init__(self, decode: Callable, prefill: Callable, *, n_slots: int,
+                 max_blocks: int, max_bucket: int, device: torch.device):
+        self._api = API
+        self._decode, self._prefill = decode, prefill
+        self._stream = self._api.new_stream(device)
+        self._pool = self._api.new_pool()
+        self._graphs: Dict[tuple, _Graph] = {}
+        self._bound: Dict[int, torch.Tensor] = {}
+        self.eager_runs: collections.Counter = collections.Counter()
+        self.captures: collections.Counter = collections.Counter()
+        self.replays: collections.Counter = collections.Counter()
+        self.capture_s = 0.0
+        # static inputs: decode's tokens, and the prefill's in one buffer
+        # (one copy an admission): tokens | write_ids | row | slot | length
+        self._tokens = torch.zeros((n_slots, 1), dtype=torch.int32,
+                                   device=device)
+        self._nb, self._mb = max_blocks, max_bucket
+        self._prefill_host = np.zeros(max_bucket + 2 * max_blocks + 2,
+                                      np.int32)
+        self._prefill_in = torch.zeros(self._prefill_host.shape,
+                                       dtype=torch.int32, device=device)
+
+    def _prefill_body(self, bucket: int) -> torch.Tensor:
+        buf, mb, nb = self._prefill_in, self._mb, self._nb
+        return self._prefill(buf[:bucket].view(1, bucket), buf[mb:mb + nb],
+                             buf[mb + nb:mb + 2 * nb],
+                             buf[mb + 2 * nb:mb + 2 * nb + 1],
+                             buf[mb + 2 * nb + 1])
+
+    # ---- ticks -------------------------------------------------------------
+    def decode(self, hw: int, tokens: np.ndarray) -> torch.Tensor:
+        """Logits ``(n_slots, 1, V)`` of one paged decode step of
+        ``tokens (n_slots, 1)`` over ``hw`` live blocks."""
+        self._tokens.copy_(torch.from_numpy(tokens))
+        return self._run(("decode", hw), lambda: self._decode(self._tokens,
+                                                              hw))
+
+    def prefill(self, tokens: np.ndarray, write_ids: Sequence[int],
+                row: np.ndarray, slot: int, prompt_len: int) -> torch.Tensor:
+        """Logits ``(1, 1, V)`` of the full-prompt prefill of ``tokens (1,
+        bucket)``, after its K/V went to the pages ``write_ids`` (one per
+        logical block of ``max_len``) and ``slot``'s table row and cursor
+        were installed."""
+        bucket = tokens.shape[1]
+        host, mb, nb = self._prefill_host, self._mb, self._nb
+        host[:bucket] = tokens[0]
+        host[mb:mb + nb] = write_ids
+        host[mb + nb:mb + 2 * nb] = row
+        host[mb + 2 * nb:] = (slot, prompt_len)
+        self._prefill_in.copy_(torch.from_numpy(host))
+        return self._run(("prefill", bucket),
+                         lambda: self._prefill_body(bucket))
+
+    def _run(self, key: tuple, body: Callable[[], torch.Tensor]
+             ) -> torch.Tensor:
+        graph = self._graphs.get(key)
+        if graph is not None:
+            self.replays[key] += 1
+            return graph()
+        with self._api.on(self._stream):
+            out = body()
+        self.eager_runs[key] += 1
+        self._graphs[key] = self._capture(key, body)
+        return out
+
+    def _capture(self, key: tuple, body: Callable[[], torch.Tensor]
+                 ) -> _Graph:
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        try:
+            replay = self._api.capture(body, stream=self._stream,
+                                       pool=self._pool)
+        finally:
+            after = ops.launch_counts()
+            ops.reset_launch_counts()
+            ops.add_launch_counts(before)
+        self.capture_s += time.perf_counter() - t0
+        self.captures[key] += 1
+        self._bound.update((id(t), t)
+                           for t in self._api.bound_buffers(self._stream))
+        return _Graph(replay, {k: after[k] - before[k] for k in after})
+
+    def report(self) -> dict:
+        """Graphs held, captures, replays and eager first runs since the
+        cache was made, the capture seconds, the pool's MB (of 2**20
+        bytes), and each path's kernel launches per replay (the same for
+        every bucket of a path)."""
+        per_replay = {}
+        for (path, _), graph in sorted(self._graphs.items()):
+            per_replay[path] = {k: n for k, n in graph.launches.items() if n}
+        return {"graphs": len(self._graphs),
+                "captures": sum(self.captures.values()),
+                "replays": sum(self.replays.values()),
+                "eager_runs": sum(self.eager_runs.values()),
+                "capture_s": self.capture_s,
+                "pool_mb": self._api.pool_bytes(self._pool) / 2 ** 20,
+                "launches_per_replay": per_replay}

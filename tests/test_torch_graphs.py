@@ -1,0 +1,397 @@
+"""The port's CUDA-graph engine path (``repro_torch.serve.graphs``) on the
+CPU.
+
+A CUDA graph cannot be captured here, so a test double of the graph API
+stands in for ``torch.cuda``'s (:class:`RecordingGraphs`: its capture
+records the body and runs nothing, its replay runs the body). What the
+tests hold is everything around the graphs: the capture bodies (the
+device-side ``prompt_len`` prefill and the paged write with device-side
+``slot``), when each bucket is captured, that no body runs twice on live
+state, the launch accounting, and that the cache tensors keep their
+addresses. On the card ``chip_smoke.py`` holds the real graphs to the eager
+engine bit for bit.
+
+Tolerances: the captured and the eager engine run the same operations on
+the same values, so tokens, reports and logits must be equal bit for bit
+(no tolerance). Against the JAX reference, f32 tokens must be identical
+(as in ``tests/test_torch_serve.py``), and prefill logits lie within
+``test_torch_model.py``'s ``atol=1e-4`` (f32 reassociation through 2
+layers, logits of order 1).
+"""
+
+import collections
+import contextlib
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.registry import get_config as jget, smoke_config as jsmoke
+from repro.models.api import build_model as jbuild
+from repro.serve import ServeEngine as JEngine
+from repro.serve import poisson_workload as j_poisson
+from repro.serve import shared_prefix_workload as j_shared
+from repro_torch import interop
+from repro_torch.configs.registry import get_config as tget
+from repro_torch.configs.registry import smoke_config as tsmoke
+from repro_torch.kernels import _build, ops
+from repro_torch.launch import serve as serve_cli
+from repro_torch.models.api import build_model as tbuild
+from repro_torch.serve import ServeEngine, graphs
+from repro_torch.serve import poisson_workload as t_poisson
+from repro_torch.serve import shared_prefix_workload as t_shared
+
+POOLS = {"bf16": {}, "int8": {"kv_cache_dtype": "int8"},
+         "f32": {"compute_dtype": "float32"}}
+ENGINE = dict(n_slots=3, max_len=64, paged=True, block_size=16,
+              clock=lambda: 0.0)
+ATOL = 1e-4      # test_torch_model.py's: f32 reassociation, logits O(1)
+
+
+class RecordingGraphs:
+    """Test double of :class:`repro_torch.serve.graphs.TorchGraphs`: its
+    capture records the body and runs nothing; its replay runs the body
+    on the CPU tensors."""
+
+    def __init__(self):
+        self.captured = []
+
+    def supports(self, device):
+        return True
+
+    def new_stream(self, device):
+        return None
+
+    def new_pool(self):
+        return None
+
+    def on(self, stream):
+        return contextlib.nullcontext()
+
+    def capture(self, body, *, stream, pool):
+        self.captured.append(body)
+        return body
+
+    def bound_buffers(self, stream):
+        return []
+
+    def pool_bytes(self, pool):
+        return 0
+
+
+class PythonAtCapture(RecordingGraphs):
+    """Like a real capture: the body's Python (the wrappers' counters too)
+    runs once at capture, and a replay runs no Python."""
+
+    def capture(self, body, *, stream, pool):
+        out = body()
+        return lambda: out
+
+
+@pytest.fixture
+def recording(monkeypatch):
+    api = RecordingGraphs()
+    monkeypatch.setattr(graphs, "API", api)
+    return api
+
+
+@pytest.fixture(scope="module")
+def models():
+    """Per pool: the reference's model and ``PRNGKey(0)`` parameters, and
+    the port's model with the same parameters."""
+    out = {}
+    for pool, upd in POOLS.items():
+        jcfg = dataclasses.replace(jsmoke(jget("llama3-8b")), **upd)
+        tcfg = dataclasses.replace(tsmoke(tget("llama3-8b")), **upd)
+        jm = jbuild(jcfg)
+        jp = jm.init(jax.random.PRNGKey(0))
+        tm = tbuild(tcfg)
+        tp = tm.load_params(interop.from_numpy(jax.tree.map(np.asarray, jp),
+                                               device="cpu"))
+        out[pool] = (jm, jp, tm, tp)
+    return out
+
+
+def _workload(which, vocab, fns=(t_poisson, t_shared)):
+    poisson, shared = fns
+    if which == "poisson":
+        return poisson(n_requests=7, vocab=vocab, rate_rps=100.0,
+                       prompt_len_range=(4, 30), gen_len_range=(3, 10),
+                       seed=1)
+    return shared(n_requests=7, vocab=vocab, rate_rps=100.0, n_prefixes=2,
+                  prefix_len=16, suffix_len_range=(0, 6),
+                  gen_len_range=(3, 8), seed=7)
+
+
+def _record_logits(engine, out):
+    """Record each request's next-token logits by ``(uid, step)`` where
+    the engine samples them (the first token in ``_seed``, each decode
+    step's in ``_sample``)."""
+    seed, sample = engine._seed, engine._sample
+
+    def _seed(slot, req, logits, *rest):
+        out[(req.uid, 0)] = logits[0, -1].clone()
+        return seed(slot, req, logits, *rest)
+
+    def _sample(logits, temps, greedy):
+        for slot, inf in engine._inflight.items():
+            out[(inf.request.uid, len(inf.generated))] = logits[slot].clone()
+        return sample(logits, temps, greedy)
+
+    engine._seed, engine._sample = _seed, _sample
+
+
+def _cache_ptrs(engine):
+    leaves = dict(engine.cache["layers"])
+    leaves.update(block_tables=engine.cache["block_tables"],
+                  pos=engine.cache["pos"])
+    return {name: t.data_ptr() for name, t in leaves.items()}
+
+
+# ---------------------------------------------------------------------------
+# (a) the captured engine's tokens, reports and logits equal the eager one's
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("pool", list(POOLS))
+@pytest.mark.parametrize("workload", ["poisson", "shared_prefix"])
+def test_captured_engine_equals_eager(models, recording, pool, workload):
+    jm, jp, tm, tp = models[pool]
+    runs = {}
+    for cuda_graphs in (False, True):
+        engine = ServeEngine(tm, tp, device="cpu", cuda_graphs=cuda_graphs,
+                             **ENGINE)
+        logits = {}
+        _record_logits(engine, logits)
+        results, report = engine.run(_workload(workload, tm.cfg.vocab))
+        runs[cuda_graphs] = results, report, logits
+    (want, want_rep, want_logits), (got, rep, got_logits) = \
+        runs[False], runs[True]
+    assert rep["cuda_graphs"] and not want_rep["cuda_graphs"]
+    assert rep["graphs"]["replays"] > 0 and want_rep["graphs"] is None
+    for key in set(rep) - {"cuda_graphs", "graphs"}:
+        assert rep[key] == want_rep[key], key
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+        assert (a.uid, a.slot, a.finish_reason) == \
+            (b.uid, b.slot, b.finish_reason)
+    assert got_logits.keys() == want_logits.keys()
+    for key, x in want_logits.items():
+        assert torch.equal(got_logits[key], x), key
+    if workload == "shared_prefix":
+        assert rep["paged"]["prefix_hits"] > 0
+    if pool == "f32":
+        ref = JEngine(jm, jp, attn_backend="jnp", **ENGINE)
+        jwant, _ = ref.run(_workload(workload, jm.cfg.vocab,
+                                     (j_poisson, j_shared)))
+        for a, b in zip(jwant, got):
+            np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+# ---------------------------------------------------------------------------
+# (b) when each bucket is captured; no body runs twice on live state
+# ---------------------------------------------------------------------------
+
+
+def test_warmup_captures_every_bucket_once(models, recording):
+    _, _, tm, tp = models["bf16"]
+    engine = ServeEngine(tm, tp, device="cpu", **ENGINE)
+    engine.start_run(warmup=True)
+    cache = engine._graphs
+    keys = {("prefill", b) for b in engine.scheduler.buckets} | \
+        {("decode", hw) for hw in engine._hw_buckets()}
+    assert len(keys) == 7           # prompt buckets 8..64, blocks 1, 2, 4
+    once = collections.Counter(dict.fromkeys(keys, 1))
+    assert cache.captures == once and cache.eager_runs == once
+    assert len(recording.captured) == len(keys) and not cache.replays
+    _, report = engine.run(_workload("poisson", tm.cfg.vocab))
+    assert cache.captures == once and cache.eager_runs == once
+    assert report["graphs"]["replays"] == sum(cache.replays.values()) > 0
+    assert set(cache.replays) <= keys
+
+
+def test_first_tick_of_a_bucket_is_captured_once(models, recording):
+    _, _, tm, tp = models["int8"]
+    engines = [ServeEngine(tm, tp, device="cpu", cuda_graphs=g, **ENGINE)
+               for g in (False, True)]
+    for engine in engines:
+        engine.start_run()
+        for req in _workload("poisson", tm.cfg.vocab):
+            engine.submit(req)
+    eager, captured = engines
+    results = [[], []]
+    ticks = 0
+    while not eager.scheduler.done:
+        for engine, out in zip(engines, results):
+            engine.tick(out)
+        ticks += 1
+        # a body run twice would advance a cursor twice
+        for name in ("pos", "block_tables"):
+            assert torch.equal(captured.cache[name], eager.cache[name]), \
+                (ticks, name)
+    assert captured.scheduler.done
+    cache = captured._graphs
+    assert set(cache.captures.values()) == {1}
+    assert cache.eager_runs == cache.captures
+    _, report = captured.finish_run(results[1])
+    runs = cache.eager_runs + cache.replays     # each body run, by key
+    assert report["paged"]["prefix_hits"] == 0
+    assert sum(n for (path, _), n in runs.items() if path == "decode") \
+        == report["decode_steps"]
+    assert sum(n for (path, _), n in runs.items() if path == "prefill") \
+        == report["paged"]["admissions"]
+
+
+# ---------------------------------------------------------------------------
+# (c) launch accounting
+# ---------------------------------------------------------------------------
+
+
+def _stub_decode(tokens, hw):
+    """A decode body that only bumps the wrappers' counters, as the
+    wrappers do where they launch: 3 ``dot_moa`` and 1 ``paged_attention``
+    a step."""
+    ops.dot_moa_cuda.launches += 3
+    ops.paged_attention_cuda.launches += 1
+    return torch.zeros((tokens.shape[0], 1, 5))
+
+
+def _stub_cache(monkeypatch, api):
+    monkeypatch.setattr(graphs, "API", api)
+    return graphs.GraphCache(_stub_decode, None, n_slots=2, max_blocks=2,
+                             max_bucket=16, device=torch.device("cpu"))
+
+
+def test_capture_adds_no_launches_and_replay_adds_recorded(monkeypatch):
+    cache = _stub_cache(monkeypatch, PythonAtCapture())
+    toks = np.zeros((2, 1), np.int32)
+    ops.reset_launch_counts()
+    try:
+        cache.decode(1, toks)       # the eager first run, then the capture
+        counts = ops.launch_counts()
+        assert counts["dot_moa"] == 3 and counts["paged_attention"] == 1
+        assert cache._graphs[("decode", 1)].launches == dict(
+            counts, dot_moa=3, paged_attention=1)
+        for n in (2, 3):            # replays run no Python
+            cache.decode(1, toks)
+            counts = ops.launch_counts()
+            assert counts["dot_moa"] == 3 * n
+            assert counts["paged_attention"] == n
+            assert sum(counts.values()) == 4 * n
+        assert cache.replays[("decode", 1)] == 2
+    finally:
+        ops.reset_launch_counts()
+
+
+def test_failed_capture_raises_and_restores_counts(monkeypatch):
+    class Broken(PythonAtCapture):
+        def capture(self, body, *, stream, pool):
+            body()
+            raise RuntimeError("operation not permitted when stream is "
+                               "capturing")
+
+    cache = _stub_cache(monkeypatch, Broken())
+    ops.reset_launch_counts()
+    try:
+        with pytest.raises(RuntimeError, match="capturing"):
+            cache.decode(1, np.zeros((2, 1), np.int32))
+        # the eager run's launches stay, the failed capture's are undone,
+        # and nothing was kept to replay
+        counts = ops.launch_counts()
+        assert counts["dot_moa"] == 3 and counts["paged_attention"] == 1
+        assert not cache._graphs and not cache.captures
+    finally:
+        ops.reset_launch_counts()
+
+
+def test_workspace_refuses_to_grow_during_capture(monkeypatch):
+    monkeypatch.setattr(_build, "_WORKSPACE", {})
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    with pytest.raises(RuntimeError, match="during CUDA graph capture"):
+        _build.workspace(0, 7, 1024, 4)
+    with pytest.raises(RuntimeError, match="dot_moa"):
+        _build.workspace(0, 7, 1024, owner="dot_moa")
+    # a pair that already covers the call is handed out, capturing or not
+    ws, tk = torch.empty(256, dtype=torch.int32), torch.zeros(
+        4, dtype=torch.int32)
+    _build._WORKSPACE[(0, 7, "shared")] = ws, tk
+    assert _build.workspace(0, 7, 1024, 4) == (ws, tk)
+    assert [t.data_ptr() for t in _build.stream_workspaces(0, 7)] == \
+        [ws.data_ptr(), tk.data_ptr()]
+    assert _build.stream_workspaces(0, 8) == []
+
+
+# ---------------------------------------------------------------------------
+# (d) the prefill with a device-side prompt_len
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kv", ["float32", "int8"])
+def test_device_prompt_len_prefill(kv):
+    upd = dict(compute_dtype="float32",
+               kv_cache_dtype="int8" if kv == "int8" else "bfloat16")
+    jm = jbuild(dataclasses.replace(jsmoke(jget("llama3-8b")), **upd))
+    jp = jm.init(jax.random.PRNGKey(0))
+    tm = tbuild(dataclasses.replace(tsmoke(tget("llama3-8b")), **upd))
+    tp = tm.load_params(interop.from_numpy(jax.tree.map(np.asarray, jp),
+                                           device="cpu"))
+    max_len, toks = 48, np.zeros((1, 32), np.int32)
+    for p in (1, 21, 32):
+        toks[0, :p] = np.random.default_rng(p).integers(0, 257, p)
+        batch = {"tokens": torch.from_numpy(toks)}
+        want, want_c = tm.prefill(tp, batch, max_len=max_len, prompt_len=p)
+        got, got_c = tm.prefill(tp, batch, max_len=max_len,
+                                prompt_len=torch.tensor(p,
+                                                        dtype=torch.int32))
+        assert torch.equal(got, want)
+        assert got_c["pos"].dtype == torch.int32 and got_c["pos"].dim() == 0
+        assert int(got_c["pos"]) == want_c["pos"] == p
+        for name, leaf in want_c["layers"].items():
+            assert torch.equal(got_c["layers"][name], leaf), name
+        jl, _ = jm.prefill(jp, {"tokens": jnp.asarray(toks)},
+                           max_len=max_len, prompt_len=p)
+        np.testing.assert_allclose(got.numpy(), np.asarray(jl), atol=ATOL,
+                                   rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# (e) static addresses, (f) the knob
+# ---------------------------------------------------------------------------
+
+
+def test_cache_tensors_keep_their_addresses(models, recording):
+    _, _, tm, tp = models["bf16"]
+    engine = ServeEngine(tm, tp, device="cpu", cuda_graphs=True, **ENGINE)
+    ptrs, cache = _cache_ptrs(engine), engine.cache
+    engine.start_run(warmup=True)
+    for req in _workload("shared_prefix", tm.cfg.vocab):
+        engine.submit(req)
+    results = []
+    while not engine.scheduler.done:
+        engine.tick(results)
+        assert engine.cache is cache and _cache_ptrs(engine) == ptrs
+    _, report = engine.finish_run(results)
+    assert report["paged"]["prefix_hits"] > 0
+    assert report["paged"]["admissions"] == len(results) == 7
+    assert engine._pool.in_use == 0          # every request released
+
+
+def test_cuda_graphs_knob_on_the_cpu(models):
+    _, _, tm, tp = models["bf16"]
+    with pytest.raises(ValueError, match="cuda_graphs=True needs a CUDA"):
+        ServeEngine(tm, tp, device="cpu", cuda_graphs=True, **ENGINE)
+    for knob in (None, False):
+        assert ServeEngine(tm, tp, device="cpu", cuda_graphs=knob,
+                           **ENGINE)._graphs is None
+
+
+def test_serve_cli_eager_flag(capsys):
+    serve_cli.main(["--arch", "llama3-8b", "--smoke", "--paged", "--device",
+                    "cpu", "--requests", "2", "--prompt-len", "12",
+                    "--gen-len", "3", "--no-warmup", "--eager"])
+    out = capsys.readouterr().out
+    assert "path=eager" in out and "[serve] graphs:" not in out
