@@ -4,11 +4,12 @@
     python3 chip_smoke.py [--log PATH] [--parent DIR]
 
 ``--log`` also appends every JSON line to a file. ``--parent`` names a
-checkout of the parent tree (``git archive`` unpacked): its paged-attention,
-``moa_reduce`` and ``loa_reduce`` kernels are built from its own sources and
-timed beside every paged and reduction row (``parent_device_ms``), and a
-second ``decode_long`` line serves the same requests through its paged
-kernel.
+checkout of the parent tree (``git archive`` unpacked): its ``dot_moa``,
+paged-attention, ``moa_reduce`` and ``loa_reduce`` kernels are built from
+its own sources and timed beside every unbatched ``dot_moa``, paged and
+reduction row (``parent_device_ms``; ``dot_moa`` rows also give
+``vs_parent``, this tree's device time over the parent's), and a second
+``decode_long`` line serves the same requests through its paged kernel.
 
 Phases, in order; each prints JSON lines and any failure ends the run with
 a non-zero exit:
@@ -29,15 +30,23 @@ a non-zero exit:
               ``flash_attention`` and ``paged_attention`` row also names its
               plan (body, tile, splits, blocks) and the CUDA functions the
               call launched with the device time of each, and fails if any
-              is not one of the kernel's own; paged rows also fail on a
-              read of a dead page (NaN-poisoned) or two calls that differ
-              in a bit. Paged rows run at the served decode, long context
+              is not one of the kernel's own; flash and paged rows also
+              fail on two calls that differ in a bit, paged rows on a read
+              of a dead page (NaN-poisoned). Flash rows run at llama3-8b's
+              and moonshot-v1-16b-a3b's served prefills; paged rows at both
+              models' served decode (bf16 and int8 pools), long context
               (to 4096 tokens, and 16 slots to 8192) and the T = 4 verify
               shape. Each ``moa_reduce`` / ``loa_reduce`` row names its
               plan (route, splits, blocks), fails on two calls that differ
               in a bit, gives ``chain_ms`` (the ordered fold chain's floor)
               on the ordered route, and a time target, met or missed.
-              A last row gives the wrapper's host time per call.
+              moonshot-v1-16b-a3b's served calls: the batched expert
+              projections (64 experts, C = 1, 60 and a ragged 4 and 5
+              rows each, one launch), each also bit for bit against a
+              member-by-member loop under the same plan and beside
+              ``torch.bmm``; the router (bf16 in, f32 out) and the top-6
+              combine (``moa_reduce``, one 6-row cluster). A last row
+              gives the wrapper's host time per call.
 3. serve    — llama3-8b at full width and full depth (bf16 weights from
               the port's own initializer, seed 0) served through the
               paged engine, 8 requests into 4 slots, twice in one
@@ -61,6 +70,16 @@ a non-zero exit:
               greedy requests of 3000-4000 prompt tokens, 8 new tokens
               each, every tick profiled (paged attention's share of a
               decode tick).
+   Then moonshot-v1-16b-a3b at full width and depth (bf16 weights
+              from the port's initializer, seed 0, after llama3-8b is
+              freed; capacity factor 1.25, so exact-length prefills) in
+              the dense-slot and the paged layout: per layout the
+              bit-for-bit eager / captured check (``graphs`` line), the
+              Poisson workload eager and captured (``serve`` lines; a
+              captured decode tick must launch 384 ``dot_moa``, 48
+              ``moa_reduce`` and, paged, 48 ``paged_attention``), and the
+              captured engine's ticks profiled, by kernel group, beside the
+              decode tick's weight floor; then its peak memory.
 4. parity   — the same engine at full width with 2 layers, once on the
               kernels (captured, each bucket at its first tick) and once
               on the plain PyTorch path (eager): float32 compute on the
@@ -74,7 +93,15 @@ a non-zero exit:
               then fed the plain path's tokens (teacher forcing), and at
               every step its logits must stay within the move one int8
               quantum can cause, and its greedy token may differ only at
-              a top-2 gap within twice the logits' difference.
+              a top-2 gap within twice the logits' difference. On the f32
+              pool llama3's dense-slot engine is also held to its paged
+              one (tokens equal but at a near-tie). Then moonshot at 2
+              layers (f32, capacity factor 1.25) in both layouts, kernel
+              path teacher-forced on the plain path's tokens: every
+              routing call of both is logged, the first difference must
+              sit at a near-tie of the plain path's router probabilities
+              (``ROUTE_GAP``), and until it every step's logits agree
+              within ``LOGIT_TOL``.
 5. paper    — the paper path, ``repro_torch.launch.paper_repro``, on the
               card: Table 1, Fig. 4 (serial ``moa_reduce``), Fig. 5 (LOA
               MRED, ``loa_add``, the LOA MOA through ``loa_reduce``) and the
@@ -147,7 +174,7 @@ KERNELS = {
                               "paged_attention", ("paged_split",),
                               ("serve",)),
     "moa_reduce": Kernel("src/repro/kernels/moa_reduce.py:47", "moa_reduce",
-                         ("moa_reduce_kernel",), ("paper",)),
+                         ("moa_reduce_kernel",), ("serve", "paper")),
     "loa_reduce": Kernel("src/repro/kernels/loa_add.py:92", "loa_add",
                          ("loa_reduce_kernel",), ("paper",)),
     "loa_add": Kernel("src/repro/kernels/loa_add.py:48", "loa_add",
@@ -159,20 +186,26 @@ def path_kernels(path: str) -> list:
     return [name for name, k in KERNELS.items() if path in k.paths]
 
 
-#: the CUDA functions of the parent tree's kernels (``--parent``), timed
-#: beside each paged and reduction row
-PARENT_SYMBOLS = {"paged_attention": ("paged_split",),
-                  "moa_reduce": ("segment_sums", "fold_clusters"),
-                  "loa_reduce": ("segment_sums", "fold_clusters")}
+def served_kernels(cfg, paged: bool) -> list:
+    """The kernels a served run of ``cfg`` must launch: ``dot_moa`` for
+    every projection (an MoE's experts batched), flash attention in
+    prefill, paged attention in a paged decode, and an MoE's top-k combine
+    on ``moa_reduce``."""
+    out = ["dot_moa", "flash_attention"]
+    if paged:
+        out.append("paged_attention")
+    if cfg.family == "moe":
+        out.append("moa_reduce")
+    return out
 
 
 def parent_kernels(root: str):
-    """The ``paged_attention_cuda``, ``moa_reduce_cuda`` and
-    ``loa_reduce_cuda`` of the checkout at ``root`` (``--parent``), with
-    the same signatures as this tree's: its ``kernels/_build.py`` and the
-    wrappers' modules loaded under other names, so that it builds its own
-    ``csrc`` into ``root/build``. Returns ``{kernel: wrapper}`` and the
-    nvcc build records."""
+    """The ``dot_moa_cuda`` (2-D), ``paged_attention_cuda``,
+    ``moa_reduce_cuda`` and ``loa_reduce_cuda`` of the checkout at ``root``
+    (``--parent``), with the same signatures as this tree's: its
+    ``kernels/_build.py`` and the wrappers' modules loaded under other
+    names, so that it builds its own ``csrc`` into ``root/build``. Returns
+    ``{kernel: wrapper}`` and the nvcc build records."""
     import importlib.util
 
     from repro_torch import kernels as pkg
@@ -188,13 +221,15 @@ def parent_kernels(root: str):
         return mod
 
     build = load("parent_repro_torch_build", os.path.join(kdir, "_build.py"))
-    built = build.build(["paged_attention", "moa_reduce", "loa_add"])
+    built = build.build(["dot_moa", "paged_attention", "moa_reduce",
+                         "loa_add"])
     # its ``from repro_torch.kernels import _build`` and its loa_add's
     # ``from repro_torch.kernels.moa_reduce import ...`` find its own
     own_build = pkg._build
     own_mr = sys.modules["repro_torch.kernels.moa_reduce"]
     pkg._build = build
     try:
+        dm = load("parent_dot_moa", os.path.join(kdir, "dot_moa.py"))
         paged = load("parent_paged_attention",
                      os.path.join(kdir, "paged_attention.py"))
         mr = load("parent_moa_reduce", os.path.join(kdir, "moa_reduce.py"))
@@ -203,9 +238,22 @@ def parent_kernels(root: str):
     finally:
         pkg._build = own_build
         sys.modules["repro_torch.kernels.moa_reduce"] = own_mr
-    return {"paged_attention": paged.paged_attention_cuda,
+    return {"dot_moa": dm.dot_moa_cuda,
+            "paged_attention": paged.paged_attention_cuda,
             "moa_reduce": mr.moa_reduce_cuda,
             "loa_reduce": la.loa_reduce_cuda}, built
+
+
+def beside_parent(timer, parent: dict, kernel: str, call, want, err) -> dict:
+    """Under ``--parent``: the parent tree's ``kernel`` on a row's inputs
+    (``call(wrapper)`` runs it), its error against the row's plain result
+    and the device time of its CUDA functions, which carry this tree's
+    names; else nothing."""
+    if kernel not in parent:
+        return {}
+    old = lambda: call(parent[kernel])
+    return {"parent_max_abs_err": err(old(), want),
+            "parent_device_ms": timer.device(old, kernel)}
 
 
 #: the reference example's deterministic values (examples/paper_repro.py
@@ -271,12 +319,10 @@ class Timer:
     def evict(self) -> None:
         self.flush.max()
 
-    def device(self, fn, kernel: str = None, iters: int = 10,
-               symbols: tuple = None) -> float:
+    def device(self, fn, kernel: str = None, iters: int = 10) -> float:
         """Mean device time (ms) per call of ``kernel``'s CUDA functions
         that ``fn`` launches (``kernel=None``: of every one but the
-        flush's, as for a library call; ``symbols`` names other CUDA
-        functions, as the parent tree's), from ``torch.profiler``'s kernel
+        flush's, as for a library call), from ``torch.profiler``'s kernel
         events, each call after the same L2 flush. This is the device work
         alone: the event pair of ``__call__`` also holds the host time of
         the call when it takes longer than the flush before it."""
@@ -286,9 +332,7 @@ class Timer:
         fn()
         torch.cuda.synchronize()
         cuda = torch.autograd.DeviceType.CUDA
-        if symbols is None:
-            symbols = KERNELS[kernel].symbols if kernel else ()
-        kernel = kernel or (symbols[0] if symbols else None)
+        symbols = KERNELS[kernel].symbols if kernel else ()
         for _ in range(6):   # the profiler now and then returns no events
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -452,6 +496,14 @@ def check(row: dict, key: tuple = None) -> dict:
     return row
 
 
+def dot_moa_vs_parent(row: dict) -> dict:
+    """A ``dot_moa`` row with ``vs_parent`` (its device time over the
+    parent tree's) where ``--parent`` timed the parent's kernel."""
+    if "parent_device_ms" in row:
+        row["vs_parent"] = row["device_ms"] / row["parent_device_ms"]
+    return row
+
+
 def plan_info(p) -> dict:
     """The body and grid a ``dot_moa`` plan chose."""
     return {"body": p.body, "tile": [p.tile_m, p.tile_n], "sub": p.sub,
@@ -503,8 +555,8 @@ def host_path(torch, iters: int = 1000) -> dict:
 
 def kernel_phase(torch, timer, parent=None):
     """The served path's kernels against their plain versions; ``parent``:
-    the parent tree's ``paged_attention_cuda``, timed beside each paged
-    row. Returns the summary row of each kernel."""
+    the parent tree's wrappers by kernel (``--parent``), timed beside each
+    ``dot_moa`` and paged row. Returns the summary row of each kernel."""
     from repro_torch.kernels import dot_moa as dm
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
@@ -514,6 +566,7 @@ def kernel_phase(torch, timer, parent=None):
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(0)
     summary = {}        # kernel -> the row at the served model's main shape
+    parent = parent or {}
 
     def randn(*shape, scale=1.0, dtype=torch.float32):
         return (torch.randn(shape, device=dev, generator=g) * scale).to(dtype)
@@ -602,7 +655,7 @@ def kernel_phase(torch, timer, parent=None):
                 raise AssertionError(f"torch._int_mm != dot_moa_ref at "
                                      f"{m}x{k}x{n}")
         p = dm.plan(m, n, k, min(bk, k), dt)
-        row = check({
+        row = check(dot_moa_vs_parent({
             "kernel": "dot_moa", "case": f"{name} l={l}",
             "shape": {"m": m, "k": k, "n": n, "block_k": bk},
             "plan": plan_info(p),
@@ -613,16 +666,21 @@ def kernel_phase(torch, timer, parent=None):
             "plain_ms": timer(plain, 5),
             "library_ms": timer.device(library) if library else None,
             "bound_ms": b_ms, "bound_by": b_by,
-        }, call_key("dot_moa", a, b, block_k=bk, approx_bits=l))
+            **beside_parent(timer, parent, "dot_moa", lambda f: f(
+                a, b, block_k=bk, approx_bits=l), want, err),
+        }), call_key("dot_moa", a, b, block_k=bk, approx_bits=l))
         if (m, k, n, dt) == (4, 4096, 14336, torch.bfloat16):
             summary["dot_moa"] = row          # decode's w_gate / w_up
 
     # ---- flash attention: prefill's causal softmax·V ----------------------
-    # the served prefills (prompts padded to the buckets 16 / 32 / 64 / 96),
-    # S = 512 and 2048, a ragged 100; f32 rows for the parity phase's f32
-    # compute and a full (non-causal) Sq != Skv edge
+    # llama3-8b's served prefills (H32/8, prompts padded to the buckets 16 /
+    # 32 / 64 / 96), S = 512 and 2048, a ragged 100; moonshot's (H16/16,
+    # G 1, exact-length prompts of 16-64 tokens); f32 rows for the parity
+    # phase's f32 compute and a full (non-causal) Sq != Skv edge
     cases = [(1, s, s, 32, 8, 128, torch.bfloat16, True)
              for s in (16, 32, 64, 96, 100, 512, 2048)]
+    cases += [(1, s, s, 16, 16, 128, torch.bfloat16, True)
+              for s in (16, 26, 44, 64)]
     cases += [(2, 100, 100, 4, 2, 64, torch.float32, True),
               (2, 37, 53, 4, 2, 64, torch.float32, False)]
     for B, Sq, Skv, H, Hk, D, dt, causal in cases:
@@ -632,6 +690,8 @@ def kernel_phase(torch, timer, parent=None):
         plain = lambda: ref.flash_attention_ref(q, k, v, causal=causal,
                                                 q_chunk=256, kv_chunk=512)
         got, want = run(), plain()
+        if not torch.equal(run(), got):
+            raise AssertionError("flash_attention: two calls gave other bits")
         torch.cuda.synchronize()
         pairs = (sum(min(i + 1, Skv) for i in range(Sq)) if causal
                  else Sq * Skv)
@@ -673,6 +733,8 @@ def kernel_phase(torch, timer, parent=None):
     # the served decode (depths 5..511), the same with an int8 pool, long
     # context (depths to 4095, and 16 slots to 8191), the verify shape (T 4
     # over ~2-4k tokens) and an f32 instance; H32/8 D128 bs16 unless said;
+    # moonshot's served decode (H16/16: G 1, one query row of a tile; its
+    # depths 16..79 at max_len 96), bf16 and int8 pools;
     # two edges: rows of 384 and 144 bytes (copied in 16-byte chunks that
     # do not divide a warp), G 3, and 16 query rows of a head_dim that
     # takes two 8-row tiles
@@ -680,6 +742,10 @@ def kernel_phase(torch, timer, parent=None):
     cases = [(4, 1, 32, 8, 128, 16, (5, 70, 200, 511), torch.bfloat16,
               torch.bfloat16),
              (4, 1, 32, 8, 128, 16, (5, 70, 200, 511), torch.bfloat16,
+              torch.int8),
+             (4, 1, 16, 16, 128, 16, (16, 37, 58, 79), torch.bfloat16,
+              torch.bfloat16),
+             (4, 1, 16, 16, 128, 16, (16, 37, 58, 79), torch.bfloat16,
               torch.int8),
              (4, 4, 4, 2, 64, 16, (0, 13, 40, 60), torch.float32,
               torch.float32),
@@ -765,23 +831,146 @@ def kernel_phase(torch, timer, parent=None):
             "plain_ms": timer(plain, 5),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
         }
-        if parent is not None:
-            old = lambda: parent(q, kp, vp, tables, start, dequant_dtype=qdt,
-                                 **scales)
-            row.update(parent_max_abs_err=err(old(), want),
-                       parent_kernel_ms=timer(old),
-                       parent_device_ms=timer.device(
-                           old, symbols=PARENT_SYMBOLS["paged_attention"]))
+        row.update(beside_parent(timer, parent, "paged_attention", lambda f: f(
+            q, kp, vp, tables, start, dequant_dtype=qdt, **scales), want,
+            err))
         check(row)
         summary.setdefault("paged_attention", row)   # the served decode
     return summary
 
 
+def moe_kernel_phase(torch, timer):
+    """moonshot-v1-16b-a3b's served kernel calls against their plain
+    versions: the batched expert projections (64 experts, d_model 2048,
+    d_ff 1408; capacity C rows an expert: 1 at 4 decode slots, 60 in a
+    512-token prefill, and ragged 4 and 5 of short exact-length prefills),
+    the router (bf16 operands, f32 logits) and the top-6 combine. Each
+    batched row also holds the launch bit for bit to a member-by-member
+    loop under the same plan (``plan_batch``), and times ``torch.bmm`` on
+    the same operands. Returns the summary rows (the served combine, and
+    the decode gate/up row as ``dot_moa batched``)."""
+    from repro_torch.kernels import dot_moa as dm
+    from repro_torch.kernels import moa_reduce as mr
+    from repro_torch.kernels import ref
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, device=dev, generator=g) * scale).to(
+            torch.bfloat16)
+
+    def err(got, want):
+        return float((got.double() - want.double()).abs().max())
+
+    E, d, f = 64, 2048, 1408
+    cases = [(c, k, n) for c in (1, 60, 4, 5) for k, n in ((d, f), (f, d))]
+    for c, k, n in cases:
+        a, w = randn(E, c, k), randn(E, k, n, scale=k ** -0.5)
+        bk = min(2048, k)          # serial?chunk=4096 at the 2048 cap
+        run = lambda: dm.dot_moa_cuda(a, w, block_k=bk)
+        plain = lambda: ref.dot_moa_batched_ref(a, w, block_k=bk)
+        got, want = run(), plain()
+        loop = torch.stack([dm.dot_moa_cuda(a[e], w[e], block_k=bk,
+                                            plan_batch=E) for e in range(E)])
+        torch.cuda.synchronize()
+        same = torch.equal(got, loop)
+        p = dm.plan(c, n, k, bk, torch.bfloat16, E)
+        b_ms, b_by = bound(2 * E * (c * k + k * n + c * n),
+                           2.0 * E * c * k * n, "bfloat16")
+        row = check({
+            "kernel": "dot_moa", "case": "bfloat16 batched",
+            "where": f"moonshot experts, C={c}",
+            "shape": {"batch": E, "m": c, "k": k, "n": n, "block_k": bk},
+            "plan": plan_info(p),
+            "max_abs_err": err(got, want),
+            "tol": bf16_ulp(float(want.float().abs().max())),
+            "tol_reason": "1 bf16 ulp at max|ref|: both accumulate in f32 "
+                          "in different orders, then round once to bf16",
+            "same_bits_as_member_loop": same,
+            "kernel_ms": timer(run),
+            "device_ms": timer.device(run, "dot_moa"),
+            **own_kernels(timer, "dot_moa"),
+            "plain_ms": timer(plain, 2),
+            "library_ms": timer.device(lambda: torch.bmm(a, w)),
+            "library": "torch.bmm",
+            "bound_ms": b_ms, "bound_by": b_by})
+        if not same:
+            raise AssertionError(f"batched dot_moa C={c} {k}x{n}: differs "
+                                 "from its member-by-member loop")
+        if (c, k, n) == (1, d, f):
+            out["dot_moa batched"] = row
+
+    # the router: (tokens, 2048) @ (2048, 64), bf16 operands, f32 logits
+    for t in (4, 512):
+        a, w = randn(t, d), randn(d, E, scale=d ** -0.5)
+        run = lambda: dm.dot_moa_cuda(a, w, block_k=2048,
+                                      out_dtype=torch.float32)
+        plain = lambda: ref.dot_moa_ref(a, w, block_k=2048,
+                                        out_dtype=torch.float32)
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        b_ms, b_by = bound(2 * (t * d + d * E) + 4 * t * E,
+                           2.0 * t * d * E, "bfloat16")
+        check({"kernel": "dot_moa", "case": "bfloat16 -> float32",
+               "where": "moonshot router",
+               "shape": {"m": t, "k": d, "n": E, "block_k": 2048},
+               "plan": plan_info(dm.plan(t, E, d, 2048, torch.bfloat16)),
+               "max_abs_err": err(got, want),
+               "tol": 1e-5 * max(1.0, float(want.abs().max())),
+               "tol_reason": "f32 reassociation of the K sum, relative 1e-5",
+               "kernel_ms": timer(run),
+               "device_ms": timer.device(run, "dot_moa"),
+               **own_kernels(timer, "dot_moa"),
+               "plain_ms": timer(plain, 5),
+               "library_ms": timer.device(lambda: torch.mm(
+                   a, w, out_dtype=torch.float32)),
+               "library": "torch.mm(out_dtype=float32)",
+               "bound_ms": b_ms, "bound_by": b_by})
+
+    # the top-6 combine: strat.sum(weighted, axis=2) flattens (G, tg, 6, d)
+    # to (6, tg * d), one cluster of 6 rows (block_n = min(4096, 6))
+    for t in (4, 40, 512):
+        x = randn(6, t * d)
+        run = lambda: mr.moa_reduce_cuda(x, block_n=4096)
+        plain = lambda: ref.moa_reduce_ref(x, block_n=4096)
+        got, want = run(), plain()
+        again = run()
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError("moa_reduce: two calls gave other bits")
+        p = mr.plan(6, t * d, 6, torch.bfloat16, 0, x.data_ptr() % 16 == 0)
+        b_ms, b_by = bound(2 * x.numel() + 4 * t * d, float(x.numel()),
+                           "float32")
+        row = check({
+            "kernel": "moa_reduce", "case": "bfloat16 block_n=6",
+            "where": f"moonshot top-6 combine, {t} tokens",
+            "shape": {"n": 6, "f": t * d, "block_n": 6},
+            "plan": {"route": p.route, "direct": p.direct, "splits":
+                     p.splits, "blocks": p.blocks},
+            "max_abs_err": err(got, want),
+            "tol": 1e-4 + 1e-5 * float(want.abs().max()),
+            "tol_reason": "f32 reassociation inside the cluster: atol 1e-4 "
+                          "+ rtol 1e-5 of max|ref|, as tests/test_kernels.py",
+            "same_bits": True, "kernel_ms": timer(run),
+            "device_ms": timer.device(run, "moa_reduce"),
+            **own_kernels(timer, "moa_reduce"),
+            "plain_ms": timer(plain, 5),
+            "library_ms": timer.device(lambda: torch.sum(
+                x, dim=0, dtype=torch.float32)),
+            "library": "torch.sum(x, 0) in f32",
+            "bound_ms": b_ms, "bound_by": b_by})
+        if t == 4:
+            out["moa_reduce"] = row
+    return out
+
+
 def paper_kernel_phase(torch, timer, parent=None):
     """The paper path's kernels against their plain versions: rows of the
     kernels phase; ``parent``: the parent tree's wrappers by kernel
-    (``--parent``), timed beside each reduction row. Returns the summary
-    row of each kernel."""
+    (``--parent``), timed beside each ``dot_moa`` and reduction row.
+    Returns the summary row of each kernel."""
     from repro_torch.kernels import dot_moa as dm
     from repro_torch.kernels import loa_add as la
     from repro_torch.kernels import moa_reduce as mr
@@ -868,16 +1057,19 @@ def paper_kernel_phase(torch, timer, parent=None):
             tol, why = 0.0, exact_why
             lib = {"library_ms": None,
                    "library": "none: PyTorch has no int32 matmul on CUDA"}
-        check({"kernel": "dot_moa", "case": f"{name} l={l}", "where": where,
-               "shape": {"m": m, "k": k, "n": n, "block_k": bk},
-               "plan": plan_info(dm.plan(m, n, k, min(bk, k), a.dtype)),
-               "max_abs_err": err(got, want), "tol": tol,
-               "tol_reason": why, "kernel_ms": timer(run),
-               "device_ms": timer.device(run, "dot_moa"),
-               **own_kernels(timer, "dot_moa"),
-               "plain_ms": timer(plain, 5), **lib,
-               "bound_ms": b_ms, "bound_by": b_by},
-              call_key("dot_moa", a, b, block_k=bk, approx_bits=l))
+        check(dot_moa_vs_parent({
+            "kernel": "dot_moa", "case": f"{name} l={l}", "where": where,
+            "shape": {"m": m, "k": k, "n": n, "block_k": bk},
+            "plan": plan_info(dm.plan(m, n, k, min(bk, k), a.dtype)),
+            "max_abs_err": err(got, want), "tol": tol,
+            "tol_reason": why, "kernel_ms": timer(run),
+            "device_ms": timer.device(run, "dot_moa"),
+            **own_kernels(timer, "dot_moa"),
+            "plain_ms": timer(plain, 5), **lib,
+            "bound_ms": b_ms, "bound_by": b_by,
+            **beside_parent(timer, parent, "dot_moa", lambda f: f(
+                a, b, block_k=bk, approx_bits=l), want, err)}),
+            call_key("dot_moa", a, b, block_k=bk, approx_bits=l))
 
     # ---- moa_reduce / loa_reduce: one launch on the plan's route ----------
     clock_mhz = sm_max_clock_mhz()
@@ -955,11 +1147,8 @@ def paper_kernel_phase(torch, timer, parent=None):
             if not row["partials_max_abs_err"] <= tol:
                 raise AssertionError(f"{kernel} {case}: the partials route's "
                                      f"error {row['partials_max_abs_err']}")
-        if kernel in parent:
-            old = lambda: parent[kernel](x, **kw)
-            row.update(parent_max_abs_err=err(old(), want),
-                       parent_device_ms=timer.device(
-                           old, symbols=PARENT_SYMBOLS[kernel]))
+        row.update(beside_parent(timer, parent, kernel, lambda f: f(x, **kw),
+                                 want, err))
         if target is not None:
             row["target"], row["target_met"] = target(row)
         return check(row, call_key(kernel, x, **kw))
@@ -1075,7 +1264,22 @@ def paper_kernel_phase(torch, timer, parent=None):
 # ---------------------------------------------------------------------------
 
 
-def profile_served(torch, engine, requests, label: str = "served") -> None:
+def kernel_group(name: str) -> str:
+    """The group of a CUDA function in a tick's breakdown: one of the
+    port's kernels, a library product (cuBLAS: the unembedding), or the
+    rest (PyTorch's elementwise, index, sort and copy kernels: the norms,
+    RoPE, the MoE's routing, dispatch and gather)."""
+    for kernel, k in KERNELS.items():
+        if any(sym in name for sym in k.symbols):
+            return kernel
+    low = name.lower()
+    if any(s in low for s in ("gemm", "nvjet", "cutlass", "xmma")):
+        return "library gemm"
+    return "other"
+
+
+def profile_served(torch, engine, requests, label: str = "served",
+                   extra: dict = None) -> None:
     """Device time by kernel of the ticks of a served run, each tick under
     its own ``torch.profiler``, against the host clock.
 
@@ -1088,8 +1292,10 @@ def profile_served(torch, engine, requests, label: str = "served") -> None:
     the attended KV lengths (``prompt + generated`` per live slot) and
     live-block buckets. Lines are named ``{label} decode ticks`` and
     ``{label} admission ticks``; the decode line of ``label``
-    ``decode_long`` is named ``decode_long``. The profiler's own launch
-    overhead is inside the host time; its setup and read-out are not."""
+    ``decode_long`` is named ``decode_long``. Each line also gives the
+    device ms a tick by :func:`kernel_group` (``groups``) and the items of
+    ``extra``. The profiler's own launch overhead is inside the host time;
+    its setup and read-out are not."""
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.autograd.DeviceType.CUDA
@@ -1101,7 +1307,7 @@ def profile_served(torch, engine, requests, label: str = "served") -> None:
     while not engine.scheduler.done:
         before = {s: inf.metrics.prompt_tokens + len(inf.generated)
                   for s, inf in engine._inflight.items()}
-        hw = engine._live_blocks(1)
+        hw = engine._live_blocks(1) if engine.paged else 0
         admissions = engine._admissions
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1134,11 +1340,14 @@ def profile_served(torch, engine, requests, label: str = "served") -> None:
         n = c["ticks"]
         rows = sorted(c["kernels"].items(), key=lambda kv: -kv[1][0])[:12]
         paged = [(ms, cnt) for k, (ms, cnt) in c["kernels"].items()
-                 if any(sym in k for sym in PARENT_SYMBOLS["paged_attention"]
-                        + KERNELS["paged_attention"].symbols)]
+                 if any(sym in k
+                        for sym in KERNELS["paged_attention"].symbols)]
         paged_ms = sum(ms for ms, _ in paged) / n
         name = (label if (label, what) == ("decode_long", "decode")
                 else f"{label} {what} ticks")
+        groups = collections.Counter()
+        for k, (ms, _) in c["kernels"].items():
+            groups[kernel_group(k)] += ms / n
         line = {"phase": "profile", "what": name,
                 "cuda_graphs": engine._graphs is not None,
                 "ticks": n, "prefills": c["prefills"],
@@ -1149,8 +1358,9 @@ def profile_served(torch, engine, requests, label: str = "served") -> None:
                 "paged_ms": paged_ms,
                 "paged_calls": sum(cnt for _, cnt in paged) / n,
                 "paged_share": paged_ms / (c["device_ms"] / n),
+                "groups": dict(groups),
                 "top": [{"name": k[:80], "ms": ms / n, "calls": cnt / n}
-                        for k, (ms, cnt) in rows]}
+                        for k, (ms, cnt) in rows], **(extra or {})}
         if what == "decode":
             line.update(kv_len_min=min(c["kv_lens"]),
                         kv_len_max=max(c["kv_lens"]),
@@ -1239,13 +1449,18 @@ def decode_long(torch, model, params, parent=None) -> None:
             ops.paged_attention_cuda = own
 
 
-def workspaces() -> dict:
+def workspaces(engine=None) -> dict:
     """The kernels' workspaces now held, by (device, stream, owner): the
-    address and size of each tensor."""
+    address and size of each tensor; given an ``engine``, only those of
+    its graph cache's capture stream, which its graphs bind (an eager
+    prefill on the current stream may grow that stream's own)."""
     from repro_torch.kernels import _build
 
+    stream = (engine._graphs._stream.cuda_stream
+              if engine is not None and engine._graphs is not None else None)
     return {key: tuple((t.data_ptr(), t.numel()) for t in pair)
-            for key, pair in _build._WORKSPACE.items()}
+            for key, pair in _build._WORKSPACE.items()
+            if engine is None or key[1] == stream}
 
 
 def timed_ticks(engine) -> dict:
@@ -1275,11 +1490,11 @@ def serve_once(torch, engine, requests, *, warmup: bool,
     ``warmup``), with each step's logits recorded into ``logits`` as
     :func:`_replay` does when it is given. Returns the results, report,
     launches, tick host ms (:func:`timed_ticks`), the warmup's report and
-    whether a kernel workspace grew after the warmup."""
+    whether a workspace its graphs bind grew after the warmup."""
     from repro_torch.kernels import ops
 
     warm = engine.run([], warmup=True)[1] if warmup else None
-    held = workspaces()
+    held = workspaces(engine)
     if logits is not None:
         _replay(torch, engine, logits)
     ticks = timed_ticks(engine)
@@ -1287,11 +1502,11 @@ def serve_once(torch, engine, requests, *, warmup: bool,
     results, report = engine.run(requests)
     return {"results": results, "report": report, "warm": warm,
             "launches": ops.launch_counts(), "ticks": ticks,
-            "grew": workspaces() != held}
+            "grew": workspaces(engine) != held}
 
 
 def eager_vs_captured(torch, make_engine, workload, *, warmup: bool,
-                      what: str) -> None:
+                      what: str, served: list) -> None:
     """Serve ``workload()`` twice in this process: by ``make_engine(False)``
     (every tick eager), then by ``make_engine(True)`` (CUDA graphs, captured
     at warmup, or at each bucket's first tick without ``warmup``), every
@@ -1299,8 +1514,8 @@ def eager_vs_captured(torch, make_engine, workload, *, warmup: bool,
     at 0, so both engines admit in the same order whatever their speed: the
     same batches, live-block buckets and kernel plans. Fails on a token, a
     logit bit or a launch count that differs, on a served kernel launched
-    no time, and, with ``warmup``, on a kernel workspace that grew after the
-    captured engine's warmup. Emits one ``graphs`` line."""
+    no time (``served``), and, with ``warmup``, on a kernel workspace that
+    grew after the captured engine's warmup. Emits one ``graphs`` line."""
     runs, logits = {}, {}
     for path, cuda_graphs in (("eager", False), ("captured", True)):
         engine = make_engine(cuda_graphs)
@@ -1318,8 +1533,7 @@ def eager_vs_captured(torch, make_engine, workload, *, warmup: bool,
     differ = sorted(k for k in steps if not (
         k in logits["eager"] and k in logits["captured"]
         and torch.equal(logits["eager"][k], logits["captured"][k])))
-    missing = {path: [k for k in path_kernels("serve")
-                      if run["launches"][k] == 0]
+    missing = {path: [k for k in served if run["launches"][k] == 0]
                for path, run in runs.items()}
     grew = warmup and captured["grew"]
     emit({"phase": "graphs", "what": what, "warmup": warmup,
@@ -1360,7 +1574,9 @@ def serve_phase(torch, parent=None):
                                 prompt_len_range=(16, 64),
                                 gen_len_range=(8, 16), seed=0)
 
-    eager_vs_captured(torch, engine, workload, warmup=True, what="serve")
+    served = served_kernels(cfg, paged=True)
+    eager_vs_captured(torch, engine, workload, warmup=True, what="serve",
+                      served=served)
     # the served workload as it arrives, timed: eager, then captured
     runs = {}
     for path, cuda_graphs in (("eager", False), ("captured", True)):
@@ -1368,33 +1584,14 @@ def serve_phase(torch, parent=None):
         run = runs[path] = serve_once(torch, e, workload(), warmup=True)
         del e
         gc.collect()
-        report = run["report"]
         for req, r in zip(workload(), run["results"]):
             if r.tokens.shape != (req.max_new_tokens,) or not (
                     (r.tokens >= 0) & (r.tokens < cfg.vocab)).all():
                 raise AssertionError(f"{path} request {r.uid}: bad tokens "
                                      f"{r.tokens}")
-        emit({"phase": "serve", "path": path, "arch": cfg.name,
-              "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-              "param_dtype": cfg.param_dtype,
-              "n_params": model.param_count(), "init_s": init_s,
-              "warmup_s": run["warm"]["compile_s"],
-              "graphs": run["warm"]["graphs"], "device": report["device"],
-              "tok_per_s": report["tok_per_s"], "wall_s": report["wall_s"],
-              "ttft_ms": report["ttft_ms"],
-              "per_token_ms": report["per_token_ms"],
-              "tick_host_ms": {what: {"ticks": len(ms),
-                                      "mean": statistics.mean(ms),
-                                      "min": min(ms), "max": max(ms)}
-                               for what, ms in run["ticks"].items() if ms},
-              "decode_steps": report["decode_steps"],
-              "total_new_tokens": report["total_new_tokens"],
-              "slot_occupancy": report["slot_occupancy"],
-              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-              "paged": report["paged"], "launches": run["launches"],
-              "tokens": {r.uid: r.tokens.tolist() for r in run["results"]}})
-        missing = [k for k in path_kernels("serve")
-                   if run["launches"][k] == 0]
+        serve_line(torch, cfg, model, run, path=path, init_s=init_s,
+                   layout="paged")
+        missing = [k for k in served if run["launches"][k] == 0]
         if missing:
             raise AssertionError(f"the {path} served run launched no "
                                  f"{missing}")
@@ -1410,6 +1607,136 @@ def serve_phase(torch, parent=None):
     profile_prefill(torch, model, params)
     decode_long(torch, model, params, parent)
     return runs["captured"]["launches"]
+
+
+def serve_line(torch, cfg, model, run, *, path, init_s, **extra) -> dict:
+    """The ``serve`` line of one timed served run (:func:`serve_once`)."""
+    report = run["report"]
+    line = {"phase": "serve", "path": path, "arch": cfg.name,
+            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "param_dtype": cfg.param_dtype,
+            "n_params": model.param_count(), "init_s": init_s,
+            "warmup_s": run["warm"]["compile_s"],
+            "graphs": run["warm"]["graphs"], "device": report["device"],
+            "tok_per_s": report["tok_per_s"], "wall_s": report["wall_s"],
+            "ttft_ms": report["ttft_ms"],
+            "per_token_ms": report["per_token_ms"],
+            "tick_host_ms": {what: {"ticks": len(ms),
+                                    "mean": statistics.mean(ms),
+                                    "min": min(ms), "max": max(ms)}
+                             for what, ms in run["ticks"].items() if ms},
+            "decode_steps": report["decode_steps"],
+            "total_new_tokens": report["total_new_tokens"],
+            "slot_occupancy": report["slot_occupancy"],
+            "moa_flops_total": report["moa_flops_total"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "paged": report.get("paged"), "launches": run["launches"],
+            "tokens": {r.uid: r.tokens.tolist() for r in run["results"]}}
+    line.update(extra)
+    emit(line)
+    return line
+
+
+def moe_serve_phase(torch):
+    """moonshot-v1-16b-a3b at full width and depth (bf16 weights from the
+    port's initializer, seed 0; the real capacity factor 1.25, so each
+    prompt is prefilled at its exact length), served in the dense-slot and
+    the paged layout: per layout the bit-for-bit check of the captured
+    engine against the eager one (every request at 0), the Poisson
+    workload eager and captured (``serve`` lines; a captured decode tick
+    must launch 8 ``dot_moa`` a layer, the experts' batched, one
+    ``moa_reduce`` and, paged, one ``paged_attention``), and the captured
+    engine's ticks profiled against the decode tick's weight floor (every
+    weight a tick reads, once, at the HBM rate). Returns the captured
+    runs' launches by run (``serve/moonshot-dense-slot`` and
+    ``serve/moonshot-paged``)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serve import ServeEngine, poisson_workload
+
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"),
+                              param_dtype="bfloat16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    # a decode tick reads every layer weight (all 64 experts run on their
+    # capacity buffers) and the unembedding, once
+    emb = params["embed"]
+    floor_bytes = sum(t.numel() * t.element_size() for t in
+                      model.parameters()) \
+        - emb["table"].numel() * emb["table"].element_size()
+    floor_ms = floor_bytes / HBM_BPS * 1e3
+    L = cfg.n_layers
+    emit({"phase": "serve", "what": "moonshot init", "arch": cfg.name,
+          "n_layers": L, "n_params": model.param_count(), "init_s": init_s,
+          "param_gb": sum(t.numel() * t.element_size()
+                          for t in model.parameters()) / 1e9,
+          "decode_weight_bytes": floor_bytes,
+          "decode_weight_floor_ms": floor_ms,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+    def workload():
+        return poisson_workload(n_requests=8, vocab=cfg.vocab, rate_rps=50.0,
+                                prompt_len_range=(16, 64),
+                                gen_len_range=(8, 16), seed=0)
+
+    launches = {}
+    for paged in (False, True):
+        layout = "paged" if paged else "dense-slot"
+        served = served_kernels(cfg, paged)
+
+        def engine(cuda_graphs):
+            return ServeEngine(model, params, n_slots=4, max_len=96,
+                               paged=paged, block_size=16, device="cuda",
+                               cuda_graphs=cuda_graphs)
+
+        eager_vs_captured(torch, engine, workload, warmup=True,
+                          what=f"serve moonshot {layout}", served=served)
+        want = {"dot_moa": 8 * L, "moa_reduce": L}
+        if paged:
+            want["paged_attention"] = L
+        for path, cuda_graphs in (("eager", False), ("captured", True)):
+            e = engine(cuda_graphs)
+            run = serve_once(torch, e, workload(), warmup=True)
+            del e
+            gc.collect()
+            for req, r in zip(workload(), run["results"]):
+                if r.tokens.shape != (req.max_new_tokens,) or not (
+                        (r.tokens >= 0) & (r.tokens < cfg.vocab)).all():
+                    raise AssertionError(f"moonshot {layout} {path} request "
+                                         f"{r.uid}: bad tokens {r.tokens}")
+            serve_line(torch, cfg, model, run, path=path, init_s=init_s,
+                       layout=layout, decode_weight_floor_ms=floor_ms)
+            missing = [k for k in served if run["launches"][k] == 0]
+            if missing:
+                raise AssertionError(f"moonshot {layout} {path} launched no "
+                                     f"{missing}")
+            if cuda_graphs:
+                per = run["report"]["graphs"]["launches_per_replay"]
+                if per.get("decode") != want:
+                    raise AssertionError(f"moonshot {layout}: a captured "
+                                         f"decode tick launches "
+                                         f"{per.get('decode')}, not {want}")
+                launches[f"serve/moonshot-{layout}"] = run["launches"]
+        e = engine(True)
+        e.run([], warmup=True)
+        profile_served(torch, e, workload(),
+                       label=f"moonshot {layout} captured",
+                       extra={"decode_weight_floor_ms": floor_ms,
+                              "layout": layout})
+        del e
+        gc.collect()
+    emit({"phase": "serve", "what": "moonshot memory",
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _greedy_gap(torch, models, params, prompt, generated) -> dict:
@@ -1629,9 +1956,9 @@ def parity_phase(torch):
                     n_prefixes=2, prefix_len=32, suffix_len_range=(1, 16),
                     gen_len_range=(8, 16), seed=2)
 
-            def engine(c, cuda_graphs=None):
+            def engine(c, cuda_graphs=None, paged=True):
                 return ServeEngine(build_model(c), params, n_slots=4,
-                                   max_len=96, paged=True, block_size=16,
+                                   max_len=96, paged=paged, block_size=16,
                                    device="cuda", cuda_graphs=cuda_graphs)
 
             def serve(path, c, logits=None, forced=None):
@@ -1643,7 +1970,7 @@ def parity_phase(torch):
                 ops.reset_launch_counts()
                 out = eng.run(workload())
                 counts = ops.launch_counts()
-                served = [counts[k] for k in path_kernels("serve")]
+                served = [counts[k] for k in served_kernels(cfg, True)]
                 if (path == "kernel") != all(served) or (
                         path == "torch" and any(counts.values())):
                     raise AssertionError(f"{path} path launches: {counts}")
@@ -1652,7 +1979,8 @@ def parity_phase(torch):
             plain_logits = {} if gap_tol is None else None
             if pool != "bf16":   # the kernel path eager, then captured
                 eager_vs_captured(torch, lambda g: engine(cfg, g), workload,
-                                  warmup=False, what=f"parity {pool}/{wl}")
+                                  warmup=False, what=f"parity {pool}/{wl}",
+                                  served=served_kernels(cfg, True))
             runs = {"torch": serve("torch", plain_cfg, plain_logits),
                     "kernel": serve("kernel", cfg)}
             divergences = []
@@ -1698,8 +2026,208 @@ def parity_phase(torch):
                                          f"{tf['failed'][:5]}")
             else:
                 emit(line)
+            if (pool, wl) == ("f32", "poisson"):
+                layouts(torch, cfg, params, engine(cfg, paged=False),
+                        runs["kernel"][0], workload(), gap_tol)
         del params
         torch.cuda.empty_cache()
+
+
+def layouts(torch, cfg, params, dense, paged_results, requests,
+            gap_tol) -> None:
+    """llama3 at 2 layers on the kernels, the dense-slot engine against the
+    paged one on the same workload: tokens equal, a divergence only at a
+    near-tie of the top-2 logits (``gap_tol``, the f32 pool's)."""
+    from repro_torch.models.api import build_model
+
+    results, report = dense.run(requests)
+    model = build_model(cfg)
+    divergences = []
+    for req, a, b in zip(requests, paged_results, results):
+        if a.tokens.tolist() == b.tokens.tolist():
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(a.tokens, b.tokens))
+                 if x != y)
+        probe = _greedy_gap(torch, (model, model), params, req.prompt,
+                            a.tokens[:i])
+        divergences.append({"uid": a.uid, "index": i, **probe})
+        if probe["gap"] > gap_tol:
+            raise AssertionError(f"dense-slot vs paged: uid {a.uid} diverges "
+                                 f"at token {i}, top-2 gap {probe['gap']}")
+    emit({"phase": "parity", "what": "layouts", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "compute_dtype": cfg.compute_dtype,
+          "requests": len(results), "identical": not divergences,
+          "divergences": divergences, "gap_tol": gap_tol,
+          "dense_launches": report["graphs"]["launches_per_replay"]})
+
+
+#: the MoE parity's bounds. ROUTE_GAP: a routing difference between the
+#: kernel and the plain path (f32) passes only where the plain path's
+#: router probabilities at the first differing choice lie closer than
+#: this; the two compute the router logits with f32 sums in other orders
+#: over K = 2048 (about 1e-6 relative), so a probability moves by 1e-6 at
+#: most, and 1e-4 leaves a hundredfold margin. LOGIT_TOL: at the ticks
+#: before the first routing difference the next-token logits (O(1))
+#: differ by f32 reassociation through 2 layers, bounded as the f32 pool's
+#: near-tie (``parity_phase``).
+ROUTE_GAP = 1e-4
+LOGIT_TOL = 1e-3
+
+
+def _routing_log(torch, moe_mod, ticks):
+    """Record every ``route`` call of the MoE layer as ``(tick, expert
+    ids, keep, probs)`` on the host; ``ticks`` is a one-item list holding
+    the engine tick in progress. Returns the log and an undo."""
+    log, route = [], moe_mod.route
+
+    def recorded(*args, **kw):
+        r = route(*args, **kw)
+        log.append((ticks[0], r.expert_ids.cpu(), r.keep.cpu(),
+                    r.probs.cpu()))
+        return r
+
+    moe_mod.route = recorded
+    return log, lambda: setattr(moe_mod, "route", route)
+
+
+def _first_routing_difference(plain, kernel, top_k: int):
+    """The first call whose expert ids or keep mask differ, checked: each
+    token whose ids differ must sit at a near-tie of the plain path's
+    sorted probabilities (gap below ``ROUTE_GAP`` at the first differing
+    choice), and a keep that differs with equal ids must follow such a
+    token in its group (capacity ranks run in token order). Returns
+    ``None`` or ``{call, tick, tokens, gaps, passed}``."""
+    if len(plain) != len(kernel):
+        raise AssertionError(f"routing calls differ in number: {len(plain)} "
+                             f"and {len(kernel)}")
+    for i, ((tick, ip, kp, pp), (_, ik, kk, _)) in enumerate(
+            zip(plain, kernel)):
+        if ip.shape != ik.shape:
+            raise AssertionError(f"routing call {i}: shapes {ip.shape} and "
+                                 f"{ik.shape}")
+        if (ip == ik).all() and (kp == kk).all():
+            continue
+        G, tg, k = ip.shape
+        gaps, passed = [], True
+        for gi in range(G):
+            first = None
+            for t in range(tg):
+                if (ip[gi, t] == ik[gi, t]).all():
+                    continue
+                j = int((ip[gi, t] != ik[gi, t]).nonzero()[0])
+                srt = pp[gi, t].sort(descending=True).values
+                gap = float(srt[j] - srt[j + 1])
+                gaps.append(gap)
+                passed &= gap < ROUTE_GAP
+                first = t if first is None else first
+            ks, kk2 = kp[gi].reshape(tg, k), kk[gi].reshape(tg, k)
+            for t in range(tg):
+                if not (ks[t] == kk2[t]).all() and (first is None
+                                                    or t < first):
+                    passed = False
+        return {"call": i, "tick": tick, "gaps": gaps, "passed": passed}
+    return None
+
+
+def moe_parity_phase(torch):
+    """moonshot at full width and 2 layers, f32 compute, kernel path
+    against plain path (both eager), dense-slot and paged: the plain path
+    serves a workload (every request at 0) greedily; the kernel path is
+    fed its tokens (teacher forcing) so both run the same ticks. Every
+    routing call of both is logged: the first difference must sit at a
+    near-tie
+    (:func:`_first_routing_difference`), after which the states differ
+    and no logit is compared; before it, every step's logits must agree
+    within ``LOGIT_TOL``. The capacity factor is the real 1.25, so idle
+    slots compete for capacity with live ones."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.layers import moe as moe_mod
+    from repro_torch.models.api import build_model
+    from repro_torch.serve import ServeEngine, poisson_workload
+
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), n_layers=2,
+                              compute_dtype="float32")
+    params = build_model(cfg).init(seed=0, device="cuda")
+    plain_cfg = dataclasses.replace(cfg, moa="serial?backend=torch&"
+                                    "chunk=4096", attn_backend="torch")
+
+    def workload():
+        return [dataclasses.replace(r, arrival_s=0.0) for r in
+                poisson_workload(n_requests=6, vocab=cfg.vocab,
+                                 rate_rps=50.0, prompt_len_range=(16, 64),
+                                 gen_len_range=(8, 16), seed=1)]
+
+    for paged in (False, True):
+        layout = "paged" if paged else "dense-slot"
+        runs = {}
+        for path, c in (("torch", plain_cfg), ("kernel", cfg)):
+            # both eager: a graph's replay runs no Python, so its routing
+            # could not be logged (captured = eager bit for bit is the
+            # serve phase's check)
+            eng = ServeEngine(build_model(c), params, n_slots=4, max_len=96,
+                              paged=paged, block_size=16, device="cuda",
+                              cuda_graphs=False)
+            logits, ticks, tick_of = {}, [0], {}
+            forced = None if path == "torch" else {
+                r.uid: r.tokens for r in runs["torch"]["results"]}
+            _replay(torch, eng, logits, forced)
+            tick = eng.tick
+
+            def counted(results, tick=tick, logits=logits, ticks=ticks,
+                        tick_of=tick_of):
+                before = set(logits)
+                tick(results)
+                for key in set(logits) - before:
+                    tick_of[key] = ticks[0]
+                ticks[0] += 1
+
+            eng.tick = counted
+            log, undo = _routing_log(torch, moe_mod, ticks)
+            ops.reset_launch_counts()
+            try:
+                results, _ = eng.run(workload())
+            finally:
+                undo()
+            counts = ops.launch_counts()
+            want = served_kernels(cfg, paged)
+            if (path == "kernel" and not all(counts[k] for k in want)) or (
+                    path == "torch" and any(counts.values())):
+                raise AssertionError(f"moe parity {layout} {path} "
+                                     f"launches: {counts}")
+            runs[path] = {"results": results, "logits": logits,
+                          "tick_of": tick_of, "log": log}
+            del eng
+        plain, kern = runs["torch"], runs["kernel"]
+        diff = _first_routing_difference(plain["log"], kern["log"],
+                                         cfg.top_k)
+        upto = math.inf if diff is None else diff["tick"]
+        worst, compared = 0.0, 0
+        for key, zp in plain["logits"].items():
+            if plain["tick_of"][key] >= upto:
+                continue
+            worst = max(worst, float((kern["logits"][key] - zp).abs().max()))
+            compared += 1
+        drops = sum(int((~keep).sum()) for _, _, keep, _ in plain["log"])
+        line = {"phase": "parity", "what": "moe", "layout": layout,
+                "arch": cfg.name, "n_layers": 2, "compute_dtype": "float32",
+                "requests": len(plain["results"]),
+                "routing_calls": len(plain["log"]),
+                "dropped_choices": drops,
+                "routing_difference": diff, "route_gap": ROUTE_GAP,
+                "logit_steps_compared": compared,
+                "logit_steps": len(plain["logits"]),
+                "max_logit_diff": worst, "logit_tol": LOGIT_TOL}
+        emit(line)
+        if diff is not None and not diff["passed"]:
+            raise AssertionError(f"moe parity {layout}: routing differs "
+                                 f"away from a near-tie: {diff}")
+        if not worst <= LOGIT_TOL:
+            raise AssertionError(f"moe parity {layout}: logits differ by "
+                                 f"{worst} > {LOGIT_TOL}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1780,10 +2308,11 @@ def main() -> int:
     ap.add_argument("--log", default="",
                     help="also append every JSON line to this file")
     ap.add_argument("--parent", default="",
-                    help="a checkout of the parent tree: its paged-attention "
-                         "and reduction kernels are built and timed beside "
-                         "each paged and reduction row, and its paged kernel "
-                         "in a second decode_long line")
+                    help="a checkout of the parent tree: its dot_moa, "
+                         "paged-attention and reduction kernels are built "
+                         "and timed beside each unbatched dot_moa, paged and "
+                         "reduction row, and its paged kernel in a second "
+                         "decode_long line")
     args = ap.parse_args()
 
     import torch
@@ -1828,25 +2357,36 @@ def main() -> int:
                         for name, b in pbuilt.items()}})
 
     timer = Timer(torch)
-    rows = kernel_phase(torch, timer, parent.get("paged_attention"))
+    rows = kernel_phase(torch, timer, parent)
     rows.update(paper_kernel_phase(torch, timer, parent))
+    rows.update(moe_kernel_phase(torch, timer))
     emit({"phase": "kernels", "kernel": "dot_moa", "case": "host path",
           "iters": 1000, **host_path(torch)})
-    served = serve_phase(torch, parent.get("paged_attention"))
+    # the main path's runs, each with the launches its counts gave: the
+    # captured serve runs (llama3-8b paged, moonshot in both layouts) and
+    # the paper path
+    runs = {"serve/llama3-8b": serve_phase(torch,
+                                           parent.get("paged_attention"))}
+    runs.update(moe_serve_phase(torch))
     parity_phase(torch)
-    paper = paper_phase(torch)
+    moe_parity_phase(torch)
+    runs["paper"] = paper_phase(torch)
 
-    # each kernel's launches come from the first path that runs it
-    # (dot_moa runs on both: the served count, with the paper path's beside)
-    by_path = {"serve": served, "paper": paper}
+    # each kernel's launches are those of the runs of its first path (the
+    # served runs; dot_moa and moa_reduce also run on the paper path),
+    # each run's beside them
     summary = []
     for name, k in KERNELS.items():
         row = rows[name]
+        by_run = {r: c.get(name, 0) for r, c in runs.items()
+                  if r.split("/")[0] in k.paths}
         summary.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{k.source}.cu",
-            "replaces": k.replaces, "launches": by_path[k.paths[0]][name],
-            "launches_by_path": {p: by_path[p][name] for p in k.paths},
+            "replaces": k.replaces,
+            "launches": sum(n for r, n in by_run.items()
+                            if r.split("/")[0] == k.paths[0]),
+            "launches_by_path": by_run,
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "device_ms": row["device_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

@@ -27,7 +27,7 @@ from typing import Dict, Iterable, Sequence
 import torch
 
 __all__ = ["KERNELS", "BUILD_DIR", "DTYPE_CODES", "build", "load_function",
-           "check_device", "raise_on_error", "workspace",
+           "load_all", "check_device", "raise_on_error", "workspace",
            "stream_workspaces"]
 
 KERNELS = ("dot_moa", "flash_attention", "paged_attention", "moa_reduce",
@@ -96,13 +96,27 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
     return out
 
 
+def _load(name: str) -> ctypes.CDLL:
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = _LIBS[name] = ctypes.CDLL(str(_library_path(name)))
+    return lib
+
+
+def load_all() -> None:
+    """Build every library not built yet (in parallel) and load them all,
+    so that no kernel's first call builds or loads one."""
+    build([name for name in KERNELS if name not in _LIBS])
+    for name in KERNELS:
+        _load(name)
+
+
 def load_function(name: str, symbol: str, argtypes: Sequence):
     """The C entry point ``symbol`` of library ``name`` (built if needed),
     with ``argtypes`` set and an ``int`` (cudaError_t) return."""
-    lib = _LIBS.get(name)
-    if lib is None:
+    if name not in _LIBS:
         build([name])
-        lib = _LIBS[name] = ctypes.CDLL(str(_library_path(name)))
+    lib = _load(name)
     fn = getattr(lib, symbol)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int

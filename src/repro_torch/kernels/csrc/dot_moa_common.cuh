@@ -102,6 +102,35 @@ struct KCursor {
   }
 };
 
+// ---- the batch ------------------------------------------------------------
+// A batched call is E independent (M, K) @ (K, N) products in one launch,
+// the counterpart of vmap's leading batch grid axis on the Pallas kernel.
+// grid.x holds E x nx blocks: member e = blockIdx.x / nx runs exactly the
+// blocks of the unbatched call under the same plan, with bx =
+// blockIdx.x - e * nx in place of blockIdx.x, on A, B, C and the split
+// workspace offset by e times their member strides (elements). An
+// unbatched call is E = 1, nx = gridDim.x.
+struct Batch {
+  int nx;
+  long long sa, sb, sc, sw;
+};
+
+__device__ __forceinline__ int batch_member(const Batch& bt, int& bx) {
+  const int e = blockIdx.x / bt.nx;
+  bx = blockIdx.x - e * bt.nx;
+  return e;
+}
+
+template <typename P>
+__device__ __forceinline__ P* member_ptr(P* p, int e, long long stride) {
+  return p != nullptr ? p + e * stride : p;
+}
+
+// Every body, and the fold, has a one-member instance (BATCHED false) that
+// leaves A, B, C and the workspace alone: they stay kernel parameters and
+// take no registers. With the offsets they did not need, the simt and tc
+// bodies ran 14-15 % slower.
+
 // The K range of block z in split mode: sub-range j of slice s, cut at the
 // slice's end (empty where a ragged last slice has fewer sub-ranges).
 __device__ __forceinline__ void split_range(int z, int K, int bk, int sub, int splits, int& k0,

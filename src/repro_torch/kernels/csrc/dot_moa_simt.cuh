@@ -50,11 +50,11 @@ template <typename T> __device__ __forceinline__ T comp(const typename VecT<T, 4
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-template <typename T, int BM, int BN, bool ONE>
+template <typename T, int BM, int BN, bool ONE, bool BATCHED>
 __global__ void __launch_bounds__(THREADS, ONE && BM * BN <= 64 * 128 ? 2 : 1)
 dot_moa_simt(const T* __restrict__ A, const T* __restrict__ B, T* __restrict__ C,
              T* __restrict__ ws, int M, int N, int K, int bk, int sub, int splits, int a_aligned,
-             int b_aligned, int approx_bits) {
+             int b_aligned, int approx_bits, Batch bt) {
   using V = typename VecT<T, 4>::type;
   constexpr int TM = BM / 16;                  // rows a thread owns
   constexpr int TN = BN / 16;                  // columns a thread owns
@@ -66,7 +66,15 @@ dot_moa_simt(const T* __restrict__ A, const T* __restrict__ B, T* __restrict__ C
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  int bx = blockIdx.x;
+  if constexpr (BATCHED) {
+    const int e = batch_member(bt, bx);
+    A += e * bt.sa;
+    B += e * bt.sb;
+    C = member_ptr(C, e, bt.sc);
+    ws = member_ptr(ws, e, bt.sw);
+  }
+  const int m0 = blockIdx.y * BM, n0 = bx * BN;
 
   int k0 = 0, k1 = K;
   if (ws != nullptr) {

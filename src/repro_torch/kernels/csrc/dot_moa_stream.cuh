@@ -28,10 +28,10 @@ template <int MR> __host__ __device__ constexpr int stream_submax() { return STR
 
 constexpr size_t STREAM_SMEM = size_t(STREAM_STAGES) * STREAM_SROWS * 512 + STREAM_A_BYTES;
 
-template <typename T, typename Acc, int MR>
+template <typename T, typename Acc, int MR, bool BATCHED>
 __global__ void __launch_bounds__(THREADS, 2)
 dot_moa_stream(const T* __restrict__ A, const T* __restrict__ B, Acc* __restrict__ ws, int M,
-               int N, int K, int bk, int sub, int splits, int b_aligned) {
+               int N, int K, int bk, int sub, int splits, int b_aligned, Batch bt) {
   using U = Unpack16<T, Acc>;
   constexpr int VEC = U::N;
   constexpr int NB = 32 * VEC;
@@ -47,8 +47,15 @@ dot_moa_stream(const T* __restrict__ A, const T* __restrict__ B, Acc* __restrict
   int k0, k1;
   split_range(blockIdx.z, K, bk, sub, splits, k0, k1);
   if (k0 >= k1) return;
+  int bx = blockIdx.x;
+  if constexpr (BATCHED) {
+    const int e = batch_member(bt, bx);
+    A += e * bt.sa;
+    B += e * bt.sb;
+    ws += e * bt.sw;
+  }
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int c0 = blockIdx.x * NB, r0 = blockIdx.y * MR;
+  const int c0 = bx * NB, r0 = blockIdx.y * MR;
 
   auto load_stage = [&](int k, int end, int slot) {
     unsigned char* dst = ring + slot * STREAM_SROWS * 512;

@@ -70,12 +70,12 @@ __device__ __forceinline__ void b_frags(unsigned (&b)[4][2], const unsigned char
   }
 }
 
-template <typename T>
+template <typename T, bool BATCHED>
 __global__ void __launch_bounds__(THREADS, 2)
 dot_moa_tc(const T* __restrict__ A, const T* __restrict__ B,
            typename TcTraits<T>::Out* __restrict__ C, typename TcTraits<T>::Acc* __restrict__ ws,
            int M, int N, int K, int bk, int sub, int splits, int a_aligned, int b_aligned,
-           int approx_bits) {
+           int approx_bits, Batch bt) {
   using Acc = typename TcTraits<T>::Acc;
   using Out = typename TcTraits<T>::Out;
   constexpr int BK = TcTraits<T>::BK, KSTEP = TcTraits<T>::KSTEP;
@@ -88,7 +88,15 @@ dot_moa_tc(const T* __restrict__ A, const T* __restrict__ B,
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int wm = warp / 4, wn = warp % 4;
-  const int m0 = blockIdx.y * TC_BM, n0 = blockIdx.x * TC_BN;
+  int bx = blockIdx.x;
+  if constexpr (BATCHED) {
+    const int e = batch_member(bt, bx);
+    A += e * bt.sa;
+    B += e * bt.sb;
+    C = member_ptr(C, e, bt.sc);
+    ws = member_ptr(ws, e, bt.sw);
+  }
+  const int m0 = blockIdx.y * TC_BM, n0 = bx * TC_BN;
 
   int k0 = 0, k1 = K;
   if (ws != nullptr) {

@@ -49,18 +49,26 @@ template <bool ONE> __host__ __device__ constexpr size_t wg_smem() {
   return size_t(wg_stages<ONE>()) * WG_STAGE + 1024;
 }
 
-template <bool ONE>
+template <bool ONE, typename OutT, bool BATCHED>
 __global__ void __launch_bounds__(THREADS, ONE ? 2 : 1)
 dot_moa_wgmma(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ B,
-              __nv_bfloat16* __restrict__ C, float* __restrict__ ws, int M, int N, int K, int bk,
-              int sub, int splits, int a_aligned, int b_aligned) {
+              OutT* __restrict__ C, float* __restrict__ ws, int M, int N, int K, int bk,
+              int sub, int splits, int a_aligned, int b_aligned, Batch bt) {
   using T = __nv_bfloat16;
   constexpr int STAGES = wg_stages<ONE>();
   static_assert(THREADS == 256, "two warpgroups");
   extern __shared__ __align__(16) unsigned char wg_smem[];
   unsigned char* smem = wg_smem + ((1024 - (smem_u32(wg_smem) & 1023)) & 1023);
   const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
-  const int m0 = blockIdx.x * WG_BM, n0 = blockIdx.y * WG_BN;
+  int bx = blockIdx.x;
+  if constexpr (BATCHED) {
+    const int e = batch_member(bt, bx);
+    A += e * bt.sa;
+    B += e * bt.sb;
+    C = member_ptr(C, e, bt.sc);
+    ws = member_ptr(ws, e, bt.sw);
+  }
+  const int m0 = bx * WG_BM, n0 = blockIdx.y * WG_BN;
 
   int k0 = 0, k1 = K;
   if (ws != nullptr) {
@@ -170,7 +178,7 @@ dot_moa_wgmma(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restri
       if (ws != nullptr)
         ws[(size_t)blockIdx.z * M * N + (size_t)r * N + c] = res[4 * j + q];
       else
-        C[(size_t)r * N + c] = store_as<T>(res[4 * j + q]);
+        C[(size_t)r * N + c] = store_as<OutT>(res[4 * j + q]);
     }
 }
 

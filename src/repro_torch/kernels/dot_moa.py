@@ -5,6 +5,11 @@ Replaces the TPU kernel ``src/repro/kernels/dot_moa.py:dot_moa_pallas``:
 into an f32 (floats) or int32 (ints) accumulator, by ``+`` or by the LOA
 combine (``approx_bits > 0``). :func:`plan` picks the body and the split-K
 grid from the shape alone; ``dot_moa_cuda.launches`` counts launches.
+
+A 3-D call ``(E, m, k) @ (E, k, n) -> (E, m, n)`` is one launch over the E
+members (the counterpart of the batch grid axis ``jax.vmap`` adds to
+``dot_moa_pallas``, as the MoE's expert contractions do): each member runs
+as the 2-D call runs under the same :class:`Plan`, which names the batch.
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ __all__ = ["Plan", "plan", "dot_moa_cuda"]
 
 # (operand dtype, output dtype) pairs the kernels are instantiated for
 _SUPPORTED = {(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-              (torch.int8, torch.int32), (torch.int32, torch.int32)}
+              (torch.bfloat16, torch.float32), (torch.int8, torch.int32),
+              (torch.int32, torch.int32)}
 
 #: body codes of the C entry point (``enum Body`` in csrc/dot_moa.cu)
 _BODY_CODES = {"stream": 0, "tc": 1, "simt": 2, "wgmma": 3}
@@ -36,8 +42,11 @@ MIN_BLOCKS = 2 * SMS
 _SIMT_PAIR_TILE = 64 * 128
 #: the split-mode workspace stays under max(5 % of the operand bytes, this)
 WORKSPACE_FLOOR = 16 << 20
-#: the largest grid.z (sub-ranges of a split) and grid.y (row tiles)
+#: the largest grid.z (sub-ranges of a split) and grid.y (row tiles, and
+#: the fold's members); grid.x (column tiles, or row tiles for ``wgmma``,
+#: times the batch) may hold up to 2**31 - 1
 _GRID_YZ = 65535
+_GRID_X = 2 ** 31 - 1
 #: accumulators a thread of the streaming (decode) body holds: it runs
 #: where m rows of them fit one row group (m <= 16 f32 / int32, 8 bf16,
 #: 4 int8); more rows would read B once per group
@@ -52,7 +61,8 @@ class Plan:
     split. ``splits == 0`` is direct mode (each block walks all of K, the
     slices folded in registers); else slice ``s`` is cut into sub-ranges
     ``[s*block_k + j*sub, ...)`` (``j < splits``, cut at the slice's end),
-    each summed by its own blocks into the workspace."""
+    each summed by its own blocks into the workspace. ``batch`` members
+    each run these blocks on their own operands."""
 
     body: str                 # "stream" | "wgmma" | "tc" | "simt"
     tile_m: int
@@ -65,6 +75,7 @@ class Plan:
     block_k: int
     sub: int
     splits: int
+    batch: int = 1
 
     @property
     def slices(self) -> int:
@@ -72,17 +83,22 @@ class Plan:
 
     @property
     def tiles(self) -> int:
+        """Output tiles of one member."""
         return -(-self.m // self.tile_m) * -(-self.n // self.tile_n)
 
     @property
     def blocks(self) -> int:
-        """Tiles times grid.z (the split's sub-ranges, 1 in direct mode)."""
-        return self.tiles * (self.slices * self.splits if self.splits else 1)
+        """Tiles times grid.z (the split's sub-ranges, 1 in direct mode)
+        times the batch."""
+        return self.tiles * (self.slices * self.splits if self.splits
+                             else 1) * self.batch
 
     @property
     def workspace(self) -> int:
-        """Accumulators of the split-mode workspace (0 in direct mode)."""
-        return self.slices * self.splits * self.m * self.n if self.splits else 0
+        """Accumulators of the split-mode workspace, every member's (0 in
+        direct mode)."""
+        return (self.batch * self.slices * self.splits * self.m * self.n
+                if self.splits else 0)
 
     def ranges(self) -> List[Tuple[int, int]]:
         """The K range of each non-empty grid.z index, in z order (the
@@ -117,10 +133,14 @@ def _simt_width(m: int, n: int) -> int:
 
 
 @functools.lru_cache(maxsize=4096)
-def plan(m: int, n: int, k: int, block_k: int, dtype: torch.dtype) -> Plan:
+def plan(m: int, n: int, k: int, block_k: int, dtype: torch.dtype,
+         batch: int = 1) -> Plan:
     """The body and grid of ``(m, k) @ (k, n)`` with ``block_k`` slices of
-    ``dtype`` operands (deterministic in its arguments; the thresholds and
-    their reasons are in the note atop ``csrc/dot_moa.cu``).
+    ``dtype`` operands, for each of ``batch`` members (deterministic in its
+    arguments; the thresholds and their reasons are in the note atop
+    ``csrc/dot_moa.cu``). The body and tile depend on the member's shape
+    alone; the split counts every member's blocks and workspace, so at
+    ``batch`` 1 this is the unbatched plan.
 
     * ``m * 16 / itemsize <= STREAM_ACC`` (m <= 16 f32 / int32, 8 bf16,
       4 int8): ``stream`` (B read once, CUDA-core FMA), always split: a
@@ -138,8 +158,8 @@ def plan(m: int, n: int, k: int, block_k: int, dtype: torch.dtype) -> Plan:
     keeps at least 4 stages; the other bodies stay in direct mode where the
     tiles alone reach that count or no split fits. Raises where no body
     takes the shape."""
-    if min(m, n, k, block_k) < 1:
-        raise ValueError(f"dot_moa: empty plan for {m}x{k}x{n}, "
+    if min(m, n, k, block_k, batch) < 1:
+        raise ValueError(f"dot_moa: empty plan for {batch} x {m}x{k}x{n}, "
                          f"block_k={block_k}")
     block_k = min(block_k, k)
     item = dtype.itemsize
@@ -159,24 +179,28 @@ def plan(m: int, n: int, k: int, block_k: int, dtype: torch.dtype) -> Plan:
         tile_n = 128 if tile_m == 64 else _simt_width(m, n)
     else:
         raise TypeError(f"dot_moa: no body for {dtype}")
-    if -(-m // tile_m) > _GRID_YZ:
-        raise ValueError(f"dot_moa: m={m} needs more than {_GRID_YZ} row "
-                         f"tiles of {tile_m}")
+    rows, cols = -(-m // tile_m), -(-n // tile_n)
+    if body == "wgmma":   # row tiles on grid.x
+        rows, cols = cols, rows
+    if max(rows, batch) > _GRID_YZ or cols * batch > _GRID_X:
+        raise ValueError(f"dot_moa: {batch} x {m}x{n} needs more than "
+                         f"{_GRID_YZ} tiles or members on grid.y or "
+                         f"{_GRID_X} on grid.x ({tile_m}x{tile_n} tiles)")
     base = dict(body=body, tile_m=tile_m, tile_n=tile_n, k_step=k_step,
-                vec=vec, m=m, n=n, k=k, block_k=block_k)
+                vec=vec, m=m, n=n, k=k, block_k=block_k, batch=batch)
     slices = -(-k // block_k)
-    tiles = -(-m // tile_m) * -(-n // tile_n)
+    tiles = rows * cols * batch          # every member's
     target = MIN_BLOCKS
     if body == "wgmma":   # measured: the fewest sub-ranges that busy half
         target = SMS // 2  # the SMs; each more costs workspace and a tail
     if body == "simt":   # blocks an SM: 2 only for small one-slice tiles
         pair = tile_m * tile_n <= _SIMT_PAIR_TILE
         target = SMS * (2 if pair and slices == 1 else 1)
-    cap = max(0.05 * (m * k + k * n) * item, WORKSPACE_FLOOR)
+    cap = max(0.05 * batch * (m * k + k * n) * item, WORKSPACE_FLOOR)
 
     def fits(splits: int) -> bool:
         return (slices * splits <= _GRID_YZ
-                and slices * splits * m * n * 4 <= cap)
+                and batch * slices * splits * m * n * 4 <= cap)
 
     lo = 1 if submax is None else -(-block_k // submax)
     hi = max(lo, -(-block_k // (4 * k_step)))
@@ -213,17 +237,22 @@ def _sub(block_k: int, splits: int, k_step: int) -> int:
 @functools.lru_cache(maxsize=None)
 def _fn():
     p = ctypes.c_void_p
-    return _build.load_function("dot_moa", "repro_dot_moa", [p] * 6)
+    return _build.load_function("dot_moa", "repro_dot_moa", [p] * 7)
 
 
 @functools.lru_cache(maxsize=4096)
 def _launch(m: int, n: int, k: int, block_k: int, approx_bits: int,
             dtype: torch.dtype, out_dtype: torch.dtype, a_rows16: bool,
-            b_rows16: bool):
-    """The plan of a call and the C entry's 15 ints for it (built once per
-    signature: the host path passes one pointer for them). ``a_rows16`` /
-    ``b_rows16``: the operand's data pointer is 16-byte aligned."""
-    p = plan(m, n, k, block_k, dtype)
+            b_rows16: bool, batch: int, plan_batch: int):
+    """The plan of a call, the C entry's 16 ints and its 3 member strides
+    (built once per signature: the host path passes one pointer for
+    each). ``a_rows16`` / ``b_rows16``: the operand's data pointer is
+    16-byte aligned; members are contiguous, so each member's pointer is
+    where its rows are (k and n multiples of the 16-byte vector). The
+    split is planned for ``plan_batch`` members and launched for
+    ``batch``."""
+    p = dataclasses.replace(plan(m, n, k, block_k, dtype, plan_batch),
+                            batch=batch)
     v = p.vec
     # 16-byte copies need aligned rows, and stages that start on 16 bytes
     a_aligned = a_rows16 and k % v == 0 and block_k % v == 0 \
@@ -232,17 +261,26 @@ def _launch(m: int, n: int, k: int, block_k: int, approx_bits: int,
     ints = (m, n, k, block_k, approx_bits, _build.DTYPE_CODES[dtype],
             _build.DTYPE_CODES[out_dtype], _BODY_CODES[p.body], p.tile_m,
             p.tile_n, p.sub, p.splits, int(a_aligned), int(b_aligned),
-            int(p.one_slice))
-    return p, (ctypes.c_int * len(ints))(*ints)
+            int(p.one_slice), batch)
+    strides = (ctypes.c_longlong * 3)(m * k, k * n, m * n)
+    return p, (ctypes.c_int * len(ints))(*ints), strides
 
 
 def dot_moa_cuda(a: torch.Tensor, b: torch.Tensor, *, block_k: int,
                  approx_bits: int = 0,
-                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                 out_dtype: Optional[torch.dtype] = None,
+                 plan_batch: Optional[int] = None) -> torch.Tensor:
     """Launch the kernels on ``torch.cuda.current_stream()``; same contract
-    as :func:`repro_torch.kernels.ref.dot_moa_ref`."""
+    as :func:`repro_torch.kernels.ref.dot_moa_ref`, or, for 3-D operands
+    ``(E, m, k) @ (E, k, n)``, as :func:`repro_torch.kernels.ref.
+    dot_moa_batched_ref`: one launch for every member. ``plan_batch``
+    (default: the call's own batch) plans the split as for that many
+    members, so a 2-D call can run one member exactly as a batched call
+    runs it (the member-by-member check)."""
     _build.check_device(a, "dot_moa")
-    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+    batched = a.dim() == 3
+    if a.dim() not in (2, 3) or b.dim() != a.dim() \
+            or a.shape[-1] != b.shape[-2] or a.shape[:-2] != b.shape[:-2]:
         raise ValueError(f"dot_moa: contraction mismatch {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")
     if a.device != b.device or a.dtype != b.dtype:
@@ -250,7 +288,8 @@ def dot_moa_cuda(a: torch.Tensor, b: torch.Tensor, *, block_k: int,
                          f"{a.dtype}@{a.device} and {b.dtype}@{b.device}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("dot_moa: operands must be contiguous")
-    (m, k), n = a.shape, b.shape[1]
+    (m, k), n = a.shape[-2:], b.shape[-1]
+    batch = a.shape[0] if batched else 1
     is_int = is_integer(a.dtype)
     if approx_bits and not is_int:
         raise TypeError("LOA accumulation requires integer operands")
@@ -264,21 +303,24 @@ def dot_moa_cuda(a: torch.Tensor, b: torch.Tensor, *, block_k: int,
         else (torch.int32 if is_int else a.dtype)
     if (a.dtype, out_dtype) not in _SUPPORTED:
         raise TypeError(f"dot_moa: no kernel for {a.dtype} -> {out_dtype}")
-    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    if m == 0 or n == 0:
+    out = torch.empty(tuple(a.shape[:-1]) + (n,), dtype=out_dtype,
+                      device=a.device)
+    if m == 0 or n == 0 or batch == 0:
         return out
     a_ptr, b_ptr = a.data_ptr(), b.data_ptr()
-    p, ints = _launch(m, n, k, block_k, int(approx_bits), a.dtype, out_dtype,
-                      a_ptr % 16 == 0, b_ptr % 16 == 0)
+    p, ints, strides = _launch(m, n, k, block_k, int(approx_bits), a.dtype,
+                               out_dtype, a_ptr % 16 == 0, b_ptr % 16 == 0,
+                               batch, plan_batch or batch)
     index = a.device.index
     stream = torch._C._cuda_getCurrentRawStream(index)
     ws = _build.workspace(index, stream, 4 * p.workspace,
                           owner="dot_moa")[0].data_ptr() if p.splits else None
     if index == torch.cuda.current_device():
-        rc = _fn()(a_ptr, b_ptr, out.data_ptr(), ws, ints, stream)
+        rc = _fn()(a_ptr, b_ptr, out.data_ptr(), ws, ints, strides, stream)
     else:
         with torch.cuda.device(index):
-            rc = _fn()(a_ptr, b_ptr, out.data_ptr(), ws, ints, stream)
+            rc = _fn()(a_ptr, b_ptr, out.data_ptr(), ws, ints, strides,
+                       stream)
     _build.raise_on_error(rc, "dot_moa")
     dot_moa_cuda.launches += 1
     return out

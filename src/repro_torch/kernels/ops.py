@@ -39,10 +39,13 @@ def _on_cpu(x: torch.Tensor, what: str) -> bool:
 
 def dot_moa(a, b, *, block_k: int = 512, approx_bits: int = 0,
             out_dtype: Optional[torch.dtype] = None):
-    """K-blocked matmul with serialized-MOA contraction ``(m,k)@(k,n)``."""
+    """K-blocked matmul with serialized-MOA contraction ``(m,k)@(k,n)``,
+    or, for 3-D operands, ``(E,m,k)@(E,k,n)`` member by member (one launch
+    on the card)."""
     if _on_cpu(a, "dot_moa"):
-        return ref.dot_moa_ref(a, b, block_k=block_k, approx_bits=approx_bits,
-                               out_dtype=out_dtype)
+        fn = ref.dot_moa_batched_ref if a.dim() == 3 else ref.dot_moa_ref
+        return fn(a, b, block_k=block_k, approx_bits=approx_bits,
+                  out_dtype=out_dtype)
     return dot_moa_cuda(a, b, block_k=block_k, approx_bits=approx_bits,
                         out_dtype=out_dtype)
 

@@ -16,7 +16,8 @@ import torch
 from repro_torch.device import as_dtype, is_integer
 from repro_torch.layers.numerics import NEG_INF
 
-__all__ = ["matmul_accum", "loa_combine", "dot_moa_ref", "moa_reduce_ref",
+__all__ = ["matmul_accum", "loa_combine", "dot_moa_ref",
+           "dot_moa_batched_ref", "moa_reduce_ref",
            "loa_add_ref", "loa_reduce_ref", "flash_attention_ref",
            "paged_attention_ref"]
 
@@ -108,6 +109,21 @@ def dot_moa_ref(a: torch.Tensor, b: torch.Tensor, *, block_k: int = 512,
         part = matmul_accum(a[:, s:s + block_k], b[s:s + block_k], accum)
         acc = part if acc is None else loa_combine(acc, part, approx_bits)
     return acc.to(out_dtype)
+
+
+def dot_moa_batched_ref(a: torch.Tensor, b: torch.Tensor, *,
+                        block_k: int = 512, approx_bits: int = 0,
+                        out_dtype: Optional[torch.dtype] = None
+                        ) -> torch.Tensor:
+    """``(E, m, k) @ (E, k, n) -> (E, m, n)``: :func:`dot_moa_ref` on each
+    member, the plain version of ``jax.vmap`` over ``dot_moa_pallas``."""
+    if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0]:
+        raise ValueError(f"batched contraction mismatch {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    return torch.stack([dot_moa_ref(x, w, block_k=block_k,
+                                    approx_bits=approx_bits,
+                                    out_dtype=out_dtype)
+                        for x, w in zip(a, b)])
 
 
 def _cluster_sums(x: torch.Tensor, block_n: int, accum: torch.dtype):

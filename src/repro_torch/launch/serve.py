@@ -1,17 +1,20 @@
-"""Serving CLI of the port: the continuous-batching engine over a paged KV
-pool, driven by a synthetic Poisson workload (the engine half of
-``repro/launch/serve.py``).
+"""Serving CLI of the port: the continuous-batching engine, dense-slot or
+over a paged KV pool (``--paged``), driven by a synthetic Poisson workload
+(the engine half of ``repro/launch/serve.py``).
 
   python -m repro_torch.launch.serve --arch llama3-8b --paged \
       --param-dtype bfloat16 --requests 8 --slots 4
+  python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b \
+      --param-dtype bfloat16 [--paged]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       --smoke --paged --device cpu
 
 Runs on the GPU unless ``--device cpu`` is given. ``--layers`` cuts the
 depth (``n_layers``) and nothing else. On the GPU the engine replays CUDA
-graphs of its decode and full-prompt prefill (captured at warmup, or at the
-first tick of each bucket with ``--no-warmup``); ``--eager`` runs every
-tick eagerly instead.
+graphs of its decode and padded full-prompt prefill (captured at warmup, or
+at the first tick of each bucket with ``--no-warmup``); ``--eager`` runs
+every tick eagerly instead. Each request's line and the aggregate give
+its strategy-priced FLOPs (``moa_flops``).
 """
 
 from __future__ import annotations
@@ -76,13 +79,16 @@ def _run_engine(args):
         m = r.metrics
         print(f"[serve]   req {r.uid}: slot={r.slot} prompt={r.prompt_len} "
               f"gen={r.tokens.size} ttft={m.ttft_s*1e3:.0f}ms "
-              f"{m.per_token_ms:.1f}ms/tok ({r.finish_reason.value})")
+              f"{m.per_token_ms:.1f}ms/tok moa_flops={m.moa_flops:.4g} "
+              f"({r.finish_reason.value})")
     print(f"[serve] aggregate: {report['tok_per_s']:.1f} tok/s, "
           f"ttft p50={report['ttft_ms']['p50']:.0f}ms "
           f"p95={report['ttft_ms']['p95']:.0f}ms, "
           f"occupancy={report['slot_occupancy']:.2f}, "
           f"slot_reuse={report['slot_reuse']}, "
           f"warmup={report['compile_s']*1e3:.0f}ms (kept out of wall_s), "
+          f"moa_flops={report['moa_flops_total']:.4g}, "
+          f"layout={'paged' if args.paged else 'dense-slot'}, "
           f"path={'cuda-graphs' if report['cuda_graphs'] else 'eager'}")
     gr = report["graphs"]
     if gr is not None:
@@ -91,7 +97,14 @@ def _run_engine(args):
               f"replays={gr['replays']}, eager first runs="
               f"{gr['eager_runs']}, launches/replay="
               f"{gr['launches_per_replay']}")
-    pg = report["paged"]
+    pg = report.get("paged")
+    if pg is not None:
+        _print_paged(pg)
+    print(f"[serve] kernel launches (warmup included): "
+          f"{ops.launch_counts()}")
+
+
+def _print_paged(pg: dict) -> None:
     print(f"[serve] paged: {pg['n_blocks']}x{pg['block_size']}-token "
           f"blocks, backend={pg['attn_backend']}, "
           f"occupancy={pg['block_occupancy']:.2f}, "
@@ -101,13 +114,11 @@ def _run_engine(args):
           f"(dense equiv {pg['dense_equiv_kv_bytes']:,}B), "
           f"kv read/step gathered={pg['gathered_kv_bytes_per_step']:,.0f}B "
           f"fused={pg['fused_kv_bytes_per_step']:,.0f}B")
-    print(f"[serve] kernel launches (warmup included): "
-          f"{ops.launch_counts()}")
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="Serve a registry arch through the port's paged "
+        description="Serve a registry arch through the port's "
                     "continuous-batching engine")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
@@ -136,7 +147,8 @@ def main(argv=None):
                     help="per-slot context capacity, tokens")
     ap.add_argument("--paged", action="store_true",
                     help="paged KV cache: shared block pool with "
-                         "ref-counted prefix caching (the only mode ported)")
+                         "ref-counted prefix caching (default: dense-slot, "
+                         "max_len tokens reserved a slot)")
     ap.add_argument("--block-size", type=int, default=16,
                     help="tokens per physical KV page")
     ap.add_argument("--blocks", type=int, default=0,

@@ -1,14 +1,23 @@
 """GQA attention for the served path — the port of the pieces of
-``repro/layers/attention.py`` that prefill and paged decode use.
+``repro/layers/attention.py`` that prefill, dense-slot decode and paged
+decode use.
 
 Layouts: q ``(B, Sq, H, D)``, k/v ``(B, Skv, Hk, D)``; GQA groups
-``G = H // Hk`` stay a separate axis. Paged pools are
-``(n_phys_blocks, block_size, Hk, D)`` with int32 ``(B, n_blocks)`` tables;
-physical block 0 is the engine's write-trash page.
+``G = H // Hk`` stay a separate axis. Dense-slot caches are ``(B, max_len,
+Hk, D)`` per layer; paged pools are ``(n_phys_blocks, block_size, Hk, D)``
+with int32 ``(B, n_blocks)`` tables; physical block 0 is the engine's
+write-trash page.
 
-Unlike the reference, the paged decode step writes the new K/V into the
-pool **in place** (the pool tensors are the engine's cache; returning a
-fresh copy per layer per step would double the KV traffic).
+Unlike the reference, both decode steps write the new K/V into the cache
+**in place** (the cache tensors are the engine's; returning a fresh copy
+per layer per step would double the KV traffic). Where the reference's
+scatter is dropped or its target repeats, the port pins what JAX does:
+
+* a dense-slot write at a cursor ``>= max_len`` (an idle slot's cursor
+  keeps advancing) is dropped, as JAX drops an out-of-range scatter;
+* writes that repeat a target (idle slots on the paged trash page) all
+  carry the last one's value, the sequential scatter's outcome, so no
+  race between them can matter on the card.
 """
 
 from __future__ import annotations
@@ -24,10 +33,11 @@ from repro_torch.layers.numerics import NEG_INF, kv_scale_zeros
 from repro_torch.layers.rope import apply_rope
 
 __all__ = [
-    "ATTN_BACKENDS", "attention_decode_paged",
-    "flash_attention", "full_attention", "init_kv_pool", "gather_paged_kv",
-    "prefill_attention", "quantize_kv", "dequantize_kv",
-    "resolve_attn_backend",
+    "ATTN_BACKENDS", "attention_decode", "attention_decode_paged",
+    "flash_attention", "full_attention", "init_kv_cache", "init_kv_pool",
+    "gather_paged_kv", "last_of_equal", "paged_write_targets",
+    "prefill_attention", "quantize_kv",
+    "dequantize_kv", "resolve_attn_backend",
 ]
 
 #: resolved ``attn_backend`` values: plain PyTorch or the CUDA kernels
@@ -129,6 +139,19 @@ def _project_qkv(params: Params, x, *, n_heads, n_kv_heads, head_dim,
     return q, k, v
 
 
+def init_kv_cache(batch: int, max_len: int, n_kv_heads: int, head_dim: int,
+                  dtype=torch.bfloat16, device=None) -> Params:
+    """Dense-slot KV cache ``(batch, max_len, Hk, D)``; ``dtype=int8`` adds
+    per-(pos, head) f32 scales."""
+    shape = (batch, max_len, n_kv_heads, head_dim)
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if dtype == torch.int8:
+        cache["k_scale"] = kv_scale_zeros(shape[:3], device)
+        cache["v_scale"] = kv_scale_zeros(shape[:3], device)
+    return cache
+
+
 def init_kv_pool(n_phys_blocks: int, block_size: int, n_kv_heads: int,
                  head_dim: int, dtype=torch.bfloat16, device=None) -> Params:
     """Paged KV pool; ``dtype=int8`` adds per-(pos, head) f32 scales.
@@ -178,6 +201,83 @@ def gather_paged_kv(pool: Params, block_tables, dtype=torch.bfloat16, *,
     return k, v
 
 
+def last_of_equal(*keys: torch.Tensor) -> torch.Tensor:
+    """For each row ``i`` of the 1-D ``keys``, the last row ``j`` whose keys
+    all equal row ``i``'s. Indexing a scatter's values by it makes every
+    write to a repeated target carry the last one's value: what a
+    sequential scatter leaves, whatever order the writes land in."""
+    n = keys[0].shape[0]
+    same = torch.ones((n, n), dtype=torch.bool, device=keys[0].device)
+    for key in keys:
+        same &= key[:, None] == key[None, :]
+    idx = torch.arange(n, device=keys[0].device)
+    return torch.where(same, idx[None, :], -1).amax(dim=1)
+
+
+def _scatter_per_batch(cache: torch.Tensor, new: torch.Tensor, pos) -> None:
+    """Row ``b`` of ``new (B, 1, ...)`` into ``cache[b, pos[b]]``, in place;
+    a cursor ``>= max_len`` writes nothing (JAX drops an out-of-range
+    scatter): there the row's old value is written back."""
+    B, max_len = cache.shape[:2]
+    rows = torch.arange(B, device=cache.device)
+    cur = pos.long()
+    at = torch.clamp(cur, max=max_len - 1)
+    ok = (cur < max_len).reshape((B,) + (1,) * (cache.dim() - 2))
+    cache[rows, at] = torch.where(ok, new[:, 0].to(cache.dtype),
+                                  cache[rows, at])
+
+
+def attention_decode(params: Params, x, cache: Params, pos, *, n_heads: int,
+                     n_kv_heads: int, head_dim: int,
+                     rope_theta: float = 10000.0, use_rope: bool = True,
+                     compute_dtype=torch.bfloat16, strategy=None
+                     ) -> Tuple[torch.Tensor, Params]:
+    """One decode step: ``x (B, 1, d)`` against a dense-slot KV cache at
+    ``pos``, a 0-d cursor for the whole batch or a ``(B,)`` one per slot.
+
+    The new K/V is written in place (int8 caches quantized, with their
+    scales), then the step attends over the cache with ``kv_len = pos + 1``
+    through :func:`full_attention`: plain PyTorch, as the reference's jnp
+    ``full_attention`` is outside any Pallas kernel. A 0-d cursor writes
+    through ``dynamic_update_slice`` semantics (clamped into the cache); a
+    vector one per slot, dropping a write past ``max_len``."""
+    B = x.shape[0]
+    q, k_new, v_new = _project_qkv(
+        params, x, n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim,
+        compute_dtype=compute_dtype, strategy=strategy)
+    scalar = pos.dim() == 0
+    pos_arr = (pos.reshape(1, 1).expand(B, 1) if scalar else pos[:, None])
+    if use_rope:
+        q = apply_rope(q, pos_arr, theta=rope_theta)
+        k_new = apply_rope(k_new, pos_arr, theta=rope_theta)
+
+    def write(buf, new):
+        if scalar:   # dynamic_update_slice clamps the start into range
+            at = torch.clamp(pos.long(), max=buf.shape[1] - 1)
+            buf.index_copy_(1, at.reshape(1), new.to(buf.dtype))
+        else:
+            _scatter_per_batch(buf, new, pos)
+
+    if "k_scale" in cache:
+        kq, ks = quantize_kv(k_new)
+        vq, vs = quantize_kv(v_new)
+        write(cache["k"], kq)
+        write(cache["v"], vq)
+        write(cache["k_scale"], ks)
+        write(cache["v_scale"], vs)
+        k_cache = dequantize_kv(cache["k"], cache["k_scale"], compute_dtype)
+        v_cache = dequantize_kv(cache["v"], cache["v_scale"], compute_dtype)
+    else:
+        write(cache["k"], k_new)
+        write(cache["v"], v_new)
+        k_cache, v_cache = cache["k"], cache["v"]
+    o = full_attention(q, k_cache, v_cache, causal=False, kv_len=pos + 1)
+    o = o.reshape(B, 1, n_heads * head_dim)
+    y = _moa_dot(o, params["wo"].to(compute_dtype), strategy=strategy,
+                 compute_dtype=compute_dtype)
+    return y, cache
+
+
 def _paged_attention_fused(q, pool: Params, block_tables, start, *,
                            compute_dtype=torch.bfloat16,
                            live_blocks: Optional[int] = None):
@@ -194,8 +294,30 @@ def _paged_attention_fused(q, pool: Params, block_tables, start, *,
         dequant_dtype=compute_dtype)
 
 
+def paged_write_targets(block_tables, pos, block_size: int):
+    """Where a paged decode step writes each slot's new K/V: ``(blk, off,
+    last)``, the physical page and offset of cursor ``pos (B,)``, and
+    :func:`last_of_equal` of them. The same in every layer of a step.
+
+    An idle slot's cursor keeps advancing and can pass the table width;
+    JAX clamps such an out-of-range gather to the last column, which for a
+    cleared (all-trash) row is the trash page. PyTorch would raise, so the
+    column is clamped explicitly to keep the write on the trash page. Idle
+    slots may then repeat a (trash page, offset) target; no live request
+    reads the trash page, but idle slots do, and a capacity-limited MoE
+    routes their rows beside live ones: every repeat carries the last
+    write's value (``last``), as the reference's sequential scatter leaves
+    it."""
+    cur = pos.long()
+    col = torch.clamp(cur // block_size, max=block_tables.shape[1] - 1)
+    rows = torch.arange(cur.shape[0], device=cur.device)
+    blk = block_tables[rows, col].long()
+    off = cur % block_size
+    return blk, off, last_of_equal(blk, off)
+
+
 def attention_decode_paged(params: Params, x, pool: Params, block_tables,
-                           pos, *, n_heads: int, n_kv_heads: int,
+                           pos, targets, *, n_heads: int, n_kv_heads: int,
                            head_dim: int, rope_theta: float = 10000.0,
                            use_rope: bool = True,
                            compute_dtype=torch.bfloat16,
@@ -205,13 +327,14 @@ def attention_decode_paged(params: Params, x, pool: Params, block_tables,
     """One decode step against a paged KV pool.
 
     The new token's K/V is written (in place) to physical page
-    ``block_tables[b, pos // bs]`` at offset ``pos % bs``; the score
-    reduction then runs over the slot's pages — the gathered view and
-    ``full_attention`` (``backend="torch"``) or the paged-attention kernel
-    (``"kernel"``). ``pos`` is the ``(B,)`` cursor vector.
+    ``block_tables[b, pos // bs]`` at offset ``pos % bs`` (``targets``:
+    :func:`paged_write_targets` of them, found once for every layer of the
+    step); the score reduction then runs over the slot's pages — the
+    gathered view and ``full_attention`` (``backend="torch"``) or the
+    paged-attention kernel (``"kernel"``). ``pos`` is the ``(B,)`` cursor
+    vector.
     """
     B = x.shape[0]
-    bs = pool["k"].shape[1]
     q, k_new, v_new = _project_qkv(
         params, x, n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim,
         compute_dtype=compute_dtype, strategy=strategy)
@@ -221,26 +344,17 @@ def attention_decode_paged(params: Params, x, pool: Params, block_tables,
         k_new = apply_rope(k_new, pos, theta=rope_theta)
 
     cur = pos[:, 0].long()
-    # An idle slot's cursor keeps advancing and can pass the table width;
-    # JAX clamps such an out-of-range gather to the last column, which for
-    # a cleared (all-trash) row is the trash page. PyTorch would raise, so
-    # clamp explicitly to keep the write on the trash page.
-    col = torch.clamp(cur // bs, max=block_tables.shape[1] - 1)
-    rows = torch.arange(B, device=x.device)
-    blk = block_tables[rows, col].long()
-    off = cur % bs
-    # duplicate (trash page, offset) targets from idle slots are harmless:
-    # whichever write wins, nothing live ever reads the trash page
+    blk, off, last = targets
     if "k_scale" in pool:
         kq, ks = quantize_kv(k_new)
         vq, vs = quantize_kv(v_new)
-        pool["k"][blk, off] = kq[:, 0]
-        pool["v"][blk, off] = vq[:, 0]
-        pool["k_scale"][blk, off] = ks[:, 0]
-        pool["v_scale"][blk, off] = vs[:, 0]
+        pool["k"][blk, off] = kq[last, 0]
+        pool["v"][blk, off] = vq[last, 0]
+        pool["k_scale"][blk, off] = ks[last, 0]
+        pool["v_scale"][blk, off] = vs[last, 0]
     else:
-        pool["k"][blk, off] = k_new[:, 0].to(pool["k"].dtype)
-        pool["v"][blk, off] = v_new[:, 0].to(pool["v"].dtype)
+        pool["k"][blk, off] = k_new[last, 0].to(pool["k"].dtype)
+        pool["v"][blk, off] = v_new[last, 0].to(pool["v"].dtype)
 
     if resolve_attn_backend(backend, x.device) == "kernel":
         o = _paged_attention_fused(q, pool, block_tables, cur,

@@ -93,18 +93,20 @@ class _KernelDot(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        # batched (3-D) operands: the same rule member by member
         a, b = ctx.saved_tensors
         gf = g.float()
-        da = torch.matmul(gf, b.float().t()).to(a.dtype)
-        db = torch.matmul(a.float().t(), gf).to(b.dtype)
+        da = torch.matmul(gf, b.float().transpose(-1, -2)).to(a.dtype)
+        db = torch.matmul(a.float().transpose(-1, -2), gf).to(b.dtype)
         return da, db, None, None, None
 
 
 def kernel_dot(a: torch.Tensor, b: torch.Tensor, *, block_k: int,
                out_dtype: torch.dtype, approx_bits: int = 0) -> torch.Tensor:
-    """``(m, k) @ (k, n)`` through the ``dot_moa`` kernel; ``block_k`` is
-    the serialization cluster size ``n_c``. Float paths are differentiable
-    (the ``autograd.Function`` is entered only where a gradient is wanted);
+    """``(m, k) @ (k, n)``, or ``(E, m, k) @ (E, k, n)`` in one batched
+    launch, through the ``dot_moa`` kernel; ``block_k`` is the
+    serialization cluster size ``n_c``. Float paths are differentiable (the
+    ``autograd.Function`` is entered only where a gradient is wanted);
     integer paths are forward-only."""
     a, b = a.contiguous(), b.contiguous()
     if is_integer(a.dtype) or not (torch.is_grad_enabled() and (

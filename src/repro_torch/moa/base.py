@@ -105,6 +105,42 @@ class MOAStrategy(abc.ABC):
         ``a.dtype`` for floats and int32 for integer operands.
         """
 
+    def batched_dot(self, a, b, *, out_dtype: Optional[Any] = None
+                    ) -> torch.Tensor:
+        """``jax.vmap(self.dot, in_axes=(1, 0), out_axes=1)``: ``a (G, E,
+        ..., K)`` against one ``b (E, K, N)`` per member of axis 1 ->
+        ``(G, E, ..., N)`` (the MoE's expert contractions).
+
+        The ``torch`` route runs :meth:`dot` on each member, so each is
+        held to the unbatched plain schedule; the ``kernel`` route is one
+        batched ``dot_moa`` launch whose members each run as the
+        unbatched kernel call runs (:meth:`_kernel_dot_options`)."""
+        if a.shape[1] != b.shape[0]:
+            raise ValueError(f"batched dot: {a.shape[1]} members against "
+                             f"{b.shape[0]} weights")
+        members = torch.movedim(a, 1, 0)                # (E, G, ..., K)
+        if self.resolve_backend(a) != "kernel":
+            return torch.stack([self.dot(x, w, out_dtype=out_dtype)
+                                for x, w in zip(members, b)], dim=1)
+        from repro_torch.moa import backends
+
+        self._check_operands(a.dtype)
+        self._check_operands(b.dtype)
+        out_dtype = self._default_out_dtype(a.dtype, out_dtype)
+        E, K = b.shape[0], b.shape[1]
+        a3 = members.reshape(E, -1, K)
+        block_k, approx_bits = self._kernel_dot_options(K)
+        y = backends.kernel_dot(a3, b, block_k=block_k,
+                                approx_bits=approx_bits, out_dtype=out_dtype)
+        return torch.movedim(y.reshape(tuple(members.shape[:-1])
+                                       + (b.shape[-1],)), 0, 1)
+
+    def _kernel_dot_options(self, k: int):
+        """``(block_k, approx_bits)`` of this strategy's ``dot_moa`` launch
+        for a ``k``-deep contraction on the kernel route."""
+        raise NotImplementedError(
+            f"{self.name!r} has no kernel route for dot")
+
     @abc.abstractmethod
     def cost(self, n_operands: int, dtype: Any = "bfloat16") -> Dict[str, Any]:
         """Analytic cost of one ``n_operands``-wide reduction (the keys of

@@ -88,13 +88,16 @@ class TreeStrategy(MOAStrategy):
                 x2, block_n=_kernel_block(x2.shape[0], _KERNEL_MAX_BLOCK_N)))
         return restore(backends.tree_sum(x2, self.accum_dtype_for(x.dtype)))
 
+    def _kernel_dot_options(self, k: int):
+        return _kernel_block(k, _KERNEL_MAX_BLOCK_K), 0
+
     def dot(self, a, b, *, out_dtype: Optional[Any] = None) -> torch.Tensor:
         out_dtype = self._default_out_dtype(a.dtype, out_dtype)
         if self.resolve_backend(a) == "kernel":
             a2, restore = self._flatten_dot(a)
-            return restore(backends.kernel_dot(
-                a2, b, block_k=_kernel_block(a2.shape[-1], _KERNEL_MAX_BLOCK_K),
-                out_dtype=out_dtype))
+            block_k, _ = self._kernel_dot_options(a2.shape[-1])
+            return restore(backends.kernel_dot(a2, b, block_k=block_k,
+                                               out_dtype=out_dtype))
         accum = self.accum_dtype_for(a.dtype)
         return matmul_accum(a, b, accum).to(out_dtype)
 
@@ -136,13 +139,16 @@ class SerialStrategy(MOAStrategy):
         return restore(backends.serial_sum(x2, self.chunk,
                                            self.accum_dtype_for(x.dtype)))
 
+    def _kernel_dot_options(self, k: int):
+        return _kernel_block(self.chunk, _KERNEL_MAX_BLOCK_K), 0
+
     def dot(self, a, b, *, out_dtype: Optional[Any] = None) -> torch.Tensor:
         out_dtype = self._default_out_dtype(a.dtype, out_dtype)
         if self.resolve_backend(a) == "kernel":
             a2, restore = self._flatten_dot(a)
-            return restore(backends.kernel_dot(
-                a2, b, block_k=_kernel_block(self.chunk, _KERNEL_MAX_BLOCK_K),
-                out_dtype=out_dtype))
+            block_k, _ = self._kernel_dot_options(a2.shape[-1])
+            return restore(backends.kernel_dot(a2, b, block_k=block_k,
+                                               out_dtype=out_dtype))
         accum = self.accum_dtype_for(a.dtype)
         if a.shape[-1] <= self.chunk:
             return matmul_accum(a, b, accum).to(out_dtype)
@@ -202,15 +208,19 @@ class LOAStrategy(MOAStrategy):
         return loa_lib.loa_sum(x, approx_bits=self.approx_bits,
                                width=self.width, axis=axis)
 
+    def _kernel_dot_options(self, k: int):
+        return self._fold_block(k), self.approx_bits
+
     def dot(self, a, b, *, out_dtype: Optional[Any] = None) -> torch.Tensor:
         self._check_operands(a.dtype)
         self._check_operands(b.dtype)
         out_dtype = self._default_out_dtype(a.dtype, out_dtype)
         a2, restore = self._flatten_dot(a)
         if self.resolve_backend(a) == "kernel":
+            block_k, approx_bits = self._kernel_dot_options(a2.shape[-1])
             return restore(backends.kernel_dot(
-                a2, b, block_k=self._fold_block(a2.shape[-1]),
-                approx_bits=self.approx_bits, out_dtype=out_dtype))
+                a2, b, block_k=block_k, approx_bits=approx_bits,
+                out_dtype=out_dtype))
         # partial products (rows, K, N) reduced over K through the LOA tree
         b32 = b.to(torch.int32)
         rows = max(_LOA_TREE_MAX_PARTIALS // max(b32.numel(), 1), 1)

@@ -1,5 +1,5 @@
 """Uniform model API — the port of ``repro/models/api.py`` for the served
-dense family.
+dense and MoE families.
 
 ``build_model(cfg)`` returns a :class:`Model`, an ``nn.Module`` whose
 parameters, once :meth:`Model.init` or :meth:`Model.load_params` ran, are
@@ -19,13 +19,15 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.layers.common import Params
-from repro_torch.models import transformer
+from repro_torch.models import moe_transformer, transformer
 
 __all__ = ["CacheSpec", "Model", "build_model"]
 
+#: the module of each ported family
+_FAMILIES = {"dense": transformer, "moe": moe_transformer}
+
 #: where each unported family lands (ROADMAP Queue 1)
 _UNPORTED = {
-    "moe": "ROADMAP Queue 1, item 9 (MoE)",
     "ssm": "ROADMAP Queue 1, item 10 (SSM and hybrid)",
     "hybrid": "ROADMAP Queue 1, item 10 (SSM and hybrid)",
     "encoder": "ROADMAP Queue 1, item 12 (training; the engine serves no "
@@ -77,11 +79,13 @@ class _ParamTree(nn.Module):
 
 
 class Model(nn.Module):
-    """A dense decoder with the reference ``Model``'s serving surface."""
+    """A dense or MoE decoder with the reference ``Model``'s serving
+    surface."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
+        self._mod = _FAMILIES[cfg.family]
 
     # ---- parameters -------------------------------------------------------
     def init(self, generator: Optional[torch.Generator] = None, *,
@@ -94,7 +98,7 @@ class Model(nn.Module):
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(seed)
         return self.load_params(
-            transformer.init_params(self.cfg, generator, dev))
+            self._mod.init_params(self.cfg, generator, dev))
 
     def load_params(self, params: Params) -> Params:
         """Register ``params`` (e.g. from :func:`repro_torch.interop.
@@ -113,14 +117,26 @@ class Model(nn.Module):
         return sum(p.numel() for p in self.parameters())
 
     # ---- forward ----------------------------------------------------------
+    def forward_with_aux(self, params: Params, batch: dict):
+        """``(logits, aux)``: the MoE router's load-balance loss beside the
+        logits (``None`` for the dense family)."""
+        out = self._mod.forward(params, batch, self.cfg)
+        return out if isinstance(out, tuple) else (out, None)
+
     def forward(self, params: Params, batch: dict):
         """Causal forward → logits ``(B, S, V)``."""
-        return transformer.forward(params, batch, self.cfg)
+        return self.forward_with_aux(params, batch)[0]
 
     # ---- serving ----------------------------------------------------------
     @property
     def supports_padded_prefill(self) -> bool:
-        """Right-padded prompts are exact: padded K/V rows are masked."""
+        """Whether right-padded prompts are exact: padded K/V rows are
+        masked; an MoE's pad tokens compete for expert capacity, so it is
+        exact only in the dropless regime (``capacity_factor >= n_experts
+        / top_k``)."""
+        cfg = self.cfg
+        if cfg.family == "moe":
+            return cfg.capacity_factor >= cfg.n_experts / max(cfg.top_k, 1)
         return True
 
     def cache_spec(self) -> CacheSpec:
@@ -134,15 +150,21 @@ class Model(nn.Module):
                          kv_bytes_per_token=cfg.n_layers * per_layer,
                          slot_state_bytes=0)
 
+    def init_cache(self, batch: int, max_len: int, *, device):
+        """Zeroed dense-slot decode state for ``batch`` sequences of
+        ``max_len`` tokens, with a 0-d int32 cursor (the engine makes it a
+        ``(batch,)`` vector)."""
+        return self._mod.init_cache(self.cfg, batch, max_len, device=device)
+
     def init_paged_cache(self, n_slots: int, n_phys_blocks: int,
                          block_size: int, max_blocks: int, *, device):
-        return transformer.init_paged_cache(self.cfg, n_slots, n_phys_blocks,
-                                            block_size, max_blocks,
-                                            device=device)
+        return self._mod.init_paged_cache(self.cfg, n_slots, n_phys_blocks,
+                                          block_size, max_blocks,
+                                          device=device)
 
     def split_prefill_cache(self, pre):
         """``(kv leaves (L, 1, max_len, ...), per-slot state)``; the dense
-        family keeps no per-slot state."""
+        and MoE families keep no per-slot state."""
         return pre["layers"], None
 
     def prefill(self, params: Params, batch: dict, *, max_len: int,
@@ -150,23 +172,33 @@ class Model(nn.Module):
         """``prompt_len``: a Python int, or a 0-d int32 tensor on the
         tokens' device (the last real row is then picked on the device, as
         a CUDA graph of the prefill needs)."""
-        return transformer.prefill(params, batch, self.cfg, max_len=max_len,
-                                   prompt_len=prompt_len)
+        return self._mod.prefill(params, batch, self.cfg, max_len=max_len,
+                                 prompt_len=prompt_len)
 
     def prefill_suffix(self, params: Params, batch: dict, *, prefix,
                        prompt_len: int):
-        return transformer.prefill_suffix(params, batch, self.cfg,
-                                          prefix=prefix,
-                                          prompt_len=prompt_len)
+        """Suffix-only prefill against cached prefix K/V: the dense family
+        always, an MoE only in the dropless regime (below it, expert
+        capacity couples the suffix to the prefix it no longer sees)."""
+        if self.cfg.family == "moe" and not self.supports_padded_prefill:
+            raise ValueError(
+                f"family {self.cfg.family!r} cannot skip prefix prefill "
+                "compute (expert-capacity coupling)")
+        return self._mod.prefill_suffix(params, batch, self.cfg,
+                                        prefix=prefix, prompt_len=prompt_len)
+
+    def decode_step(self, params: Params, cache, tokens):
+        """One decode step against the dense-slot cache, in place."""
+        return self._mod.decode_step(params, cache, tokens, self.cfg)
 
     def paged_decode_step(self, params: Params, cache, tokens, *,
                           live_blocks: Optional[int] = None):
-        return transformer.paged_decode_step(params, cache, tokens, self.cfg,
-                                             live_blocks=live_blocks)
+        return self._mod.paged_decode_step(params, cache, tokens, self.cfg,
+                                           live_blocks=live_blocks)
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family != "dense":
+    if cfg.family not in _FAMILIES:
         where = _UNPORTED.get(cfg.family)
         if where is None:
             raise ValueError(f"unknown family {cfg.family!r}")

@@ -9,16 +9,22 @@ loops over it, taking views.
 
 Prefill's softmax·V runs the flash-attention kernel on the ``kernel``
 attention backend (the reference calls its jnp twin there); paged decode
-runs the paged-attention kernel; every projection runs ``dot_moa`` through
-the configured MOA strategy.
+runs the paged-attention kernel; dense-slot decode attends over its cache
+in plain PyTorch (the reference's jnp ``full_attention``); every projection
+runs ``dot_moa`` through the configured MOA strategy.
 
-The paged decode step updates the cache **in place** (pool pages and the
-``pos`` cursors) and returns it, where the reference returns a new tree.
+Both decode steps update the cache **in place** (KV rows or pool pages, and
+the ``pos`` cursors) and return it, where the reference returns a new tree.
+
+The serving functions take the layer's MLP as ``mlp(cfg, layer, h) -> h``
+(default: the residual SwiGLU), so the MoE family
+(:mod:`repro_torch.models.moe_transformer`) runs the same skeleton with its
+expert layer, as the reference's MoE module repeats it.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -31,9 +37,13 @@ from repro_torch.layers.mlp import swiglu
 from repro_torch.layers.rope import apply_rope
 
 __all__ = [
-    "init_params", "layer", "embed_inputs", "forward", "init_paged_cache",
-    "prefill", "prefill_suffix", "paged_decode_step",
+    "init_params", "layer", "embed_inputs", "forward", "init_cache",
+    "init_paged_cache", "prefill", "prefill_suffix", "decode_step",
+    "paged_decode_step",
 ]
+
+#: ``mlp(cfg, layer params, h) -> h + mlp(rms(h))``
+MLP = Callable
 
 
 # ---------------------------------------------------------------------------
@@ -41,18 +51,16 @@ __all__ = [
 # ---------------------------------------------------------------------------
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device) -> Params:
+def init_params(cfg: ModelConfig, generator: torch.Generator, device, *,
+                mlp: Optional[Callable[[], Params]] = None) -> Params:
     """Random parameters with the reference's tree, shapes and
     initializers (truncated normals: stddev ``1/sqrt(fan_in)`` for weights,
     0.02 for the embedding table, ``d_model**-0.5`` for the untied
     unembedding; norm scales 1), drawn from ``generator`` on ``device`` in
     ``cfg.param_dtype``. The draws differ from ``jax.random``'s; parity
-    tests move the reference's parameters across with :mod:`interop`."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r}: the port serves the dense family only "
-            "(ROADMAP Queue 1, items 9-12)")
+    tests move the reference's parameters across with :mod:`interop`.
+    ``mlp()`` draws the layers' MLP entry after the embedding: by default
+    ``{"mlp": ...}``, the SwiGLU's; the MoE family passes its experts'."""
     dt, L, d = cfg.pdtype, cfg.n_layers, cfg.d_model
     hd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
 
@@ -67,17 +75,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if cfg.qkv_bias:
         for name, width in (("bq", hd), ("bk", kvd), ("bv", kvd)):
             attn[name] = torch.zeros((L, width), dtype=dt, device=device)
+    embed = init_embedding(generator, cfg.vocab, d, tie=cfg.tie_embeddings,
+                           dtype=dt, device=device)
+    if mlp is None:
+        mlp_entry = {"mlp": {"w_gate": w(d, cfg.d_ff), "w_up": w(d, cfg.d_ff),
+                             "w_down": w(cfg.d_ff, d)}}
+    else:
+        mlp_entry = mlp()
     return {
-        "embed": init_embedding(generator, cfg.vocab, d,
-                                tie=cfg.tie_embeddings, dtype=dt,
-                                device=device),
-        "layers": {
-            "attn_norm": {"scale": ones(L, d)},
-            "attn": attn,
-            "mlp_norm": {"scale": ones(L, d)},
-            "mlp": {"w_gate": w(d, cfg.d_ff), "w_up": w(d, cfg.d_ff),
-                    "w_down": w(cfg.d_ff, d)},
-        },
+        "embed": embed,
+        "layers": {"attn_norm": {"scale": ones(L, d)}, "attn": attn,
+                   "mlp_norm": {"scale": ones(L, d)}, **mlp_entry},
         "final_norm": {"scale": ones(d)},
     }
 
@@ -159,6 +167,20 @@ def kv_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.int8 if cfg.kv_cache_dtype == "int8" else cfg.cdtype
 
 
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device) -> Params:
+    """Dense-slot decode state: per layer ``(batch, max_len, Hk, D)`` K/V
+    (int8 plus f32 scales for a quantized cache), stacked ``(L, ...)``, and
+    a 0-d int32 cursor (the engine makes it a ``(batch,)`` vector)."""
+    one = attn_lib.init_kv_cache(batch, max_len, cfg.n_kv_heads,
+                                 cfg.head_dim, dtype=kv_dtype(cfg),
+                                 device=device)
+    layers = {k: v.unsqueeze(0).repeat((cfg.n_layers,) + (1,) * v.dim())
+              for k, v in one.items()}
+    return {"layers": layers,
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+
 def init_paged_cache(cfg: ModelConfig, n_slots: int, n_phys_blocks: int,
                      block_size: int, max_blocks: int, *, device) -> Params:
     """Paged decode state: one physical page pool per layer (stacked
@@ -216,7 +238,8 @@ def _last_real_slice(h, prompt_len):
 
 
 def prefill(params: Params, batch: dict, cfg: ModelConfig, *, max_len: int,
-            prompt_len: Union[int, torch.Tensor, None] = None):
+            prompt_len: Union[int, torch.Tensor, None] = None,
+            mlp: MLP = _mlp):
     """Prefill a (possibly right-padded) prompt; returns
     ``(logits (B, 1, V) at position prompt_len - 1, cache)``.
 
@@ -232,7 +255,7 @@ def prefill(params: Params, batch: dict, cfg: ModelConfig, *, max_len: int,
     for i in range(cfg.n_layers):
         lyr = layer(params["layers"], i)
         q, k, v = _layer_qkv(cfg, lyr, h, positions)
-        h = _mlp(cfg, lyr, _attn_out(cfg, lyr, h, _attention(cfg, q, k, v)))
+        h = mlp(cfg, lyr, _attn_out(cfg, lyr, h, _attention(cfg, q, k, v)))
         entries.append(tree_map(lambda t: _pad_seq(t, max_len),
                                 _kv_entry(cfg, k, v)))
     h = rms_norm(params["final_norm"], h)
@@ -242,7 +265,7 @@ def prefill(params: Params, batch: dict, cfg: ModelConfig, *, max_len: int,
 
 
 def prefill_suffix(params: Params, batch: dict, cfg: ModelConfig, *,
-                   prefix: Params, prompt_len: int):
+                   prefix: Params, prompt_len: int, mlp: MLP = _mlp):
     """Prefill only the suffix of a prompt whose leading blocks hit the
     prefix cache; returns ``(last-position logits, suffix cache)``.
 
@@ -269,7 +292,7 @@ def prefill_suffix(params: Params, batch: dict, cfg: ModelConfig, *,
         o = attn_lib.full_attention(q, k_full, v_full, causal=True,
                                     positions_q=positions_q,
                                     positions_kv=positions_kv)
-        h = _mlp(cfg, lyr, _attn_out(cfg, lyr, h, o))
+        h = mlp(cfg, lyr, _attn_out(cfg, lyr, h, o))
         entries.append(_kv_entry(cfg, k, v))
     h = rms_norm(params["final_norm"], h)
     h_last, _ = _last_real_slice(h, prompt_len - P)
@@ -277,8 +300,33 @@ def prefill_suffix(params: Params, batch: dict, cfg: ModelConfig, *,
     return logits, {"layers": _stack(entries), "pos": int(prompt_len)}
 
 
+def decode_step(params: Params, cache: Params, tokens, cfg: ModelConfig, *,
+                mlp: MLP = _mlp):
+    """One token step for every row of the dense-slot cache
+    (``init_cache`` layout, ``pos`` 0-d or ``(B,)``); ``tokens (B, 1)``.
+    Writes each row's K/V at its cursor, attends over ``pos + 1``
+    positions, advances the cursors by one -- in place -- and returns
+    ``(logits (B, 1, V), cache)``."""
+    pos = cache["pos"]
+    h = embed(params["embed"], tokens, compute_dtype=cfg.cdtype)
+    for i in range(cfg.n_layers):
+        lyr = layer(params["layers"], i)
+        hn = rms_norm(lyr["attn_norm"], h)
+        a, _ = attn_lib.attention_decode(
+            lyr["attn"], hn, layer(cache["layers"], i), pos,
+            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+            compute_dtype=cfg.cdtype, strategy=cfg.moa_for("attention"))
+        h = mlp(cfg, lyr, h + a)
+    h = rms_norm(params["final_norm"], h)
+    logits = unembed(params["embed"], h, compute_dtype=cfg.cdtype)
+    pos.add_(1)
+    return logits, cache
+
+
 def paged_decode_step(params: Params, cache: Params, tokens,
-                      cfg: ModelConfig, *, live_blocks: Optional[int] = None):
+                      cfg: ModelConfig, *, live_blocks: Optional[int] = None,
+                      mlp: MLP = _mlp):
     """One token step for every slot against the paged cache
     (``init_paged_cache`` layout); ``tokens (B, 1)``. Writes each slot's
     new K/V into its page, attends over its pages (``cfg.attn_backend``:
@@ -286,17 +334,20 @@ def paged_decode_step(params: Params, cache: Params, tokens,
     cursor by one — in place — and returns ``(logits (B, 1, V), cache)``.
     ``live_blocks`` bounds the KV walk to the batch's high-water block."""
     pos, tables = cache["pos"], cache["block_tables"]
+    # every layer writes at the same page and offset: find them once
+    targets = attn_lib.paged_write_targets(
+        tables, pos, cache["layers"]["k"].shape[2])
     h = embed(params["embed"], tokens, compute_dtype=cfg.cdtype)
     for i in range(cfg.n_layers):
         lyr = layer(params["layers"], i)
         hn = rms_norm(lyr["attn_norm"], h)
         a, _ = attn_lib.attention_decode_paged(
             lyr["attn"], hn, layer(cache["layers"], i), tables, pos,
-            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            targets, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
             head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
             compute_dtype=cfg.cdtype, strategy=cfg.moa_for("attention"),
             backend=cfg.attn_backend, live_blocks=live_blocks)
-        h = _mlp(cfg, lyr, h + a)
+        h = mlp(cfg, lyr, h + a)
     h = rms_norm(params["final_norm"], h)
     logits = unembed(params["embed"], h, compute_dtype=cfg.cdtype)
     pos.add_(1)

@@ -1,34 +1,51 @@
-"""Continuous-batching engine over a paged KV pool — the port of
-``repro/serve/engine.py`` in its ``paged=True`` FIFO mode.
+"""Continuous-batching engine — the port of ``repro/serve/engine.py`` in
+its FIFO mode, over either of the reference's two cache layouts.
 
 One engine tick = (admit arrived requests into free slots, each through a
-bucketed prefill whose K/V scatters into pool pages) + (one batched paged
-decode step over all slots). KV lives in a shared pool of fixed-size
-physical pages mapped through per-slot block tables
-(:mod:`repro_torch.serve.kv_pool`): requests sharing a prompt prefix share
-physical pages (ref-counted, copy-on-write at the first divergent write),
-admission needs a free slot **and** enough free blocks, and a prefix-cache
-hit skips the shared blocks' prefill compute (suffix prefill).
+prefill whose K/V lands in the slot's cache) + (one batched decode step
+over all slots, idle ones fed token 0).
 
-The host logic is the reference's, line for line. What differs is the
-device side. The cache tensors (pool pages, block tables, cursors) are
-updated **in place**. The reference's compile cache becomes CUDA graphs
+* **dense-slot** (``paged=False``, the reference's default): every slot
+  owns a ``max_len`` region of the cache; an admission's prefill is copied
+  into the slot's row (:func:`_write_slot`), and an idle slot's row and
+  cursor stay as its last request left them, its cursor still advancing.
+* **paged** (``paged=True``): KV lives in a shared pool of fixed-size
+  physical pages mapped through per-slot block tables
+  (:mod:`repro_torch.serve.kv_pool`): requests sharing a prompt prefix
+  share physical pages (ref-counted, copy-on-write at the first divergent
+  write), admission needs a free slot **and** enough free blocks, and on
+  the dense family a prefix-cache hit skips the shared blocks' prefill
+  compute (suffix prefill).
+
+The families gate as the reference's do. Right-padded (bucketed) prefill
+only where ``Model.supports_padded_prefill``: an MoE below the dropless
+regime prefills each prompt at its exact length, since pad tokens would
+compete for expert capacity. Suffix prefill is the dense family's; a
+capacity-limited MoE also keeps its prompt pages out of the prefix trie.
+
+The host logic is the reference's, line for line, and so is every device
+write an idle slot makes: a capacity-limited MoE routes the idle rows
+beside the live ones, so their cursors and caches must evolve as the
+reference's do. The cache tensors are updated **in place**. The
+reference's compile cache becomes CUDA graphs
 (:mod:`repro_torch.serve.graphs`, on by default for a CUDA engine): the
-paged decode is captured once per live-block bucket and the full-prompt
-prefill, with its scatter into the pool, once per prompt bucket, and each
-tick replays them; the prefix-hit (suffix) prefill runs eagerly.
-``cuda_graphs=False`` runs every tick eagerly, as the yardstick: the
-captured engine runs the same kernels in the same order on the same
-buffers. On the GPU every projection runs the ``dot_moa`` kernel,
-prefill's softmax·V the flash-attention kernel and decode's the
+paged decode is captured once per live-block bucket, the dense-slot decode
+once, and the padded full-prompt prefill with its write into the cache
+once per prompt bucket; each tick replays them. The prefix-hit (suffix)
+prefill and the exact-length prefill run eagerly. ``cuda_graphs=False``
+runs every tick eagerly, as the yardstick: the captured engine runs the
+same kernels in the same order on the same buffers. On the GPU every
+projection runs the ``dot_moa`` kernel (an MoE's expert projections one
+batched launch each), the MoE's top-k combine ``moa_reduce``, prefill's
+softmax·V the flash-attention kernel and paged decode's the
 paged-attention kernel; ``attn_backend="torch"`` (with a ``backend=torch``
-MOA spec) runs the plain PyTorch versions instead.
+MOA spec) runs the plain PyTorch versions instead. Every finished request
+is priced (``metrics.moa_flops``) by :func:`repro_torch.launch.costing.
+request_decode_cost`, as the reference prices it.
 
-Not ported yet, and refused with ``NotImplementedError``: the dense-slot
-mode (``paged=False``, ROADMAP Queue 1 item 6), and speculative decoding,
-chunked prefill, SLO scheduling, mesh serving and weight reloads (item 8).
-``metrics.moa_flops`` stays ``None`` until the decode costing is ported
-(item 7).
+Not ported yet, and refused with ``NotImplementedError``: speculative
+decoding, chunked prefill, SLO scheduling, mesh serving and weight
+reloads (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -42,7 +59,10 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.interop import tree_leaves
-from repro_torch.layers.attention import dequantize_kv, resolve_attn_backend
+from repro_torch.kernels import _build
+from repro_torch.launch.costing import request_decode_cost
+from repro_torch.layers.attention import (dequantize_kv, last_of_equal,
+                                          resolve_attn_backend)
 from repro_torch.models.api import Model, build_model
 from repro_torch.serve import graphs
 from repro_torch.serve.kv_pool import TRASH_BLOCK, BlockPool, blocks_needed
@@ -54,9 +74,10 @@ from repro_torch.serve.scheduler import SlotScheduler
 __all__ = ["ServeEngine"]
 
 
-def _not_ported(what: str, item: int, topic: str) -> NotImplementedError:
+def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1, item {item}: {topic})")
+        f"{what} is not ported yet (ROADMAP Queue 1, item 8: engine "
+        "features)")
 
 
 @dataclasses.dataclass
@@ -87,6 +108,35 @@ class _SlotTable:
     tail_idx: Optional[int] = None
 
 
+# ---- dense-slot device helpers (in place on the cache tensors) -------------
+
+
+def _write_slot(cache, pre, slot) -> None:
+    """Copy a batch-1 prefill cache into row ``slot`` of the batched cache
+    (every KV leaf ``(L, n_slots, max_len, ...)``) and its cursor into
+    ``pos[slot]``. ``slot`` is a Python int, or a CUDA graph's ``(1,)``
+    device tensor (then the rows are installed by ``index_copy_``)."""
+    if isinstance(slot, torch.Tensor):
+        idx = slot.long()
+        for name, leaf in cache["layers"].items():
+            leaf.index_copy_(1, idx, pre["layers"][name].to(leaf.dtype))
+        cache["pos"].index_copy_(
+            0, idx, torch.as_tensor(pre["pos"]).reshape(1).to(
+                cache["pos"].dtype))
+    else:
+        for name, leaf in cache["layers"].items():
+            leaf[:, slot] = pre["layers"][name][:, 0].to(leaf.dtype)
+        cache["pos"][slot] = pre["pos"]
+
+
+def _read_slot(cache, slot: int):
+    """Exact inverse of :func:`_write_slot`: row ``slot`` of the batched
+    cache as a batch-1 prefill-shaped tree (copies, in the cache types)."""
+    return {"layers": {name: leaf[:, slot:slot + 1].clone()
+                       for name, leaf in cache["layers"].items()},
+            "pos": cache["pos"][slot].clone()}
+
+
 # ---- paged device helpers (in place on the cache tensors) ------------------
 
 
@@ -108,19 +158,21 @@ def _gather_prefix(pool, ids, *, cdtype):
 def _paged_write(cache, pre_kv, write_ids, table_row, slot, pre_pos) -> None:
     """Scatter a prefill's K/V into the pool pages named by ``write_ids``
     (one per written logical block; shared and overhang blocks arrive
-    redirected to the trash page, so the ids may repeat — whichever
-    duplicate write wins, nothing reads the trash page), then install the
-    slot's block-table row and cursor.
+    redirected to the trash page, so the ids may repeat: every repeat
+    carries the last one's block, as the reference's sequential scatter
+    leaves the page, since idle slots read it), then install the slot's
+    block-table row and cursor.
 
     ``slot`` and ``pre_pos`` are Python ints, or a CUDA graph's static
     inputs: a ``(1,)`` and a 0-d int32 device tensor, installed by
     ``index_copy_`` on the device."""
     nb = write_ids.shape[0]
+    last = last_of_equal(write_ids)
     for name, leaf in cache["layers"].items():
         s = pre_kv[name][:, 0]                   # (L, S, ...)
         s = s.reshape((s.shape[0], nb, s.shape[1] // nb)
                       + tuple(s.shape[2:]))
-        leaf[:, write_ids] = s.to(leaf.dtype)
+        leaf[:, write_ids] = s[:, last].to(leaf.dtype)
     if isinstance(slot, torch.Tensor):
         slot = slot.long()
         cache["block_tables"].index_copy_(0, slot, table_row[None])
@@ -149,7 +201,7 @@ def _clear_slot(cache, slot: int) -> None:
 
 class ServeEngine:
     """Continuous-batching server over a :class:`repro_torch.models.api.
-    Model` with a paged KV pool.
+    Model`, with a dense-slot cache or a paged KV pool.
 
     Parameters follow the reference's ``ServeEngine``:
 
@@ -160,10 +212,11 @@ class ServeEngine:
         prefill shape set (default: powers of two up to ``max_len``;
         prompts are right-padded up to a bucket).
     paged, block_size, n_blocks:
-        ``paged`` must be True (the dense-slot mode is not ported);
-        ``block_size`` tokens per page must divide ``max_len``; ``n_blocks``
-        pages in the pool (default: the dense equivalent
-        ``n_slots * max_len / block_size``).
+        ``paged=False`` (the default): a dense-slot cache, ``max_len``
+        tokens a slot. ``paged=True``: a KV pool of ``n_blocks`` pages
+        (default: the dense equivalent ``n_slots * max_len /
+        block_size``) of ``block_size`` tokens, which must divide
+        ``max_len``.
     generator:
         ``torch.Generator`` on ``device`` for temperature-sampled requests
         (default: seeded with 0). All-greedy ticks draw nothing.
@@ -176,8 +229,9 @@ class ServeEngine:
         CUDA tensors and the plain versions on the CPU. ``None`` keeps the
         config's.
     cuda_graphs:
-        Capture the paged decode and the full-prompt prefill in CUDA graphs
-        (:mod:`repro_torch.serve.graphs`) and replay them each tick.
+        Capture the decode and the padded full-prompt prefill in CUDA
+        graphs (:mod:`repro_torch.serve.graphs`) and replay them each
+        tick.
         ``None``: on for a CUDA engine, off on the CPU; ``True`` on the CPU
         raises; ``False`` runs every tick eagerly.
     device:
@@ -197,18 +251,14 @@ class ServeEngine:
                  scheduling: str = "fifo",
                  attn_backend: Optional[str] = None,
                  device="cuda", cuda_graphs: Optional[bool] = None):
-        if not paged:
-            raise _not_ported("the dense-slot engine (paged=False)", 6,
-                              "dense-slot engine mode; pass paged=True")
         if drafter is not None:
-            raise _not_ported("speculative decoding (drafter)", 8,
-                              "engine features")
+            raise _not_ported("speculative decoding (drafter)")
         if mesh is not None:
-            raise _not_ported("mesh serving", 8, "engine features")
+            raise _not_ported("mesh serving")
         if prefill_chunk_tokens is not None:
-            raise _not_ported("chunked prefill", 8, "engine features")
+            raise _not_ported("chunked prefill")
         if scheduling == "slo":
-            raise _not_ported("scheduling='slo'", 8, "engine features")
+            raise _not_ported("scheduling='slo'")
         if scheduling != "fifo":
             raise ValueError(f"unknown scheduling {scheduling!r}; expected "
                              "'fifo' or 'slo'")
@@ -234,11 +284,19 @@ class ServeEngine:
         self._clock = clock
         self._gen = generator if generator is not None \
             else torch.Generator(device=self.device).manual_seed(0)
+        self._padded = model.supports_padded_prefill
         self.paged = paged
-        self._init_paged(block_size, n_blocks)
+        if paged:
+            self._init_paged(block_size, n_blocks)
+        else:
+            self.cache = model.init_cache(n_slots, max_len,
+                                          device=self.device)
+            self.cache["pos"] = torch.zeros((n_slots,), dtype=torch.int32,
+                                            device=self.device)
         self._graphs = self._init_graphs(cuda_graphs)
 
         self._inflight: Dict[int, _Inflight] = {}
+        self._admissions = 0
         self._steps = 0
         self._occupancy_sum = 0.0
         self._fast_forward_s = 0.0
@@ -259,9 +317,19 @@ class ServeEngine:
             else self.n_slots * self._max_blocks
         self._pool = BlockPool(self.n_blocks, block_size)
         self._tables: Dict[int, _SlotTable] = {}
-        # dense family: prefix hits skip prefill compute via suffix prefill,
-        # so partial-tail sharing (and with it CoW) never triggers here
-        self._match_tail = False
+        family = self.model.cfg.family
+        # dense family: prefix hits skip prefill compute via suffix prefill;
+        # partial-tail sharing is pointless there (the tail is recomputed),
+        # so tail matching, and with it CoW, is the full-prefill MoE's
+        self._suffix_capable = family == "dense"
+        self._match_tail = not self._suffix_capable
+        # prefix-content reuse is exact only where a prompt position's KV
+        # does not depend on the rest of the prefill: a capacity-limited
+        # MoE couples it to the prefill's length, so its prompt pages stay
+        # out of the trie (it still pages memory)
+        self._prefix_share = family != "moe" or self._padded
+        if not self._prefix_share:
+            self._match_tail = False
         self._spec = self.model.cache_spec()
         # physical pages: pool blocks 1..n plus the id-0 trash page
         self.cache = self.model.init_paged_cache(
@@ -292,7 +360,7 @@ class ServeEngine:
             return None
         return graphs.GraphCache(
             self._decode_body, self._prefill_body, n_slots=self.n_slots,
-            max_blocks=self._max_blocks,
+            max_blocks=self._max_blocks if self.paged else 0,
             max_bucket=max(self.scheduler.buckets), device=self.device)
 
     def _dev(self, x) -> torch.Tensor:
@@ -381,6 +449,8 @@ class ServeEngine:
                                 table: _SlotTable) -> None:
         """Publish this admission's privately-written prompt pages in the
         prefix trie (matched pages are already registered)."""
+        if not self._prefix_share:
+            return
         bs, p = self.block_size, req.prompt_len
         for i in range(len(plan.full_matched), p // bs):
             self._pool.register(table.blocks[i], req.prompt[: (i + 1) * bs])
@@ -391,14 +461,14 @@ class ServeEngine:
         """Prefill under the paged cache; returns ``(first-token logits,
         cached prompt tokens)``.
 
-        With a prefix hit, gather the cached prefix pages and run the
-        suffix-only prefill (the prefix's compute is skipped). Otherwise a
-        full bucketed prefill; shared logical blocks write to the trash
-        page so cached content is never clobbered.
+        Dense family with a prefix hit: gather the cached prefix pages and
+        run the suffix-only prefill (the prefix's compute is skipped).
+        Otherwise a full (bucketed, or exact-length) prefill; shared logical
+        blocks write to the trash page so cached content is never
+        clobbered.
         """
         bs, p = self.block_size, req.prompt_len
         plan, table = self._plan_tables(req)
-        self._admissions += 1
         if plan.n_shared:
             self._prefix_hits += 1
             self._shared_block_hits += plan.n_shared
@@ -407,7 +477,8 @@ class ServeEngine:
         row[: len(table.blocks)] = table.blocks
         # recompute at least one position so the last-token logits exist
         # even when every prompt block matched
-        n_pref = min(len(plan.full_matched), (p - 1) // bs)
+        n_pref = min(len(plan.full_matched), (p - 1) // bs) \
+            if self._suffix_capable else 0
         if n_pref > 0:
             prefix = _gather_prefix(
                 self.cache["layers"], self._dev(table.blocks[:n_pref]),
@@ -424,13 +495,10 @@ class ServeEngine:
             _paged_write(self.cache, kv, self._dev(write_ids),
                          self._dev(row), slot, pre["pos"])
         else:
-            bucket = self.scheduler.bucket_for(p)
-            toks = np.zeros((1, bucket), np.int32)
-            toks[0, :p] = prompt[0]
-            # the padded prefill writes every logical block of max_len
-            logits = self._prefill(
-                toks, self._write_ids(table, 0, self._max_blocks), row, slot,
-                p)
+            # the prefill writes every logical block of max_len
+            logits = self._full_prefill(
+                prompt, self._write_ids(table, 0, self._max_blocks), row,
+                slot)
         self._register_prompt_blocks(req, plan, table)
         self._tables[slot] = table
         return logits, n_pref * bs
@@ -467,11 +535,32 @@ class ServeEngine:
             self._pool.free(table.cow_spare)
         _clear_slot(self.cache, slot)
 
+    def _full_prefill(self, prompt: np.ndarray, write_ids, row, slot: int
+                      ) -> torch.Tensor:
+        """The whole prompt ``(1, p)`` prefilled into ``slot``: right-padded
+        to its bucket where that is exact (a graph's replay, or the eager
+        body), else at its exact length (eager). ``write_ids`` and ``row``
+        are the paged layout's (empty for the dense one)."""
+        p = prompt.shape[1]
+        if self._padded:
+            toks = np.zeros((1, self.scheduler.bucket_for(p)), np.int32)
+            toks[0, :p] = prompt[0]
+            return self._prefill(toks, write_ids, row, slot, p)
+        return self._prefill_body(self._dev(prompt), self._dev(write_ids),
+                                  self._dev(row), slot, None)
+
     def _admit(self, slot: int, req: Request, now_s: float,
                results: List[RequestResult]) -> None:
         """Bind ``req`` to ``slot``: prefill in one shot and seed its first
         token."""
-        logits, cached_tokens = self._paged_prefill(slot, req)
+        self._admissions += 1
+        if self.paged:
+            logits, cached_tokens = self._paged_prefill(slot, req)
+        else:
+            empty = np.zeros((0,), np.int32)
+            logits = self._full_prefill(req.prompt_array(), empty, empty,
+                                        slot)
+            cached_tokens = 0
         self._seed(slot, req, logits, now_s, cached_tokens, results)
 
     def _seed(self, slot: int, req: Request, logits, admitted_s: float,
@@ -491,7 +580,8 @@ class ServeEngine:
         if first == req.eos_id or req.max_new_tokens == 1:
             self._finish(inf, t_first, results)
         else:
-            self._apply_cow(slot)
+            if self.paged:
+                self._apply_cow(slot)
             self._inflight[slot] = inf
 
     def _finish(self, inf: _Inflight, now_s: float,
@@ -508,7 +598,8 @@ class ServeEngine:
             tokens=np.asarray(inf.generated, np.int32),
             prompt_len=m.prompt_tokens, slot=inf.slot,
             finish_reason=reason, metrics=m))
-        self._release_paged(inf.slot)
+        if self.paged:
+            self._release_paged(inf.slot)
         self.scheduler.release(inf.slot)
         self._inflight.pop(inf.slot, None)
 
@@ -525,17 +616,18 @@ class ServeEngine:
             toks[slot, 0] = inf.next_token
             temps[slot] = max(inf.request.sampler.temperature, 0.0)
             greedy[slot] = inf.request.sampler.greedy
-        hw = self._live_blocks(1)
+        hw = self._live_blocks(1) if self.paged else 0
         next_toks = self._sample(self._decode(hw, toks)[:, -1], temps,
                                  greedy)
         self._steps += 1
         self._occupancy_sum += len(self._inflight) / self.n_slots
-        self._block_occ_sum += self._pool.in_use / self.n_blocks
-        self._peak_blocks = max(self._peak_blocks, self._pool.in_use)
-        g, f = self._kv_bytes_tick(hw, 1)
-        self._gathered_kv_bytes += g
-        self._fused_kv_bytes += f
-        self._kv_step_log.append((g, f))
+        if self.paged:
+            self._block_occ_sum += self._pool.in_use / self.n_blocks
+            self._peak_blocks = max(self._peak_blocks, self._pool.in_use)
+            g, f = self._kv_bytes_tick(hw, 1)
+            self._gathered_kv_bytes += g
+            self._fused_kv_bytes += f
+            self._kv_step_log.append((g, f))
         now = self._now(self._t_start)
         for slot in sorted(self._inflight):
             inf = self._inflight[slot]
@@ -548,35 +640,45 @@ class ServeEngine:
 
     # ---- tick bodies (eager, or captured by the graph cache) --------------
     def _decode_body(self, tokens: torch.Tensor, hw: int) -> torch.Tensor:
+        """One decode step: paged over ``hw`` live blocks, or dense-slot
+        (``hw`` 0)."""
+        if not self.paged:
+            return self.model.decode_step(self.params, self.cache, tokens)[0]
         logits, _ = self.model.paged_decode_step(
             self.params, self.cache, tokens, live_blocks=hw)
         return logits
 
     def _prefill_body(self, tokens, write_ids, row, slot, prompt_len
                       ) -> torch.Tensor:
-        """The full-prompt prefill of ``tokens (1, bucket)`` and its paged
-        write (:func:`_paged_write`); ``slot`` and ``prompt_len`` are
-        Python ints, or device tensors in a graph."""
+        """The full-prompt prefill of ``tokens (1, S)`` and its write into
+        the cache: the paged write (:func:`_paged_write`) or the slot's row
+        (:func:`_write_slot`, which takes no ``write_ids`` or ``row``).
+        ``slot`` and ``prompt_len`` are Python ints, or device tensors in a
+        graph; ``prompt_len`` ``None``: every token is real (the
+        exact-length prefill)."""
         logits, pre = self.model.prefill(
             self.params, {"tokens": tokens}, max_len=self.max_len,
             prompt_len=prompt_len)
+        if not self.paged:
+            _write_slot(self.cache, pre, slot)
+            return logits
         kv, _ = self.model.split_prefill_cache(pre)
         _paged_write(self.cache, kv, write_ids, row, slot, pre["pos"])
         return logits
 
     def _decode(self, hw: int, toks: np.ndarray) -> torch.Tensor:
-        """Logits ``(n_slots, 1, V)`` of one paged decode step over ``hw``
-        live blocks: a graph's replay, or the eager step."""
+        """Logits ``(n_slots, 1, V)`` of one decode step (paged: over
+        ``hw`` live blocks): a graph's replay, or the eager step."""
         if self._graphs is not None:
             return self._graphs.decode(hw, toks)
         return self._decode_body(self._dev(toks), hw)
 
     def _prefill(self, toks: np.ndarray, write_ids: Sequence[int],
                  row: np.ndarray, slot: int, p: int) -> torch.Tensor:
-        """Logits ``(1, 1, V)`` of the full-prompt prefill of ``toks (1,
-        bucket)`` after its K/V went to the pool pages ``write_ids`` and
-        ``slot``'s table row and cursor ``p`` were installed: a graph's
-        replay, or the eager body."""
+        """Logits ``(1, 1, V)`` of the padded full-prompt prefill of ``toks
+        (1, bucket)`` after its K/V went to ``slot``'s cache (paged: the
+        pool pages ``write_ids``, and ``slot``'s table row) and its cursor
+        ``p`` was installed: a graph's replay, or the eager body."""
         if self._graphs is not None:
             return self._graphs.prefill(toks, write_ids, row, slot, p)
         return self._prefill_body(self._dev(toks), self._dev(write_ids),
@@ -585,27 +687,39 @@ class ServeEngine:
     # ---- warmup ------------------------------------------------------------
     def _warmup_tick(self) -> None:
         """Run every tick-critical path once with throwaway inputs before
-        the engine clock starts: one prefill per prompt bucket, the paged
-        write / CoW / release helpers, and one decode per live-block
-        bucket. One-time costs (kernel builds, CUDA context, library
-        handles, allocator growth, graph captures) then land in
-        ``compile_s`` instead of ``wall_s`` / TTFT. All writes are harmless
-        by construction: they land on the trash page, and idle cursors are
-        reset at admission. With CUDA graphs each bucket's prefill (with
-        its paged write to the trash page) and decode is captured here.
-        Not covered: the prefix-hit gather and suffix prefill."""
+        the engine clock starts, making the reference's warmup writes: one
+        prefill per prompt bucket (padded-prefill models), written to slot
+        0 (dense) or the trash page (paged), the paged CoW / release
+        helpers, and one decode per live-block bucket (dense: one). One-time
+        costs (kernel builds, CUDA context, library handles, allocator
+        growth, graph captures) then land in ``compile_s`` instead of
+        ``wall_s`` / TTFT. The writes are harmless: a dense slot's row is
+        overwritten at its next admission, paged writes land on the trash
+        page, and idle cursors advance as the reference's do. With CUDA
+        graphs each bucket's prefill (with its write) and decode is
+        captured here. Not covered: the prefix-hit gather and suffix
+        prefill, and the exact-length prefill; on the card every kernel
+        library is built and loaded here all the same, so their first run
+        builds nothing."""
         n = self.n_slots
-        trash = np.full((self._max_blocks,), TRASH_BLOCK, np.int32)
-        for bucket in self.scheduler.buckets:
-            self._prefill(np.zeros((1, bucket), np.int32), trash, trash, 0,
-                          bucket)
-        # copying page 0 onto itself and re-clearing an empty slot are
-        # no-ops by construction
-        _cow_copy(self.cache, TRASH_BLOCK, TRASH_BLOCK, 0, 0)
-        _clear_slot(self.cache, 0)
+        if self.device.type == "cuda":
+            _build.load_all()
+        trash = np.full((self._max_blocks if self.paged else 0,),
+                        TRASH_BLOCK, np.int32)
+        if self._padded:
+            for bucket in self.scheduler.buckets:
+                self._prefill(np.zeros((1, bucket), np.int32), trash, trash,
+                              0, bucket)
         toks0 = np.zeros((n, 1), np.int32)
-        for hw in self._hw_buckets():
-            logits = self._decode(hw, toks0)
+        if self.paged:
+            # copying page 0 onto itself and re-clearing an empty slot are
+            # no-ops by construction
+            _cow_copy(self.cache, TRASH_BLOCK, TRASH_BLOCK, 0, 0)
+            _clear_slot(self.cache, 0)
+            for hw in self._hw_buckets():
+                logits = self._decode(hw, toks0)
+        else:
+            logits = self._decode(0, toks0)
         self._sample(logits[:, -1], np.zeros((n,), np.float32),
                      np.ones((n,), bool))
         if self.device.type == "cuda":
@@ -613,11 +727,11 @@ class ServeEngine:
 
     # ---- public API --------------------------------------------------------
     def submit(self, request: Request) -> None:
-        """Queue a request (admitted when arrived, a slot frees up, and the
-        pool can cover its worst-case block need)."""
+        """Queue a request (admitted when arrived, a slot frees up, and,
+        paged, the pool can cover its worst-case block need)."""
         need = blocks_needed(request.prompt_len, request.max_new_tokens,
-                             self.block_size)
-        if need > self.n_blocks:
+                             self.block_size) if self.paged else 0
+        if self.paged and need > self.n_blocks:
             raise ValueError(
                 f"request {request.uid}: needs {need} blocks but the "
                 f"pool only has {self.n_blocks} — it could never be "
@@ -625,7 +739,7 @@ class ServeEngine:
         self.scheduler.submit(request)
 
     def reload_params(self, params) -> None:
-        raise _not_ported("reload_params", 8, "engine features")
+        raise _not_ported("reload_params")
 
     @torch.no_grad()
     def start_run(self, *, warmup: bool = False,
@@ -665,11 +779,11 @@ class ServeEngine:
             # idle: fast-forward the engine clock to the next arrival
             self._fast_forward_s += self.scheduler.next_arrival_s - now
             now = self._now(self._t_start)
+        gate = self._block_gate if self.paged else None
         while True:
             # one at a time so each admission's block allocation is
             # visible to the next gate evaluation
-            admitted = self.scheduler.admit_ready(now, gate=self._block_gate,
-                                                  limit=1)
+            admitted = self.scheduler.admit_ready(now, gate=gate, limit=1)
             if not admitted:
                 break
             self._admit(admitted[0][0], admitted[0][1], now, results)
@@ -681,9 +795,9 @@ class ServeEngine:
             ) -> Tuple[List[RequestResult], dict]:
         """Serve until every submitted request completes; returns
         ``(results sorted by uid, report)`` — the reference's aggregate
-        plus ``slot_reuse``, the ``paged`` sub-report and the ``device``
-        the run used. ``max_steps`` is a runaway backstop (default 1e6
-        decode ticks)."""
+        plus ``slot_reuse``, the ``paged`` sub-report (paged layout) and
+        the ``device`` the run used. ``max_steps`` is a runaway backstop
+        (default 1e6 decode ticks)."""
         self.start_run(warmup=warmup)
         for r in requests:
             self.submit(r)
@@ -699,8 +813,13 @@ class ServeEngine:
 
     def finish_run(self, results: List[RequestResult]
                    ) -> Tuple[List[RequestResult], dict]:
-        """Build the run report; the closing half of the tick-level API."""
+        """Price the completed requests and build the run report; the
+        closing half of the tick-level API."""
         wall = self._now(self._t_start)
+        for r in results:
+            r.metrics.moa_flops = request_decode_cost(
+                self.model.cfg, prompt_tokens=r.metrics.prompt_tokens,
+                new_tokens=r.metrics.new_tokens)
         report = aggregate(results, n_slots=self.n_slots,
                            decode_steps=self._steps,
                            occupancy_sum=self._occupancy_sum, wall_s=wall,
@@ -715,6 +834,9 @@ class ServeEngine:
         report["cuda_graphs"] = self._graphs is not None
         report["graphs"] = (self._graphs.report()
                             if self._graphs is not None else None)
+        if not self.paged:
+            results.sort(key=lambda r: r.uid)
+            return results, report
         report["paged"] = paged_report(
             spec=self._spec, n_slots=self.n_slots, max_len=self.max_len,
             block_size=self.block_size, n_blocks=self.n_blocks,

@@ -3,20 +3,25 @@ reference's compile cache (``repro/serve/engine.py``: ``_cached_jit``,
 ``_build``, ``_decode_for``).
 
 The reference never runs a tick eagerly. It jits every tick path once per
-shape: one paged decode per live-block bucket, one padded prefill per
-prompt bucket with ``prompt_len`` traced. On the card a CUDA graph per
-shape stands for ``jax.jit``. :class:`GraphCache` captures
+shape: one paged decode per live-block bucket (the dense-slot decode
+once), one padded prefill per prompt bucket with ``prompt_len`` traced.
+On the card a CUDA graph per shape stands for ``jax.jit``.
+:class:`GraphCache` captures
 
-* the paged decode step, once per live-block bucket: tokens ``(n_slots,
-  1)`` in, logits ``(n_slots, 1, V)`` out;
-* the full-prompt prefill **and** its scatter into the pool, once per
-  prompt bucket: tokens, ``write_ids``, the table row, ``slot`` and
-  ``prompt_len`` in, the ``(1, 1, V)`` logits out. The padded ``(L, 1,
-  max_len, Hk, D)`` K/V stack stays inside the graph, so no bucket keeps
-  one alive.
+* the decode step: paged, once per live-block bucket; dense-slot once
+  (bucket 0), its shape being fixed. Tokens ``(n_slots, 1)`` in, logits
+  ``(n_slots, 1, V)`` out;
+* the padded full-prompt prefill **and** its write into the cache (the
+  scatter into the pool, or the copy into the slot's row), once per
+  prompt bucket: tokens, ``write_ids`` and the table row (paged; empty
+  for the dense-slot layout), ``slot`` and ``prompt_len`` in, the ``(1,
+  1, V)`` logits out. The padded ``(L, 1, max_len, Hk, D)`` K/V stack
+  stays inside the graph, so no bucket keeps one alive.
 
-A prefix-hit (suffix) prefill has a prefix length that varies, so it stays
-eager.
+Two prefills stay eager: a prefix-hit (suffix) prefill, whose prefix
+length varies, and the exact-length prefill of a capacity-limited MoE
+(where padding is not exact), which has a shape per prompt length: one
+graph each would be a capture per admission.
 
 **One engine's graphs.** A graph binds addresses: of the parameters, of
 the engine's cache tensors, of the static input buffers here and of the
@@ -132,14 +137,17 @@ class _Graph:
 
 
 class GraphCache:
-    """The graphs of one engine's paged decode (per live-block bucket) and
-    full-prompt prefill (per prompt bucket).
+    """The graphs of one engine's decode (paged: per live-block bucket;
+    dense-slot: bucket 0) and padded full-prompt prefill (per prompt
+    bucket).
 
     The bodies are the engine's: ``decode(tokens (n_slots, 1), hw)`` and
     ``prefill(tokens (1, bucket), write_ids, row, slot, prompt_len)``, both
     returning logits; here they get the static buffers, ``slot`` as a
     ``(1,)`` and ``prompt_len`` as a 0-d int32 device tensor.
-    ``max_bucket`` is the largest prompt bucket. Counters: ``eager_runs``,
+    ``max_bucket`` is the largest prompt bucket, ``max_blocks`` the length
+    of ``write_ids`` and ``row`` (0 for the dense-slot layout). Counters:
+    ``eager_runs``,
     ``captures`` and ``replays`` per ``(path, bucket)``, and ``capture_s``
     in all.
     """

@@ -2,15 +2,14 @@
 ``aggregate`` and ``paged_report`` of ``repro/serve/metrics.py``).
 
 Units: times in **seconds** on the engine clock unless a key says ``_ms``
-(milliseconds); rates in **tokens per second**. ``moa_flops`` stays
-``None``: the decode costing that prices it (``launch/costing.py``) is not
-ported yet (ROADMAP Queue 1, item 7).
+(milliseconds); rates in **tokens per second**; ``moa_flops`` in FLOPs as
+priced by :func:`repro_torch.launch.costing.request_decode_cost`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List
 
 import numpy as np
 
@@ -32,8 +31,9 @@ class RequestMetrics:
     finished_s: float = 0.0
     prompt_tokens: int = 0
     new_tokens: int = 0
-    #: MOA-priced FLOPs; None until the costing is ported
-    moa_flops: Optional[float] = None
+    #: strategy-priced FLOPs of the request's decode steps (set when the
+    #: engine finishes its run)
+    moa_flops: float = 0.0
     #: prompt tokens whose prefill compute was skipped via a prefix-cache
     #: hit (paged engine, dense family; 0 elsewhere)
     cached_prompt_tokens: int = 0
@@ -95,9 +95,7 @@ def aggregate(results, *, n_slots: int, decode_steps: int,
         "ttft_ms": _dist([1e3 * r.metrics.ttft_s for r in results]),
         "per_token_ms": _dist([r.metrics.per_token_ms for r in results]),
         "slot_occupancy": occupancy_sum / max(decode_steps, 1),
-        "moa_flops_total": (None if any(r.metrics.moa_flops is None
-                                        for r in results)
-                            else sum(r.metrics.moa_flops for r in results)),
+        "moa_flops_total": sum(r.metrics.moa_flops for r in results),
     }
 
 

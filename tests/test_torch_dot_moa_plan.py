@@ -7,9 +7,16 @@ gives (each sub-range's partial, a fixed-order sum of each slice's
 sub-partials, the slices folded in order) equals ``dot_moa_ref`` — bit for
 bit for integers (LOA and the int32 wrap included), within the tolerances
 ``chip_smoke.py`` states for floats — and the reference's Pallas kernel in
-interpret mode. The kernels themselves run on the card (``chip_smoke.py``).
+interpret mode. Batched calls (the MoE's experts, one launch over E
+members) are planned per member with the batch counted in the split, and
+their plain version is the unbatched one over each member, as ``jax.vmap``
+of the Pallas kernel computes. The kernels themselves run on the card
+(``chip_smoke.py``).
 """
 
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -212,6 +219,111 @@ def test_emulated_plan_matches_pallas_interpret(dtype, l):
                                      approx_bits=l, interpret=True))
     got = emulate(torch.from_numpy(x), torch.from_numpy(y), block_k=bk,
                   approx_bits=l).numpy()
+    if dtype == "int8":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the batch: (E, m, k) @ (E, k, n) in one launch
+# ---------------------------------------------------------------------------
+
+#: moonshot-v1-16b-a3b's expert projections (64 experts, d_model 2048,
+#: d_ff 1408, block_k 2048) at decode (C = 1), a short exact-length prefill
+#: (C = 4), a 512-token prefill (C = 60) and a ragged C, and its router
+EXPERTS = [(64, c, k, n, 2048, torch.bfloat16)
+           for c in (1, 4, 5, 60) for k, n in ((2048, 1408), (1408, 2048))]
+EXPERTS += [(8, 3, 1000, 333, 256, torch.float32),
+            (4, 64, 4096, 256, 256, torch.int8),
+            (3, 8, 1024, 64, 256, torch.int32)]
+
+
+@pytest.mark.parametrize("E,m,k,n,bk,dt", EXPERTS,
+                         ids=[f"{E}x{m}x{k}x{n}-{str(dt)[6:]}"
+                              for E, m, k, n, bk, dt in EXPERTS])
+def test_batched_plan(E, m, k, n, bk, dt):
+    """A batched plan keeps the member's body, tile and K ranges, names
+    the batch, counts every member's blocks and workspace, and at batch 1
+    is the unbatched plan."""
+    one, many = plan(m, n, k, bk, dt), plan(m, n, k, bk, dt, E)
+    assert plan(m, n, k, bk, dt, 1) == one and one.batch == 1
+    assert many.batch == E
+    assert (many.body, many.tile_m, many.tile_n) == \
+        (one.body, one.tile_m, one.tile_n)
+    assert many.blocks == E * dataclasses.replace(many, batch=1).blocks
+    assert many.workspace == E * dataclasses.replace(many,
+                                                     batch=1).workspace
+    ranges = many.ranges()
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    for k0, k1 in ranges:
+        assert k0 // many.block_k == (k1 - 1) // many.block_k
+    # more members fill the card: never more sub-ranges than one member's
+    assert many.splits <= one.splits or not one.splits
+    if many.body == "stream":       # bound by bytes: one wave, or one split
+        assert many.blocks <= MIN_BLOCKS or many.splits == \
+            -(-many.block_k // (32 * 1024 // (4 * many.tile_m)))
+    # the workspace stays under its cap for the whole batch
+    cap = max(0.05 * E * (m * k + k * n) * dt.itemsize, 16 << 20)
+    assert many.workspace * 4 <= cap or not many.splits
+
+
+def test_served_expert_plans():
+    """Decode's expert rows stream B once, one split, 6 and 8 column tiles
+    a member (384 and 512 blocks); the 512-token prefill's run on wgmma in
+    direct mode, one slice a block."""
+    gate = plan(1, 1408, 2048, 2048, torch.bfloat16, 64)
+    down = plan(1, 2048, 1408, 1408, torch.bfloat16, 64)
+    assert (gate.body, gate.splits, gate.blocks) == ("stream", 1, 384)
+    assert (down.body, down.splits, down.blocks) == ("stream", 1, 512)
+    pre = plan(60, 1408, 2048, 2048, torch.bfloat16, 64)
+    assert (pre.body, pre.splits, pre.blocks, pre.one_slice) == \
+        ("wgmma", 0, 704, True)
+
+
+def test_plain_batched_version_is_member_by_member():
+    rng = np.random.default_rng(3)
+    for dt, l in ((torch.float32, 0), (torch.bfloat16, 0), (torch.int8, 4),
+                  (torch.int32, 2)):
+        if dt.is_floating_point:
+            a = torch.from_numpy(rng.standard_normal((5, 3, 256))).to(dt)
+            b = torch.from_numpy(rng.standard_normal((5, 256, 7))).to(dt)
+        else:
+            a = torch.from_numpy(rng.integers(-100, 100, (5, 3, 256))).to(dt)
+            b = torch.from_numpy(rng.integers(-100, 100, (5, 256, 7))).to(dt)
+        got = ref.dot_moa_batched_ref(a, b, block_k=64, approx_bits=l)
+        assert got.shape == (5, 3, 7)
+        for e in range(5):
+            assert torch.equal(got[e], ref.dot_moa_ref(
+                a[e], b[e], block_k=64, approx_bits=l))
+    # bf16 operands with f32 output: the MoE router's product
+    out = ref.dot_moa_batched_ref(torch.ones((2, 4, 8), dtype=torch.bfloat16),
+                                  torch.ones((2, 8, 3), dtype=torch.bfloat16),
+                                  block_k=4, out_dtype=torch.float32)
+    assert out.dtype == torch.float32 and bool((out == 8).all())
+    with pytest.raises(ValueError):
+        ref.dot_moa_batched_ref(torch.ones((2, 3, 4)), torch.ones((3, 4, 5)))
+
+
+@pytest.mark.parametrize("dtype,l", [("int8", 0), ("int8", 4),
+                                     ("float32", 0)])
+def test_batched_plain_matches_vmap_of_pallas_interpret(dtype, l):
+    """``jax.vmap`` of ``dot_moa_pallas`` (interpret mode) over a batch of
+    3 against the plain batched version: the vmap adds a leading batch
+    grid axis, each member folds as the unbatched kernel."""
+    E, m, k, n, bk = 3, 10, 256, 24, 64
+    rng = np.random.default_rng(6)
+    if dtype == "int8":
+        x = rng.integers(-127, 128, (E, m, k)).astype(np.int8)
+        y = rng.integers(-127, 128, (E, k, n)).astype(np.int8)
+    else:
+        x = rng.standard_normal((E, m, k)).astype(np.float32)
+        y = rng.standard_normal((E, k, n)).astype(np.float32)
+    want = np.asarray(jax.vmap(lambda p, q: dot_moa_pallas(
+        p, q, block_m=16, block_n=16, block_k=bk, approx_bits=l,
+        interpret=True))(jnp.asarray(x), jnp.asarray(y)))
+    got = ref.dot_moa_batched_ref(torch.from_numpy(x), torch.from_numpy(y),
+                                  block_k=bk, approx_bits=l).numpy()
     if dtype == "int8":
         np.testing.assert_array_equal(got, want)
     else:

@@ -107,6 +107,20 @@ def test_wgmma_arithmetic_matches_pallas(s, causal, d):
     assert np.abs(got - want).max() <= tol
 
 
+@pytest.mark.parametrize("s", [16, 26, 44, 64])
+def test_wgmma_arithmetic_matches_pallas_without_groups(s):
+    """G = 1, as moonshot-v1-16b-a3b serves (H16/16), at exact-length
+    prompts: one query head a KV head."""
+    B, H, Hk, d = 1, 2, 2, 128
+    rs = np.random.default_rng(s)
+    q, k, v = (torch.from_numpy(rs.standard_normal((B, s, n, d), np.float32))
+               .bfloat16() for n in (H, Hk, Hk))
+    want = _pallas(q, k, v, True)
+    got = emulate_wgmma(q, k, v, True).float().numpy()
+    tol = bf16_ulp(float(np.abs(want).max()))
+    assert np.abs(got - want).max() <= tol
+
+
 def test_plan_at_the_served_shape():
     # llama3-8b prefill, S = 512: 8 tiles x 32 heads, one wave of two
     # blocks an SM (82 KB of shared memory each), longest tiles first

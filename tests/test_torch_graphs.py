@@ -191,6 +191,53 @@ def test_captured_engine_equals_eager(models, recording, pool, workload):
             np.testing.assert_array_equal(a.tokens, b.tokens)
 
 
+GRAPH_MODELS = [("llama3-8b", {}, False),
+                ("moonshot-v1-16b-a3b", {}, False),
+                ("moonshot-v1-16b-a3b", {"capacity_factor": 1.25}, False),
+                ("moonshot-v1-16b-a3b", {}, True),
+                ("moonshot-v1-16b-a3b", {"capacity_factor": 1.25}, True)]
+
+
+@pytest.mark.parametrize("arch,upd,paged", GRAPH_MODELS,
+                         ids=["llama3-dense", "moe-dense", "moe-cf1.25-dense",
+                              "moe-paged", "moe-cf1.25-paged"])
+def test_dense_slot_and_moe_capture_equals_eager(recording, arch, upd,
+                                                 paged):
+    """The dense-slot engine (and the MoE in both layouts) through the
+    double: tokens, reports and every step's logits equal the eager
+    engine's bit for bit. The dense-slot decode is one graph (bucket 0);
+    a padded prefill is captured per bucket with its slot write, an
+    exact-length one (capacity-limited MoE) stays eager."""
+    tm = tbuild(dataclasses.replace(tsmoke(tget(arch)), **upd))
+    tp = tm.init(seed=0, device="cpu")
+    kw = dict(ENGINE, paged=paged, n_slots=4)
+    runs = {}
+    for cuda_graphs in (False, True):
+        engine = ServeEngine(tm, tp, device="cpu", cuda_graphs=cuda_graphs,
+                             **kw)
+        logits = {}
+        _record_logits(engine, logits)
+        results, report = engine.run(_workload("poisson", tm.cfg.vocab),
+                                     warmup=True)
+        runs[cuda_graphs] = results, report, logits, engine
+    (want, want_rep, want_logits, _), (got, rep, got_logits, eng) = \
+        runs[False], runs[True]
+    for key in set(rep) - {"cuda_graphs", "graphs", "compile_s", "wall_s"}:
+        assert rep[key] == want_rep[key], key
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+    assert got_logits.keys() == want_logits.keys()
+    for key, x in want_logits.items():
+        assert torch.equal(got_logits[key], x), key
+    cache = eng._graphs
+    decode = {hw for path, hw in cache.captures if path == "decode"}
+    prefill = {b for path, b in cache.captures if path == "prefill"}
+    assert decode == (set(eng._hw_buckets()) if paged else {0})
+    assert prefill == (set(eng.scheduler.buckets) if eng._padded else set())
+    assert set(cache.captures.values()) == {1}
+    assert rep["graphs"]["replays"] > 0
+
+
 # ---------------------------------------------------------------------------
 # (b) when each bucket is captured; no body runs twice on live state
 # ---------------------------------------------------------------------------

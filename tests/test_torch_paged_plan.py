@@ -29,11 +29,14 @@ from repro_torch.kernels.paged_attention import live_pages, plan
 NEG_INF = -1e30
 
 #: (B, T, H, Hk, D, bs, n_blocks, pool): the served decode at the live-block
-#: buckets up to max_len 4096, the long-context and verify rows of
-#: chip_smoke.py, and the f32 row
+#: buckets up to max_len 4096 (and moonshot-v1-16b-a3b's, H16/16, up to
+#: max_len 96), the long-context and verify rows of chip_smoke.py, and the
+#: f32 row
 SERVED = [(4, 1, 32, 8, 128, 16, n, dt)
           for n in (1, 2, 4, 6, 8, 16, 32, 64, 128, 256)
           for dt in (torch.bfloat16, torch.int8)]
+SERVED += [(4, 1, 16, 16, 128, 16, n, dt) for n in (1, 2, 4, 6)
+           for dt in (torch.bfloat16, torch.int8)]
 SHAPES = SERVED + [
     (16, 1, 32, 8, 128, 16, 512, torch.bfloat16),
     (4, 4, 32, 8, 128, 16, 256, torch.bfloat16),
@@ -230,10 +233,10 @@ def emulate(q, kp, vp, tables, start, *, k_scale=None, v_scale=None,
     return out
 
 
-#: name -> (T, q dtype, pool, dequant_dtype, n_blocks, starts); B = 3,
-#: H 8 / Hk 2, D 32, bs 4: at n_blocks 20 the plan takes pages of 4 (5
-#: splits, a page a warp), and slot 0 is shallower than the first split;
-#: at n_blocks 4 one split walks the table
+#: name -> (T, q dtype, pool, dequant_dtype, n_blocks, starts[, (H, Hk)]);
+#: B = 3, H 8 / Hk 2 unless given, D 32, bs 4: at n_blocks 20 the plan
+#: takes pages of 4 (5 splits, a page a warp), and slot 0 is shallower than
+#: the first split; at n_blocks 4 one split walks the table
 CASES = {
     "T1 bf16 pool, 5 splits": (1, "bfloat16", "bfloat16", "bfloat16", 20,
                                (2, 41, 79)),
@@ -247,6 +250,11 @@ CASES = {
                                (0, 9, 15)),
     "T4 bf16 pool, one split": (4, "bfloat16", "bfloat16", "bfloat16", 4,
                                 (1, 6, 12)),
+    # G 1 (moonshot's H16/16): one query row in a tile of the group's rows
+    "T1 bf16 pool, G 1": (1, "bfloat16", "bfloat16", "bfloat16", 20,
+                          (2, 41, 79), (4, 4)),
+    "T1 int8 pool via bf16, G 1": (1, "bfloat16", "int8", "bfloat16", 20,
+                                   (5, 33, 79), (4, 4)),
 }
 
 
@@ -278,9 +286,10 @@ def _problem(T, qdt, pool, n_blocks, starts, B=3, H=8, Hk=2, D=32, bs=4):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_emulation_matches_pallas(case):
-    T, qdt, pool, dq, n_blocks, starts = CASES[case]
-    q, kp, vp, ks, vs, tables, start = _problem(T, qdt, pool, n_blocks,
-                                                starts)
+    T, qdt, pool, dq, n_blocks, starts, *heads = CASES[case]
+    q, kp, vp, ks, vs, tables, start = _problem(
+        T, qdt, pool, n_blocks, starts,
+        **(dict(zip(("H", "Hk"), heads[0])) if heads else {}))
     tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "int8": torch.int8}
     jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16,

@@ -129,7 +129,10 @@ def test_greedy_tokens_and_paged_counts_match(engines, pool, workload):
     if workload == "shared_prefix":
         assert rep["paged"]["prefix_hits"] > 0
     assert rep["paged"]["attn_backend"] == "torch"
-    assert rep["moa_flops_total"] is None       # costing not ported
+    # every request priced as the reference prices it (same arithmetic)
+    assert rep["moa_flops_total"] == want_rep["moa_flops_total"] > 0
+    for a, b in zip(want, got):
+        assert b.metrics.moa_flops == a.metrics.moa_flops
     port._pool.check()
     assert port._pool.in_use == 0
 
@@ -169,8 +172,7 @@ def test_warmup_keeps_tokens(engines):
 def test_unported_engine_modes_raise(engines):
     _, _, tm, tp = engines["bf16"]
     base = dict(n_slots=2, max_len=32, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ServeEngine(tm, tp, **base)                       # paged=False
+    assert not ServeEngine(tm, tp, **base).paged    # dense-slot: ported
     for extra in ({"drafter": object()}, {"mesh": object()},
                   {"prefill_chunk_tokens": 8}, {"scheduling": "slo"}):
         with pytest.raises(NotImplementedError, match="item 8"):
