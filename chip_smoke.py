@@ -36,7 +36,8 @@ a non-zero exit:
               and moonshot-v1-16b-a3b's served prefills; paged rows at both
               models' served decode (bf16 and int8 pools), long context
               (to 4096 tokens, and 16 slots to 8192) and the T = 4 verify
-              shape. Each ``moa_reduce`` / ``loa_reduce`` row names its
+              shape, also as served (B4 T4 H32/8, bf16 and int8 pools) at
+              each live-block bucket of the spec phase's max_len. Each ``moa_reduce`` / ``loa_reduce`` row names its
               plan (route, splits, blocks), fails on two calls that differ
               in a bit, gives ``chain_ms`` (the ordered fold chain's floor)
               on the ordered route, and a time target, met or missed.
@@ -70,6 +71,30 @@ a non-zero exit:
               greedy requests of 3000-4000 prompt tokens, 8 new tokens
               each, every tick profiled (paged attention's share of a
               decode tick).
+   spec     — the same llama3-8b, speculative (4 slots, k = 3, its
+              served workload), paged and dense-slot, with the drafters
+              ngram?n=3, oracle and oracle?accept=0.5: per layout and
+              drafter an eager and a captured engine with every request at
+              0 (``spec`` lines: tok/s, TTFT, accept rate, tokens per
+              verify tick, the accept histogram, moa_flops, launches per
+              verify replay and paged-attention calls by T; a ``graphs``
+              line), failing on a token, a bit of a verify tick's logits
+              or a launch count that differs, on a paged verify replay
+              that does not launch paged attention once a layer at T = 4,
+              and on greedy tokens that differ from the plain captured
+              engine's but at a top-2 near-tie (``NEAR_TIE``); then the
+              oracle's captured engine on the workload as it arrives.
+              Per layout the ngram drafter's verify ticks are profiled,
+              and the dense-slot plain engine's decode ticks (the paged
+              ones are the serve phase's) (``profile`` lines).
+   slo      — the same llama3-8b, paged, captured, ``bursty_workload``
+              (4 requests of 1024 prompt and 64 new tokens, then 8 of 32
+              and 8 with a 0.25 s TTFT deadline): FIFO one-shot, FIFO with
+              256-token prefill chunks, ``scheduling="slo"`` with chunks
+              (``slo`` lines: burst TTFT, deadline-met share, preemptions,
+              spills, chunk ticks, tok/s); tokens must equal the FIFO
+              one-shot run's but at a near-tie, and the SLO run must
+              preempt.
    Then moonshot-v1-16b-a3b at full width and depth (bf16 weights
               from the port's initializer, seed 0, after llama3-8b is
               freed; capacity factor 1.25, so exact-length prefills) in
@@ -101,7 +126,10 @@ a non-zero exit:
               routing call of both is logged, the first difference must
               sit at a near-tie of the plain path's router probabilities
               (``ROUTE_GAP``), and until it every step's logits agree
-              within ``LOGIT_TOL``.
+              within ``LOGIT_TOL``. Last, speculative parity at 2 layers
+              on f32 pools: the oracle's greedy tokens equal the plain
+              engine's exactly, llama3 and a dropless moonshot (capacity
+              factor 11), both layouts, on the kernels.
 5. paper    — the paper path, ``repro_torch.launch.paper_repro``, on the
               card: Table 1, Fig. 4 (serial ``moa_reduce``), Fig. 5 (LOA
               MRED, ``loa_add``, the LOA MOA through ``loa_reduce``) and the
@@ -115,7 +143,11 @@ a non-zero exit:
               at its operand type, shapes and options, must be one that a
               ``kernels`` row held against its plain version.
 
-The last lines are the kernel summary (JSON), the ``nvidia-smi`` name and
+The last lines are the kernel summary (JSON; ``launches_by_path`` has one
+key per counted run: ``serve/llama3-8b``, ``serve/llama3-8b-spec-paged``,
+``serve/llama3-8b-spec-dense-slot``, ``serve/llama3-8b-slo``,
+``serve/moonshot-dense-slot``, ``serve/moonshot-paged``, ``paper``; the
+paged row also carries the served verify row), the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a GPU, or
 without the rest of the repository beside it, the script exits non-zero
 and prints no result. It imports nothing of JAX or of the JAX package.
@@ -180,6 +212,12 @@ KERNELS = {
     "loa_add": Kernel("src/repro/kernels/loa_add.py:48", "loa_add",
                       ("loa_add_kernel",), ("paper",)),
 }
+
+
+#: the spec phase's verify: each live-block bucket of its max_len 96 (16
+#: tokens a page) and four slots' cursors whose k + 1 = 4 rows it covers
+VERIFY_BUCKETS = {1: (0, 3, 7, 12), 2: (10, 17, 23, 28),
+                  4: (30, 41, 52, 60), 6: (62, 70, 81, 92)}
 
 
 def path_kernels(path: str) -> list:
@@ -268,10 +306,13 @@ PAPER_DERIVED = {
 }
 
 _LOG = None
+_T0 = time.monotonic()
 
 
 def emit(obj) -> None:
-    line = json.dumps(obj)
+    """Print one JSON line (and log it), stamped with the seconds since the
+    script started (``elapsed_s``)."""
+    line = json.dumps(dict(obj, elapsed_s=time.monotonic() - _T0))
     print(line, flush=True)
     if _LOG is not None:
         _LOG.write(line + "\n")
@@ -580,8 +621,10 @@ def kernel_phase(torch, timer, parent=None):
 
     # ---- dot_moa: every projection of the served model -------------------
     block_k = 2048                # min(chunk=4096, the Pallas cap 2048)
+    # m = 4: decode; 16: the speculative verify (4 slots x k + 1 = 4);
+    # 64: a prefill; 256: a prefill chunk (the slo phase's)
     cases = [(m, k, n, block_k, torch.bfloat16, 0)
-             for m in (4, 64)
+             for m in (4, 16, 64, 256)
              for k, n in ((4096, 6144), (4096, 4096), (4096, 1024),
                           (4096, 14336), (14336, 4096))]
     cases += [(64, k, n, block_k, torch.int8, l)
@@ -597,7 +640,7 @@ def kernel_phase(torch, timer, parent=None):
     # the tensor cores (bf16, int8) or the tiled CUDA-core body (f32,
     # int32); the prefill down-projection is among the m = 64 rows
     cases += [(m, 4096, 14336, block_k, torch.bfloat16, 0)
-              for m in (1, 8, 9, 16, 17)]
+              for m in (1, 8, 9, 17)]
     # a ragged k whose block_k (1000) is not a multiple of the sub-range
     cases += [(m, 5000, 4096, 1000, torch.bfloat16, 0) for m in (4, 64)]
     # int8 at block_k 256, l = 4: 16 LOA folds, on both int8 bodies
@@ -757,9 +800,18 @@ def kernel_phase(torch, timer, parent=None):
               torch.bfloat16),
              (2, 2, 12, 4, 96, 16, (100, 700), torch.bfloat16, torch.float32),
              (2, 4, 16, 4, 36, 8, (10, 60), torch.float32, torch.float32)]
-    for B, T, H, Hk, D, bs, starts, qdt, pdt in cases:
+    # the served verify (the spec phase: 4 slots, k = 3, max_len 96) at
+    # each of its live-block buckets 1, 2, 4 and 6 (the table's width),
+    # bf16 and int8 pools; the bucket is given, not rounded up
+    for n_blocks, starts in VERIFY_BUCKETS.items():
+        for pdt in (torch.bfloat16, torch.int8):
+            cases.append((4, 4, 32, 8, 128, 16, starts, torch.bfloat16,
+                          pdt, n_blocks))
+    for B, T, H, Hk, D, bs, starts, qdt, pdt, *given in cases:
         n_blocks = (max(starts) + T - 1) // bs + 1
         n_blocks = 1 << (n_blocks - 1).bit_length()   # a live-block bucket
+        if given:
+            n_blocks = given[0]
         n_phys = 2 + B * n_blocks       # trash page 0, poison page last
         start = torch.tensor(starts, dtype=torch.int32, device=dev)
         tables = torch.zeros((B, n_blocks), dtype=torch.int32, device=dev)
@@ -836,6 +888,9 @@ def kernel_phase(torch, timer, parent=None):
             err))
         check(row)
         summary.setdefault("paged_attention", row)   # the served decode
+        if given and n_blocks == max(VERIFY_BUCKETS) \
+                and pdt == torch.bfloat16:
+            summary["paged_attention verify"] = row
     return summary
 
 
@@ -1290,8 +1345,9 @@ def profile_served(torch, engine, requests, label: str = "served",
     mean per tick: host time, kernel time, idle share, the twelve heaviest
     kernels, ``paged_attention``'s device time and share, and for decode
     the attended KV lengths (``prompt + generated`` per live slot) and
-    live-block buckets. Lines are named ``{label} decode ticks`` and
-    ``{label} admission ticks``; the decode line of ``label``
+    live-block buckets. Lines are named ``{label} decode ticks`` (a
+    speculative engine's: ``verify ticks``) and ``{label} admission
+    ticks``; the decode line of ``label``
     ``decode_long`` is named ``decode_long``. Each line also gives the
     device ms a tick by :func:`kernel_group` (``groups``) and the items of
     ``extra``. The profiler's own launch overhead is inside the host time;
@@ -1317,7 +1373,8 @@ def profile_served(torch, engine, requests, label: str = "served",
             torch.cuda.synchronize()
             host_ms = (time.monotonic() - t0) * 1e3
         admitted = engine._admissions - admissions
-        c = classes.setdefault("admission" if admitted else "decode", {
+        step = "verify" if engine.drafter is not None else "decode"
+        c = classes.setdefault("admission" if admitted else step, {
             "ticks": 0, "host_ms": 0.0, "device_ms": 0.0, "kernels": {},
             "kv_lens": [], "live_blocks": set(), "live_slots": 0,
             "prefills": 0})
@@ -1361,7 +1418,7 @@ def profile_served(torch, engine, requests, label: str = "served",
                 "groups": dict(groups),
                 "top": [{"name": k[:80], "ms": ms / n, "calls": cnt / n}
                         for k, (ms, cnt) in rows], **(extra or {})}
-        if what == "decode":
+        if what != "admission":
             line.update(kv_len_min=min(c["kv_lens"]),
                         kv_len_max=max(c["kv_lens"]),
                         kv_len_mean=statistics.mean(c["kv_lens"]),
@@ -1551,10 +1608,11 @@ def eager_vs_captured(torch, make_engine, workload, *, warmup: bool,
             f"{grew}, kernels launched no time {missing}")
 
 
-def serve_phase(torch, parent=None):
+def llama3_full(torch):
+    """llama3-8b at full width and depth, bf16 weights from the port's
+    initializer, seed 0: ``(cfg, model, params, init_s)``."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.api import build_model
-    from repro_torch.serve import ServeEngine, poisson_workload
 
     cfg = dataclasses.replace(get_config("llama3-8b"),
                               param_dtype="bfloat16")
@@ -1562,7 +1620,23 @@ def serve_phase(torch, parent=None):
     model = build_model(cfg)
     params = model.init(seed=0, device="cuda")
     torch.cuda.synchronize()
-    init_s = time.monotonic() - t0
+    return cfg, model, params, time.monotonic() - t0
+
+
+def llama3_workload(cfg):
+    """The served workload of llama3-8b: 8 Poisson requests at 50 req/s,
+    prompts of 16-64 tokens, 8-16 new tokens, seed 0."""
+    from repro_torch.serve import poisson_workload
+
+    return poisson_workload(n_requests=8, vocab=cfg.vocab, rate_rps=50.0,
+                            prompt_len_range=(16, 64),
+                            gen_len_range=(8, 16), seed=0)
+
+
+def serve_phase(torch, llama3, parent=None):
+    from repro_torch.serve import ServeEngine
+
+    cfg, model, params, init_s = llama3
 
     def engine(cuda_graphs):
         return ServeEngine(model, params, n_slots=4, max_len=96, paged=True,
@@ -1570,9 +1644,7 @@ def serve_phase(torch, parent=None):
                            cuda_graphs=cuda_graphs)
 
     def workload():
-        return poisson_workload(n_requests=8, vocab=cfg.vocab, rate_rps=50.0,
-                                prompt_len_range=(16, 64),
-                                gen_len_range=(8, 16), seed=0)
+        return llama3_workload(cfg)
 
     served = served_kernels(cfg, paged=True)
     eager_vs_captured(torch, engine, workload, warmup=True, what="serve",
@@ -1635,6 +1707,353 @@ def serve_line(torch, cfg, model, run, *, path, init_s, **extra) -> dict:
     line.update(extra)
     emit(line)
     return line
+
+
+#: a greedy divergence between two bf16 runs passes only at a top-2 logit
+#: gap below this (the CPU serve tests' bf16 bound, the parity phase's)
+NEAR_TIE = 0.05
+#: the spec phase's drafters and window
+SPEC_DRAFTERS = ("ngram?n=3", "oracle", "oracle?accept=0.5")
+SPEC_K = 3
+
+
+def near_ties(torch, model, params, requests, want, got, gap_tol,
+              what: str) -> list:
+    """Every request whose greedy tokens differ between two runs of
+    ``model`` (``want``, ``got``: results by uid): the first differing
+    index and, at it, a no-cache forward's top-2 gap (:func:`_greedy_gap`).
+    Fails where a gap exceeds ``gap_tol``."""
+    out = []
+    for req, a, b in zip(requests, want, got):
+        if a.uid != b.uid:
+            raise AssertionError(f"{what}: results out of order")
+        if a.tokens.tolist() == b.tokens.tolist():
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(a.tokens, b.tokens))
+                 if x != y)
+        probe = _greedy_gap(torch, (model, model), params, req.prompt,
+                            a.tokens[:i])
+        out.append({"uid": a.uid, "index": i, **probe})
+        if probe["gap"] > gap_tol:
+            raise AssertionError(f"{what}: uid {a.uid} diverges at token {i}"
+                                 f" with top-2 gap {probe['gap']} > "
+                                 f"{gap_tol}")
+    return out
+
+
+@contextlib.contextmanager
+def paged_calls_by_T():
+    """Count ``paged_attention`` calls by their query rows a slot (T) while
+    the block runs: a wrapper in front of the wrapper, so a graph's
+    capture is seen and its replays are not."""
+    from repro_torch.kernels import ops
+
+    own, seen = ops.paged_attention_cuda, collections.Counter()
+
+    def counted(q, *args, **kw):
+        seen[int(q.shape[1])] += 1
+        return own(q, *args, **kw)
+
+    ops.paged_attention_cuda = counted
+    try:
+        yield seen
+    finally:
+        ops.paged_attention_cuda = own
+
+
+def _record_verify(engine, ticks: list) -> None:
+    """Keep every verify tick's logits (in order) where the engine accepts
+    them."""
+    accept = engine._accept
+
+    def recorded(logits, *rest):
+        ticks.append(logits.clone())
+        return accept(logits, *rest)
+
+    engine._accept = recorded
+
+
+def spec_line(cfg, run, *, layout, drafter, path, arrivals,
+              **extra) -> dict:
+    """The ``spec`` line of one served speculative run."""
+    report, sp = run["report"], run["report"]["spec"]
+    graphs = report["graphs"]
+    line = {"phase": "spec", "arch": cfg.name, "n_layers": cfg.n_layers,
+            "layout": layout, "drafter": drafter, "k": sp["k"],
+            "path": path, "arrivals": arrivals,
+            "tok_per_s": report["tok_per_s"], "ttft_ms": report["ttft_ms"],
+            "per_token_ms": report["per_token_ms"],
+            "accept_rate": sp["accept_rate"],
+            "tokens_per_slot_step": sp["tokens_per_step"],
+            "tokens_per_verify_tick": sp["emitted_tokens"]
+            / max(sp["verify_ticks"], 1),
+            "verify_ticks": sp["verify_ticks"],
+            "accepted_hist": sp["accepted_hist"],
+            "draft_steps": sp["draft_steps"],
+            "moa_flops_total": report["moa_flops_total"],
+            "tick_host_ms": {what: {"ticks": len(ms),
+                                    "mean": statistics.mean(ms)}
+                             for what, ms in run["ticks"].items() if ms},
+            "launches": run["launches"],
+            "launches_per_verify_replay": (
+                graphs["launches_per_replay"].get("verify")
+                if graphs else None),
+            "warmup_s": run["warm"]["compile_s"] if run["warm"] else None}
+    line.update(extra)
+    emit(line)
+    return line
+
+
+def spec_phase(torch, llama3) -> dict:
+    """Speculative decoding at full width and depth: llama3-8b (bf16
+    weights, seed 0) in 4 slots, k = 3, on its served workload, paged and
+    dense-slot, with each drafter of ``SPEC_DRAFTERS``.
+
+    Per layout and drafter: an eager and a captured engine serve the
+    workload with every request at 0 (the same batches and live-block
+    buckets whatever their speed); the run fails on a token, a bit of any
+    verify tick's logits or a launch count that differs, on a paged verify
+    replay that does not launch ``paged_attention`` once a layer, at T = k
+    + 1 (its capture's calls counted by T), and on greedy tokens that
+    differ from the plain (non-speculative) captured engine's but at a
+    near-tie (``NEAR_TIE``). Each prints a ``spec`` line; the oracle's
+    captured engine then serves the workload as it arrives (a third line,
+    whose launches are the spec path's). Per layout the ngram drafter's
+    captured verify ticks are profiled, and for the dense-slot layout the
+    plain captured engine's decode ticks (the paged one's are the serve
+    phase's) (``profile`` lines). Returns the launches of the oracle's
+    runs as they arrive, by run name."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeEngine, resolve_drafter
+
+    cfg, model, params, _ = llama3
+    L = cfg.n_layers
+
+    def workload(at_zero=False):
+        reqs = llama3_workload(cfg)
+        return [dataclasses.replace(r, arrival_s=0.0) for r in reqs] \
+            if at_zero else reqs
+
+    def engine(paged, drafter, cuda_graphs):
+        return ServeEngine(
+            model, params, n_slots=4, max_len=96, paged=paged, block_size=16,
+            device="cuda", cuda_graphs=cuda_graphs,
+            drafter=resolve_drafter(drafter, SPEC_K) if drafter else None)
+
+    def serve(e, requests, ticks=None):
+        with paged_calls_by_T() as warm_T:
+            warm = e.run([], warmup=True)[1]
+        if ticks is not None:
+            _record_verify(e, ticks)
+        tick_ms = timed_ticks(e)
+        ops.reset_launch_counts()
+        with paged_calls_by_T() as run_T:
+            results, report = e.run(requests)
+        return {"results": results, "report": report, "warm": warm,
+                "launches": ops.launch_counts(), "ticks": tick_ms,
+                "paged_T": {"warmup": dict(warm_T), "run": dict(run_T)}}
+
+    launches = {}
+    for paged in (True, False):
+        layout = "paged" if paged else "dense-slot"
+        e = engine(paged, None, True)
+        plain = serve(e, workload(at_zero=True))
+        del e
+        gc.collect()
+        for drafter in SPEC_DRAFTERS:
+            runs, ticks = {}, {}
+            for path, cuda_graphs in (("eager", False), ("captured", True)):
+                e = engine(paged, drafter, cuda_graphs)
+                ticks[path] = []
+                runs[path] = serve(e, workload(at_zero=True), ticks[path])
+                del e
+                gc.collect()
+            eager, captured = runs["eager"], runs["captured"]
+            tokens = [r.uid for r, c in zip(eager["results"],
+                                            captured["results"])
+                      if r.tokens.tolist() != c.tokens.tolist()]
+            differ = [i for i, (a, b) in enumerate(zip(ticks["eager"],
+                                                       ticks["captured"]))
+                      if not torch.equal(a, b)]
+            if len(ticks["eager"]) != len(ticks["captured"]):
+                differ.append("tick count")
+            per = captured["report"]["graphs"]["launches_per_replay"]
+            verify = per.get("verify", {})
+            t_seen = captured["paged_T"]["warmup"]
+            bad_T = paged and (verify.get("paged_attention") != L
+                               or set(t_seen) != {SPEC_K + 1})
+            ties = near_ties(torch, model, params, workload(),
+                             plain["results"], captured["results"],
+                             NEAR_TIE, f"spec {layout} {drafter} vs plain")
+            for path, run in runs.items():
+                spec_line(cfg, run, layout=layout, drafter=drafter,
+                          path=path, arrivals="all at 0",
+                          verify_ticks_logged=len(ticks[path]),
+                          paged_calls_by_T=run["paged_T"],
+                          plain_near_ties=ties)
+            emit({"phase": "graphs", "what": f"spec {layout} {drafter}",
+                  "requests": len(eager["results"]),
+                  "verify_ticks": len(ticks["eager"]),
+                  "differing_tokens": tokens, "differing_ticks": differ[:10],
+                  "launches": {p: r["launches"] for p, r in runs.items()},
+                  "launches_per_verify_replay": verify,
+                  "graphs": captured["report"]["graphs"]})
+            if tokens or differ or eager["launches"] != \
+                    captured["launches"] or bad_T:
+                raise AssertionError(
+                    f"spec {layout} {drafter}: the captured engine differs "
+                    f"from the eager one: tokens of {tokens}, verify ticks "
+                    f"{differ[:10]}, launches {eager['launches']} / "
+                    f"{captured['launches']}, a verify replay {verify} (T "
+                    f"seen at capture {t_seen})")
+            if drafter != "oracle":
+                continue
+            # the oracle's captured engine on the workload as it arrives:
+            # the launches of the spec path
+            e = engine(paged, drafter, True)
+            run = serve(e, workload())
+            del e
+            gc.collect()
+            spec_line(cfg, run, layout=layout, drafter=drafter,
+                      path="captured", arrivals="poisson")
+            launches[f"serve/llama3-8b-spec-{layout}"] = run["launches"]
+            if paged and run["launches"]["paged_attention"] == 0:
+                raise AssertionError("the paged spec run launched no "
+                                     "paged_attention")
+        # the verify tick beside the plain decode tick, both captured (the
+        # paged plain decode tick is the serve phase's "served captured")
+        profiled = [(f"spec {layout} captured ngram", SPEC_DRAFTERS[0])]
+        if not paged:
+            profiled.append((f"spec {layout} captured plain", None))
+        for label, drafter in profiled:
+            e = engine(paged, drafter, True)
+            e.run([], warmup=True)
+            profile_served(torch, e, workload(), label=label,
+                           extra={"layout": layout, "drafter": drafter})
+            del e
+            gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def spec_parity_phase(torch) -> None:
+    """At 2 layers on f32 pools (float32 compute), the oracle's greedy
+    tokens equal the plain engine's exactly, both on the kernels (the
+    captured engine): llama3-8b, and moonshot-v1-16b-a3b made dropless
+    (capacity factor 11 >= 64 / 6), each in both layouts."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serve import ServeEngine, poisson_workload, \
+        resolve_drafter
+
+    for arch, upd in (("llama3-8b", {}),
+                      ("moonshot-v1-16b-a3b", {"capacity_factor": 11.0})):
+        cfg = dataclasses.replace(get_config(arch), n_layers=2,
+                                  compute_dtype="float32", **upd)
+        model = build_model(cfg)
+        params = model.init(seed=0, device="cuda")
+        for paged in (True, False):
+            def workload():
+                return poisson_workload(
+                    n_requests=6, vocab=cfg.vocab, rate_rps=50.0,
+                    prompt_len_range=(16, 64), gen_len_range=(8, 16),
+                    seed=1)
+
+            results = {}
+            for drafter in (None, "oracle"):
+                e = ServeEngine(model, params, n_slots=4, max_len=96,
+                                paged=paged, block_size=16, device="cuda",
+                                drafter=resolve_drafter(drafter, SPEC_K)
+                                if drafter else None)
+                results[drafter], report = e.run(
+                    [dataclasses.replace(r, arrival_s=0.0)
+                     for r in workload()], warmup=True)
+                del e
+                gc.collect()
+            differ = [a.uid for a, b in zip(results[None], results["oracle"])
+                      if a.tokens.tolist() != b.tokens.tolist()]
+            emit({"phase": "parity", "what": "spec", "arch": cfg.name,
+                  "n_layers": 2, "compute_dtype": "float32",
+                  "capacity_factor": cfg.capacity_factor,
+                  "layout": "paged" if paged else "dense-slot",
+                  "requests": len(results[None]),
+                  "accept_rate": report["spec"]["accept_rate"],
+                  "differing_tokens": differ})
+            if differ:
+                raise AssertionError(f"spec parity {cfg.name} paged={paged}:"
+                                     f" oracle tokens differ for {differ}")
+        del params, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def slo_phase(torch, llama3) -> dict:
+    """Chunked prefill and SLO scheduling at full width and depth:
+    llama3-8b (bf16 weights, seed 0), paged, 4 slots, ``max_len`` 1152,
+    captured, on ``bursty_workload``: 4 long requests (1024-token prompts,
+    64 new tokens), then 8 burst requests (32-token prompts, 8 new tokens,
+    a TTFT deadline 0.25 s after arrival) at 0.05 s. Served three ways:
+    FIFO with one-shot prefills, FIFO with 256-token chunks, and
+    ``scheduling="slo"`` with 256-token chunks. Each prints an ``slo`` line
+    (burst TTFT, deadline-met share, preemptions, spills, chunk ticks,
+    tok/s). The schedule runs on the wall clock, so the run holds tokens,
+    not the schedule: every request's greedy tokens equal the FIFO one-shot
+    run's but at a near-tie (``NEAR_TIE``), and the SLO run preempts at
+    least once. Returns the SLO run's launches."""
+    from repro_torch.serve import ServeEngine, bursty_workload
+
+    cfg, model, params, _ = llama3
+
+    def workload():
+        return bursty_workload(vocab=cfg.vocab, n_long=4, n_burst=8,
+                               long_prompt_len=1024, long_gen_len=64,
+                               burst_prompt_len=32, burst_gen_len=8,
+                               burst_at_s=0.05, burst_deadline_s=0.25,
+                               seed=0)
+
+    runs = {}
+    for name, chunk, scheduling in (("fifo", None, "fifo"),
+                                    ("fifo chunked", 256, "fifo"),
+                                    ("slo chunked", 256, "slo")):
+        e = ServeEngine(model, params, n_slots=4, max_len=1152, paged=True,
+                        block_size=16, device="cuda",
+                        prefill_chunk_tokens=chunk, scheduling=scheduling)
+        run = runs[name] = serve_once(torch, e, workload(), warmup=True)
+        del e
+        gc.collect()
+        report, sl = run["report"], run["report"]["slo"]
+        burst = [r.metrics.ttft_s * 1e3 for r in run["results"] if r.uid >= 4]
+        ties = [] if name == "fifo" else near_ties(
+            torch, model, params, workload(), runs["fifo"]["results"],
+            run["results"], NEAR_TIE, f"slo {name} vs fifo")
+        emit({"phase": "slo", "what": name, "arch": cfg.name,
+              "n_layers": cfg.n_layers, "scheduling": scheduling,
+              "prefill_chunk_tokens": chunk,
+              "tok_per_s": report["tok_per_s"], "wall_s": report["wall_s"],
+              "burst_ttft_ms": {"p50": statistics.median(burst),
+                                "p95": float(sorted(burst)[
+                                    math.ceil(0.95 * len(burst)) - 1]),
+                                "max": max(burst)},
+              "ttft_ms": report["ttft_ms"],
+              "deadline_met_share": sl["attainment"],
+              "deadline_met": sl["deadline_met"],
+              "deadline_requests": sl["deadline_requests"],
+              "preemptions": sl["preemptions"], "spills": sl["spills"],
+              "revivals": sl["revivals"],
+              "chunk_ticks": sl["prefill_chunk_count"],
+              "decode_steps": report["decode_steps"],
+              "tick_host_ms": {what: {"ticks": len(ms),
+                                      "mean": statistics.mean(ms)}
+                               for what, ms in run["ticks"].items() if ms},
+              "warmup_s": run["warm"]["compile_s"],
+              "launches": run["launches"], "near_ties_vs_fifo": ties})
+    if runs["slo chunked"]["report"]["slo"]["preemptions"] < 1:
+        raise AssertionError("the SLO run preempted nothing")
+    missing = [k for k in served_kernels(cfg, True)
+               if runs["slo chunked"]["launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"the SLO run launched no {missing}")
+    return runs["slo chunked"]["launches"]
 
 
 def moe_serve_phase(torch):
@@ -2041,19 +2460,9 @@ def layouts(torch, cfg, params, dense, paged_results, requests,
     from repro_torch.models.api import build_model
 
     results, report = dense.run(requests)
-    model = build_model(cfg)
-    divergences = []
-    for req, a, b in zip(requests, paged_results, results):
-        if a.tokens.tolist() == b.tokens.tolist():
-            continue
-        i = next(j for j, (x, y) in enumerate(zip(a.tokens, b.tokens))
-                 if x != y)
-        probe = _greedy_gap(torch, (model, model), params, req.prompt,
-                            a.tokens[:i])
-        divergences.append({"uid": a.uid, "index": i, **probe})
-        if probe["gap"] > gap_tol:
-            raise AssertionError(f"dense-slot vs paged: uid {a.uid} diverges "
-                                 f"at token {i}, top-2 gap {probe['gap']}")
+    divergences = near_ties(torch, build_model(cfg), params, requests,
+                            paged_results, results, gap_tol,
+                            "dense-slot vs paged")
     emit({"phase": "parity", "what": "layouts", "arch": cfg.name,
           "n_layers": cfg.n_layers, "compute_dtype": cfg.compute_dtype,
           "requests": len(results), "identical": not divergences,
@@ -2365,11 +2774,18 @@ def main() -> int:
     # the main path's runs, each with the launches its counts gave: the
     # captured serve runs (llama3-8b paged, moonshot in both layouts) and
     # the paper path
-    runs = {"serve/llama3-8b": serve_phase(torch,
+    llama3 = llama3_full(torch)
+    runs = {"serve/llama3-8b": serve_phase(torch, llama3,
                                            parent.get("paged_attention"))}
+    runs.update(spec_phase(torch, llama3))
+    runs["serve/llama3-8b-slo"] = slo_phase(torch, llama3)
+    del llama3
+    gc.collect()
+    torch.cuda.empty_cache()
     runs.update(moe_serve_phase(torch))
     parity_phase(torch)
     moe_parity_phase(torch)
+    spec_parity_phase(torch)
     runs["paper"] = paper_phase(torch)
 
     # each kernel's launches are those of the runs of its first path (the
@@ -2392,6 +2808,12 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"], "case": row["case"]})
+        verify = rows.get(f"{name} verify")
+        if verify is not None:     # the served T = k + 1 instance
+            summary[-1]["verify"] = {
+                key: verify[key] for key in (
+                    "shape", "case", "max_abs_err", "kernel_ms",
+                    "device_ms", "plain_ms", "bound_ms", "bound_by")}
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,10 @@
 """Analytic FLOPs of one forward pass and the serve engine's request
 pricing — the port of the parts of ``repro/launch/costing.py`` the engine
 needs (``forward_flops`` and its per-layer terms, ``request_decode_cost``,
-``kv_bytes_per_token``).
+``kv_bytes_per_token``), and the speculative-decoding and chunked-prefill
+estimators (``spec_request_decode_cost``, ``expected_accepted_len``,
+``spec_decode_cost``, ``spec_break_even_accept``,
+``prefill_chunk_guidance``).
 
 Conventions, as the reference's: 1 MAC = 2 FLOPs, global FLOPs per pass.
 Each contraction site scales its FLOPs by its MOA strategy's
@@ -9,16 +12,20 @@ Each contraction site scales its FLOPs by its MOA strategy's
 tree and serial price at 1.0x, the LOA's ~6 ops an add inflate the total.
 The result is arithmetic on the config, device-free, and equals the
 reference's for the same config. What this leaves for later (the dry-run
-cell model, the spec-decode pricing) is ROADMAP Queue 1 items 8 and 14.
+cell model) is ROADMAP Queue 1 item 14.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import math
+from typing import Dict, Optional
 
 from repro_torch.configs.base import ModelConfig
 
-__all__ = ["forward_flops", "request_decode_cost", "kv_bytes_per_token"]
+__all__ = ["forward_flops", "request_decode_cost", "kv_bytes_per_token",
+           "spec_request_decode_cost", "expected_accepted_len",
+           "spec_decode_cost", "spec_break_even_accept",
+           "prefill_chunk_guidance"]
 
 
 def _attn_layer_flops(cfg: ModelConfig, T: float,
@@ -157,3 +164,138 @@ def request_decode_cost(cfg: ModelConfig, *, prompt_tokens: int,
         total += sum(forward_flops(cfg, tokens=1.0, s_attn=s_attn,
                                    decode=True).values())
     return total
+
+
+def spec_request_decode_cost(cfg: ModelConfig, *, k: int,
+                             tick_contexts) -> float:
+    """Strategy-priced FLOPs one speculatively served request spent on
+    target-side verify passes: at each verify tick it was active
+    (``tick_contexts``: its committed context then) ``k + 1`` tokens
+    attending on average the mid-window context. Rejected drafts are
+    compute spent, so a low accept rate costs more FLOPs per emitted
+    token; draft-model work is not attributed per request."""
+    total = 0.0
+    for ctx in tick_contexts:
+        s_attn = float(ctx) + (k + 2) / 2.0
+        total += sum(forward_flops(cfg, tokens=float(k + 1), s_attn=s_attn,
+                                   decode=True).values())
+    return total
+
+
+def _decode_step_flops(cfg: ModelConfig, *, tokens: float,
+                       s_attn: float) -> float:
+    return sum(forward_flops(cfg, tokens=tokens, s_attn=s_attn,
+                             decode=True).values())
+
+
+def prefill_chunk_guidance(cfg: ModelConfig, *, n_slots: int,
+                           max_len: int, mean_context: float,
+                           stall_budget_ticks: float = 4.0,
+                           block_size: int = 0) -> dict:
+    """Size ``ServeEngine(prefill_chunk_tokens=...)`` from the cost model:
+    the largest chunk (a multiple of the family's alignment and, paged, of
+    ``block_size``) whose prefill FLOPs stay within ``stall_budget_ticks``
+    batched decode ticks at ``mean_context``; at least one alignment unit.
+    Returns ``prefill_chunk_tokens``, ``alignment``, ``decode_tick_flops``,
+    ``chunk_prefill_flops`` and ``stall_ticks``."""
+    if n_slots < 1 or max_len < 1:
+        raise ValueError("n_slots and max_len must be >= 1")
+    if stall_budget_ticks <= 0:
+        raise ValueError("stall_budget_ticks must be > 0")
+    align = cfg.ssd_chunk if cfg.family in ("ssm", "hybrid") else 1
+    if block_size:
+        align = align * block_size // math.gcd(align, block_size)
+    tick_flops = _decode_step_flops(cfg, tokens=float(n_slots),
+                                    s_attn=mean_context)
+
+    def chunk_flops(c: float) -> float:
+        # a mid-prompt chunk attends on average ~max_len/2 prior positions
+        return sum(forward_flops(cfg, tokens=c, s_attn=max_len / 2.0,
+                                 decode=False).values())
+
+    best = align
+    c = align
+    while c + align <= max_len \
+            and chunk_flops(float(c + align)) \
+            <= stall_budget_ticks * tick_flops:
+        c += align
+        best = c
+    return {
+        "prefill_chunk_tokens": best,
+        "alignment": align,
+        "decode_tick_flops": tick_flops,
+        "chunk_prefill_flops": chunk_flops(float(best)),
+        "stall_ticks": chunk_flops(float(best)) / max(tick_flops, 1e-9),
+    }
+
+
+def expected_accepted_len(k: int, accept_prob: float) -> float:
+    """Expected accepted drafts a verify with i.i.d. per-position accept
+    probability ``a``: ``sum_{i=1..k} a**i``."""
+    if k < 0:
+        raise ValueError(f"k must be >= 0, got {k}")
+    a = min(max(accept_prob, 0.0), 1.0)
+    return float(sum(a ** i for i in range(1, k + 1)))
+
+
+def spec_decode_cost(cfg: ModelConfig, *, k: int, accept_prob: float,
+                     s_attn: float,
+                     draft_cfg: Optional[ModelConfig] = None
+                     ) -> Dict[str, float]:
+    """Acceptance-aware speculative-decoding estimate at context
+    ``s_attn``: a tick scores ``k + 1`` tokens in one target pass plus
+    ``k`` draft steps (none for a lookup drafter, ``draft_cfg=None``) and
+    emits ``expected_accepted_len + 1`` tokens. ``step_speedup`` counts
+    emitted tokens per serial target pass (a verify priced as one decode
+    step, a draft step at its FLOPs share of one); ``flops_overhead`` the
+    strategy-priced FLOPs per emitted token over plain decode (always at
+    least 1)."""
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    emitted = expected_accepted_len(k, accept_prob) + 1.0
+    target_step = _decode_step_flops(cfg, tokens=1.0, s_attn=s_attn)
+    verify = _decode_step_flops(cfg, tokens=float(k + 1), s_attn=s_attn)
+    if draft_cfg is None:
+        draft_step, draft_total = 0.0, 0.0
+    else:
+        draft_step = _decode_step_flops(draft_cfg, tokens=1.0,
+                                        s_attn=s_attn)
+        draft_total = k * draft_step
+    draft_ratio = draft_step / max(target_step, 1e-30)
+    tick_latency_steps = 1.0 + k * draft_ratio
+    return {
+        "k": float(k),
+        "accept_prob": float(accept_prob),
+        "expected_tokens_per_step": emitted,
+        "target_step_flops": target_step,
+        "verify_flops": verify,
+        "draft_flops": draft_total,
+        "flops_per_token_plain": target_step,
+        "flops_per_token_spec": (verify + draft_total) / emitted,
+        "flops_overhead": (verify + draft_total) / (emitted * target_step),
+        "step_speedup": emitted / tick_latency_steps,
+    }
+
+
+def spec_break_even_accept(cfg: ModelConfig, *, k: int, s_attn: float,
+                           draft_cfg: Optional[ModelConfig] = None,
+                           tol: float = 1e-3) -> float:
+    """Smallest per-position accept probability at which speculation wins
+    (``step_speedup > 1``), by bisection; 1.0 means it never pays at this
+    ``k`` and draft cost."""
+    def speedup(a: float) -> float:
+        return spec_decode_cost(cfg, k=k, accept_prob=a, s_attn=s_attn,
+                                draft_cfg=draft_cfg)["step_speedup"]
+
+    if speedup(1.0) <= 1.0:
+        return 1.0
+    lo, hi = 0.0, 1.0
+    if speedup(lo) > 1.0:
+        return 0.0
+    while hi - lo > tol:
+        mid = 0.5 * (lo + hi)
+        if speedup(mid) > 1.0:
+            hi = mid
+        else:
+            lo = mid
+    return hi

@@ -6,21 +6,34 @@ over a paged KV pool (``--paged``), driven by a synthetic Poisson workload
       --param-dtype bfloat16 --requests 8 --slots 4
   python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b \
       --param-dtype bfloat16 [--paged]
+  python -m repro_torch.launch.serve --arch llama3-8b --paged \
+      --param-dtype bfloat16 --spec-decode --drafter oracle --spec-k 3
+  python -m repro_torch.launch.serve --arch llama3-8b --paged \
+      --param-dtype bfloat16 --scheduling slo --prefill-chunk 256 \
+      --prompt-len 1024 --gen-len 64 --requests 12
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
-      --smoke --paged --device cpu
+      --smoke --paged --device cpu [--spec-decode] [--prefill-chunk 16] \
+      [--scheduling slo --dt 1e-3]
 
 Runs on the GPU unless ``--device cpu`` is given. ``--layers`` cuts the
 depth (``n_layers``) and nothing else. On the GPU the engine replays CUDA
 graphs of its decode and padded full-prompt prefill (captured at warmup, or
 at the first tick of each bucket with ``--no-warmup``); ``--eager`` runs
 every tick eagerly instead. Each request's line and the aggregate give
-its strategy-priced FLOPs (``moa_flops``).
+its strategy-priced FLOPs (``moa_flops``). ``--spec-decode`` drafts
+``--spec-k`` tokens a tick with ``--drafter`` and verifies them in one pass
+(a ``[serve] spec:`` line); ``--prefill-chunk`` prefills longer prompts in
+chunks; ``--scheduling slo`` swaps the workload for a deadline-carrying
+bursty one (``--deadline``) and preempts (a ``[serve] slo`` line). ``--dt``
+runs the engine on a :class:`repro_torch.serve.StepClock` of that many
+virtual seconds a clock read (0, the default: the wall clock).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import time
 
 import torch
 
@@ -28,7 +41,9 @@ from repro_torch.configs.registry import get_config, smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.api import build_model
-from repro_torch.serve import GREEDY, Sampler, ServeEngine, poisson_workload
+from repro_torch.serve import (GREEDY, Sampler, ServeEngine, StepClock,
+                               bursty_workload, poisson_workload,
+                               resolve_drafter)
 
 __all__ = ["main"]
 
@@ -55,21 +70,42 @@ def _run_engine(args):
     device = resolve_device(args.device)
     cfg, model = _build(args)
     params = model.init(seed=args.seed, device=device)
-    max_len = args.max_len or (args.prompt_len + args.gen_len + 1) * 2
+    spec_margin = args.spec_k if args.spec_decode else 0
+    max_len = args.max_len \
+        or (args.prompt_len + args.gen_len + spec_margin + 1) * 2
     if args.paged and max_len % args.block_size:
         max_len += args.block_size - max_len % args.block_size
+    drafter = resolve_drafter(args.drafter, args.spec_k) \
+        if args.spec_decode else None
+    chunk = args.prefill_chunk or None
+    if chunk is not None and args.paged and chunk % args.block_size:
+        raise SystemExit(f"--prefill-chunk {chunk} must be a multiple of "
+                         f"--block-size {args.block_size}")
     engine = ServeEngine(
         model, params, n_slots=args.slots, max_len=max_len,
         paged=args.paged, block_size=args.block_size,
         n_blocks=args.blocks or None,
         generator=torch.Generator(device=device).manual_seed(args.seed),
+        drafter=drafter, prefill_chunk_tokens=chunk,
+        scheduling=args.scheduling,
+        clock=StepClock(dt=args.dt) if args.dt else time.monotonic,
         attn_backend=args.attn_backend or None, device=device,
         cuda_graphs=False if args.eager else None)
-    requests = poisson_workload(
-        n_requests=args.requests, vocab=cfg.vocab, rate_rps=args.rate,
-        prompt_len_range=(min(4, args.prompt_len), args.prompt_len),
-        gen_len_range=(min(2, args.gen_len), args.gen_len),
-        sampler=_sampler(args), seed=args.seed)
+    if args.scheduling == "slo":
+        requests = bursty_workload(
+            vocab=cfg.vocab, n_long=args.slots,
+            n_burst=max(args.requests - args.slots, 1),
+            long_prompt_len=args.prompt_len, long_gen_len=args.gen_len,
+            burst_prompt_len=max(args.prompt_len // 4, 1),
+            burst_gen_len=max(args.gen_len // 4, 1),
+            burst_deadline_s=args.deadline, sampler=_sampler(args),
+            seed=args.seed)
+    else:
+        requests = poisson_workload(
+            n_requests=args.requests, vocab=cfg.vocab, rate_rps=args.rate,
+            prompt_len_range=(min(4, args.prompt_len), args.prompt_len),
+            gen_len_range=(min(2, args.gen_len), args.gen_len),
+            sampler=_sampler(args), seed=args.seed)
     ops.reset_launch_counts()
     results, report = engine.run(requests, warmup=not args.no_warmup)
     print(f"[serve] arch={cfg.name} layers={cfg.n_layers} "
@@ -97,9 +133,26 @@ def _run_engine(args):
               f"replays={gr['replays']}, eager first runs="
               f"{gr['eager_runs']}, launches/replay="
               f"{gr['launches_per_replay']}")
+    if args.spec_decode:
+        sp = report["spec"]
+        print(f"[serve] spec: drafter={args.drafter} k={sp['k']}, "
+              f"{sp['tokens_per_step']:.2f} tokens/step "
+              f"(plain decode = 1.00), accept rate "
+              f"{sp['accept_rate']:.2f}, accepted hist "
+              f"{sp['accepted_hist']}, draft steps {sp['draft_steps']}")
     pg = report.get("paged")
     if pg is not None:
         _print_paged(pg)
+    if "slo" in report:
+        sl = report["slo"]
+        print(f"[serve] slo ({report['scheduling']}): attainment "
+              f"{sl['deadline_met']}/{sl['deadline_requests']} "
+              f"({sl['attainment']:.2f}), goodput "
+              f"{sl['goodput_tok_per_s']:.1f} tok/s, deadline ttft "
+              f"p99={sl['deadline_ttft_ms']['p99']:.0f}ms, "
+              f"preemptions={sl['preemptions']} "
+              f"(spills={sl['spills']}, revivals={sl['revivals']}), "
+              f"chunked ticks={sl['prefill_chunk_count']}")
     print(f"[serve] kernel launches (warmup included): "
           f"{ops.launch_counts()}")
 
@@ -165,6 +218,32 @@ def main(argv=None):
     ap.add_argument("--no-warmup", action="store_true",
                     help="skip the unmeasured warmup tick (one-time costs "
                          "then land in wall_s instead of compile_s)")
+    ap.add_argument("--spec-decode", action="store_true",
+                    help="speculative decoding: draft k tokens a tick, "
+                         "verify them in one pass")
+    ap.add_argument("--drafter", default="ngram?n=3",
+                    help="[--spec-decode] drafter spec: ngram[?n=N] "
+                         "(prompt lookup) or oracle[?accept=P] (the target "
+                         "drafting for itself, a forced accept rate)")
+    ap.add_argument("--spec-k", type=int, default=3,
+                    help="[--spec-decode] draft tokens per verify window")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="prefill prompts longer than this in chunks of "
+                         "this many tokens, interleaved with decode ticks "
+                         "(0 = one shot; see repro_torch.launch.costing."
+                         "prefill_chunk_guidance)")
+    ap.add_argument("--scheduling", choices=["fifo", "slo"], default="fifo",
+                    help="admission policy: fifo (arrival order) or slo "
+                         "(priority + earliest TTFT deadline, with "
+                         "preemption). slo swaps the workload for a "
+                         "deadline-carrying bursty one")
+    ap.add_argument("--deadline", type=float, default=0.25,
+                    help="[--scheduling slo] burst requests' TTFT deadline, "
+                         "seconds after arrival")
+    ap.add_argument("--dt", type=float, default=0.0,
+                    help="run the engine on a StepClock of this many "
+                         "virtual seconds a clock read (deterministic "
+                         "schedules); 0 = the wall clock")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature (0 = greedy)")
     ap.add_argument("--greedy", action="store_true",

@@ -1,6 +1,6 @@
 """GQA attention for the served path — the port of the pieces of
-``repro/layers/attention.py`` that prefill, dense-slot decode and paged
-decode use.
+``repro/layers/attention.py`` that prefill, dense-slot and paged decode,
+and the speculative verify of both layouts use.
 
 Layouts: q ``(B, Sq, H, D)``, k/v ``(B, Skv, Hk, D)``; GQA groups
 ``G = H // Hk`` stay a separate axis. Dense-slot caches are ``(B, max_len,
@@ -8,16 +8,21 @@ Hk, D)`` per layer; paged pools are ``(n_phys_blocks, block_size, Hk, D)``
 with int32 ``(B, n_blocks)`` tables; physical block 0 is the engine's
 write-trash page.
 
-Unlike the reference, both decode steps write the new K/V into the cache
+Unlike the reference, decode and verify write the new K/V into the cache
 **in place** (the cache tensors are the engine's; returning a fresh copy
 per layer per step would double the KV traffic). Where the reference's
 scatter is dropped or its target repeats, the port pins what JAX does:
 
-* a dense-slot write at a cursor ``>= max_len`` (an idle slot's cursor
-  keeps advancing) is dropped, as JAX drops an out-of-range scatter;
+* a dense-slot write at a position ``>= max_len`` (an idle slot's cursor
+  keeps advancing; a verify window near the end of a slot) is dropped, as
+  JAX drops an out-of-range scatter;
 * writes that repeat a target (idle slots on the paged trash page) all
   carry the last one's value, the sequential scatter's outcome, so no
   race between them can matter on the card.
+
+Every layer of a step writes at the same places: the targets are found
+once a step (:func:`paged_write_targets`, :func:`verify_write_targets`,
+:func:`paged_verify_targets`) and handed to each layer.
 """
 
 from __future__ import annotations
@@ -34,10 +39,11 @@ from repro_torch.layers.rope import apply_rope
 
 __all__ = [
     "ATTN_BACKENDS", "attention_decode", "attention_decode_paged",
-    "flash_attention", "full_attention", "init_kv_cache", "init_kv_pool",
-    "gather_paged_kv", "last_of_equal", "paged_write_targets",
-    "prefill_attention", "quantize_kv",
-    "dequantize_kv", "resolve_attn_backend",
+    "attention_verify", "attention_verify_paged", "flash_attention",
+    "full_attention", "init_kv_cache", "init_kv_pool", "gather_paged_kv",
+    "last_of_equal", "paged_verify_targets", "paged_write_targets",
+    "prefill_attention", "quantize_kv", "dequantize_kv",
+    "resolve_attn_backend", "verify_write_targets",
 ]
 
 #: resolved ``attn_backend`` values: plain PyTorch or the CUDA kernels
@@ -365,6 +371,149 @@ def attention_decode_paged(params: Params, x, pool: Params, block_tables,
                                            live_blocks=live_blocks)
         o = full_attention(q, k_cache, v_cache, causal=False, kv_len=cur + 1)
     o = o.reshape(B, 1, n_heads * head_dim)
+    y = _moa_dot(o, params["wo"].to(compute_dtype), strategy=strategy,
+                 compute_dtype=compute_dtype)
+    return y, pool
+
+
+# ---------------------------------------------------------------------------
+# speculative verify: T tokens a slot in one call
+# ---------------------------------------------------------------------------
+
+
+def _verify_positions(pos, batch: int, n_tokens: int):
+    """Per-slot query positions ``(B, T)`` of a T-token verify window
+    starting at each slot's cursor (a 0-d ``pos`` broadcasts)."""
+    start = pos.reshape(1).expand(batch) if pos.dim() == 0 else pos
+    return start.to(torch.int32)[:, None] + torch.arange(
+        n_tokens, dtype=torch.int32, device=pos.device)[None, :]
+
+
+def verify_write_targets(pos, batch: int, n_tokens: int, max_len: int):
+    """Where a dense-slot verify of ``batch`` slots writes row ``t`` of slot
+    ``b``: ``(pos_q, at, src, live)``. ``pos_q (B, T)`` are the window's
+    positions (a 0-d ``pos`` broadcasts); a row at ``>= max_len`` is
+    dropped, as JAX drops an out-of-range scatter. PyTorch would raise, so
+    such a row is clamped onto ``max_len - 1`` and carries what that
+    position gets anyway: the slot's last in-range row (``src``), or, where
+    no row of the slot is in range (``live`` false), the cache's own value.
+    Every write to a repeated target then carries one value."""
+    pos_q = _verify_positions(pos, batch, n_tokens)
+    at = torch.clamp(pos_q, max=max_len - 1).long()
+    n_ok = torch.clamp(max_len - pos_q[:, 0], min=0, max=n_tokens)
+    t = torch.arange(n_tokens, device=pos.device)
+    src = torch.minimum(t[None, :], torch.clamp(n_ok - 1, min=0)[:, None])
+    return pos_q, at, src, n_ok > 0
+
+
+def _verify_write(buf: torch.Tensor, new: torch.Tensor, targets) -> None:
+    """Rows ``new (B, T, ...)`` into ``buf (B, max_len, ...)`` at the
+    :func:`verify_write_targets`, in place."""
+    _, at, src, live = targets
+    rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
+    val = new[rows, src].to(buf.dtype)
+    live = live.reshape((-1,) + (1,) * (val.dim() - 1))
+    buf[rows, at] = torch.where(live, val, buf[rows, at])
+
+
+def _kv_rows(k_new, v_new, quantized: bool) -> dict:
+    """The new K/V rows as the cache stores them (int8 with scales)."""
+    if not quantized:
+        return {"k": k_new, "v": v_new}
+    kq, ks = quantize_kv(k_new)
+    vq, vs = quantize_kv(v_new)
+    return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+
+
+def attention_verify(params: Params, x, cache: Params, pos, targets, *,
+                     n_heads: int, n_kv_heads: int, head_dim: int,
+                     rope_theta: float = 10000.0, use_rope: bool = True,
+                     compute_dtype=torch.bfloat16, strategy=None
+                     ) -> Tuple[torch.Tensor, Params]:
+    """Speculative verify against a dense-slot cache: ``x (B, T, d)`` holds
+    each slot's pending token and its draft window, at positions ``pos[b]
+    .. pos[b] + T - 1``. All T K/V rows are written in place (tentatively:
+    the engine's commit decides how many survive by the cursor), at
+    ``targets`` (:func:`verify_write_targets`); each query attends causally
+    at its own position through :func:`full_attention`, plain PyTorch as
+    the reference's jnp is."""
+    B, T, _ = x.shape
+    q, k_new, v_new = _project_qkv(
+        params, x, n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim,
+        compute_dtype=compute_dtype, strategy=strategy)
+    pos_q = targets[0]
+    if use_rope:
+        q = apply_rope(q, pos_q, theta=rope_theta)
+        k_new = apply_rope(k_new, pos_q, theta=rope_theta)
+    quantized = "k_scale" in cache
+    for name, new in _kv_rows(k_new, v_new, quantized).items():
+        _verify_write(cache[name], new, targets)
+    if quantized:
+        k_cache = dequantize_kv(cache["k"], cache["k_scale"], compute_dtype)
+        v_cache = dequantize_kv(cache["v"], cache["v_scale"], compute_dtype)
+    else:
+        k_cache, v_cache = cache["k"], cache["v"]
+    o = full_attention(q, k_cache, v_cache, causal=True, positions_q=pos_q)
+    o = o.reshape(B, T, n_heads * head_dim)
+    y = _moa_dot(o, params["wo"].to(compute_dtype), strategy=strategy,
+                 compute_dtype=compute_dtype)
+    return y, cache
+
+
+def paged_verify_targets(block_tables, pos, n_tokens: int, block_size: int):
+    """Where a paged verify writes: ``(pos_q, blk, off, last)``, the
+    window's positions ``(B, T)`` and, flattened over ``(b, t)``, the
+    physical page and offset of each row and :func:`last_of_equal` of
+    them. A position past the table (an idle slot's window) goes to the
+    trash page 0, as the reference's. Idle slots' rows repeat targets on
+    the trash page; every repeat carries the last write's value."""
+    B = block_tables.shape[0]
+    pos_q = _verify_positions(pos, B, n_tokens)
+    logical = (pos_q // block_size).long()
+    n_logical = block_tables.shape[1]
+    rows = torch.arange(B, device=pos.device)[:, None]
+    blk = block_tables[rows, torch.clamp(logical, max=n_logical - 1)].long()
+    blk = torch.where(logical < n_logical, blk, 0).reshape(-1)
+    off = (pos_q % block_size).long().reshape(-1)
+    return pos_q, blk, off, last_of_equal(blk, off)
+
+
+def attention_verify_paged(params: Params, x, pool: Params, block_tables,
+                           pos, targets, *, n_heads: int, n_kv_heads: int,
+                           head_dim: int, rope_theta: float = 10000.0,
+                           use_rope: bool = True,
+                           compute_dtype=torch.bfloat16, strategy=None,
+                           backend: str = "torch",
+                           live_blocks: Optional[int] = None,
+                           ) -> Tuple[torch.Tensor, Params]:
+    """Paged twin of :func:`attention_verify`: the T tentative rows of a
+    slot scatter, in place, through its block table (``targets``:
+    :func:`paged_verify_targets`; the engine's admission reserves ``k``
+    rows of private pages past every request's worst case). The score
+    reduction is the paged-attention kernel at ``T`` queries a slot from
+    ``start = pos`` on (``backend="kernel"``), or the gathered view and
+    :func:`full_attention`. ``live_blocks`` must cover ``max(pos) + T``."""
+    B, T, _ = x.shape
+    q, k_new, v_new = _project_qkv(
+        params, x, n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim,
+        compute_dtype=compute_dtype, strategy=strategy)
+    pos_q, blk, off, last = targets
+    if use_rope:
+        q = apply_rope(q, pos_q, theta=rope_theta)
+        k_new = apply_rope(k_new, pos_q, theta=rope_theta)
+    for name, new in _kv_rows(k_new, v_new, "k_scale" in pool).items():
+        rows = new.reshape((B * T,) + tuple(new.shape[2:]))
+        pool[name][blk, off] = rows[last].to(pool[name].dtype)
+    if resolve_attn_backend(backend, x.device) == "kernel":
+        o = _paged_attention_fused(q, pool, block_tables, pos_q[:, 0],
+                                   compute_dtype=compute_dtype,
+                                   live_blocks=live_blocks)
+    else:
+        k_cache, v_cache = gather_paged_kv(pool, block_tables, compute_dtype,
+                                           live_blocks=live_blocks)
+        o = full_attention(q, k_cache, v_cache, causal=True,
+                           positions_q=pos_q)
+    o = o.reshape(B, T, n_heads * head_dim)
     y = _moa_dot(o, params["wo"].to(compute_dtype), strategy=strategy,
                  compute_dtype=compute_dtype)
     return y, pool

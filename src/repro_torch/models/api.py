@@ -196,6 +196,62 @@ class Model(nn.Module):
         return self._mod.paged_decode_step(params, cache, tokens, self.cfg,
                                            live_blocks=live_blocks)
 
+    # ---- chunked prefill --------------------------------------------------
+    @property
+    def supports_chunked_prefill(self) -> bool:
+        """Whether a prompt can be prefilled in chunks interleaved with
+        decode ticks, equal to the one-shot prefill: the attention families
+        chunk through :meth:`prefill_suffix` (dense always, an MoE only
+        dropless)."""
+        if self.cfg.family == "moe":
+            return self.supports_padded_prefill
+        return self.cfg.family == "dense"
+
+    @property
+    def prefill_chunk_alignment(self) -> int:
+        """Chunk boundaries must be multiples of this many tokens: 1 for
+        the attention families (the paged engine still aligns chunks to
+        ``block_size``)."""
+        return 1
+
+    # ---- speculative decoding ---------------------------------------------
+    @property
+    def supports_spec_decode(self) -> bool:
+        """Whether a T-token verify is exact: the dense family always, an
+        MoE only in the dropless regime (below it, expert capacity couples
+        the draft window's tokens)."""
+        if self.cfg.family == "moe":
+            return self.supports_padded_prefill
+        return self.cfg.family == "dense"
+
+    def _check_spec(self) -> None:
+        if not self.supports_spec_decode:
+            raise ValueError(
+                f"family {self.cfg.family!r} (cfg {self.cfg.name!r}) has no "
+                "exact multi-token verify (capacity-limited MoE couples the "
+                "draft window through expert capacity)")
+
+    def verify_step(self, params: Params, cache, tokens):
+        """Score ``tokens (B, T)`` in one call against the dense-slot cache
+        (column 0 each slot's pending token, then its draft): ``(logits
+        (B, T, V), cache, aux)``, the T rows written tentatively in place,
+        ``pos`` still at the pre-verify cursor."""
+        self._check_spec()
+        return self._mod.verify_step(params, cache, tokens, self.cfg)
+
+    def paged_verify_step(self, params: Params, cache, tokens, *,
+                          live_blocks: Optional[int] = None):
+        """:meth:`verify_step` against the paged cache; ``live_blocks``
+        must cover the deepest cursor plus the window."""
+        self._check_spec()
+        return self._mod.paged_verify_step(params, cache, tokens, self.cfg,
+                                           live_blocks=live_blocks)
+
+    def commit_verified(self, cache, keep, aux=None):
+        """Advance each slot's ``pos`` by ``keep (B,)`` (accepted drafts +
+        1; 0 for idle slots), in place."""
+        return self._mod.commit_verified(cache, keep, aux, self.cfg)
+
 
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.family not in _FAMILIES:

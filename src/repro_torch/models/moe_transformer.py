@@ -2,8 +2,8 @@
 ``repro/models/moe_transformer.py``.
 
 The dense skeleton with the MLP replaced by the expert layer
-(:func:`repro_torch.layers.moe.moe_forward`): prefill, suffix prefill and
-both decode steps are :mod:`repro_torch.models.transformer`'s with
+(:func:`repro_torch.layers.moe.moe_forward`): prefill, suffix prefill,
+both decode steps and both verify steps are :mod:`repro_torch.models.transformer`'s with
 :func:`moe_mlp` in the MLP's place, over the same caches. ``forward`` also
 returns the router's load-balance loss, averaged over the layers.
 
@@ -27,10 +27,12 @@ from repro_torch.models import transformer as dense
 
 __all__ = ["init_params", "moe_mlp", "forward", "init_cache",
            "init_paged_cache", "prefill", "prefill_suffix", "decode_step",
-           "paged_decode_step"]
+           "paged_decode_step", "verify_step", "paged_verify_step",
+           "commit_verified"]
 
 init_cache = dense.init_cache
 init_paged_cache = dense.init_paged_cache
+commit_verified = dense.commit_verified
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -115,4 +117,20 @@ def paged_decode_step(params: Params, cache: Params, tokens,
     """Paged decode step, in place; the MoE layers are untouched, only the
     attention's KV goes through the block tables."""
     return dense.paged_decode_step(params, cache, tokens, cfg,
+                                   live_blocks=live_blocks, mlp=moe_mlp)
+
+
+def verify_step(params: Params, cache: Params, tokens, cfg: ModelConfig):
+    """Dense-slot verify of ``tokens (B, T)``; as :func:`repro_torch.models.
+    transformer.verify_step`. Routing a ``(B, T)`` window through the
+    experts in one call equals T decode steps only in the dropless regime
+    (``Model.supports_spec_decode`` gates it)."""
+    return dense.verify_step(params, cache, tokens, cfg, mlp=moe_mlp)
+
+
+def paged_verify_step(params: Params, cache: Params, tokens,
+                      cfg: ModelConfig, *, live_blocks: Optional[int] = None):
+    """Paged verify; as :func:`repro_torch.models.transformer.
+    paged_verify_step`, gated like :func:`verify_step`."""
+    return dense.paged_verify_step(params, cache, tokens, cfg,
                                    live_blocks=live_blocks, mlp=moe_mlp)

@@ -14,7 +14,9 @@ in plain PyTorch (the reference's jnp ``full_attention``); every projection
 runs ``dot_moa`` through the configured MOA strategy.
 
 Both decode steps update the cache **in place** (KV rows or pool pages, and
-the ``pos`` cursors) and return it, where the reference returns a new tree.
+the ``pos`` cursors) and return it, where the reference returns a new tree;
+so do the speculative verify (its tentative K/V rows) and
+:func:`commit_verified` (the cursors).
 
 The serving functions take the layer's MLP as ``mlp(cfg, layer, h) -> h``
 (default: the residual SwiGLU), so the MoE family
@@ -39,7 +41,8 @@ from repro_torch.layers.rope import apply_rope
 __all__ = [
     "init_params", "layer", "embed_inputs", "forward", "init_cache",
     "init_paged_cache", "prefill", "prefill_suffix", "decode_step",
-    "paged_decode_step",
+    "paged_decode_step", "verify_impl", "verify_step", "paged_verify_step",
+    "commit_verified",
 ]
 
 #: ``mlp(cfg, layer params, h) -> h + mlp(rms(h))``
@@ -352,3 +355,84 @@ def paged_decode_step(params: Params, cache: Params, tokens,
     logits = unembed(params["embed"], h, compute_dtype=cfg.cdtype)
     pos.add_(1)
     return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Speculative verify
+# ---------------------------------------------------------------------------
+
+
+def verify_impl(params: Params, cache: Params, tokens, cfg: ModelConfig, *,
+                paged: bool, mlp: MLP = _mlp,
+                live_blocks: Optional[int] = None):
+    """The verify of the dense and MoE families (which differ only in
+    ``mlp``); ``paged`` picks the KV layout (``live_blocks`` bounds the
+    paged walk, as in :func:`paged_decode_step`). The write targets are
+    found once for every layer. See :func:`verify_step`."""
+    pos = cache["pos"]
+    B, T = tokens.shape
+    kv = cache["layers"]
+    if paged:
+        tables = cache["block_tables"]
+        targets = attn_lib.paged_verify_targets(tables, pos, T,
+                                                kv["k"].shape[2])
+    else:
+        targets = attn_lib.verify_write_targets(pos, B, T, kv["k"].shape[2])
+    h = embed(params["embed"], tokens, compute_dtype=cfg.cdtype)
+    for i in range(cfg.n_layers):
+        lyr = layer(params["layers"], i)
+        hn = rms_norm(lyr["attn_norm"], h)
+        common = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                      head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+                      compute_dtype=cfg.cdtype,
+                      strategy=cfg.moa_for("attention"))
+        if paged:
+            a, _ = attn_lib.attention_verify_paged(
+                lyr["attn"], hn, layer(kv, i), tables, pos, targets,
+                backend=cfg.attn_backend, live_blocks=live_blocks, **common)
+        else:
+            a, _ = attn_lib.attention_verify(lyr["attn"], hn, layer(kv, i),
+                                             pos, targets, **common)
+        h = mlp(cfg, lyr, h + a)
+    h = rms_norm(params["final_norm"], h)
+    logits = unembed(params["embed"], h, compute_dtype=cfg.cdtype)
+    return logits, cache, None
+
+
+def verify_step(params: Params, cache: Params, tokens, cfg: ModelConfig, *,
+                mlp: MLP = _mlp):
+    """Score ``tokens (B, T)`` a slot in one call against the dense-slot
+    cache (speculative verify): column 0 is each slot's pending token,
+    columns ``1..T-1`` its draft. All T K/V rows are written in place,
+    tentatively, and logits come back at every position: ``[:, i]`` is the
+    ``i``-th of T sequential :func:`decode_step` calls, up to the rounding
+    of a ``T``-row product. ``pos`` stays at the pre-verify cursor;
+    :func:`commit_verified` advances it, which is the whole rollback
+    (rejected rows are masked garbage until overwritten). Returns
+    ``(logits (B, T, V), cache, None)``."""
+    return verify_impl(params, cache, tokens, cfg, paged=False, mlp=mlp)
+
+
+def paged_verify_step(params: Params, cache: Params, tokens,
+                      cfg: ModelConfig, *, live_blocks: Optional[int] = None,
+                      mlp: MLP = _mlp):
+    """Paged twin of :func:`verify_step`: the tentative rows scatter
+    through the block tables; ``live_blocks`` must cover the deepest
+    cursor plus the window."""
+    return verify_impl(params, cache, tokens, cfg, paged=True, mlp=mlp,
+                       live_blocks=live_blocks)
+
+
+def commit_verified(cache: Params, keep, aux, cfg: ModelConfig) -> Params:
+    """Advance each slot's cursor past its accepted tokens, in place:
+    ``keep (B,)`` is accepted drafts + 1 for an active slot, 0 for an idle
+    one. ``aux`` is unused: the cache is position-addressed, so the cursor
+    is the rollback. A lockstep batch's 0-d cursor becomes a ``(B,)`` one,
+    as the reference's broadcast makes it."""
+    del aux, cfg
+    pos = cache["pos"]
+    if pos.dim() == 0:
+        cache["pos"] = pos + keep.to(pos.dtype)
+    else:
+        pos.add_(keep.to(pos.dtype))
+    return cache

@@ -1,14 +1,17 @@
-"""Continuous-batching engine — the port of ``repro/serve/engine.py`` in
-its FIFO mode, over either of the reference's two cache layouts.
+"""Continuous-batching engine — the port of ``repro/serve/engine.py``, over
+either of the reference's two cache layouts, with its speculative
+decoding, chunked prefill and SLO scheduling.
 
 One engine tick = (admit arrived requests into free slots, each through a
-prefill whose K/V lands in the slot's cache) + (one batched decode step
-over all slots, idle ones fed token 0).
+prefill whose K/V lands in the slot's cache) + (one prefill chunk, when a
+prompt is being prefilled in chunks) + (one batched decode step over all
+slots, idle ones fed token 0, or one speculative verify).
 
 * **dense-slot** (``paged=False``, the reference's default): every slot
   owns a ``max_len`` region of the cache; an admission's prefill is copied
   into the slot's row (:func:`_write_slot`), and an idle slot's row and
-  cursor stay as its last request left them, its cursor still advancing.
+  cursor stay as its last request left them, its cursor still advancing
+  in plain decode.
 * **paged** (``paged=True``): KV lives in a shared pool of fixed-size
   physical pages mapped through per-slot block tables
   (:mod:`repro_torch.serve.kv_pool`): requests sharing a prompt prefix
@@ -16,11 +19,26 @@ over all slots, idle ones fed token 0).
   write), admission needs a free slot **and** enough free blocks, and on
   the dense family a prefix-cache hit skips the shared blocks' prefill
   compute (suffix prefill).
+* **speculative** (``drafter=``, :mod:`repro_torch.serve.spec`): each tick
+  drafts ``k`` tokens a slot, scores them in one ``(n_slots, k + 1)``
+  verify (the paged layout's on the paged-attention kernel at ``T = k +
+  1``), and commits each slot's accepted prefix by advancing its cursor;
+  rejection is the cursor left behind.
+* **chunked prefill** (``prefill_chunk_tokens=``): a longer prompt is
+  prefilled one chunk a tick through ``prefill_suffix`` (chunk 0 behind an
+  empty prefix), interleaved with decode ticks; the paged slot's table row
+  stays all-trash until its last chunk.
+* **SLO scheduling** (``scheduling="slo"``): admission by (priority,
+  earliest deadline), and a running request whose deadline is later than
+  a waiting one's is preempted: its state is spilled (dense-slot: its row,
+  :func:`_read_slot`; paged: its cursor, the pages staying pinned) and
+  revived bit for bit later.
 
-The families gate as the reference's do. Right-padded (bucketed) prefill
-only where ``Model.supports_padded_prefill``: an MoE below the dropless
-regime prefills each prompt at its exact length, since pad tokens would
-compete for expert capacity. Suffix prefill is the dense family's; a
+The families gate as the reference's do. Right-padded (bucketed) prefill,
+speculative verify and chunked prefill only where exact: a capacity-limited
+MoE prefills each prompt at its exact length and refuses a drafter and
+chunks, since pad tokens, draft windows and chunk boundaries would compete
+for expert capacity. Suffix prefill is the dense family's; a
 capacity-limited MoE also keeps its prompt pages out of the prefix trie.
 
 The host logic is the reference's, line for line, and so is every device
@@ -29,23 +47,26 @@ beside the live ones, so their cursors and caches must evolve as the
 reference's do. The cache tensors are updated **in place**. The
 reference's compile cache becomes CUDA graphs
 (:mod:`repro_torch.serve.graphs`, on by default for a CUDA engine): the
-paged decode is captured once per live-block bucket, the dense-slot decode
-once, and the padded full-prompt prefill with its write into the cache
-once per prompt bucket; each tick replays them. The prefix-hit (suffix)
-prefill and the exact-length prefill run eagerly. ``cuda_graphs=False``
-runs every tick eagerly, as the yardstick: the captured engine runs the
-same kernels in the same order on the same buffers. On the GPU every
-projection runs the ``dot_moa`` kernel (an MoE's expert projections one
-batched launch each), the MoE's top-k combine ``moa_reduce``, prefill's
-softmax·V the flash-attention kernel and paged decode's the
-paged-attention kernel; ``attn_backend="torch"`` (with a ``backend=torch``
-MOA spec) runs the plain PyTorch versions instead. Every finished request
-is priced (``metrics.moa_flops``) by :func:`repro_torch.launch.costing.
-request_decode_cost`, as the reference prices it.
+paged decode and verify are captured once per live-block bucket, the
+dense-slot decode and verify once, and the padded full-prompt prefill with
+its write into the cache once per prompt bucket; each tick replays them.
+The acceptance and the commit run after a verify's replay. The prefix-hit
+(suffix) prefill, the exact-length prefill, the prefill chunks, the SLO
+spills and revives and a drafter's own model calls run eagerly.
+``cuda_graphs=False`` runs every tick eagerly, as the yardstick: the
+captured engine runs the same kernels in the same order on the same
+buffers. On the GPU every projection runs the ``dot_moa`` kernel (an MoE's
+expert projections one batched launch each), the MoE's top-k combine
+``moa_reduce``, a full-prompt prefill's softmax·V the flash-attention
+kernel and paged decode and verify the paged-attention kernel;
+``attn_backend="torch"`` (with a ``backend=torch`` MOA spec) runs the
+plain PyTorch versions instead. Every finished request is priced
+(``metrics.moa_flops``) by :func:`repro_torch.launch.costing.
+request_decode_cost`, or, speculative, by ``spec_request_decode_cost``
+from the verify ticks it sat through, as the reference prices it.
 
-Not ported yet, and refused with ``NotImplementedError``: speculative
-decoding, chunked prefill, SLO scheduling, mesh serving and weight
-reloads (ROADMAP Queue 1 item 8).
+Not ported yet, and refused with ``NotImplementedError``: mesh serving and
+weight reloads (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -60,16 +81,19 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.interop import tree_leaves
 from repro_torch.kernels import _build
-from repro_torch.launch.costing import request_decode_cost
+from repro_torch.launch.costing import (request_decode_cost,
+                                        spec_request_decode_cost)
 from repro_torch.layers.attention import (dequantize_kv, last_of_equal,
                                           resolve_attn_backend)
 from repro_torch.models.api import Model, build_model
 from repro_torch.serve import graphs
 from repro_torch.serve.kv_pool import TRASH_BLOCK, BlockPool, blocks_needed
-from repro_torch.serve.metrics import RequestMetrics, aggregate, paged_report
+from repro_torch.serve.metrics import (RequestMetrics, aggregate,
+                                       paged_report, slo_report, spec_report)
 from repro_torch.serve.request import FinishReason, Request, RequestResult
 from repro_torch.serve.sampling import sample_batch
 from repro_torch.serve.scheduler import SlotScheduler
+from repro_torch.serve.spec import Drafter, verify_accept
 
 __all__ = ["ServeEngine"]
 
@@ -90,6 +114,32 @@ class _Inflight:
     generated: List[int]
     next_token: int
     metrics: RequestMetrics
+    #: spec mode: committed context length at each verify tick this
+    #: request was active (feeds the acceptance-aware pricing)
+    tick_contexts: List[int] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class _Prefilling:
+    """Host-side state of one request mid-chunked-prefill.
+
+    The slot is scheduler-active but not yet in ``_inflight``: no token
+    has been emitted. Paged: the block table is planned up front but the
+    slot's installed row stays all-trash (pos 0) until the final chunk,
+    so interleaved decode ticks write only to the trash page. Dense-slot:
+    per-chunk suffix K/V accumulates in ``kv_parts`` and the final chunk
+    writes the whole slot row at once.
+    """
+
+    request: Request
+    slot: int
+    admitted_s: float
+    done: int                 # prompt tokens already consumed
+    chunks: int = 0
+    kv_parts: List = dataclasses.field(default_factory=list)
+    plan: Optional[object] = None
+    table: Optional["_SlotTable"] = None
+    cached_tokens: int = 0
 
 
 @dataclasses.dataclass
@@ -199,6 +249,20 @@ def _clear_slot(cache, slot: int) -> None:
     cache["pos"][slot] = 0
 
 
+def _read_paged_slot(cache, slot: int):
+    """Snapshot a paged slot's per-slot state, its cursor (the dense and
+    MoE families keep no other). The K/V itself is not copied: the spilled
+    request keeps its ref-counted pool pages pinned."""
+    return {"pos": cache["pos"][slot].clone()}
+
+
+def _restore_paged_slot(cache, snap, table_row, slot: int) -> None:
+    """Revive a spilled paged request into ``slot``: reinstall its block
+    table row and cursor."""
+    cache["block_tables"][slot] = table_row
+    cache["pos"][slot] = snap["pos"]
+
+
 class ServeEngine:
     """Continuous-batching server over a :class:`repro_torch.models.api.
     Model`, with a dense-slot cache or a paged KV pool.
@@ -237,7 +301,21 @@ class ServeEngine:
     device:
         Where the engine runs: the GPU unless the caller asks for the CPU
         (no GPU raises). ``params`` must already be there.
-    drafter, mesh, prefill_chunk_tokens, scheduling="slo":
+    drafter:
+        A :class:`repro_torch.serve.spec.Drafter` switches the decode tick
+        to speculative mode: ``drafter.k`` drafts a slot scored in one
+        verify, the accepted prefix committed. Needs
+        ``model.supports_spec_decode``. The scheduler reserves a ``k``-row
+        margin a request, and paged admission the matching blocks.
+    prefill_chunk_tokens:
+        Prefill prompts longer than this in chunks of this many tokens, one
+        a tick, interleaved with decode ticks (``None``: one shot). Needs
+        ``model.supports_chunked_prefill``; paged, a multiple of
+        ``block_size``; no int8 KV cache.
+    scheduling:
+        ``"fifo"`` or ``"slo"`` (admission by priority and earliest
+        deadline, with preemption; not with a drafter).
+    mesh:
         Refused: ROADMAP Queue 1, item 8.
     """
 
@@ -245,42 +323,74 @@ class ServeEngine:
                  prompt_buckets: Sequence[int] = (), paged: bool = False,
                  block_size: int = 16, n_blocks: Optional[int] = None,
                  generator: Optional[torch.Generator] = None,
-                 drafter=None, mesh=None,
+                 drafter: Optional[Drafter] = None, mesh=None,
                  clock: Callable[[], float] = time.monotonic,
                  prefill_chunk_tokens: Optional[int] = None,
                  scheduling: str = "fifo",
                  attn_backend: Optional[str] = None,
                  device="cuda", cuda_graphs: Optional[bool] = None):
-        if drafter is not None:
-            raise _not_ported("speculative decoding (drafter)")
         if mesh is not None:
             raise _not_ported("mesh serving")
-        if prefill_chunk_tokens is not None:
-            raise _not_ported("chunked prefill")
-        if scheduling == "slo":
-            raise _not_ported("scheduling='slo'")
-        if scheduling != "fifo":
+        if attn_backend is not None:
+            model = build_model(dataclasses.replace(
+                model.cfg, attn_backend=attn_backend))
+        if drafter is not None and not model.supports_spec_decode:
+            raise ValueError(
+                f"family {model.cfg.family!r} (cfg {model.cfg.name!r}) has "
+                "no exact multi-token verify — speculative decoding needs "
+                "Model.supports_spec_decode")
+        if scheduling not in SlotScheduler.POLICIES:
             raise ValueError(f"unknown scheduling {scheduling!r}; expected "
-                             "'fifo' or 'slo'")
+                             f"one of {SlotScheduler.POLICIES}")
+        if scheduling == "slo" and drafter is not None:
+            raise ValueError(
+                "scheduling='slo' is incompatible with speculative "
+                "decoding: preemption would have to spill the drafter's "
+                "per-slot state and the verify window's tentative writes")
+        self._chunk = prefill_chunk_tokens
+        if self._chunk is not None:
+            if self._chunk < 1:
+                raise ValueError("prefill_chunk_tokens must be >= 1")
+            if not model.supports_chunked_prefill:
+                raise ValueError(
+                    f"family {model.cfg.family!r} (cfg {model.cfg.name!r}) "
+                    "does not support chunked prefill "
+                    "(Model.supports_chunked_prefill)")
+            align = model.prefill_chunk_alignment
+            if self._chunk % align:
+                raise ValueError(
+                    f"prefill_chunk_tokens {self._chunk} must be a multiple "
+                    f"of the model's chunk alignment {align}")
+            if paged and self._chunk % block_size:
+                raise ValueError(
+                    f"prefill_chunk_tokens {self._chunk} must be a multiple "
+                    f"of block_size {block_size} so every chunk's KV lands "
+                    "on whole pool pages")
+            if model.cfg.kv_cache_dtype == "int8":
+                raise ValueError(
+                    "chunked prefill does not support int8 KV caches: "
+                    "per-chunk suffix KV is quantized per chunk, which "
+                    "breaks bit-exactness with the one-shot prefill scales")
         self.device = resolve_device(device)
         for path, leaf in tree_leaves(params):
             if leaf.device != self.device:
                 raise ValueError(
                     f"parameter {path} is on {leaf.device}, the engine runs "
                     f"on {self.device}")
-        if attn_backend is not None:
-            model = build_model(dataclasses.replace(
-                model.cfg, attn_backend=attn_backend))
         # resolve now: a 'kernel' request on the CPU fails at construction
         resolve_attn_backend(model.cfg.attn_backend, self.device)
         self.model = model
         self.params = params
         self.n_slots = n_slots
         self.max_len = max_len
+        self.drafter = drafter
+        self.spec_k = drafter.k if drafter is not None else 0
         self.scheduling = scheduling
         self.scheduler = SlotScheduler(n_slots, max_len,
                                        [b for b in prompt_buckets
-                                        if b <= max_len])
+                                        if b <= max_len],
+                                       spec_margin=self.spec_k,
+                                       policy=scheduling, clock=clock)
         self._clock = clock
         self._gen = generator if generator is not None \
             else torch.Generator(device=self.device).manual_seed(0)
@@ -296,13 +406,30 @@ class ServeEngine:
         self._graphs = self._init_graphs(cuda_graphs)
 
         self._inflight: Dict[int, _Inflight] = {}
+        #: slot -> mid-chunked-prefill request state
+        self._prefilling: Dict[int, _Prefilling] = {}
+        #: uid -> spilled (preempted) request record awaiting revival
+        self._spilled: Dict[int, dict] = {}
+        self._preemptions = 0
+        self._spills = 0
+        self._revivals = 0
+        self._chunk_ticks = 0
         self._admissions = 0
         self._steps = 0
         self._occupancy_sum = 0.0
         self._fast_forward_s = 0.0
+        # set here so preempt() works before the first run
         self._t_start = self._clock()
         self._compile_s = 0.0
         self._log_start = 0
+        self._spec_ticks = 0
+        self._spec_emitted = 0
+        self._spec_slot_steps = 0.0
+        self._accept_hist = [0] * (self.spec_k + 1)
+        self._draft_steps_start = 0
+        self._tick_contexts: Dict[int, List[int]] = {}
+        if drafter is not None:
+            drafter.bind(self)
 
     # ---- paged setup -------------------------------------------------------
     def _init_paged(self, block_size: int, n_blocks: Optional[int]) -> None:
@@ -359,9 +486,11 @@ class ServeEngine:
         if not cuda_graphs:
             return None
         return graphs.GraphCache(
-            self._decode_body, self._prefill_body, n_slots=self.n_slots,
+            self._decode_body, self._prefill_body, self._verify_body,
+            n_slots=self.n_slots,
             max_blocks=self._max_blocks if self.paged else 0,
-            max_bucket=max(self.scheduler.buckets), device=self.device)
+            max_bucket=max(self.scheduler.buckets), window=self.spec_k + 1,
+            device=self.device)
 
     def _dev(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)
@@ -412,16 +541,20 @@ class ServeEngine:
     # ---- lifecycle ---------------------------------------------------------
     def _block_gate(self, req: Request) -> bool:
         """Admission needs enough free pool blocks for the request's
-        worst-case lifetime (prefix hits count as free)."""
-        return self._pool.can_admit(req.prompt, req.max_new_tokens,
+        worst-case lifetime (prefix hits count as free; spec mode adds the
+        verify window's margin)."""
+        return self._pool.can_admit(req.prompt,
+                                    req.max_new_tokens + self.spec_k,
                                     match_tail=self._match_tail)
 
     def _plan_tables(self, req: Request):
         """Reserve pool pages for one admission: share matched prefix
         pages, allocate the rest (plus the CoW spare for a matched tail),
-        and build the slot's logical→physical table."""
+        and build the slot's logical→physical table. In spec mode the plan
+        covers ``spec_k`` rows past the worst-case length, so every
+        tentative verify write lands on a slot-private page."""
         pool = self._pool
-        plan = pool.plan(req.prompt, req.max_new_tokens,
+        plan = pool.plan(req.prompt, req.max_new_tokens + self.spec_k,
                          match_tail=self._match_tail)
         # share before alloc: a matched evictable page must be revived
         # before allocation can consider evicting it
@@ -549,10 +682,23 @@ class ServeEngine:
         return self._prefill_body(self._dev(prompt), self._dev(write_ids),
                                   self._dev(row), slot, None)
 
+    def _admission_gate(self, req: Request) -> bool:
+        """Paged admission gate: a spilled request already holds its
+        worst-case block reservation (revival allocates nothing); a fresh
+        one must fit the pool."""
+        return req.uid in self._spilled or self._block_gate(req)
+
     def _admit(self, slot: int, req: Request, now_s: float,
                results: List[RequestResult]) -> None:
-        """Bind ``req`` to ``slot``: prefill in one shot and seed its first
-        token."""
+        """Bind ``req`` to ``slot``: revive it if a preemption spilled it,
+        start a chunked prefill if its prompt exceeds the chunk budget,
+        else prefill in one shot and seed its first token."""
+        if req.uid in self._spilled:
+            self._revive(slot, req)
+            return
+        if self._chunk is not None and req.prompt_len > self._chunk:
+            self._begin_chunked(slot, req, now_s)
+            return
         self._admissions += 1
         if self.paged:
             logits, cached_tokens = self._paged_prefill(slot, req)
@@ -561,10 +707,13 @@ class ServeEngine:
             logits = self._full_prefill(req.prompt_array(), empty, empty,
                                         slot)
             cached_tokens = 0
-        self._seed(slot, req, logits, now_s, cached_tokens, results)
+        if self.drafter is not None:
+            self.drafter.admit(slot, req.prompt)
+        self._seed(slot, req, logits, now_s, cached_tokens, 1, results)
 
     def _seed(self, slot: int, req: Request, logits, admitted_s: float,
-              cached_tokens: int, results: List[RequestResult]) -> None:
+              cached_tokens: int, chunks: int,
+              results: List[RequestResult]) -> None:
         """Sample the first token from prefill logits and move the request
         into the decode set (or finish it on the spot)."""
         first = int(req.sampler(
@@ -574,7 +723,9 @@ class ServeEngine:
                                  admitted_s=admitted_s,
                                  first_token_s=t_first,
                                  prompt_tokens=req.prompt_len,
-                                 cached_prompt_tokens=cached_tokens)
+                                 cached_prompt_tokens=cached_tokens,
+                                 deadline_s=req.deadline_s,
+                                 prefill_chunks=chunks)
         inf = _Inflight(request=req, slot=slot, generated=[first],
                         next_token=first, metrics=metrics)
         if first == req.eos_id or req.max_new_tokens == 1:
@@ -583,6 +734,195 @@ class ServeEngine:
             if self.paged:
                 self._apply_cow(slot)
             self._inflight[slot] = inf
+
+    # ---- chunked prefill ---------------------------------------------------
+    def _begin_chunked(self, slot: int, req: Request, now_s: float) -> None:
+        """Open a chunked prefill: paged, reserve the blocks up front (the
+        slot's installed table row stays all-trash until the final chunk)
+        and start past a prefix-cache hit's matched blocks."""
+        self._admissions += 1
+        pf = _Prefilling(request=req, slot=slot, admitted_s=now_s, done=0)
+        if self.paged:
+            plan, table = self._plan_tables(req)
+            if plan.n_shared:
+                self._prefix_hits += 1
+                self._shared_block_hits += plan.n_shared
+            pf.plan, pf.table = plan, table
+            if self._suffix_capable:
+                # as the one-shot suffix path: at least one position is
+                # recomputed
+                n_pref = min(len(plan.full_matched),
+                             (req.prompt_len - 1) // self.block_size)
+                pf.done = pf.cached_tokens = n_pref * self.block_size
+        self._prefilling[slot] = pf
+
+    def _empty_prefix(self):
+        """Zero-length prefix K/V: chunk 0 of a chunked prefill is a suffix
+        prefill with nothing in front."""
+        kv = self.cache["layers"]
+        return {name: torch.zeros(
+            (kv[name].shape[0], 1, 0) + tuple(kv[name].shape[3:]),
+            dtype=self.model.cfg.cdtype, device=self.device)
+            for name in ("k", "v")}
+
+    def _chunk_prefix_kv(self, pf: _Prefilling):
+        """Dense K/V over the first ``pf.done`` prompt tokens, feeding the
+        next chunk's suffix prefill: paged, gathered back from the pages
+        this prefill wrote; dense-slot, the accumulated parts, merged."""
+        if pf.done == 0:
+            return self._empty_prefix()
+        if self.paged:
+            ids = pf.table.blocks[: pf.done // self.block_size]
+            return _gather_prefix(self.cache["layers"], self._dev(ids),
+                                  cdtype=self.model.cfg.cdtype)
+        if len(pf.kv_parts) > 1:
+            pf.kv_parts = [{name: torch.cat([part[name]
+                                             for part in pf.kv_parts], dim=2)
+                            for name in pf.kv_parts[0]}]
+        return pf.kv_parts[0]
+
+    def _store_chunk_kv(self, pf: _Prefilling, kv, final: bool,
+                        slot: int) -> None:
+        """Bank one chunk's suffix K/V. Paged: scatter it onto this chunk's
+        pool pages now (shared and overhang blocks to the trash page, rows
+        zero-padded to whole pages) and install the real table row and
+        cursor only with the final chunk. Dense-slot: keep it, and write
+        the whole slot row at the final chunk. Rows past the prompt are
+        masked by ``pos`` until decode overwrites them."""
+        p = pf.request.prompt_len
+        if self.paged:
+            bs = self.block_size
+            pad_rows = -kv["k"].shape[2] % bs
+            if pad_rows:
+                kv = {name: torch.nn.functional.pad(
+                    x, (0, 0) * (x.dim() - 3) + (0, pad_rows))
+                    for name, x in kv.items()}
+            n_written = kv["k"].shape[2] // bs
+            table = pf.table
+            write_ids = self._write_ids(table, pf.done // bs, n_written)
+            row = np.full((self._max_blocks,), TRASH_BLOCK, np.int32)
+            if final:
+                row[: len(table.blocks)] = table.blocks
+            _paged_write(self.cache, kv, self._dev(write_ids),
+                         self._dev(row), slot, p if final else 0)
+            return
+        pf.kv_parts.append(kv)
+        if final:
+            merged = self._chunk_prefix_kv(pf)
+            pad_rows = self.max_len - merged["k"].shape[2]
+            merged = {name: torch.nn.functional.pad(
+                x, (0, 0) * (x.dim() - 3) + (0, pad_rows))
+                for name, x in merged.items()}
+            _write_slot(self.cache, {"layers": merged, "pos": p}, slot)
+
+    def _prefill_tick(self, results: List[RequestResult]) -> None:
+        """Advance the lowest-numbered prefilling slot by one chunk; the
+        final chunk installs the slot's cache state and seeds the first
+        token as a one-shot admission does."""
+        slot = min(self._prefilling)
+        pf = self._prefilling[slot]
+        req = pf.request
+        p = req.prompt_len
+        take = min(self._chunk, p - pf.done)
+        end = pf.done + take
+        final = end >= p
+        pf.chunks += 1
+        self._chunk_ticks += 1
+        prefix = self._chunk_prefix_kv(pf)
+        toks = np.asarray(req.prompt[pf.done:end], np.int32)[None, :]
+        logits, pre = self.model.prefill_suffix(
+            self.params, {"tokens": self._dev(toks)}, prefix=prefix,
+            prompt_len=end)
+        self._store_chunk_kv(pf, pre["layers"], final, slot)
+        pf.done = end
+        if final:
+            self._prefilling.pop(slot)
+            if self.paged:
+                self._register_prompt_blocks(req, pf.plan, pf.table)
+                self._tables[slot] = pf.table
+            if self.drafter is not None:
+                self.drafter.admit(slot, req.prompt)
+            self._seed(slot, req, logits, pf.admitted_s, pf.cached_tokens,
+                       pf.chunks, results)
+
+    # ---- preemption --------------------------------------------------------
+    def preempt(self, slot: int) -> None:
+        """Spill the request in ``slot`` and return it to the ready queue.
+
+        A decoding request's device state is snapshotted (dense-slot: the
+        slot's row; paged: its cursor, its pool pages staying pinned under
+        their refcounts) and revived bit for bit at its next admission. A
+        mid-prefill request discards its progress and frees its pages: no
+        token was emitted yet, so it restarts from scratch."""
+        now = self._now(self._t_start)
+        if slot in self._inflight:
+            inf = self._inflight.pop(slot)
+            inf.metrics.preempted += 1
+            rec = {"request": inf.request, "generated": inf.generated,
+                   "next_token": inf.next_token, "metrics": inf.metrics}
+            if self.paged:
+                rec["snap"] = _read_paged_slot(self.cache, slot)
+                rec["table"] = self._tables.pop(slot)
+                _clear_slot(self.cache, slot)
+            else:
+                rec["snap"] = _read_slot(self.cache, slot)
+            self._spilled[inf.request.uid] = rec
+            self._spills += 1
+        elif slot in self._prefilling:
+            pf = self._prefilling.pop(slot)
+            if self.paged:
+                for b in pf.table.blocks:
+                    self._pool.free(b)
+                if pf.table.cow_spare is not None:
+                    self._pool.free(pf.table.cow_spare)
+                _clear_slot(self.cache, slot)
+        else:
+            raise KeyError(f"slot {slot} has no preemptible request")
+        self.scheduler.preempt(slot, now)
+        self._preemptions += 1
+
+    def _revive(self, slot: int, req: Request) -> None:
+        """Reinstall a spilled request into ``slot`` and resume decoding
+        where it left off (its TTFT was banked at its first admission)."""
+        rec = self._spilled.pop(req.uid)
+        if self.paged:
+            table = rec["table"]
+            row = np.full((self._max_blocks,), TRASH_BLOCK, np.int32)
+            row[: len(table.blocks)] = table.blocks
+            _restore_paged_slot(self.cache, rec["snap"], self._dev(row), slot)
+            self._tables[slot] = table
+        else:
+            _write_slot(self.cache, rec["snap"], slot)
+        self._inflight[slot] = _Inflight(
+            request=req, slot=slot, generated=rec["generated"],
+            next_token=rec["next_token"], metrics=rec["metrics"])
+        self._revivals += 1
+
+    def _maybe_preempt(self, now_s: float) -> None:
+        """SLO policy: when no slot is free and the best waiting request
+        strictly outranks the worst running one, preempt the latter, at
+        most one preemption a tick (the strict rank and the uid tiebreak
+        keep a pair from thrashing)."""
+        if self.scheduler.has_free or not self._inflight:
+            return
+        cand = self.scheduler.ready_head(now_s)
+        if cand is None:
+            return
+        if self.paged and not self._admission_gate(cand):
+            return   # freeing a slot would not make the candidate fit
+
+        def rank(r):
+            return (-r.priority,
+                    r.deadline_s if r.deadline_s is not None
+                    else float("inf"))
+
+        cand_rank = rank(cand)
+        victims = [(rank(inf.request), inf.request.uid, s)
+                   for s, inf in self._inflight.items()
+                   if rank(inf.request) > cand_rank]
+        if not victims:
+            return
+        self.preempt(max(victims)[2])
 
     def _finish(self, inf: _Inflight, now_s: float,
                 results: List[RequestResult]) -> None:
@@ -600,12 +940,28 @@ class ServeEngine:
             finish_reason=reason, metrics=m))
         if self.paged:
             self._release_paged(inf.slot)
+        if self.drafter is not None:
+            self.drafter.release(inf.slot)
+            self._tick_contexts[inf.request.uid] = inf.tick_contexts
         self.scheduler.release(inf.slot)
         self._inflight.pop(inf.slot, None)
 
     def _sample(self, logits, temps, greedy):
         return sample_batch(logits, self._dev(temps), self._dev(greedy),
                             self._gen).cpu().numpy()
+
+    def _count_step(self, hw: int, window: int) -> None:
+        """The run counters of one decode or verify step of ``window`` rows
+        a slot (paged: over ``hw`` live blocks)."""
+        self._steps += 1
+        self._occupancy_sum += len(self._inflight) / self.n_slots
+        if self.paged:
+            self._block_occ_sum += self._pool.in_use / self.n_blocks
+            self._peak_blocks = max(self._peak_blocks, self._pool.in_use)
+            g, f = self._kv_bytes_tick(hw, window)
+            self._gathered_kv_bytes += g
+            self._fused_kv_bytes += f
+            self._kv_step_log.append((g, f))
 
     def _decode_tick(self, results: List[RequestResult]) -> None:
         """One batched decode step over all slots; advance active requests."""
@@ -619,15 +975,7 @@ class ServeEngine:
         hw = self._live_blocks(1) if self.paged else 0
         next_toks = self._sample(self._decode(hw, toks)[:, -1], temps,
                                  greedy)
-        self._steps += 1
-        self._occupancy_sum += len(self._inflight) / self.n_slots
-        if self.paged:
-            self._block_occ_sum += self._pool.in_use / self.n_blocks
-            self._peak_blocks = max(self._peak_blocks, self._pool.in_use)
-            g, f = self._kv_bytes_tick(hw, 1)
-            self._gathered_kv_bytes += g
-            self._fused_kv_bytes += f
-            self._kv_step_log.append((g, f))
+        self._count_step(hw, 1)
         now = self._now(self._t_start)
         for slot in sorted(self._inflight):
             inf = self._inflight[slot]
@@ -636,6 +984,65 @@ class ServeEngine:
             inf.next_token = tok
             if tok == inf.request.eos_id \
                     or len(inf.generated) >= inf.request.max_new_tokens:
+                self._finish(inf, now, results)
+
+    def _accept(self, logits, draft, temps, greedy):
+        """The acceptance of one verify (:func:`repro_torch.serve.spec.
+        verify_accept`) on the host: ``(out (n_slots, k+1), n_acc)``."""
+        out, n_acc = verify_accept(logits, self._dev(draft),
+                                   self._dev(temps), self._dev(greedy),
+                                   self._gen)
+        return out.cpu().numpy(), n_acc.cpu().numpy()
+
+    def _spec_tick(self, results: List[RequestResult]) -> None:
+        """One speculative tick: draft → verify → accept → commit.
+
+        The drafter proposes ``k`` tokens a live slot; one verify scores
+        the pending token and the window, writing all ``k + 1`` K/V rows
+        tentatively; the acceptance picks each slot's accepted prefix; the
+        commit advances each slot's cursor by ``accepted + 1`` (0 for idle
+        slots), which is the rejection's rollback. Each slot emits
+        ``accepted + 1`` tokens, the last its pending next token."""
+        k = self.spec_k
+        histories = {slot: tuple(inf.request.prompt) + tuple(inf.generated)
+                     for slot, inf in self._inflight.items()}
+        proposals = self.drafter.propose(histories)
+        toks = np.zeros((self.n_slots, k + 1), np.int32)
+        temps = np.zeros((self.n_slots,), np.float32)
+        greedy = np.ones((self.n_slots,), bool)
+        for slot, inf in self._inflight.items():
+            toks[slot, 0] = inf.next_token
+            toks[slot, 1:] = proposals[slot]
+            temps[slot] = max(inf.request.sampler.temperature, 0.0)
+            greedy[slot] = inf.request.sampler.greedy
+        hw = self._live_blocks(k + 1) if self.paged else 0
+        out, n_acc = self._accept(self._verify(hw, toks), toks[:, 1:], temps,
+                                  greedy)
+        keep = np.zeros((self.n_slots,), np.int32)
+        for slot in self._inflight:
+            keep[slot] = n_acc[slot] + 1
+        self.model.commit_verified(self.cache, self._dev(keep), None)
+        self._spec_ticks += 1
+        self._spec_slot_steps += len(self._inflight)
+        self._count_step(hw, k + 1)
+        now = self._now(self._t_start)
+        for slot in sorted(self._inflight):
+            inf = self._inflight[slot]
+            inf.tick_contexts.append(
+                inf.request.prompt_len + len(inf.generated) - 1)
+            accepted = int(n_acc[slot])
+            self._accept_hist[accepted] += 1
+            done = False
+            for tok in out[slot, : accepted + 1]:
+                tok = int(tok)
+                inf.generated.append(tok)
+                inf.next_token = tok
+                self._spec_emitted += 1
+                if tok == inf.request.eos_id \
+                        or len(inf.generated) >= inf.request.max_new_tokens:
+                    done = True
+                    break
+            if done:
                 self._finish(inf, now, results)
 
     # ---- tick bodies (eager, or captured by the graph cache) --------------
@@ -647,6 +1054,15 @@ class ServeEngine:
         logits, _ = self.model.paged_decode_step(
             self.params, self.cache, tokens, live_blocks=hw)
         return logits
+
+    def _verify_body(self, tokens: torch.Tensor, hw: int) -> torch.Tensor:
+        """One verify of ``tokens (n_slots, k + 1)``: paged over ``hw``
+        live blocks, or dense-slot (``hw`` 0). The cursors stay; the
+        commit follows the acceptance."""
+        if not self.paged:
+            return self.model.verify_step(self.params, self.cache, tokens)[0]
+        return self.model.paged_verify_step(self.params, self.cache, tokens,
+                                            live_blocks=hw)[0]
 
     def _prefill_body(self, tokens, write_ids, row, slot, prompt_len
                       ) -> torch.Tensor:
@@ -673,6 +1089,13 @@ class ServeEngine:
             return self._graphs.decode(hw, toks)
         return self._decode_body(self._dev(toks), hw)
 
+    def _verify(self, hw: int, toks: np.ndarray) -> torch.Tensor:
+        """Logits ``(n_slots, k + 1, V)`` of one verify (paged: over ``hw``
+        live blocks): a graph's replay, or the eager body."""
+        if self._graphs is not None:
+            return self._graphs.verify(hw, toks)
+        return self._verify_body(self._dev(toks), hw)
+
     def _prefill(self, toks: np.ndarray, write_ids: Sequence[int],
                  row: np.ndarray, slot: int, p: int) -> torch.Tensor:
         """Logits ``(1, 1, V)`` of the padded full-prompt prefill of ``toks
@@ -690,17 +1113,19 @@ class ServeEngine:
         the engine clock starts, making the reference's warmup writes: one
         prefill per prompt bucket (padded-prefill models), written to slot
         0 (dense) or the trash page (paged), the paged CoW / release
-        helpers, and one decode per live-block bucket (dense: one). One-time
-        costs (kernel builds, CUDA context, library handles, allocator
-        growth, graph captures) then land in ``compile_s`` instead of
-        ``wall_s`` / TTFT. The writes are harmless: a dense slot's row is
-        overwritten at its next admission, paged writes land on the trash
-        page, and idle cursors advance as the reference's do. With CUDA
-        graphs each bucket's prefill (with its write) and decode is
+        helpers, and one decode per live-block bucket (dense: one), or in
+        spec mode one verify per bucket, each committed with ``keep`` 0.
+        One-time costs (kernel builds, CUDA context, library handles,
+        allocator growth, graph captures) then land in ``compile_s``
+        instead of ``wall_s`` / TTFT. The writes are harmless: a dense
+        slot's row is overwritten at its next admission, paged writes land
+        on the trash page, idle cursors advance as the reference's do, and
+        a verify's rows lie past cursors it leaves in place. With CUDA
+        graphs each bucket's prefill (with its write), decode or verify is
         captured here. Not covered: the prefix-hit gather and suffix
-        prefill, and the exact-length prefill; on the card every kernel
-        library is built and loaded here all the same, so their first run
-        builds nothing."""
+        prefill, the exact-length prefill, the prefill chunks and a
+        drafter's model calls; on the card every kernel library is built
+        and loaded here all the same, so their first run builds nothing."""
         n = self.n_slots
         if self.device.type == "cuda":
             _build.load_all()
@@ -710,18 +1135,26 @@ class ServeEngine:
             for bucket in self.scheduler.buckets:
                 self._prefill(np.zeros((1, bucket), np.int32), trash, trash,
                               0, bucket)
-        toks0 = np.zeros((n, 1), np.int32)
         if self.paged:
             # copying page 0 onto itself and re-clearing an empty slot are
             # no-ops by construction
             _cow_copy(self.cache, TRASH_BLOCK, TRASH_BLOCK, 0, 0)
             _clear_slot(self.cache, 0)
-            for hw in self._hw_buckets():
-                logits = self._decode(hw, toks0)
+        buckets = self._hw_buckets() if self.paged else [0]
+        greedy = np.ones((n,), bool)
+        zeros = np.zeros((n,), np.float32)
+        if self.drafter is not None:
+            toks = np.zeros((n, self.spec_k + 1), np.int32)
+            keep0 = self._dev(np.zeros((n,), np.int32))
+            for hw in buckets:
+                logits = self._verify(hw, toks)
+                self.model.commit_verified(self.cache, keep0, None)
+            self._accept(logits, toks[:, 1:], zeros, greedy)
         else:
-            logits = self._decode(0, toks0)
-        self._sample(logits[:, -1], np.zeros((n,), np.float32),
-                     np.ones((n,), bool))
+            toks0 = np.zeros((n, 1), np.int32)
+            for hw in buckets:
+                logits = self._decode(hw, toks0)
+            self._sample(logits[:, -1], zeros, greedy)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -729,13 +1162,15 @@ class ServeEngine:
     def submit(self, request: Request) -> None:
         """Queue a request (admitted when arrived, a slot frees up, and,
         paged, the pool can cover its worst-case block need)."""
-        need = blocks_needed(request.prompt_len, request.max_new_tokens,
-                             self.block_size) if self.paged else 0
-        if self.paged and need > self.n_blocks:
-            raise ValueError(
-                f"request {request.uid}: needs {need} blocks but the "
-                f"pool only has {self.n_blocks} — it could never be "
-                "admitted")
+        if self.paged:
+            need = blocks_needed(request.prompt_len,
+                                 request.max_new_tokens + self.spec_k,
+                                 self.block_size)
+            if need > self.n_blocks:
+                raise ValueError(
+                    f"request {request.uid}: needs {need} blocks but the "
+                    f"pool only has {self.n_blocks} — it could never be "
+                    "admitted")
         self.scheduler.submit(request)
 
     def reload_params(self, params) -> None:
@@ -754,6 +1189,13 @@ class ServeEngine:
         self._steps = 0
         self._occupancy_sum = 0.0
         self._fast_forward_s = 0.0
+        if self.drafter is not None:
+            self._spec_ticks = 0
+            self._spec_emitted = 0
+            self._spec_slot_steps = 0.0
+            self._accept_hist = [0] * (self.spec_k + 1)
+            self._draft_steps_start = self.drafter.draft_steps
+            self._tick_contexts = {}
         self._prefix_hits = 0
         self._shared_block_hits = 0
         self._cow_count = 0
@@ -763,14 +1205,19 @@ class ServeEngine:
         self._gathered_kv_bytes = 0
         self._fused_kv_bytes = 0
         self._kv_step_log = []
+        self._preemptions = 0
+        self._spills = 0
+        self._revivals = 0
+        self._chunk_ticks = 0
         self._log_start = len(self.scheduler.admission_log)
         self._t_start = self._clock() if t_origin is None else t_origin
 
     @torch.no_grad()
     def tick(self, results: List[RequestResult]) -> None:
-        """One scheduling tick: admit what arrived, then one decode step.
-        Appends newly finished requests to ``results``; a no-op when the
-        scheduler has no work."""
+        """One scheduling tick: (SLO: one preemption at most), admit what
+        arrived, one prefill chunk, one decode or verify step. Appends
+        newly finished requests to ``results``; a no-op when the scheduler
+        has no work."""
         if self.scheduler.done:
             return
         now = self._now(self._t_start)
@@ -779,7 +1226,9 @@ class ServeEngine:
             # idle: fast-forward the engine clock to the next arrival
             self._fast_forward_s += self.scheduler.next_arrival_s - now
             now = self._now(self._t_start)
-        gate = self._block_gate if self.paged else None
+        if self.scheduling == "slo":
+            self._maybe_preempt(now)
+        gate = self._admission_gate if self.paged else None
         while True:
             # one at a time so each admission's block allocation is
             # visible to the next gate evaluation
@@ -787,17 +1236,31 @@ class ServeEngine:
             if not admitted:
                 break
             self._admit(admitted[0][0], admitted[0][1], now, results)
+        if self.paged and not self._inflight and not self._prefilling \
+                and self._spilled:
+            # stall escape: every runnable request is spilled but the gate
+            # vetoes the (fresh) ready head; a spilled one holds its
+            # reservation, so it always fits
+            got = self.scheduler.admit_revivable(now, set(self._spilled))
+            if got is not None:
+                self._admit(got[0], got[1], now, results)
+        if self._prefilling:
+            self._prefill_tick(results)
         if self._inflight:
-            self._decode_tick(results)
+            if self.drafter is not None:
+                self._spec_tick(results)
+            else:
+                self._decode_tick(results)
 
     def run(self, requests: Sequence[Request] = (),
             max_steps: Optional[int] = None, *, warmup: bool = False
             ) -> Tuple[List[RequestResult], dict]:
         """Serve until every submitted request completes; returns
         ``(results sorted by uid, report)`` — the reference's aggregate
-        plus ``slot_reuse``, the ``paged`` sub-report (paged layout) and
-        the ``device`` the run used. ``max_steps`` is a runaway backstop
-        (default 1e6 decode ticks)."""
+        plus ``slot_reuse``, the ``paged``, ``spec`` and ``slo``
+        sub-reports where they apply, and the ``device`` the run used.
+        ``max_steps`` is a runaway backstop (default 1e6 decode ticks and
+        prefill chunks)."""
         self.start_run(warmup=warmup)
         for r in requests:
             self.submit(r)
@@ -805,7 +1268,7 @@ class ServeEngine:
         limit = max_steps if max_steps is not None else 1_000_000
         while not self.scheduler.done:
             self.tick(results)
-            if self._steps >= limit:
+            if self._steps + self._chunk_ticks >= limit:
                 raise RuntimeError(
                     f"serve engine exceeded {limit} decode steps with "
                     f"{len(self._inflight)} requests still in flight")
@@ -817,9 +1280,16 @@ class ServeEngine:
         closing half of the tick-level API."""
         wall = self._now(self._t_start)
         for r in results:
-            r.metrics.moa_flops = request_decode_cost(
-                self.model.cfg, prompt_tokens=r.metrics.prompt_tokens,
-                new_tokens=r.metrics.new_tokens)
+            if self.drafter is not None:
+                # every (k + 1)-token verify a request sat through is
+                # compute spent, accepted or not
+                r.metrics.moa_flops = spec_request_decode_cost(
+                    self.model.cfg, k=self.spec_k,
+                    tick_contexts=self._tick_contexts.get(r.uid, ()))
+            else:
+                r.metrics.moa_flops = request_decode_cost(
+                    self.model.cfg, prompt_tokens=r.metrics.prompt_tokens,
+                    new_tokens=r.metrics.new_tokens)
         report = aggregate(results, n_slots=self.n_slots,
                            decode_steps=self._steps,
                            occupancy_sum=self._occupancy_sum, wall_s=wall,
@@ -829,25 +1299,38 @@ class ServeEngine:
         report["arch"] = self.model.cfg.name
         report["moa"] = self.model.cfg.moa_strategy.spec
         report["scheduling"] = self.scheduling
+        if self.scheduling == "slo" or any(
+                r.metrics.deadline_s is not None for r in results):
+            report["slo"] = slo_report(
+                results, wall_s=wall, preemptions=self._preemptions,
+                spills=self._spills, revivals=self._revivals,
+                prefill_chunk_tokens=self._chunk or 0,
+                prefill_chunk_count=self._chunk_ticks)
+        if self.drafter is not None:
+            report["spec"] = spec_report(
+                k=self.spec_k, verify_ticks=self._spec_ticks,
+                emitted_tokens=self._spec_emitted,
+                slot_steps=self._spec_slot_steps,
+                accepted_hist=self._accept_hist,
+                draft_steps=self.drafter.draft_steps
+                - self._draft_steps_start)
         report["device"] = (torch.cuda.get_device_name(self.device)
                             if self.device.type == "cuda" else "cpu")
         report["cuda_graphs"] = self._graphs is not None
         report["graphs"] = (self._graphs.report()
                             if self._graphs is not None else None)
-        if not self.paged:
-            results.sort(key=lambda r: r.uid)
-            return results, report
-        report["paged"] = paged_report(
-            spec=self._spec, n_slots=self.n_slots, max_len=self.max_len,
-            block_size=self.block_size, n_blocks=self.n_blocks,
-            admissions=self._admissions, prefix_hits=self._prefix_hits,
-            shared_block_hits=self._shared_block_hits,
-            cow_count=self._cow_count,
-            block_occ_sum=self._block_occ_sum, decode_steps=self._steps,
-            peak_blocks=self._peak_blocks,
-            attn_backend=resolve_attn_backend(self.model.cfg.attn_backend,
-                                              self.device),
-            gathered_kv_bytes=self._gathered_kv_bytes,
-            fused_kv_bytes=self._fused_kv_bytes)
+        if self.paged:
+            report["paged"] = paged_report(
+                spec=self._spec, n_slots=self.n_slots, max_len=self.max_len,
+                block_size=self.block_size, n_blocks=self.n_blocks,
+                admissions=self._admissions, prefix_hits=self._prefix_hits,
+                shared_block_hits=self._shared_block_hits,
+                cow_count=self._cow_count,
+                block_occ_sum=self._block_occ_sum, decode_steps=self._steps,
+                peak_blocks=self._peak_blocks,
+                attn_backend=resolve_attn_backend(
+                    self.model.cfg.attn_backend, self.device),
+                gathered_kv_bytes=self._gathered_kv_bytes,
+                fused_kv_bytes=self._fused_kv_bytes)
         results.sort(key=lambda r: r.uid)
         return results, report

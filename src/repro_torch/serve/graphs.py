@@ -3,14 +3,18 @@ reference's compile cache (``repro/serve/engine.py``: ``_cached_jit``,
 ``_build``, ``_decode_for``).
 
 The reference never runs a tick eagerly. It jits every tick path once per
-shape: one paged decode per live-block bucket (the dense-slot decode
-once), one padded prefill per prompt bucket with ``prompt_len`` traced.
-On the card a CUDA graph per shape stands for ``jax.jit``.
-:class:`GraphCache` captures
+shape: one paged decode (and speculative verify) per live-block bucket
+(the dense-slot decode and verify once), one padded prefill per prompt
+bucket with ``prompt_len`` traced. On the card a CUDA graph per shape
+stands for ``jax.jit``. :class:`GraphCache` captures
 
 * the decode step: paged, once per live-block bucket; dense-slot once
   (bucket 0), its shape being fixed. Tokens ``(n_slots, 1)`` in, logits
   ``(n_slots, 1, V)`` out;
+* the speculative verify, the same way (its live-block buckets cover the
+  window of ``k + 1`` rows): tokens ``(n_slots, k + 1)`` in, logits
+  ``(n_slots, k + 1, V)`` out. The acceptance and the commit run after the
+  replay, as the reference's are separate jitted callables;
 * the padded full-prompt prefill **and** its write into the cache (the
   scatter into the pool, or the copy into the slot's row), once per
   prompt bucket: tokens, ``write_ids`` and the table row (paged; empty
@@ -18,10 +22,12 @@ On the card a CUDA graph per shape stands for ``jax.jit``.
   1, V)`` logits out. The padded ``(L, 1, max_len, Hk, D)`` K/V stack
   stays inside the graph, so no bucket keeps one alive.
 
-Two prefills stay eager: a prefix-hit (suffix) prefill, whose prefix
-length varies, and the exact-length prefill of a capacity-limited MoE
-(where padding is not exact), which has a shape per prompt length: one
-graph each would be a capture per admission.
+Some prefills stay eager: a prefix-hit (suffix) prefill, whose prefix
+length varies, the exact-length prefill of a capacity-limited MoE (where
+padding is not exact), which has a shape per prompt length, and a chunked
+prefill's chunks, whose prefix grows: one graph each would be a capture
+per admission. So do an SLO spill and revive (a few copies) and a
+drafter's model calls.
 
 **One engine's graphs.** A graph binds addresses: of the parameters, of
 the engine's cache tensors, of the static input buffers here and of the
@@ -60,7 +66,7 @@ import collections
 import contextlib
 import dataclasses
 import time
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -137,25 +143,28 @@ class _Graph:
 
 
 class GraphCache:
-    """The graphs of one engine's decode (paged: per live-block bucket;
-    dense-slot: bucket 0) and padded full-prompt prefill (per prompt
-    bucket).
+    """The graphs of one engine's decode and verify (paged: per live-block
+    bucket; dense-slot: bucket 0) and padded full-prompt prefill (per
+    prompt bucket).
 
-    The bodies are the engine's: ``decode(tokens (n_slots, 1), hw)`` and
-    ``prefill(tokens (1, bucket), write_ids, row, slot, prompt_len)``, both
-    returning logits; here they get the static buffers, ``slot`` as a
-    ``(1,)`` and ``prompt_len`` as a 0-d int32 device tensor.
-    ``max_bucket`` is the largest prompt bucket, ``max_blocks`` the length
-    of ``write_ids`` and ``row`` (0 for the dense-slot layout). Counters:
-    ``eager_runs``,
-    ``captures`` and ``replays`` per ``(path, bucket)``, and ``capture_s``
-    in all.
+    The bodies are the engine's: ``decode(tokens (n_slots, 1), hw)``,
+    ``verify(tokens (n_slots, window), hw)`` and ``prefill(tokens (1,
+    bucket), write_ids, row, slot, prompt_len)``, all returning logits;
+    here they get the static buffers, ``slot`` as a ``(1,)`` and
+    ``prompt_len`` as a 0-d int32 device tensor. ``max_bucket`` is the
+    largest prompt bucket, ``max_blocks`` the length of ``write_ids`` and
+    ``row`` (0 for the dense-slot layout), ``window`` the verify's tokens a
+    slot (``k + 1``). Counters: ``eager_runs``, ``captures`` and
+    ``replays`` per ``(path, bucket)``, and ``capture_s`` in all.
     """
 
-    def __init__(self, decode: Callable, prefill: Callable, *, n_slots: int,
-                 max_blocks: int, max_bucket: int, device: torch.device):
+    def __init__(self, decode: Callable, prefill: Callable,
+                 verify: Optional[Callable] = None, *, n_slots: int,
+                 max_blocks: int, max_bucket: int, device: torch.device,
+                 window: int = 1):
         self._api = API
         self._decode, self._prefill = decode, prefill
+        self._verify = verify
         self._stream = self._api.new_stream(device)
         self._pool = self._api.new_pool()
         self._graphs: Dict[tuple, _Graph] = {}
@@ -167,6 +176,8 @@ class GraphCache:
         # static inputs: decode's tokens, and the prefill's in one buffer
         # (one copy an admission): tokens | write_ids | row | slot | length
         self._tokens = torch.zeros((n_slots, 1), dtype=torch.int32,
+                                   device=device)
+        self._window = torch.zeros((n_slots, window), dtype=torch.int32,
                                    device=device)
         self._nb, self._mb = max_blocks, max_bucket
         self._prefill_host = np.zeros(max_bucket + 2 * max_blocks + 2,
@@ -187,6 +198,13 @@ class GraphCache:
         ``tokens (n_slots, 1)`` over ``hw`` live blocks."""
         self._tokens.copy_(torch.from_numpy(tokens))
         return self._run(("decode", hw), lambda: self._decode(self._tokens,
+                                                              hw))
+
+    def verify(self, hw: int, tokens: np.ndarray) -> torch.Tensor:
+        """Logits ``(n_slots, window, V)`` of one verify of ``tokens
+        (n_slots, window)`` over ``hw`` live blocks (dense-slot: 0)."""
+        self._window.copy_(torch.from_numpy(tokens))
+        return self._run(("verify", hw), lambda: self._verify(self._window,
                                                               hw))
 
     def prefill(self, tokens: np.ndarray, write_ids: Sequence[int],

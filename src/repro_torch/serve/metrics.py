@@ -1,19 +1,21 @@
-"""Per-request and aggregate serving metrics (``RequestMetrics``,
-``aggregate`` and ``paged_report`` of ``repro/serve/metrics.py``).
+"""Per-request and aggregate serving metrics (copied from
+``repro/serve/metrics.py``).
 
 Units: times in **seconds** on the engine clock unless a key says ``_ms``
 (milliseconds); rates in **tokens per second**; ``moa_flops`` in FLOPs as
-priced by :func:`repro_torch.launch.costing.request_decode_cost`.
+priced by :func:`repro_torch.launch.costing.request_decode_cost` (or, for
+a speculative run, ``spec_request_decode_cost``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
-__all__ = ["RequestMetrics", "aggregate", "paged_report"]
+__all__ = ["RequestMetrics", "aggregate", "paged_report", "slo_report",
+           "spec_report"]
 
 
 @dataclasses.dataclass
@@ -37,6 +39,14 @@ class RequestMetrics:
     #: prompt tokens whose prefill compute was skipped via a prefix-cache
     #: hit (paged engine, dense family; 0 elsewhere)
     cached_prompt_tokens: int = 0
+    #: absolute engine-clock TTFT deadline copied from the request (None =
+    #: no SLO on this request)
+    deadline_s: Optional[float] = None
+    #: times this request was preempted (slot taken away mid-generation
+    #: and later revived; 0 under the FIFO policy)
+    preempted: int = 0
+    #: prefill chunks this request's prompt was split into (1 = one-shot)
+    prefill_chunks: int = 1
 
     @property
     def ttft_s(self) -> float:
@@ -57,6 +67,38 @@ class RequestMetrics:
         """
         steps = max(self.new_tokens - 1, 1)
         return 1e3 * self.decode_s / steps
+
+    @property
+    def tok_per_s(self) -> float:
+        """Request-level generation rate over its full lifetime."""
+        lifetime = max(self.finished_s - self.arrival_s, 1e-9)
+        return self.new_tokens / lifetime
+
+    @property
+    def deadline_met(self) -> Optional[bool]:
+        """True iff the first token beat the TTFT deadline (None when the
+        request carries no deadline). Both sides are absolute engine-clock
+        seconds, so queueing delay counts against the SLO."""
+        if self.deadline_s is None:
+            return None
+        return self.first_token_s <= self.deadline_s
+
+    def to_json(self) -> dict:
+        out = {
+            "arrival_s": self.arrival_s,
+            "admitted_s": self.admitted_s,
+            "ttft_ms": 1e3 * self.ttft_s,
+            "per_token_ms": self.per_token_ms,
+            "tok_per_s": self.tok_per_s,
+            "moa_flops": self.moa_flops,
+            "cached_prompt_tokens": self.cached_prompt_tokens,
+            "preempted": self.preempted,
+            "prefill_chunks": self.prefill_chunks,
+        }
+        if self.deadline_s is not None:
+            out["deadline_s"] = self.deadline_s
+            out["deadline_met"] = bool(self.deadline_met)
+        return out
 
 
 def _dist(values: List[float]) -> Dict[str, float]:
@@ -80,8 +122,9 @@ def aggregate(results, *, n_slots: int, decode_steps: int,
     slot occupancy in [0, 1]. ``wall_s`` is total engine run time in
     seconds. ``compile_s`` is the time the engine's warmup tick took
     *before* the clock started (``ServeEngine.run(warmup=True)``: kernel
-    builds, CUDA context, library handles) — reported separately so it can
-    never fold into ``wall_s`` and skew ``tok_per_s`` / TTFT.
+    builds, CUDA context, library handles, graph captures) — reported
+    separately so it can never fold into ``wall_s`` and skew
+    ``tok_per_s`` / TTFT.
     """
     total_new = sum(r.metrics.new_tokens for r in results)
     return {
@@ -140,4 +183,69 @@ def paged_report(*, spec, n_slots: int, max_len: int, block_size: int,
         "gathered_kv_bytes_per_step": gathered_kv_bytes
         / max(decode_steps, 1),
         "fused_kv_bytes_per_step": fused_kv_bytes / max(decode_steps, 1),
+    }
+
+
+def slo_report(results, *, wall_s: float, preemptions: int, spills: int,
+               revivals: int, prefill_chunk_tokens: int = 0,
+               prefill_chunk_count: int = 0) -> dict:
+    """SLO sub-report for the engine's aggregate.
+
+    ``attainment`` is the fraction of deadline-carrying requests whose
+    first token beat their absolute TTFT deadline;
+    ``goodput_tok_per_s`` counts only tokens generated by requests that
+    *met* their deadline (tokens from missed-deadline requests are wasted
+    work under the SLO lens) — requests without a deadline always count.
+    ``preemptions`` is scheduler-level (slot taken away), ``spills`` /
+    ``revivals`` are the engine-level state round-trips backing them
+    (mid-prefill preemptions discard progress instead of spilling, so
+    ``spills <= preemptions``).
+    """
+    with_deadline = [r for r in results if r.metrics.deadline_s is not None]
+    met = [r for r in with_deadline if r.metrics.deadline_met]
+    no_deadline = [r for r in results if r.metrics.deadline_s is None]
+    good_tokens = sum(r.metrics.new_tokens for r in met + no_deadline)
+    return {
+        "deadline_requests": len(with_deadline),
+        "deadline_met": len(met),
+        "attainment": len(met) / max(len(with_deadline), 1),
+        "goodput_tok_per_s": good_tokens / max(wall_s, 1e-9),
+        "deadline_ttft_ms": _dist(
+            [1e3 * r.metrics.ttft_s for r in with_deadline]),
+        "preemptions": preemptions,
+        "spills": spills,
+        "revivals": revivals,
+        "preempted_requests": sum(
+            1 for r in results if r.metrics.preempted > 0),
+        "prefill_chunk_tokens": prefill_chunk_tokens,
+        "prefill_chunk_count": prefill_chunk_count,
+    }
+
+
+def spec_report(*, k: int, verify_ticks: int, emitted_tokens: int,
+                slot_steps: float, accepted_hist, draft_steps: int) -> dict:
+    """Speculative-decode sub-report for the engine's aggregate.
+
+    ``tokens_per_step`` is **slot-step normalized**: emitted tokens over
+    the sum of active slots across verify ticks, so plain decode scores
+    exactly 1.0 and a fully-accepted window of ``k`` drafts scores
+    ``k + 1`` — the "did the multiplexing gamble pay" number.
+    ``accepted_hist[i]`` counts verify ticks (per slot) that accepted
+    exactly ``i`` draft tokens; ``draft_steps`` is the drafter's model
+    calls (0 for lookup drafters) — the overhead side of the bet.
+    """
+    hist = [int(c) for c in accepted_hist]
+    total = sum(hist)
+    return {
+        "k": k,
+        "verify_ticks": verify_ticks,
+        "emitted_tokens": emitted_tokens,
+        "tokens_per_step": emitted_tokens / max(slot_steps, 1e-9),
+        "accepted_hist": hist,
+        "accept_rate": (sum(i * c for i, c in enumerate(hist))
+                        / max(total * k, 1)),
+        "mean_accepted": sum(i * c for i, c in enumerate(hist))
+                         / max(total, 1),
+        "draft_steps": draft_steps,
+        "draft_steps_per_tick": draft_steps / max(verify_ticks, 1),
     }

@@ -31,8 +31,14 @@ class Request:
     ``arrival_s`` is the open-loop arrival offset in seconds from engine
     start; the scheduler will not admit the request before the engine clock
     reaches it. ``max_new_tokens`` counts generated tokens including the
-    one produced by the prefill logits. (The reference's ``priority`` and
-    ``deadline_s`` come with SLO scheduling, ROADMAP Queue 1, item 8.)
+    one produced by the prefill logits.
+
+    ``priority`` and ``deadline_s`` only influence admission order under
+    the scheduler's ``"slo"`` policy (higher priority first, then earliest
+    deadline); FIFO ignores both. ``deadline_s`` is the **absolute** engine
+    time by which the first token should be emitted (TTFT SLO) — deadline
+    attainment in :mod:`repro_torch.serve.metrics` compares it against
+    ``first_token_s`` on the same clock.
     """
 
     uid: int
@@ -41,6 +47,8 @@ class Request:
     arrival_s: float = 0.0
     sampler: Sampler = GREEDY
     eos_id: Optional[int] = None
+    priority: int = 0
+    deadline_s: Optional[float] = None
 
     def __post_init__(self):
         if len(self.prompt) < 1:
@@ -48,6 +56,10 @@ class Request:
         if self.max_new_tokens < 1:
             raise ValueError(f"request {self.uid}: max_new_tokens must be "
                              f">= 1, got {self.max_new_tokens}")
+        if self.deadline_s is not None and self.deadline_s <= self.arrival_s:
+            raise ValueError(
+                f"request {self.uid}: deadline_s {self.deadline_s} must be "
+                f"after arrival_s {self.arrival_s} (absolute engine time)")
 
     @property
     def prompt_len(self) -> int:
@@ -70,3 +82,13 @@ class RequestResult:
     finish_reason: FinishReason
     metrics: RequestMetrics
 
+    def to_json(self) -> dict:
+        """JSON-able record (the reference's per-request schema)."""
+        return {
+            "uid": self.uid,
+            "prompt_tokens": self.prompt_len,
+            "new_tokens": int(self.tokens.size),
+            "slot": self.slot,
+            "finish_reason": self.finish_reason.value,
+            **self.metrics.to_json(),
+        }

@@ -1,8 +1,6 @@
-"""Synthetic open-loop workload: Poisson arrivals, mixed prompt/gen lengths.
-
-Copied from ``repro/serve/workload.py`` (the SLO scheduler's
-``bursty_workload`` comes with the SLO engine, ROADMAP Queue 1 item 8): the
-same seed gives the same requests in both packages.
+"""Synthetic open-loop workloads (copied from ``repro/serve/workload.py``;
+the same seed gives the same requests in both packages): Poisson arrivals,
+mixed prompt/gen lengths.
 
 Open-loop means arrivals do not wait for the server (unlike a closed loop
 where each client waits for its previous request): inter-arrival gaps are
@@ -19,7 +17,7 @@ import numpy as np
 from repro_torch.serve.request import Request
 from repro_torch.serve.sampling import GREEDY, Sampler
 
-__all__ = ["poisson_workload", "shared_prefix_workload"]
+__all__ = ["bursty_workload", "poisson_workload", "shared_prefix_workload"]
 
 
 def poisson_workload(*, n_requests: int, vocab: int, rate_rps: float = 50.0,
@@ -49,6 +47,52 @@ def poisson_workload(*, n_requests: int, vocab: int, rate_rps: float = 50.0,
         requests.append(Request(
             uid=i, prompt=prompt, max_new_tokens=g,
             arrival_s=float(arrivals[i]), sampler=sampler, eos_id=eos_id))
+    return requests
+
+
+def bursty_workload(*, vocab: int, n_long: int, n_burst: int,
+                    long_prompt_len: int = 24, long_gen_len: int = 48,
+                    burst_prompt_len: int = 8, burst_gen_len: int = 4,
+                    burst_at_s: float = 0.05,
+                    burst_deadline_s: float = 0.25,
+                    long_deadline_s: Optional[float] = None,
+                    sampler: Sampler = GREEDY,
+                    eos_id: Optional[int] = None,
+                    seed: int = 0) -> List[Request]:
+    """The SLO-scheduling stress shape: long generations first, then a
+    burst of short, tight-deadline requests.
+
+    ``n_long`` long-generation requests arrive near t=0 (microsecond
+    stagger keeps arrival order deterministic) with a generous deadline of
+    ``long_deadline_s`` seconds after arrival (None = no deadline at all);
+    once they occupy every slot, ``n_burst`` short requests land together
+    at ``burst_at_s`` with deadlines ``burst_deadline_s`` seconds after
+    arrival. FIFO queues the burst behind the long decodes and blows its
+    p99 TTFT; an SLO scheduler preempts the longs (their first token is
+    already banked) and revives them later. Deterministic per ``seed``;
+    uids order longs before burst requests.
+    """
+    if n_long < 1 or n_burst < 1:
+        raise ValueError("need at least one long and one burst request")
+    rng = np.random.default_rng(seed)
+    requests = []
+    for i in range(n_long):
+        arrival = 1e-6 * i
+        prompt = tuple(int(t) for t in rng.integers(0, vocab,
+                                                    long_prompt_len))
+        requests.append(Request(
+            uid=i, prompt=prompt, max_new_tokens=long_gen_len,
+            arrival_s=arrival, sampler=sampler, eos_id=eos_id,
+            deadline_s=(None if long_deadline_s is None
+                        else arrival + long_deadline_s)))
+    for j in range(n_burst):
+        arrival = burst_at_s + 1e-6 * j
+        prompt = tuple(int(t) for t in rng.integers(0, vocab,
+                                                    burst_prompt_len))
+        requests.append(Request(
+            uid=n_long + j, prompt=prompt, max_new_tokens=burst_gen_len,
+            arrival_s=arrival, sampler=sampler, eos_id=eos_id,
+            deadline_s=arrival + burst_deadline_s))
     return requests
 
 

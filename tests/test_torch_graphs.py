@@ -40,7 +40,9 @@ from repro_torch.configs.registry import smoke_config as tsmoke
 from repro_torch.kernels import _build, ops
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models.api import build_model as tbuild
-from repro_torch.serve import ServeEngine, graphs
+from repro_torch.serve import ServeEngine, StepClock, graphs
+from repro_torch.serve import bursty_workload as t_bursty
+from repro_torch.serve import resolve_drafter
 from repro_torch.serve import poisson_workload as t_poisson
 from repro_torch.serve import shared_prefix_workload as t_shared
 
@@ -442,3 +444,131 @@ def test_serve_cli_eager_flag(capsys):
                     "--gen-len", "3", "--no-warmup", "--eager"])
     out = capsys.readouterr().out
     assert "path=eager" in out and "[serve] graphs:" not in out
+
+
+# ---------------------------------------------------------------------------
+# (g) the speculative verify, chunked prefill and SLO spills
+# ---------------------------------------------------------------------------
+
+
+def _record_verify(engine, out):
+    """Record every verify tick's logits (in order) where the engine
+    accepts them."""
+    accept = engine._accept
+
+    def _accept(logits, *rest):
+        out.append(logits.clone())
+        return accept(logits, *rest)
+
+    engine._accept = _accept
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("warmup", [False, True])
+def test_spec_capture_equals_eager(models, recording, paged, warmup):
+    """The speculative engine through the double: tokens, reports and every
+    verify tick's logits equal the eager engine's bit for bit. The verify
+    is captured once per live-block bucket (dense-slot: once), at warmup
+    or at a bucket's first tick, beside the prefill's graphs; no decode
+    graph is made."""
+    _, _, tm, tp = models["f32"]
+    kw = dict(ENGINE, paged=paged)
+    runs = {}
+    for cuda_graphs in (False, True):
+        engine = ServeEngine(tm, tp, device="cpu", cuda_graphs=cuda_graphs,
+                             drafter=resolve_drafter("oracle?accept=0.5", 3),
+                             **kw)
+        ticks = []
+        _record_verify(engine, ticks)
+        results, report = engine.run(_workload("poisson", tm.cfg.vocab),
+                                     warmup=warmup)
+        runs[cuda_graphs] = results, report, ticks, engine
+    (want, want_rep, want_ticks, _), (got, rep, got_ticks, eng) = \
+        runs[False], runs[True]
+    for key in set(rep) - {"cuda_graphs", "graphs", "compile_s", "wall_s"}:
+        assert rep[key] == want_rep[key], key
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+    # the warmup's verify is accepted once too
+    assert len(got_ticks) == len(want_ticks) == \
+        rep["spec"]["verify_ticks"] + warmup
+    for i, (x, y) in enumerate(zip(want_ticks, got_ticks)):
+        assert torch.equal(x, y), i
+    cache = eng._graphs
+    assert {path for path, _ in cache.captures} == {"prefill", "verify"}
+    verify = {hw for path, hw in cache.captures if path == "verify"}
+    if warmup:
+        assert verify == (set(eng._hw_buckets()) if paged else {0})
+    assert set(cache.captures.values()) == {1}
+    assert cache.eager_runs == cache.captures
+    assert sum(n for (path, _), n in (cache.eager_runs + cache.replays)
+               .items() if path == "verify") == rep["decode_steps"] + (
+        len(verify) if warmup else 0)
+
+
+def test_verify_launches_recorded_and_replayed(monkeypatch):
+    """A verify graph's launches are recorded at capture and added at each
+    replay, as a decode graph's: here 7 ``dot_moa`` and 1
+    ``paged_attention`` (T = k + 1) a verify."""
+    def verify(tokens, hw):
+        ops.dot_moa_cuda.launches += 7
+        ops.paged_attention_cuda.launches += 1
+        return torch.zeros((tokens.shape[0], tokens.shape[1], 5))
+
+    monkeypatch.setattr(graphs, "API", PythonAtCapture())
+    cache = graphs.GraphCache(_stub_decode, None, verify, n_slots=2,
+                              max_blocks=2, max_bucket=16, window=4,
+                              device=torch.device("cpu"))
+    toks = np.zeros((2, 4), np.int32)
+    ops.reset_launch_counts()
+    try:
+        assert cache.verify(2, toks).shape == (2, 4, 5)
+        for n in (2, 3):
+            cache.verify(2, toks)
+            counts = ops.launch_counts()
+            assert counts["dot_moa"] == 7 * n
+            assert counts["paged_attention"] == n
+        assert cache.report()["launches_per_replay"] == {
+            "verify": {"dot_moa": 7, "paged_attention": 1}}
+        with pytest.raises(RuntimeError):    # the window is fixed
+            cache.verify(2, np.zeros((2, 3), np.int32))
+    finally:
+        ops.reset_launch_counts()
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_slo_and_chunks_keep_cache_addresses(models, recording, paged):
+    """Chunks, spills and revives run eagerly beside the graphs and
+    reassign no cache tensor; the captured SLO run's tokens and schedule
+    equal the eager one's."""
+    _, _, tm, tp = models["f32"]
+    kw = dict(n_slots=2, max_len=64, paged=paged, block_size=8,
+              scheduling="slo", prefill_chunk_tokens=8)
+    wl = dict(vocab=tm.cfg.vocab, n_long=2, n_burst=4, long_prompt_len=16,
+              long_gen_len=40, burst_prompt_len=8, burst_gen_len=4,
+              burst_at_s=0.004, burst_deadline_s=0.02, seed=0)
+    runs = {}
+    for cuda_graphs in (False, True):
+        engine = ServeEngine(tm, tp, device="cpu", cuda_graphs=cuda_graphs,
+                             clock=StepClock(dt=1e-3), **kw)
+        leaves = dict(engine.cache["layers"], pos=engine.cache["pos"])
+        if paged:
+            leaves["block_tables"] = engine.cache["block_tables"]
+        ptrs = {n: t.data_ptr() for n, t in leaves.items()}
+        cache = engine.cache
+        engine.start_run(warmup=True)
+        for req in t_bursty(**wl):
+            engine.submit(req)
+        results = []
+        while not engine.scheduler.done:
+            engine.tick(results)
+            assert engine.cache is cache
+            assert {n: t.data_ptr() for n, t in leaves.items()} == ptrs
+            assert all(engine.cache["layers"][n] is leaves[n]
+                       for n in engine.cache["layers"])
+        runs[cuda_graphs] = engine.finish_run(results)
+    (want, want_rep), (got, rep) = runs[False], runs[True]
+    assert rep["slo"] == want_rep["slo"] and rep["slo"]["preemptions"] > 0
+    assert rep["slo"]["prefill_chunk_count"] > 0
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(a.tokens, b.tokens)

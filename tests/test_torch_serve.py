@@ -32,7 +32,7 @@ from repro_torch.configs.registry import get_config as tget
 from repro_torch.configs.registry import smoke_config as tsmoke
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models.api import build_model as tbuild
-from repro_torch.serve import Sampler, ServeEngine
+from repro_torch.serve import NgramDrafter, Sampler, ServeEngine
 from repro_torch.serve import poisson_workload as t_poisson
 from repro_torch.serve import shared_prefix_workload as t_shared
 
@@ -173,10 +173,15 @@ def test_unported_engine_modes_raise(engines):
     _, _, tm, tp = engines["bf16"]
     base = dict(n_slots=2, max_len=32, device="cpu")
     assert not ServeEngine(tm, tp, **base).paged    # dense-slot: ported
-    for extra in ({"drafter": object()}, {"mesh": object()},
-                  {"prefill_chunk_tokens": 8}, {"scheduling": "slo"}):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            ServeEngine(tm, tp, paged=True, **base, **extra)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        ServeEngine(tm, tp, paged=True, **base, mesh=object())
+    # speculative decoding, chunked prefill and SLO scheduling are ported
+    for extra in ({"drafter": NgramDrafter(2)}, {"prefill_chunk_tokens": 16},
+                  {"scheduling": "slo"}):
+        eng = ServeEngine(tm, tp, paged=True, **base, **extra)
+        assert (eng.drafter, eng._chunk, eng.scheduling) == (
+            extra.get("drafter"), extra.get("prefill_chunk_tokens"),
+            extra.get("scheduling", "fifo"))
     eng = ServeEngine(tm, tp, paged=True, **base)
     with pytest.raises(NotImplementedError, match="item 8"):
         eng.reload_params(tp)
