@@ -17,6 +17,13 @@ a non-zero exit:
 1. build    — compile the CUDA kernels from ``src/repro_torch/kernels/
               csrc`` with nvcc for sm_90a (one nvcc per source, all at
               once); print the card's name and power limit.
+   rows     — ``scripts/row_invariance.py`` at 2 layers of llama3-8b
+              (bf16): one slot's decode step against row 0 of a verify
+              over the same tokens, op by op (paged, dense-slot, the
+              drafter's dense-slot decode against the paged verify;
+              ``trace`` lines naming the first op that differs), and each
+              op alone at m = 1..16 and T = 1 against T = 4 (``op``
+              lines); fails on any row that differs in a bit.
 2. kernels  — each of the six kernels against its plain PyTorch version on
               the card, at the shapes its path gives it (the served model's
               projections and attention; every contraction, reduction
@@ -37,7 +44,10 @@ a non-zero exit:
               models' served decode (bf16 and int8 pools), long context
               (to 4096 tokens, and 16 slots to 8192) and the T = 4 verify
               shape, also as served (B4 T4 H32/8, bf16 and int8 pools) at
-              each live-block bucket of the spec phase's max_len. Each ``moa_reduce`` / ``loa_reduce`` row names its
+              each live-block bucket of the spec phase's max_len, and a
+              256-block table with 8, 16 and 32 live blocks (also timed
+              on the table cut to its live-block bucket, ``cut_device_ms``).
+              Each ``moa_reduce`` / ``loa_reduce`` row names its
               plan (route, splits, blocks), fails on two calls that differ
               in a bit, gives ``chain_ms`` (the ordered fold chain's floor)
               on the ordered route, and a time target, met or missed.
@@ -81,9 +91,11 @@ a non-zero exit:
               line), failing on a token, a bit of a verify tick's logits
               or a launch count that differs, on a paged verify replay
               that does not launch paged attention once a layer at T = 4,
-              and on greedy tokens that differ from the plain captured
-              engine's but at a top-2 near-tie (``NEAR_TIE``); then the
-              oracle's captured engine on the workload as it arrives.
+              on greedy tokens that differ in a bit from the plain
+              captured engine's, and on an oracle whose accept rate is
+              not 1.0 (no near-tie allowance: no kernel's row depends on
+              the rows beside it); then the oracle's captured engine on
+              the workload as it arrives (accept rate 1.0 again).
               Per layout the ngram drafter's verify ticks are profiled,
               and the dense-slot plain engine's decode ticks (the paged
               ones are the serve phase's) (``profile`` lines).
@@ -95,6 +107,24 @@ a non-zero exit:
               spills, chunk ticks, tok/s); tokens must equal the FIFO
               one-shot run's but at a near-tie, and the SLO run must
               preempt.
+   fleet    — the same llama3-8b, 2 replicas of a captured paged engine
+              (4 slots each) on a StepClock of 1 ms a read, 12 requests of
+              the serve phase's shape: a plain engine, a failure-free
+              fleet, and a chaos fleet (the busiest replica killed while
+              it decodes, detected by heartbeat, its requests requeued,
+              the replica revived, then a rolling reload to a new tree
+              of the weights in memory); then the watcher path at 2
+              layers (a CheckpointManager in a temporary directory, a
+              CheckpointWatcher driving the rolling reload); then
+              ``reload_params`` under graphs (a captured engine reloaded
+              with seed 1's weights against a fresh one on them, tokens
+              and every step's logits bit for bit; an engine on the old
+              tree unchanged). Fails on a lost request, a dropped or
+              unfinished reload, or a token that differs from the
+              failure-free fleet's or the plain engine's. One ``fleet``
+              line: kills, deaths detected, requeues, requeue latency,
+              reloads, revival capture seconds, tok/s against the
+              failure-free fleet, memory.
    Then moonshot-v1-16b-a3b at full width and depth (bf16 weights
               from the port's initializer, seed 0, after llama3-8b is
               freed; capacity factor 1.25, so exact-length prefills) in
@@ -127,9 +157,14 @@ a non-zero exit:
               sit at a near-tie of the plain path's router probabilities
               (``ROUTE_GAP``), and until it every step's logits agree
               within ``LOGIT_TOL``. Last, speculative parity at 2 layers
-              on f32 pools: the oracle's greedy tokens equal the plain
-              engine's exactly, llama3 and a dropless moonshot (capacity
-              factor 11), both layouts, on the kernels.
+              on f32 and bf16 pools: the oracle accepts every draft and
+              its greedy tokens equal the plain engine's exactly, llama3
+              and a dropless moonshot (capacity factor 11), both layouts,
+              on the kernels. Then the serve CLI at its default lengths
+              (llama3-8b, 2 layers, bf16): a dense-slot engine, the same
+              with the oracle drafter, and 2 dense-slot replicas; each
+              must finish with ``max_len`` rounded up to whole 16-token
+              pages (``cli`` lines).
 5. paper    — the paper path, ``repro_torch.launch.paper_repro``, on the
               card: Table 1, Fig. 4 (serial ``moa_reduce``), Fig. 5 (LOA
               MRED, ``loa_add``, the LOA MOA through ``loa_reduce``) and the
@@ -146,6 +181,7 @@ a non-zero exit:
 The last lines are the kernel summary (JSON; ``launches_by_path`` has one
 key per counted run: ``serve/llama3-8b``, ``serve/llama3-8b-spec-paged``,
 ``serve/llama3-8b-spec-dense-slot``, ``serve/llama3-8b-slo``,
+``serve/llama3-8b-fleet``,
 ``serve/moonshot-dense-slot``, ``serve/moonshot-paged``, ``paper``; the
 paged row also carries the served verify row), the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -224,14 +260,13 @@ def path_kernels(path: str) -> list:
     return [name for name, k in KERNELS.items() if path in k.paths]
 
 
-def served_kernels(cfg, paged: bool) -> list:
-    """The kernels a served run of ``cfg`` must launch: ``dot_moa`` for
-    every projection (an MoE's experts batched), flash attention in
-    prefill, paged attention in a paged decode, and an MoE's top-k combine
+def served_kernels(cfg) -> list:
+    """The kernels a served run of ``cfg`` must launch, in either layout:
+    ``dot_moa`` for every projection (an MoE's experts batched), flash
+    attention in prefill, paged attention in decode and verify (a
+    dense-slot cache's rows walked as pages), and an MoE's top-k combine
     on ``moa_reduce``."""
-    out = ["dot_moa", "flash_attention"]
-    if paged:
-        out.append("paged_attention")
+    out = ["dot_moa", "flash_attention", "paged_attention"]
     if cfg.family == "moe":
         out.append("moa_reduce")
     return out
@@ -807,9 +842,20 @@ def kernel_phase(torch, timer, parent=None):
         for pdt in (torch.bfloat16, torch.int8):
             cases.append((4, 4, 32, 8, 128, 16, starts, torch.bfloat16,
                           pdt, n_blocks))
+    # a long max_len (4096: a 256-block table) with short contexts (8, 16
+    # and 32 live blocks): the kernel plans the split for the whole table,
+    # as the engine now calls it; ``cut_device_ms`` is the same kernel on
+    # the table cut to the live-block bucket, planned for that width (and
+    # under --parent the parent's kernel runs on the cut table, as the
+    # parent's engine called it)
+    for starts in ((60, 90, 110, 127), (130, 200, 240, 255),
+                   (300, 400, 480, 511)):
+        cases.append((4, 1, 32, 8, 128, 16, starts, torch.bfloat16,
+                      torch.bfloat16, 256, True))
     for B, T, H, Hk, D, bs, starts, qdt, pdt, *given in cases:
         n_blocks = (max(starts) + T - 1) // bs + 1
         n_blocks = 1 << (n_blocks - 1).bit_length()   # a live-block bucket
+        cut = n_blocks if given[1:] == [True] else None
         if given:
             n_blocks = given[0]
         n_phys = 2 + B * n_blocks       # trash page 0, poison page last
@@ -883,9 +929,23 @@ def kernel_phase(torch, timer, parent=None):
             "plain_ms": timer(plain, 5),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
         }
+        parent_tables = tables
+        if cut is not None:
+            parent_tables = tables[:, :cut].contiguous()
+            run_cut = lambda: pa.paged_attention_cuda(
+                q, kp, vp, parent_tables, start, dequant_dtype=qdt, **scales)
+            pc = pa.plan(B, T, H, Hk, D, bs, cut, pdt)
+            row.update({"cut_blocks": cut, "cut_splits": pc.splits,
+                        "cut_max_abs_err": err(run_cut(), want),
+                        "cut_device_ms": timer.device(run_cut,
+                                                      "paged_attention")})
+            if not row["cut_max_abs_err"] <= tol:
+                raise AssertionError(f"paged_attention on a table cut to "
+                                     f"{cut} blocks: {row['cut_max_abs_err']}"
+                                     f" > tol {tol}")
         row.update(beside_parent(timer, parent, "paged_attention", lambda f: f(
-            q, kp, vp, tables, start, dequant_dtype=qdt, **scales), want,
-            err))
+            q, kp, vp, parent_tables, start, dequant_dtype=qdt, **scales),
+            want, err))
         check(row)
         summary.setdefault("paged_attention", row)   # the served decode
         if given and n_blocks == max(VERIFY_BUCKETS) \
@@ -1646,7 +1706,7 @@ def serve_phase(torch, llama3, parent=None):
     def workload():
         return llama3_workload(cfg)
 
-    served = served_kernels(cfg, paged=True)
+    served = served_kernels(cfg)
     eager_vs_captured(torch, engine, workload, warmup=True, what="serve",
                       served=served)
     # the served workload as it arrives, timed: eager, then captured
@@ -1709,8 +1769,11 @@ def serve_line(torch, cfg, model, run, *, path, init_s, **extra) -> dict:
     return line
 
 
-#: a greedy divergence between two bf16 runs passes only at a top-2 logit
-#: gap below this (the CPU serve tests' bf16 bound, the parity phase's)
+#: a greedy divergence between two bf16 runs that take different
+#: arithmetic (chunked against one-shot prefill, the kernels against the
+#: plain path) passes only at a top-2 logit gap below this (the CPU serve
+#: tests' bf16 bound, the parity phase's); speculative and fleet tokens
+#: have no allowance: no kernel's row depends on the rows beside it
 NEAR_TIE = 0.05
 #: the spec phase's drafters and window
 SPEC_DRAFTERS = ("ngram?n=3", "oracle", "oracle?accept=0.5")
@@ -1882,15 +1945,23 @@ def spec_phase(torch, llama3) -> dict:
             t_seen = captured["paged_T"]["warmup"]
             bad_T = paged and (verify.get("paged_attention") != L
                                or set(t_seen) != {SPEC_K + 1})
-            ties = near_ties(torch, model, params, workload(),
-                             plain["results"], captured["results"],
-                             NEAR_TIE, f"spec {layout} {drafter} vs plain")
+            unlike = {path: differing_tokens(plain["results"],
+                                             run["results"])
+                      for path, run in runs.items()}
+            accept = {path: run["report"]["spec"]["accept_rate"]
+                      for path, run in runs.items()}
             for path, run in runs.items():
                 spec_line(cfg, run, layout=layout, drafter=drafter,
                           path=path, arrivals="all at 0",
                           verify_ticks_logged=len(ticks[path]),
                           paged_calls_by_T=run["paged_T"],
-                          plain_near_ties=ties)
+                          differing_from_plain=unlike[path])
+            if any(unlike.values()) or (drafter == "oracle" and any(
+                    a != 1.0 for a in accept.values())):
+                raise AssertionError(
+                    f"spec {layout} {drafter}: tokens differ from the plain "
+                    f"engine's for {unlike}, accept rates {accept} (the "
+                    "oracle must accept every draft)")
             emit({"phase": "graphs", "what": f"spec {layout} {drafter}",
                   "requests": len(eager["results"]),
                   "verify_ticks": len(ticks["eager"]),
@@ -1916,6 +1987,10 @@ def spec_phase(torch, llama3) -> dict:
             gc.collect()
             spec_line(cfg, run, layout=layout, drafter=drafter,
                       path="captured", arrivals="poisson")
+            if run["report"]["spec"]["accept_rate"] != 1.0:
+                raise AssertionError(f"spec {layout} oracle as the requests "
+                                     "arrive: accept rate "
+                                     f"{run['report']['spec']['accept_rate']}")
             launches[f"serve/llama3-8b-spec-{layout}"] = run["launches"]
             if paged and run["launches"]["paged_attention"] == 0:
                 raise AssertionError("the paged spec run launched no "
@@ -1936,20 +2011,34 @@ def spec_phase(torch, llama3) -> dict:
     return launches
 
 
+def differing_tokens(want, got) -> list:
+    """The uids whose greedy tokens differ between two runs (results by
+    uid, in order)."""
+    if [a.uid for a in want] != [b.uid for b in got]:
+        raise AssertionError("results out of order")
+    return [a.uid for a, b in zip(want, got)
+            if a.tokens.tolist() != b.tokens.tolist()]
+
+
 def spec_parity_phase(torch) -> None:
-    """At 2 layers on f32 pools (float32 compute), the oracle's greedy
-    tokens equal the plain engine's exactly, both on the kernels (the
-    captured engine): llama3-8b, and moonshot-v1-16b-a3b made dropless
-    (capacity factor 11 >= 64 / 6), each in both layouts."""
+    """At 2 layers, in float32 and in bfloat16 compute (f32 and bf16
+    pools), the oracle accepts every draft and its greedy tokens equal the
+    plain engine's exactly, both on the kernels (the captured engine):
+    llama3-8b, and moonshot-v1-16b-a3b made dropless (capacity factor 11
+    >= 64 / 6), each in both layouts."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.api import build_model
     from repro_torch.serve import ServeEngine, poisson_workload, \
         resolve_drafter
 
-    for arch, upd in (("llama3-8b", {}),
-                      ("moonshot-v1-16b-a3b", {"capacity_factor": 11.0})):
+    for arch, compute, upd in (
+            (arch, compute, upd)
+            for arch, upd in (("llama3-8b", {}),
+                              ("moonshot-v1-16b-a3b",
+                               {"capacity_factor": 11.0}))
+            for compute in ("float32", "bfloat16")):
         cfg = dataclasses.replace(get_config(arch), n_layers=2,
-                                  compute_dtype="float32", **upd)
+                                  compute_dtype=compute, **upd)
         model = build_model(cfg)
         params = model.init(seed=0, device="cuda")
         for paged in (True, False):
@@ -1970,19 +2059,52 @@ def spec_parity_phase(torch) -> None:
                      for r in workload()], warmup=True)
                 del e
                 gc.collect()
-            differ = [a.uid for a, b in zip(results[None], results["oracle"])
-                      if a.tokens.tolist() != b.tokens.tolist()]
+            differ = differing_tokens(results[None], results["oracle"])
+            accept = report["spec"]["accept_rate"]
             emit({"phase": "parity", "what": "spec", "arch": cfg.name,
-                  "n_layers": 2, "compute_dtype": "float32",
+                  "n_layers": 2, "compute_dtype": compute,
                   "capacity_factor": cfg.capacity_factor,
                   "layout": "paged" if paged else "dense-slot",
                   "requests": len(results[None]),
-                  "accept_rate": report["spec"]["accept_rate"],
-                  "differing_tokens": differ})
-            if differ:
-                raise AssertionError(f"spec parity {cfg.name} paged={paged}:"
-                                     f" oracle tokens differ for {differ}")
+                  "accept_rate": accept, "differing_tokens": differ})
+            if differ or accept != 1.0:
+                raise AssertionError(
+                    f"spec parity {cfg.name} {compute} paged={paged}: "
+                    f"oracle tokens differ for {differ}, accept {accept}")
         del params, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def cli_phase(torch) -> None:
+    """The serve CLI at its default lengths ((64 + 32 + 1) * 2 = 194
+    tokens, 200 with a speculative margin) on dense-slot engines, which
+    walk their cache in 16-token pages: llama3-8b at 2 layers in bf16, the
+    plain engine, the oracle drafter, and 2 replicas. Each must finish,
+    and serve at ``max_len`` 208."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve as cli
+
+    for extra in ([], ["--spec-decode", "--drafter", "oracle"],
+                  ["--replicas", "2"]):
+        argv = ["--arch", "llama3-8b", "--layers", "2", "--param-dtype",
+                "bfloat16", "--requests", "4"] + extra
+        out = io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(out):
+            cli.main(argv)
+        lines = out.getvalue().splitlines()
+        max_len = next((int(w.split("=")[1]) for line in lines
+                        for w in line.split() if w.startswith("max_len=")),
+                       None)
+        emit({"phase": "cli", "argv": argv, "max_len": max_len,
+              "seconds": time.monotonic() - t0,
+              "last": lines[-1] if lines else None})
+        if max_len != 208:
+            raise AssertionError(f"serve CLI {argv}: max_len {max_len}, "
+                                 "not 208")
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -2049,11 +2171,265 @@ def slo_phase(torch, llama3) -> dict:
               "launches": run["launches"], "near_ties_vs_fifo": ties})
     if runs["slo chunked"]["report"]["slo"]["preemptions"] < 1:
         raise AssertionError("the SLO run preempted nothing")
-    missing = [k for k in served_kernels(cfg, True)
+    missing = [k for k in served_kernels(cfg)
                if runs["slo chunked"]["launches"][k] == 0]
     if missing:
         raise AssertionError(f"the SLO run launched no {missing}")
     return runs["slo chunked"]["launches"]
+
+
+#: the fleet phase: replicas of a captured paged llama3-8b engine (4 slots
+#: each) on the reference CLI's StepClock, the serve phase's request shape
+FLEET_REPLICAS = 2
+FLEET_REQUESTS = 12
+FLEET_DT = 1e-3
+
+
+def fleet_workload(cfg):
+    """12 greedy Poisson requests at 50 req/s, prompts of 16-64 tokens,
+    8-16 new tokens, seed 0 (the serve phase's shape)."""
+    from repro_torch.serve import poisson_workload
+
+    return poisson_workload(n_requests=FLEET_REQUESTS, vocab=cfg.vocab,
+                            rate_rps=50.0, prompt_len_range=(16, 64),
+                            gen_len_range=(8, 16), seed=0)
+
+
+def fleet_phase(torch, llama3) -> dict:
+    """The replica fleet at full width and depth: llama3-8b (bf16 weights,
+    seed 0), ``FLEET_REPLICAS`` replicas, each a captured paged engine of 4
+    slots and a bf16 pool of block 16, on a ``StepClock(FLEET_DT)``,
+    serving ``fleet_workload``.
+
+    * A plain engine, a failure-free fleet, and a chaos fleet: the replica
+      with the most in-flight decodes is killed at the first router step
+      from 8 on where it decodes; the heartbeat monitor detects it and its
+      requests are requeued; it is revived once detected (its graphs
+      captured anew: ``revive_capture_s``); then a rolling reload of a
+      new tree in memory (a copy of the same weights, which every replica
+      rebinds to) drains, swaps and rejoins each replica. Fails on a lost
+      request, a dropped or unfinished
+      reload, or greedy tokens that differ in a bit from the failure-free
+      fleet's or the plain engine's.
+    * The watcher path at 2 layers: a ``CheckpointManager`` in a temporary
+      directory saves the weights at router step 6 and a
+      ``CheckpointWatcher`` turns the step into a rolling reload (a full
+      width checkpoint is 16 GB of npz). Same checks.
+    * ``reload_params`` under graphs at full width: a captured engine that
+      served on seed 0's weights, reloaded with seed 1's, must equal a
+      fresh captured engine on seed 1's, bit for bit (tokens and every
+      step's logits); another engine built on the same seed 0 tree must
+      still give the plain engine's tokens.
+
+    Prints a ``fleet`` line and returns the chaos fleet's launches."""
+    from repro_torch.checkpoint import CheckpointManager, CheckpointWatcher
+    from repro_torch.interop import tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    from repro_torch.serve import ServeEngine, StepClock
+    from repro_torch.serve.router import ReplicaSet
+
+    cfg, model, params, _ = llama3
+
+    def make(m, p, clock):
+        return ServeEngine(m, p, n_slots=4, max_len=96, paged=True,
+                           block_size=16, device="cuda", clock=clock)
+
+    def fleet(m, p, actions=None, **kw):
+        clock = StepClock(FLEET_DT)
+        rs = ReplicaSet(lambda: make(m, p, clock),
+                        n_replicas=FLEET_REPLICAS, clock=clock, **kw)
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        results, report = rs.run(fleet_workload(m.cfg),
+                                 actions=actions or {})
+        torch.cuda.synchronize()
+        host_s = time.monotonic() - t0
+        rs.check()
+        return rs, results, report, host_s, ops.launch_counts()
+
+    def check(what, report, results, want, reloads=1):
+        unlike = differing_tokens(want, results)
+        bad = (report["lost_requests"] or report["reload_dropped"]
+               or report["reloads_completed"] != reloads or unlike)
+        if bad:
+            raise AssertionError(
+                f"fleet {what}: lost {report['lost_requests']}, reload "
+                f"dropped {report['reload_dropped']}, reloads "
+                f"{report['reloads_completed']}/{reloads}, tokens differ "
+                f"for {unlike}")
+        return unlike
+
+    torch.cuda.reset_peak_memory_stats()
+    plain, _ = make(model, params, StepClock(FLEET_DT)).run(
+        fleet_workload(cfg))
+    gc.collect()
+    _, base, base_report, base_host_s, _ = fleet(model, params)
+    vs_plain = {"failure-free": check("failure-free vs plain", base_report,
+                                      base, plain, reloads=0)}
+    gc.collect()
+
+    state = {"killed": None, "revived": False, "reload_at": None}
+
+    def chaos(rs):
+        if state["killed"] is None and rs._step >= 8:
+            rep = max((r for r in rs.replicas if r.alive),
+                      key=lambda r: (len(r.uids), -r.rid))
+            if rep.engine._inflight:     # it decodes now
+                state["killed"] = rep.rid
+                rs.kill(rep.rid)
+        elif state["killed"] is not None and not state["revived"] \
+                and rs.deaths_detected:
+            rs.revive(state["killed"])
+            state["revived"] = True
+            state["reload_at"] = rs._step + 2
+        elif state["reload_at"] == rs._step:
+            # a new tree of the same values: every replica rebinds to it
+            # (one copy for the fleet) and captures its graphs again
+            rs.begin_reload(1, tree_map(torch.clone, params))
+
+    actions = {step: chaos for step in range(4000)}
+    rs, results, report, host_s, launches = fleet(model, params, actions)
+    vs_base = check("chaos vs failure-free", report, results, base)
+    vs_plain["chaos"] = check("chaos vs plain", report, results, plain)
+    if not (report["kills"] == 1 and report["deaths_detected"] == 1
+            and report["requeues"] >= 1 and state["revived"]):
+        raise AssertionError(f"fleet chaos: kills {report['kills']}, "
+                             f"detected {report['deaths_detected']}, "
+                             f"requeues {report['requeues']}, revived "
+                             f"{state['revived']}: the kill was not "
+                             "exercised on a decoding replica")
+    missing = [k for k in served_kernels(cfg) if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the fleet launched no {missing}")
+    revive_s = rs.replicas[state["killed"]].revive_capture_s
+    fleet_mem = torch.cuda.max_memory_allocated() / 1e9
+    del rs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the watcher path at 2 layers, through a checkpoint on disk
+    small = build_model(dataclasses.replace(cfg, n_layers=2))
+    sp = small.init(seed=0, device="cuda")
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp, keep=1)
+        _, wbase, _, _, _ = fleet(small, sp)
+        t0 = time.monotonic()
+        wrs, wres, wrep, _, _ = fleet(
+            small, sp, {6: lambda _rs: mgr.save(1, sp)},
+            watcher=CheckpointWatcher(mgr),
+            load_params=lambda step: mgr.restore(sp, step=step)[0])
+        watcher_s = time.monotonic() - t0
+    check("watcher reload (2 layers)", wrep, wres, wbase)
+    versions = [r.param_version for r in wrs.replicas]
+    if versions != [1] * FLEET_REPLICAS:
+        raise AssertionError(f"fleet watcher reload: versions {versions}")
+    del wrs, small, sp
+    gc.collect()
+
+    # reload_params under graphs: seed 1's weights into a captured engine
+    def at_zero():
+        return [dataclasses.replace(r, arrival_s=0.0)
+                for r in fleet_workload(cfg)]
+
+    p1 = model.init(seed=1, device="cuda")
+    fresh_logits = {}
+    fresh = serve_once(torch, make(model, p1, StepClock(FLEET_DT)),
+                       at_zero(), warmup=True, logits=fresh_logits)
+    gc.collect()
+    engine = make(model, params, StepClock(FLEET_DT))
+    bystander = make(model, params, StepClock(FLEET_DT))
+    serve_once(torch, engine, at_zero(), warmup=True)
+    engine.reload_params(p1)
+    del p1
+    gc.collect()
+    got_logits = {}
+    got = serve_once(torch, engine, at_zero(), warmup=True,
+                     logits=got_logits)
+    other = serve_once(torch, bystander, at_zero(), warmup=True)
+    reload_mem = torch.cuda.max_memory_allocated() / 1e9
+    tokens = differing_tokens(fresh["results"], got["results"])
+    steps = set(fresh_logits) | set(got_logits)
+    differ = sorted(k for k in steps if not (
+        k in fresh_logits and k in got_logits
+        and torch.equal(fresh_logits[k], got_logits[k])))
+    same_as_seed0 = differing_tokens(plain, other["results"])
+    changed = differing_tokens(plain, got["results"])
+    drops = engine._graphs.drops
+    del engine, bystander
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    line = {"phase": "fleet", "arch": cfg.name, "n_layers": cfg.n_layers,
+            "replicas": FLEET_REPLICAS, "slots_per_replica": 4,
+            "requests": FLEET_REQUESTS, "dt": FLEET_DT,
+            "kills": report["kills"],
+            "deaths_detected": report["deaths_detected"],
+            "requeues": report["requeues"],
+            "requeued_requests": report["requeued_requests"],
+            "requeue_latency_ms": report["requeue_latency_ms"],
+            "reloads": report["reloads_completed"],
+            "reload_dropped": report["reload_dropped"],
+            "router_steps": report["router_steps"],
+            "revive_capture_s": revive_s,
+            "tok_per_s": report["tok_per_s"],
+            "failure_free_tok_per_s": base_report["tok_per_s"],
+            "host_s": host_s, "failure_free_host_s": base_host_s,
+            "host_tok_per_s": report["total_new_tokens"] / host_s,
+            "failure_free_host_tok_per_s":
+                base_report["total_new_tokens"] / base_host_s,
+            "differing_tokens_vs_failure_free": vs_base,
+            "differing_tokens_vs_plain": vs_plain,
+            "watcher_reload_2_layers": {
+                "reloads": wrep["reloads_completed"],
+                "dropped": wrep["reload_dropped"], "versions": versions,
+                "seconds": watcher_s},
+            "reload_params": {
+                "differing_tokens": tokens, "differing_logits": differ[:10],
+                "logit_steps": len(steps),
+                "bystander_differs_from_seed0": same_as_seed0,
+                "seed1_requests_unlike_seed0": len(changed),
+                "graph_drops": drops,
+                "graphs_after_reload": got["report"]["graphs"]},
+            "peak_mem_gb": {"fleet": fleet_mem, "reload": reload_mem},
+            "weights_gb": sum(t.numel() * t.element_size() for t in
+                              _leaves(params)) / 1e9,
+            "replicas_summary": report["replicas"]}
+    emit(line)
+    if tokens or differ or same_as_seed0 or not changed:
+        raise AssertionError(
+            f"reload_params: tokens of {tokens} and logits at {differ[:10]} "
+            "differ from a fresh engine on the new weights; the bystander "
+            f"differs from seed 0's tokens for {same_as_seed0}; seed 1 "
+            f"changed {len(changed)} requests")
+    return launches
+
+
+def _leaves(tree):
+    from repro_torch.interop import tree_leaves
+
+    return [t for _, t in tree_leaves(tree)]
+
+
+def rows_phase(torch) -> None:
+    """``scripts/row_invariance.py`` at 2 layers of llama3-8b (bf16): one
+    slot's decode step against row 0 of a verify over the same tokens, op
+    by op (paged, dense-slot, and the drafter's dense-slot decode against
+    the paged verify), and each op alone at m = 1..16 and T = 1 against
+    T = 4. Fails on any op whose row differs in a bit."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "row_invariance", os.path.join(HERE, "scripts", "row_invariance.py"))
+    rows = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(rows)
+    rows.emit = emit              # its lines go to the --log file too
+    bad = rows.check(n_layers=2, device="cuda")
+    if bad:
+        raise AssertionError(f"a row's result depends on the rows beside "
+                             f"it: {bad}")
 
 
 def moe_serve_phase(torch):
@@ -2107,7 +2483,7 @@ def moe_serve_phase(torch):
     launches = {}
     for paged in (False, True):
         layout = "paged" if paged else "dense-slot"
-        served = served_kernels(cfg, paged)
+        served = served_kernels(cfg)
 
         def engine(cuda_graphs):
             return ServeEngine(model, params, n_slots=4, max_len=96,
@@ -2116,9 +2492,7 @@ def moe_serve_phase(torch):
 
         eager_vs_captured(torch, engine, workload, warmup=True,
                           what=f"serve moonshot {layout}", served=served)
-        want = {"dot_moa": 8 * L, "moa_reduce": L}
-        if paged:
-            want["paged_attention"] = L
+        want = {"dot_moa": 8 * L, "moa_reduce": L, "paged_attention": L}
         for path, cuda_graphs in (("eager", False), ("captured", True)):
             e = engine(cuda_graphs)
             run = serve_once(torch, e, workload(), warmup=True)
@@ -2389,7 +2763,7 @@ def parity_phase(torch):
                 ops.reset_launch_counts()
                 out = eng.run(workload())
                 counts = ops.launch_counts()
-                served = [counts[k] for k in served_kernels(cfg, True)]
+                served = [counts[k] for k in served_kernels(cfg)]
                 if (path == "kernel") != all(served) or (
                         path == "torch" and any(counts.values())):
                     raise AssertionError(f"{path} path launches: {counts}")
@@ -2399,7 +2773,7 @@ def parity_phase(torch):
             if pool != "bf16":   # the kernel path eager, then captured
                 eager_vs_captured(torch, lambda g: engine(cfg, g), workload,
                                   warmup=False, what=f"parity {pool}/{wl}",
-                                  served=served_kernels(cfg, True))
+                                  served=served_kernels(cfg))
             runs = {"torch": serve("torch", plain_cfg, plain_logits),
                     "kernel": serve("kernel", cfg)}
             divergences = []
@@ -2599,7 +2973,7 @@ def moe_parity_phase(torch):
             finally:
                 undo()
             counts = ops.launch_counts()
-            want = served_kernels(cfg, paged)
+            want = served_kernels(cfg)
             if (path == "kernel" and not all(counts[k] for k in want)) or (
                     path == "torch" and any(counts.values())):
                 raise AssertionError(f"moe parity {layout} {path} "
@@ -2766,6 +3140,7 @@ def main() -> int:
                         for name, b in pbuilt.items()}})
 
     timer = Timer(torch)
+    rows_phase(torch)
     rows = kernel_phase(torch, timer, parent)
     rows.update(paper_kernel_phase(torch, timer, parent))
     rows.update(moe_kernel_phase(torch, timer))
@@ -2779,6 +3154,7 @@ def main() -> int:
                                            parent.get("paged_attention"))}
     runs.update(spec_phase(torch, llama3))
     runs["serve/llama3-8b-slo"] = slo_phase(torch, llama3)
+    runs["serve/llama3-8b-fleet"] = fleet_phase(torch, llama3)
     del llama3
     gc.collect()
     torch.cuda.empty_cache()
@@ -2786,6 +3162,7 @@ def main() -> int:
     parity_phase(torch)
     moe_parity_phase(torch)
     spec_parity_phase(torch)
+    cli_phase(torch)
     runs["paper"] = paper_phase(torch)
 
     # each kernel's launches are those of the runs of its first path (the

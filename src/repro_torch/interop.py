@@ -12,14 +12,15 @@ bit for bit.
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional, Union
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.device import as_dtype
 
-__all__ = ["from_numpy", "to_numpy", "tree_map", "tree_leaves"]
+__all__ = ["from_numpy", "to_numpy", "tree_map", "tree_leaves",
+           "tree_paths"]
 
 
 def tree_map(fn, tree):
@@ -37,6 +38,23 @@ def tree_leaves(tree, prefix: str = ""):
             out += tree_leaves(v, f"{prefix}{k}.")
         return out
     return [(prefix[:-1], tree)]
+
+
+def tree_paths(tree, prefix: Tuple[str, ...] = ()) -> Dict[str, Any]:
+    """``{key: leaf}`` in ``jax.tree_util``'s flattening order: dict keys
+    sorted, list and tuple entries by index, parts joined by ``/``
+    (``layers/attn/wq``) — the checkpoint's keys."""
+    if isinstance(tree, Mapping):
+        out = {}
+        for k in sorted(tree):
+            out.update(tree_paths(tree[k], prefix + (str(k),)))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(tree_paths(v, prefix + (str(i),)))
+        return out
+    return {"/".join(prefix): tree}
 
 
 def _leaf_from_numpy(a: Any, device, dtype) -> torch.Tensor:

@@ -38,13 +38,22 @@
 // slices.
 //
 // Dispatch (kernels/dot_moa.py: plan, which also picks the split):
-//   small m           dot_moa_stream (any operand type): the decode shapes,
-//                     bound by reading B once; split mode always, as much
-//                     K a block as keeps the grid within one wave of 2
-//                     blocks per SM. CUDA-core FMA: at m <= 16 a weight
-//                     byte feeds at most 16 flops, far under the tensor
-//                     cores' ridge.
-//   else, bf16        dot_moa_wgmma: wgmma tensor cores, 64 x 128 tiles.
+//   bf16              dot_moa_wgmma: wgmma tensor cores, 64 x 128 tiles,
+//                     at every m: a row's K split and in-slice order are
+//                     then the same at every m up to 64, so a decode row
+//                     (m = n_slots) and a speculative verify row (m =
+//                     n_slots * (k + 1)) give the same bits. At m = 4 it
+//                     reads B once, as the stream body did; on the H100
+//                     (700 W) the 4x4096 @ 4096x14336 decode row took
+//                     0.0485 ms of device time against the stream body's
+//                     0.0466 (4% slower; chip_smoke.py kernels rows).
+//   small m           dot_moa_stream (f32, int32, int8): bound by reading B
+//                     once; split mode always, as much K a block as keeps
+//                     the grid within one wave of 2 blocks per SM, the
+//                     sub-range sized for the dtype's largest row group
+//                     (so the split does not depend on m). CUDA-core FMA:
+//                     at m <= 16 a weight byte feeds at most 16 flops, far
+//                     under the tensor cores' ridge.
 //   else, int8        dot_moa_tc: mma.sync tensor cores, 64 x 128 tiles
 //                     (wgmma takes 8-bit operands K-major only).
 //   else, f32/int32   dot_moa_simt: register-blocked CUDA cores, 128 x 96
@@ -52,7 +61,7 @@
 //                     64 x 128 at m <= 64 (no TF32: the f32 contract; no
 //                     int32 tensor-core product).
 // Small m is what one row group holds: a stream thread keeps at most 64
-// accumulators (m <= 16 rows of f32/int32, 8 of bf16, 4 of int8). More
+// accumulators (m <= 16 rows of f32/int32, 4 of int8). More
 // rows would take more groups, each reading B again, while one 64-row
 // tile of the other bodies reads it once for up to 64 rows. A split is
 // used where the tiles alone are fewer than 2 x 132 (wgmma: 132 / 2,
@@ -273,7 +282,8 @@ template <typename T, typename Acc, typename OutT>
 cudaError_t run(int body, const Args& g) {
   cudaError_t rc = cudaErrorInvalidValue;
   if (body == BODY_STREAM) {
-    rc = launch_stream<T, Acc>(g);
+    // bf16 never streams: every m runs wgmma, one per-row arithmetic
+    if constexpr (!std::is_same<T, __nv_bfloat16>::value) rc = launch_stream<T, Acc>(g);
   } else if (body == BODY_TC) {
     if constexpr (std::is_same<T, int8_t>::value) rc = launch_tc<T>(g);
   } else if (body == BODY_WGMMA) {

@@ -26,7 +26,7 @@
 // page, half the threads idle and a serial softmax per row):
 //
 // * Split walk. Block (s, h * n_rt + rt, b) takes pages [s * P, (s + 1) * P)
-//   of slot b, head h, query-row tile rt (RT rows; R > 16 rows take several
+//   of slot b, head h, query-row tile rt (RT = 4 rows; R > 4 rows take several
 //   tiles). S and P come from kernels/paged_attention.py:plan, from shapes
 //   alone; each block finds n_live on the device, and a split with no live
 //   page returns before it reads anything.
@@ -36,21 +36,28 @@
 //   stages - 1 pages are in flight while one is computed. A stage costs one
 //   cp.async.wait_group and one __syncwarp; there is no block barrier in the
 //   walk. Conversion and the int8 dequant happen in registers after the copy.
-// * All lanes busy. The block's RT (4, 8 or 16) scaled q rows are staged once
-//   and held in registers. At 4 and 8 rows one group of 32 lanes holds them
-//   all, 4 of the D <= 128 head dims a lane; at 16 rows two groups of 16
-//   lanes hold 8 rows each, 8 dims a lane. For a chunk of NC page positions a
-//   lane forms 64 partial dot products (32 at 16 rows) from vector reads of
-//   shared memory, and a transposing butterfly over its group (62 or 30
-//   shuffles) leaves it two full scores. Row max and sum reduce over the
+// * All lanes busy. The block's RT = 4 scaled q rows are staged once and held
+//   in registers, 4 of the D <= 128 head dims a lane. For a chunk of NC = 16
+//   page positions a lane forms 64 partial dot products from vector reads of
+//   shared memory, and a transposing butterfly over the warp (62 shuffles)
+//   leaves it two full scores. Row max and sum reduce over the
 //   NC / 2 lanes of a row; p and the rows' corrections go through a per-group
 //   buffer (the rescale is skipped when no row's max moved), and p.V
 //   accumulates in registers. The online update runs once per chunk. An int8
 //   page becomes f32 by integer and FMA-pipe operations, not the conversion
 //   unit, and bf16 rounding runs two values an instruction.
 // * Occupancy over ring depth: a two-page ring a warp (three for int8's
-//   smaller pages) leaves room for three blocks an SM at 4 and 8 rows, which
-//   beat deeper rings at two blocks an SM on the H100.
+//   smaller pages) leaves room for three blocks an SM, which beat deeper
+//   rings at two blocks an SM on the H100.
+// * One row layout. A query row's arithmetic (its lanes' dims, the
+//   butterfly, the 16-position update, the warp and split folds) is the
+//   same whatever its place in the tile, and the tile is always 4 rows:
+//   R = T * G rows take ceil(R / 4) row tiles, each reading the pages again
+//   (from L2 where the tiles run together). So row t of a T-query call
+//   gives the bits of a one-query call at start + t: a speculative verify
+//   (T = k + 1) scores a token as the plain decode step does. Tiles of 8
+//   and 16 rows, which laid a row's dims and update width out by T, were
+//   dropped for this.
 // * Ordered combine in the launch. Each block folds its warps' (m, l, acc) in
 //   warp order; m = max m_w, l = sum l_w e^(m_w - m), acc = sum acc_w
 //   e^(m_w - m). With one live split that block writes acc / max(l, 1e-30).
@@ -73,13 +80,11 @@ constexpr int MAX_SPLITS = 64;    // kept in step with plan's S_MAX
 constexpr int FOLD_PARTS = MAX_SPLITS;  // >= the warps of a block
 constexpr unsigned FULL = 0xffffffffu;
 
-// A warp's lanes form row groups: 16 query rows a block take two groups of
-// 16 lanes with 8 rows each (8 head dims a lane), else one group of 32 lanes
-// holds every row (4 head dims a lane). A lane reduces npart scores (rows x
-// page positions) at once: 64, or 32 at 16 rows, whose 64 accumulators and
-// 64 q values a lane leave no registers for more.
-__host__ __device__ constexpr int row_groups(int RT) { return RT == 16 ? 2 : 1; }
-__host__ __device__ constexpr int npart(int RT) { return RT == 16 ? 32 : 64; }
+// A warp's 32 lanes form one row group holding the tile's 4 rows (4 head
+// dims a lane); a lane reduces 64 scores (rows x page positions) at once.
+constexpr int RT = 4;
+__host__ __device__ constexpr int row_groups(int) { return 1; }
+__host__ __device__ constexpr int npart(int) { return 64; }
 
 struct Params {
   const void* q;
@@ -243,11 +248,9 @@ __device__ __forceinline__ void wait_ring(int stages) {
   else cp_async_wait<2>();
 }
 
-// Three blocks an SM at 4 and 8 query rows (ptxas holds them to 168
-// registers); two at 16, whose 64 accumulators and 64 q values a lane
-// would spill under that cap.
-template <typename TP, bool DQ_BF16, int RT>
-__global__ void __launch_bounds__(128, RT == 16 ? 2 : 3) paged_split(const Params p) {
+// Three blocks an SM (ptxas holds them to 168 registers).
+template <typename TP, bool DQ_BF16>
+__global__ void __launch_bounds__(128, 3) paged_split(const Params p) {
   constexpr int RG = row_groups(RT);
   constexpr int RR = RT / RG;      // query rows of a row group
   constexpr int LG = 32 / RG;      // lanes of a row group
@@ -555,9 +558,9 @@ __global__ void __launch_bounds__(128, RT == 16 ? 2 : 3) paged_split(const Param
   if (tid == 0) *ticket = 0u;  // the next call on this stream starts from 0
 }
 
-template <typename TP, bool DQ_BF16, int RT>
+template <typename TP, bool DQ_BF16>
 cudaError_t launch(const Params& p, int smem, cudaStream_t st) {
-  auto kernel = paged_split<TP, DQ_BF16, RT>;
+  auto kernel = paged_split<TP, DQ_BF16>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(p.splits, p.Hk * p.n_rt, p.B);
@@ -566,10 +569,8 @@ cudaError_t launch(const Params& p, int smem, cudaStream_t st) {
 }
 
 template <typename TP, bool DQ_BF16 = false>
-cudaError_t dispatch_rows(int RT, const Params& p, int smem, cudaStream_t st) {
-  if (RT == 4) return launch<TP, DQ_BF16, 4>(p, smem, st);
-  if (RT == 8) return launch<TP, DQ_BF16, 8>(p, smem, st);
-  if (RT == 16) return launch<TP, DQ_BF16, 16>(p, smem, st);
+cudaError_t dispatch_rows(int rows, const Params& p, int smem, cudaStream_t st) {
+  if (rows == RT) return launch<TP, DQ_BF16>(p, smem, st);
   return cudaErrorInvalidValue;
 }
 
@@ -580,7 +581,7 @@ cudaError_t dispatch_rows(int RT, const Params& p, int smem, cudaStream_t st) {
 // (B, n_blocks) int32, start (B,) int32, out like q; all contiguous. ws (f32
 // partials) and tickets (zeroed) are the wrapper's, null when splits == 1.
 // ints: B, T, H, Hk, D, bs, n_blocks, q_dtype, pool_dtype, dequant_dtype,
-// splits, pages, warps, stages, rows (RT), cp_bytes, smem -- the plan's; the
+// splits, pages, warps, stages, rows (4), cp_bytes, smem -- the plan's; the
 // shared memory is recomputed here and a mismatch refuses the call.
 extern "C" int repro_paged_attention(const void* q, const void* k_pool, const void* v_pool,
                                      const void* k_scale, const void* v_scale,
@@ -602,12 +603,12 @@ extern "C" int repro_paged_attention(const void* q, const void* k_pool, const vo
   const int q_dtype = n[7], pool_dtype = n[8];
   p.dequant = n[9];
   p.splits = n[10]; p.pages = n[11]; p.warps = n[12]; p.stages = n[13];
-  const int RT = n[14];
+  const int rows = n[14];
   p.cp_bytes = n[15];
   const int smem = n[16];
   p.sm_scale = sm_scale;
   if (p.B <= 0 || p.T <= 0 || p.bs <= 0 || p.n_blocks <= 0 || p.Hk <= 0 || p.H % p.Hk ||
-      p.D <= 0 || p.D % 4 || p.D > D_MAX || (RT == 16 && p.D % 8) || p.splits <= 0 ||
+      p.D <= 0 || p.D % 4 || p.D > D_MAX || rows != RT || p.splits <= 0 ||
       p.pages <= 0 ||
       p.splits > MAX_SPLITS || p.warps < 1 || p.warps > 4 || p.stages < 2 || p.stages > 4 ||
       (p.cp_bytes != 16 && p.cp_bytes != 4))
@@ -627,10 +628,10 @@ extern "C" int repro_paged_attention(const void* q, const void* k_pool, const vo
   p.off_p = L.off_p;
   p.off_w = L.off_w;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (pool_dtype == DT_F32) return dispatch_rows<float>(RT, p, smem, st);
-  if (pool_dtype == DT_BF16) return dispatch_rows<__nv_bfloat16>(RT, p, smem, st);
+  if (pool_dtype == DT_F32) return dispatch_rows<float>(rows, p, smem, st);
+  if (pool_dtype == DT_BF16) return dispatch_rows<__nv_bfloat16>(rows, p, smem, st);
   if (pool_dtype == DT_I8)
-    return p.dequant == DT_BF16 ? dispatch_rows<int8_t, true>(RT, p, smem, st)
-                                : dispatch_rows<int8_t, false>(RT, p, smem, st);
+    return p.dequant == DT_BF16 ? dispatch_rows<int8_t, true>(rows, p, smem, st)
+                                : dispatch_rows<int8_t, false>(rows, p, smem, st);
   return cudaErrorInvalidValue;
 }

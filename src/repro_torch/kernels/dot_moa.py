@@ -48,8 +48,11 @@ WORKSPACE_FLOOR = 16 << 20
 _GRID_YZ = 65535
 _GRID_X = 2 ** 31 - 1
 #: accumulators a thread of the streaming (decode) body holds: it runs
-#: where m rows of them fit one row group (m <= 16 f32 / int32, 8 bf16,
-#: 4 int8); more rows would read B once per group
+#: where m rows of them fit one row group (m <= 16 f32 / int32, 4 int8);
+#: more rows would read B once per group. bf16 never streams: every m runs
+#: ``wgmma``, whose 64-row tile gives a row the same K split and in-slice
+#: order at every m up to 64, so a decode row (m = n_slots) and a verify
+#: row (m = n_slots * (k + 1)) round alike
 STREAM_ACC = 64
 #: stream body: shared-memory bytes for A's rows of one sub-range
 _STREAM_A_BYTES = 32 * 1024
@@ -142,12 +145,21 @@ def plan(m: int, n: int, k: int, block_k: int, dtype: torch.dtype,
     alone; the split counts every member's blocks and workspace, so at
     ``batch`` 1 this is the unbatched plan.
 
-    * ``m * 16 / itemsize <= STREAM_ACC`` (m <= 16 f32 / int32, 8 bf16,
-      4 int8): ``stream`` (B read once, CUDA-core FMA), always split: a
-      sub-range's A rows must fit 32 KB of shared memory.
-    * else ``wgmma`` (bf16: wgmma, 64 x 128 tiles), ``tc`` (int8:
-      mma.sync, 64 x 128 tiles) or ``simt`` (f32, int32: 64 x 128 tiles at
-      m <= 64, else 128 rows by :func:`_simt_width`).
+    * bf16: ``wgmma`` (64 x 128 tiles) at every m.
+    * else ``m * 16 / itemsize <= STREAM_ACC`` (m <= 16 f32 / int32, 4
+      int8): ``stream`` (B read once, CUDA-core FMA), always split: a
+      sub-range's A rows must fit 32 KB of shared memory, sized for the
+      most rows the dtype streams.
+    * else ``tc`` (int8: mma.sync, 64 x 128 tiles) or ``simt`` (f32,
+      int32: 64 x 128 tiles at m <= 64, else 128 rows by
+      :func:`_simt_width`).
+
+    Row invariance: a row's K split and in-slice order depend on
+    ``(n, k, block_k, dtype, batch)`` and the body, never on the other
+    rows: the split counts row tiles (one for every m a tile holds) and
+    sizes the workspace for whole tiles (the stream body: its largest),
+    and no body's order for a row depends on its tile's other rows. So
+    every m up to 16 (up to 64 in bf16) gives a row the same bits.
 
     Sub-ranges are added, smallest count first, until the grid has
     ``MIN_BLOCKS`` blocks (``wgmma``: ``SMS // 2``; ``simt``: ``SMS`` where
@@ -164,13 +176,13 @@ def plan(m: int, n: int, k: int, block_k: int, dtype: torch.dtype,
     block_k = min(block_k, k)
     item = dtype.itemsize
     vec = 16 // item
-    if m * vec <= STREAM_ACC:
+    if dtype == torch.bfloat16:
+        body, tile_m, tile_n, k_step, submax = "wgmma", 64, 128, 64, None
+    elif m * vec <= STREAM_ACC:
         body, k_step = "stream", 32
         tile_m = next(r for r in (4, 8, 16) if r >= m)
         tile_n = 32 * vec
-        submax = _STREAM_A_BYTES // (4 * tile_m)
-    elif dtype == torch.bfloat16:
-        body, tile_m, tile_n, k_step, submax = "wgmma", 64, 128, 64, None
+        submax = _STREAM_A_BYTES // (4 * (STREAM_ACC // vec))
     elif dtype == torch.int8:
         body, tile_m, tile_n, k_step, submax = "tc", 64, 128, 64, None
     elif dtype in (torch.float32, torch.int32):
@@ -196,11 +208,15 @@ def plan(m: int, n: int, k: int, block_k: int, dtype: torch.dtype,
     if body == "simt":   # blocks an SM: 2 only for small one-slice tiles
         pair = tile_m * tile_n <= _SIMT_PAIR_TILE
         target = SMS * (2 if pair and slices == 1 else 1)
-    cap = max(0.05 * batch * (m * k + k * n) * item, WORKSPACE_FLOOR)
+    # whole row tiles (the stream body: its largest), so that the split
+    # is the same for every m a tile holds
+    m_tiles = STREAM_ACC // vec if body == "stream" else \
+        -(-m // tile_m) * tile_m
+    cap = max(0.05 * batch * (m_tiles * k + k * n) * item, WORKSPACE_FLOOR)
 
     def fits(splits: int) -> bool:
         return (slices * splits <= _GRID_YZ
-                and batch * slices * splits * m * n * 4 <= cap)
+                and batch * slices * splits * m_tiles * n * 4 <= cap)
 
     lo = 1 if submax is None else -(-block_k // submax)
     hi = max(lo, -(-block_k // (4 * k_step)))

@@ -34,9 +34,13 @@ MAX_SMEM = 227 * 1024
 #: share an SM where pages are small (measured on the H100: more resident
 #: warps beat deeper rings)
 RING_BUDGET = 64 * 1024
-#: resident blocks an SM holds by registers (``__launch_bounds__`` in the
-#: source, by query rows a block)
-REG_BLOCKS = {4: 3, 8: 3, 16: 2}
+#: query rows of a block (``RT`` in the source): always 4, so that a
+#: query row's lane layout and online-update width are the same whatever
+#: T and the GQA group G (a T = k + 1 verify row rounds as its T = 1
+#: decode row); R = T * G rows take ``ceil(R / 4)`` row tiles
+ROWS = 4
+#: resident blocks an SM holds by registers (``__launch_bounds__``)
+REG_BLOCKS = 3
 #: most splits of one slot (the combine's statistics live in shared
 #: memory; ``MAX_SPLITS`` in the source)
 S_MAX = 64
@@ -46,16 +50,8 @@ _D_MAX = 128
 _PBUF = 64 + 16
 
 
-def _row_groups(rows: int) -> int:
-    """Row groups of a warp (``row_groups`` in the source): 16 query rows
-    take two groups of 16 lanes, 8 rows each."""
-    return 2 if rows == 16 else 1
-
-
-def _cols(rows: int) -> int:
-    """Page positions of one online update: ``npart`` scores a lane (64,
-    or 32 at 16 rows) over the rows of its row group."""
-    return (32 if rows == 16 else 64) * _row_groups(rows) // rows
+#: page positions of one online update: 64 scores a lane over the 4 rows
+COLS = 64 // ROWS
 
 
 def _align16(x: int) -> int:
@@ -124,7 +120,7 @@ def _layout(item: int, quant: bool, bs: int, D: int, rows: int, warps: int,
     ring = warps * stages * slot
     comb = warps * (rows * D + 2 * rows) * 4
     off_p = _align16(max(ring, comb)) + rows * D * 4
-    off_w = off_p + warps * 2 * _row_groups(rows) * _PBUF * 4
+    off_w = off_p + warps * 2 * _PBUF * 4
     return off_w + (2 * S_MAX * rows + 2 * rows) * 4
 
 
@@ -136,17 +132,24 @@ def plan(B: int, T: int, H: int, Hk: int, D: int, bs: int, n_blocks: int,
     ``start`` and no table (nothing is synchronised): the live pages are
     found on the device.
 
-    * ``rows``: the query rows of a block, 4, 8 or 16 (the least that holds
-      ``R = T * H / Hk``; 16 needs ``D % 8 == 0``, else 8; more rows take
-      several row tiles); ``cols``: page positions per online update
-      (16 at 4 rows, 8 at 8, 4 at 16).
+    * ``rows``: the query rows of a block, always ``ROWS`` (4); ``R = T
+      * H / Hk`` rows take ``ceil(R / 4)`` row tiles; ``cols``: page
+      positions per online update, 16.
     * ``warps`` 4 (2 or 1 where two page slots a warp do not fit), and the
       ring depth ``stages``: the most of 4, 3 whose rings stay within
       ``RING_BUDGET``, else 2.
     * ``pages``: the least power of two from one page a warp whose grid
       stays within two resident waves (``2 * SMS * blocks_per_sm``
-      blocks, counting every split of a full-depth table), raised where
-      ``n_blocks`` would need more than ``S_MAX`` splits.
+      blocks, counting every split of a full-depth table, one row tile a
+      KV head), raised where ``n_blocks`` would need more than ``S_MAX``
+      splits.
+
+    Row invariance: a query row's lane layout, update width, warps and
+    split (``rows``, ``cols``, ``warps``, ``pages``) depend on ``(B, H,
+    Hk, D, bs, n_blocks, pool_dtype)``, never on T; and the kernel's
+    arithmetic for a row does not depend on its place in the tile. So row
+    ``t`` of a T-query call gives the bits of a one-query call at
+    ``start + t`` over the same table.
 
     Raises ``ValueError`` for a shape the kernel does not take: ``D`` a
     multiple of 4 up to 128, or a block over 227 KB of shared memory."""
@@ -159,9 +162,7 @@ def plan(B: int, T: int, H: int, Hk: int, D: int, bs: int, n_blocks: int,
     if pool_dtype not in (torch.float32, torch.bfloat16, torch.int8):
         raise TypeError(f"paged_attention: no kernel for pool {pool_dtype}")
     R = T * (H // Hk)
-    rows = next((r for r in (4, 8, 16) if r >= R), 16)
-    if rows == 16 and D % 8:
-        rows = 8
+    rows = ROWS
     row_tiles = -(-R // rows)
     item = pool_dtype.itemsize
     quant = pool_dtype == torch.int8
@@ -177,17 +178,17 @@ def plan(B: int, T: int, H: int, Hk: int, D: int, bs: int, n_blocks: int,
                          f"bs={bs} needs {smem} B of shared memory per block "
                          f"(at most {MAX_SMEM})")
     per_sm = min(SMEM_SM // (smem + 1024), 2048 // (32 * warps),
-                 REG_BLOCKS[rows])
+                 REG_BLOCKS)
     heads = B * Hk * row_tiles
     pages = warps
-    while heads * -(-n_blocks // pages) > 2 * SMS * per_sm:
+    while B * Hk * -(-n_blocks // pages) > 2 * SMS * per_sm:
         pages *= 2
     pages = max(pages, -(-n_blocks // S_MAX))
     splits = -(-n_blocks // pages)
     grid = (splits, Hk * row_tiles, B)
     ws = heads * splits * (rows * D + 2 * rows) * 4 if splits > 1 else 0
     return Plan(splits=splits, pages=pages, warps=warps, stages=stages,
-                rows=rows, row_tiles=row_tiles, cols=_cols(rows),
+                rows=rows, row_tiles=row_tiles, cols=COLS,
                 smem=smem, workspace=ws,
                 tickets=heads if splits > 1 else 0, grid=grid,
                 blocks_per_sm=per_sm)

@@ -14,6 +14,8 @@ over a paged KV pool (``--paged``), driven by a synthetic Poisson workload
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       --smoke --paged --device cpu [--spec-decode] [--prefill-chunk 16] \
       [--scheduling slo --dt 1e-3]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+      --smoke --device cpu --replicas 3 --kill 6:1 --reload-at 10
 
 Runs on the GPU unless ``--device cpu`` is given. ``--layers`` cuts the
 depth (``n_layers``) and nothing else. On the GPU the engine replays CUDA
@@ -27,14 +29,26 @@ chunks; ``--scheduling slo`` swaps the workload for a deadline-carrying
 bursty one (``--deadline``) and preempts (a ``[serve] slo`` line). ``--dt``
 runs the engine on a :class:`repro_torch.serve.StepClock` of that many
 virtual seconds a clock read (0, the default: the wall clock).
+
+``--replicas N`` serves through a fault-tolerant replica set of N engines
+(:class:`repro_torch.serve.router.ReplicaSet`) on a ``StepClock`` of
+``--dt`` seconds (1e-3 unless given): a failure-free fleet, then a chaos
+fleet whose replicas crash at the router steps of ``--kill STEP:REPLICA``
+and which reloads its weights through a checkpoint saved at
+``--reload-at`` (a rolling drain, swap and rejoin). It exits non-zero if a
+request is lost, a reload drops a request or never completes, or a greedy
+token differs from the failure-free fleet's. ``--replicas -1`` plans the
+count from the visible GPUs (:func:`repro_torch.runtime.plan_replicas`).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.configs.registry import get_config, smoke_config
@@ -44,6 +58,7 @@ from repro_torch.models.api import build_model
 from repro_torch.serve import (GREEDY, Sampler, ServeEngine, StepClock,
                                bursty_workload, poisson_workload,
                                resolve_drafter)
+from repro_torch.serve.engine import fit_max_len
 
 __all__ = ["main"]
 
@@ -71,12 +86,12 @@ def _run_engine(args):
     cfg, model = _build(args)
     params = model.init(seed=args.seed, device=device)
     spec_margin = args.spec_k if args.spec_decode else 0
-    max_len = args.max_len \
-        or (args.prompt_len + args.gen_len + spec_margin + 1) * 2
-    if args.paged and max_len % args.block_size:
-        max_len += args.block_size - max_len % args.block_size
     drafter = resolve_drafter(args.drafter, args.spec_k) \
         if args.spec_decode else None
+    max_len = fit_max_len(
+        args.max_len or (args.prompt_len + args.gen_len + spec_margin + 1) * 2,
+        attn_backend=args.attn_backend or cfg.attn_backend, device=device,
+        paged=args.paged, block_size=args.block_size, drafter=drafter)
     chunk = args.prefill_chunk or None
     if chunk is not None and args.paged and chunk % args.block_size:
         raise SystemExit(f"--prefill-chunk {chunk} must be a multiple of "
@@ -157,6 +172,126 @@ def _run_engine(args):
           f"{ops.launch_counts()}")
 
 
+def _parse_kill_schedule(spec: str):
+    """``"step:replica,step:replica"`` → {replica: [steps]}."""
+    schedule = {}
+    for item in filter(None, (s.strip() for s in spec.split(","))):
+        try:
+            step_s, rid_s = item.split(":")
+            step, rid = int(step_s), int(rid_s)
+        except ValueError:
+            raise SystemExit(f"--kill: bad entry {item!r}; expected "
+                             "STEP:REPLICA, e.g. 6:1")
+        schedule.setdefault(rid, []).append(step)
+    return schedule
+
+
+def _run_replicas(args):
+    """Replica-set serving on a deterministic StepClock: the chaos smoke
+    (the reference's ``_run_replicas``).
+
+    Kills from ``--kill`` are injected through per-replica
+    FailureInjectors at the scheduled router steps; ``--reload-at`` saves
+    the serving weights as a checkpoint mid-run so the watcher triggers a
+    rolling drain → swap → rejoin. Exits non-zero if any request is lost,
+    any reload drops an in-flight request, or (greedy) any token stream
+    diverges from the failure-free fleet baseline.
+    """
+    from repro_torch.checkpoint import CheckpointManager, CheckpointWatcher
+    from repro_torch.runtime import FailureInjector
+    from repro_torch.serve.router import ReplicaSet
+
+    if args.spec_decode or args.scheduling != "fifo":
+        raise SystemExit("--replicas drives plain fifo engines tick-by-"
+                         "tick; --spec-decode/--scheduling slo are "
+                         "single-engine modes")
+    device = resolve_device(args.device)
+    cfg, model = _build(args)
+    params = model.init(seed=args.seed, device=device)
+    max_len = fit_max_len(
+        args.max_len or (args.prompt_len + args.gen_len + 1) * 2,
+        attn_backend=args.attn_backend or cfg.attn_backend, device=device,
+        paged=args.paged, block_size=args.block_size)
+    sampler = _sampler(args)
+    make_workload = lambda: poisson_workload(  # noqa: E731
+        n_requests=args.requests, vocab=cfg.vocab, rate_rps=args.rate,
+        prompt_len_range=(min(4, args.prompt_len), args.prompt_len),
+        gen_len_range=(min(2, args.gen_len), args.gen_len),
+        sampler=sampler, seed=args.seed)
+    kills = _parse_kill_schedule(args.kill)
+    for rid in kills:
+        if not 0 <= rid < args.replicas:
+            raise SystemExit(f"--kill: replica {rid} out of range "
+                             f"(0..{args.replicas - 1})")
+
+    def fleet(chaos: bool, tmpdir):
+        clock = StepClock(dt=args.dt or 1e-3)
+        factory = lambda: ServeEngine(  # noqa: E731
+            model, params, n_slots=args.slots, max_len=max_len,
+            paged=args.paged, block_size=args.block_size,
+            n_blocks=args.blocks or None,
+            generator=torch.Generator(device=device).manual_seed(args.seed),
+            clock=clock, attn_backend=args.attn_backend or None,
+            device=device, cuda_graphs=False if args.eager else None)
+        manager = watcher = None
+        actions = {}
+        if chaos and args.reload_at:
+            manager = CheckpointManager(tmpdir)
+            watcher = CheckpointWatcher(manager)
+            actions[args.reload_at] = \
+                lambda _rs: manager.save(1, params)
+        rs = ReplicaSet(
+            factory, n_replicas=args.replicas, clock=clock,
+            failure_injectors={rid: FailureInjector(steps)
+                               for rid, steps in kills.items()}
+            if chaos else None,
+            watcher=watcher,
+            load_params=(lambda step: manager.restore(params)[0])
+            if watcher else None)
+        results, report = rs.run(make_workload(), actions=actions)
+        rs.check()
+        return results, report
+
+    with tempfile.TemporaryDirectory() as tmpdir:
+        base_results, base_report = fleet(False, tmpdir)
+        results, report = fleet(True, tmpdir)
+    print(f"[serve] arch={cfg.name} replicas={args.replicas} "
+          f"slots={args.slots}/replica max_len={max_len} "
+          f"requests={args.requests} rate={args.rate}/s "
+          f"dt={args.dt or 1e-3} device={device}")
+    print(f"[serve] chaos: kills={report['kills']} (schedule "
+          f"{args.kill or 'none'}), deaths detected="
+          f"{report['deaths_detected']}, requeues={report['requeues']}, "
+          f"requeue latency p95="
+          f"{report['requeue_latency_ms']['p95']:.0f}ms")
+    print(f"[serve] reload: completed={report['reloads_completed']} "
+          f"dropped={report['reload_dropped']} versions="
+          f"{[r['param_version'] for r in report['replicas']]}")
+    print(f"[serve] fleet: {report['completed']}/{report['requests']} "
+          f"requests, {report['tok_per_s']:.1f} tok/s "
+          f"(baseline {base_report['tok_per_s']:.1f}), router steps="
+          f"{report['router_steps']}")
+    failures = []
+    if report["lost_requests"]:
+        failures.append(f"{report['lost_requests']} requests lost")
+    if report["reload_dropped"]:
+        failures.append(f"reload dropped {report['reload_dropped']} "
+                        "in-flight requests")
+    if args.reload_at and not report["reloads_completed"]:
+        failures.append("scheduled reload never completed")
+    if sampler.greedy:
+        diverged = [r.uid for r, b in zip(results, base_results)
+                    if not np.array_equal(r.tokens, b.tokens)]
+        if diverged:
+            failures.append(f"greedy tokens diverged from failure-free "
+                            f"baseline for uids {diverged}")
+        else:
+            print("[serve] greedy tokens bit-identical to failure-free "
+                  "baseline")
+    if failures:
+        raise SystemExit("[serve] FAIL: " + "; ".join(failures))
+
+
 def _print_paged(pg: dict) -> None:
     print(f"[serve] paged: {pg['n_blocks']}x{pg['block_size']}-token "
           f"blocks, backend={pg['attn_backend']}, "
@@ -197,7 +332,9 @@ def main(argv=None):
     ap.add_argument("--slots", type=int, default=4,
                     help="decode slots (in-flight requests)")
     ap.add_argument("--max-len", type=int, default=0,
-                    help="per-slot context capacity, tokens")
+                    help="per-slot context capacity, tokens (rounded up to "
+                         "whole KV blocks, and on the GPU a dense-slot "
+                         "cache to whole 16-token pages)")
     ap.add_argument("--paged", action="store_true",
                     help="paged KV cache: shared block pool with "
                          "ref-counted prefix caching (default: dense-slot, "
@@ -243,13 +380,37 @@ def main(argv=None):
     ap.add_argument("--dt", type=float, default=0.0,
                     help="run the engine on a StepClock of this many "
                          "virtual seconds a clock read (deterministic "
-                         "schedules); 0 = the wall clock")
+                         "schedules); 0 = the wall clock (--replicas: "
+                         "1e-3)")
+    ap.add_argument("--replicas", type=int, default=0,
+                    help="serve through a fault-tolerant replica set of N "
+                         "engines on a deterministic StepClock; 0 = one "
+                         "engine, -1 = plan from the visible GPU count "
+                         "(repro_torch.runtime.plan_replicas)")
+    ap.add_argument("--kill", default="",
+                    help="[--replicas] chaos schedule STEP:REPLICA[,...]: "
+                         "each entry crashes that replica at that router "
+                         "step through a FailureInjector; its requests "
+                         "requeue after heartbeat detection")
+    ap.add_argument("--reload-at", type=int, default=0,
+                    help="[--replicas] router step at which to save the "
+                         "weights as a checkpoint, triggering a rolling "
+                         "watcher-driven reload (0 = no reload)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature (0 = greedy)")
     ap.add_argument("--greedy", action="store_true",
                     help="force greedy decode regardless of --temperature")
     ap.add_argument("--seed", type=int, default=0)
-    _run_engine(ap.parse_args(argv))
+    args = ap.parse_args(argv)
+    if args.replicas == -1:
+        from repro_torch.runtime import plan_replicas
+        device = resolve_device(args.device)
+        args.replicas = plan_replicas(
+            torch.cuda.device_count() if device.type == "cuda" else 1)
+    if args.replicas:
+        _run_replicas(args)
+    else:
+        _run_engine(args)
 
 
 if __name__ == "__main__":

@@ -43,7 +43,8 @@ __all__ = [
     "full_attention", "init_kv_cache", "init_kv_pool", "gather_paged_kv",
     "last_of_equal", "paged_verify_targets", "paged_write_targets",
     "prefill_attention", "quantize_kv", "dequantize_kv",
-    "resolve_attn_backend", "verify_write_targets",
+    "resolve_attn_backend", "verify_write_targets", "dense_attention",
+    "DENSE_PAGE",
 ]
 
 #: resolved ``attn_backend`` values: plain PyTorch or the CUDA kernels
@@ -236,17 +237,20 @@ def _scatter_per_batch(cache: torch.Tensor, new: torch.Tensor, pos) -> None:
 def attention_decode(params: Params, x, cache: Params, pos, *, n_heads: int,
                      n_kv_heads: int, head_dim: int,
                      rope_theta: float = 10000.0, use_rope: bool = True,
-                     compute_dtype=torch.bfloat16, strategy=None
+                     compute_dtype=torch.bfloat16, strategy=None,
+                     backend: str = "torch"
                      ) -> Tuple[torch.Tensor, Params]:
     """One decode step: ``x (B, 1, d)`` against a dense-slot KV cache at
     ``pos``, a 0-d cursor for the whole batch or a ``(B,)`` one per slot.
 
     The new K/V is written in place (int8 caches quantized, with their
     scales), then the step attends over the cache with ``kv_len = pos + 1``
-    through :func:`full_attention`: plain PyTorch, as the reference's jnp
-    ``full_attention`` is outside any Pallas kernel. A 0-d cursor writes
-    through ``dynamic_update_slice`` semantics (clamped into the cache); a
-    vector one per slot, dropping a write past ``max_len``."""
+    through :func:`full_attention` (``backend="torch"``: plain PyTorch, as
+    the reference's jnp ``full_attention`` is outside any Pallas kernel) or
+    :func:`dense_attention` (``"kernel"``: the paged-attention kernel over
+    the cache's pages). A 0-d cursor writes through
+    ``dynamic_update_slice`` semantics (clamped into the cache); a vector
+    one per slot, dropping a write past ``max_len``."""
     B = x.shape[0]
     q, k_new, v_new = _project_qkv(
         params, x, n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim,
@@ -271,13 +275,20 @@ def attention_decode(params: Params, x, cache: Params, pos, *, n_heads: int,
         write(cache["v"], vq)
         write(cache["k_scale"], ks)
         write(cache["v_scale"], vs)
-        k_cache = dequantize_kv(cache["k"], cache["k_scale"], compute_dtype)
-        v_cache = dequantize_kv(cache["v"], cache["v_scale"], compute_dtype)
     else:
         write(cache["k"], k_new)
         write(cache["v"], v_new)
-        k_cache, v_cache = cache["k"], cache["v"]
-    o = full_attention(q, k_cache, v_cache, causal=False, kv_len=pos + 1)
+    if resolve_attn_backend(backend, x.device) == "kernel":
+        o = dense_attention(q, cache, pos, compute_dtype=compute_dtype)
+    else:
+        if "k_scale" in cache:
+            k_cache = dequantize_kv(cache["k"], cache["k_scale"],
+                                    compute_dtype)
+            v_cache = dequantize_kv(cache["v"], cache["v_scale"],
+                                    compute_dtype)
+        else:
+            k_cache, v_cache = cache["k"], cache["v"]
+        o = full_attention(q, k_cache, v_cache, causal=False, kv_len=pos + 1)
     o = o.reshape(B, 1, n_heads * head_dim)
     y = _moa_dot(o, params["wo"].to(compute_dtype), strategy=strategy,
                  compute_dtype=compute_dtype)
@@ -285,19 +296,63 @@ def attention_decode(params: Params, x, cache: Params, pos, *, n_heads: int,
 
 
 def _paged_attention_fused(q, pool: Params, block_tables, start, *,
-                           compute_dtype=torch.bfloat16,
-                           live_blocks: Optional[int] = None):
+                           compute_dtype=torch.bfloat16):
     """The paged score reduction through the paged-attention kernel: it
-    walks the (high-water-truncated) tables itself and dequantizes int8
-    pools in registers, rounding through ``compute_dtype`` — the dtype the
-    gather path materializes — so both backends see bit-equal KV."""
-    if live_blocks is not None:
-        block_tables = block_tables[:, :live_blocks]
+    walks the tables up to each slot's deepest query itself and
+    dequantizes int8 pools in registers, rounding through
+    ``compute_dtype`` — the dtype the gather path materializes — so both
+    backends see bit-equal KV. The whole table goes in (no live-block
+    cut): the split is planned for its width, so a row's arithmetic does
+    not depend on the live-block bucket."""
     return ops.paged_attention(
         q, pool["k"], pool["v"], block_tables.contiguous(),
         start.to(torch.int32).contiguous(),
         k_scale=pool.get("k_scale"), v_scale=pool.get("v_scale"),
         dequant_dtype=compute_dtype)
+
+
+#: tokens a page when the paged-attention kernel walks a dense-slot cache
+#: (the served paged engines' block size): a slot's row ``(max_len, Hk,
+#: D)`` is ``max_len / DENSE_PAGE`` contiguous pages of the pool's shape
+DENSE_PAGE = 16
+
+
+def _identity_tables(batch: int, pages: int, device) -> torch.Tensor:
+    """Slot ``b``'s logical page ``j`` is page ``b * pages + j`` of the
+    dense cache viewed as a pool (cached per shape and device)."""
+    key = (batch, pages, str(device))
+    t = _IDENTITY.get(key)
+    if t is None:
+        t = torch.arange(batch * pages, dtype=torch.int32,
+                         device=device).reshape(batch, pages)
+        _IDENTITY[key] = t
+    return t
+
+
+_IDENTITY: dict = {}
+
+
+def dense_attention(q, cache: Params, start, *, compute_dtype=torch.bfloat16):
+    """The dense-slot score reduction on CUDA: the T queries of slot ``b``
+    at ``start[b] ..`` attend causally over its cache row through the
+    paged-attention kernel, the row viewed as ``max_len / DENSE_PAGE``
+    pages and walked through an identity block table. A dense-slot engine
+    (and the oracle drafter's dense-slot cache) then shares one arithmetic
+    with a paged engine of ``DENSE_PAGE``-token blocks, and a row's result
+    does not depend on T (the kernel's row invariance). ``max_len`` must be
+    a multiple of ``DENSE_PAGE``."""
+    B, max_len, Hk, D = cache["k"].shape
+    if max_len % DENSE_PAGE:
+        raise ValueError(f"dense-slot attention on the kernel walks pages of "
+                         f"{DENSE_PAGE} tokens: max_len {max_len} is not a "
+                         "multiple")
+    pages = max_len // DENSE_PAGE
+    pool = {name: buf.reshape((B * pages, DENSE_PAGE) + tuple(buf.shape[2:]))
+            for name, buf in cache.items()}
+    start = start.reshape(1).expand(B) if start.dim() == 0 else start
+    return _paged_attention_fused(
+        q, pool, _identity_tables(B, pages, q.device), start,
+        compute_dtype=compute_dtype)
 
 
 def paged_write_targets(block_tables, pos, block_size: int):
@@ -364,8 +419,7 @@ def attention_decode_paged(params: Params, x, pool: Params, block_tables,
 
     if resolve_attn_backend(backend, x.device) == "kernel":
         o = _paged_attention_fused(q, pool, block_tables, cur,
-                                   compute_dtype=compute_dtype,
-                                   live_blocks=live_blocks)
+                                   compute_dtype=compute_dtype)
     else:
         k_cache, v_cache = gather_paged_kv(pool, block_tables, compute_dtype,
                                            live_blocks=live_blocks)
@@ -428,7 +482,8 @@ def _kv_rows(k_new, v_new, quantized: bool) -> dict:
 def attention_verify(params: Params, x, cache: Params, pos, targets, *,
                      n_heads: int, n_kv_heads: int, head_dim: int,
                      rope_theta: float = 10000.0, use_rope: bool = True,
-                     compute_dtype=torch.bfloat16, strategy=None
+                     compute_dtype=torch.bfloat16, strategy=None,
+                     backend: str = "torch"
                      ) -> Tuple[torch.Tensor, Params]:
     """Speculative verify against a dense-slot cache: ``x (B, T, d)`` holds
     each slot's pending token and its draft window, at positions ``pos[b]
@@ -436,7 +491,8 @@ def attention_verify(params: Params, x, cache: Params, pos, targets, *,
     the engine's commit decides how many survive by the cursor), at
     ``targets`` (:func:`verify_write_targets`); each query attends causally
     at its own position through :func:`full_attention`, plain PyTorch as
-    the reference's jnp is."""
+    the reference's jnp is (``backend="kernel"``: :func:`dense_attention`,
+    whose row ``t`` gives the bits of a decode step at ``pos + t``)."""
     B, T, _ = x.shape
     q, k_new, v_new = _project_qkv(
         params, x, n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim,
@@ -448,12 +504,19 @@ def attention_verify(params: Params, x, cache: Params, pos, targets, *,
     quantized = "k_scale" in cache
     for name, new in _kv_rows(k_new, v_new, quantized).items():
         _verify_write(cache[name], new, targets)
-    if quantized:
-        k_cache = dequantize_kv(cache["k"], cache["k_scale"], compute_dtype)
-        v_cache = dequantize_kv(cache["v"], cache["v_scale"], compute_dtype)
+    if resolve_attn_backend(backend, x.device) == "kernel":
+        o = dense_attention(q, cache, pos_q[:, 0],
+                            compute_dtype=compute_dtype)
     else:
-        k_cache, v_cache = cache["k"], cache["v"]
-    o = full_attention(q, k_cache, v_cache, causal=True, positions_q=pos_q)
+        if quantized:
+            k_cache = dequantize_kv(cache["k"], cache["k_scale"],
+                                    compute_dtype)
+            v_cache = dequantize_kv(cache["v"], cache["v_scale"],
+                                    compute_dtype)
+        else:
+            k_cache, v_cache = cache["k"], cache["v"]
+        o = full_attention(q, k_cache, v_cache, causal=True,
+                           positions_q=pos_q)
     o = o.reshape(B, T, n_heads * head_dim)
     y = _moa_dot(o, params["wo"].to(compute_dtype), strategy=strategy,
                  compute_dtype=compute_dtype)
@@ -506,8 +569,7 @@ def attention_verify_paged(params: Params, x, pool: Params, block_tables,
         pool[name][blk, off] = rows[last].to(pool[name].dtype)
     if resolve_attn_backend(backend, x.device) == "kernel":
         o = _paged_attention_fused(q, pool, block_tables, pos_q[:, 0],
-                                   compute_dtype=compute_dtype,
-                                   live_blocks=live_blocks)
+                                   compute_dtype=compute_dtype)
     else:
         k_cache, v_cache = gather_paged_kv(pool, block_tables, compute_dtype,
                                            live_blocks=live_blocks)

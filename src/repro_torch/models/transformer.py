@@ -9,9 +9,11 @@ loops over it, taking views.
 
 Prefill's softmax·V runs the flash-attention kernel on the ``kernel``
 attention backend (the reference calls its jnp twin there); paged decode
-runs the paged-attention kernel; dense-slot decode attends over its cache
-in plain PyTorch (the reference's jnp ``full_attention``); every projection
-runs ``dot_moa`` through the configured MOA strategy.
+runs the paged-attention kernel; dense-slot decode and verify attend over
+their cache through the same kernel, the cache's rows walked as pages
+(``attention.dense_attention``; the plain version, the reference's jnp
+``full_attention``, on the CPU or ``attn_backend="torch"``); every
+projection runs ``dot_moa`` through the configured MOA strategy.
 
 Both decode steps update the cache **in place** (KV rows or pool pages, and
 the ``pos`` cursors) and return it, where the reference returns a new tree;
@@ -319,7 +321,8 @@ def decode_step(params: Params, cache: Params, tokens, cfg: ModelConfig, *,
             lyr["attn"], hn, layer(cache["layers"], i), pos,
             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
             head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
-            compute_dtype=cfg.cdtype, strategy=cfg.moa_for("attention"))
+            compute_dtype=cfg.cdtype, strategy=cfg.moa_for("attention"),
+            backend=cfg.attn_backend)
         h = mlp(cfg, lyr, h + a)
     h = rms_norm(params["final_norm"], h)
     logits = unembed(params["embed"], h, compute_dtype=cfg.cdtype)
@@ -392,7 +395,9 @@ def verify_impl(params: Params, cache: Params, tokens, cfg: ModelConfig, *,
                 backend=cfg.attn_backend, live_blocks=live_blocks, **common)
         else:
             a, _ = attn_lib.attention_verify(lyr["attn"], hn, layer(kv, i),
-                                             pos, targets, **common)
+                                             pos, targets,
+                                             backend=cfg.attn_backend,
+                                             **common)
         h = mlp(cfg, lyr, h + a)
     h = rms_norm(params["final_norm"], h)
     logits = unembed(params["embed"], h, compute_dtype=cfg.cdtype)

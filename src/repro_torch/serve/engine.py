@@ -58,20 +58,29 @@ captured engine runs the same kernels in the same order on the same
 buffers. On the GPU every projection runs the ``dot_moa`` kernel (an MoE's
 expert projections one batched launch each), the MoE's top-k combine
 ``moa_reduce``, a full-prompt prefill's softmax·V the flash-attention
-kernel and paged decode and verify the paged-attention kernel;
-``attn_backend="torch"`` (with a ``backend=torch`` MOA spec) runs the
-plain PyTorch versions instead. Every finished request is priced
+kernel and decode and verify, paged or dense-slot (the slot's cache rows
+walked as pages), the paged-attention kernel; ``attn_backend="torch"``
+(with a ``backend=torch`` MOA spec) runs the plain PyTorch versions
+instead. No kernel's result for a row depends on the rows beside it, so
+a speculative verify scores a token as the plain decode step does, bit
+for bit. Every finished request is priced
 (``metrics.moa_flops``) by :func:`repro_torch.launch.costing.
 request_decode_cost`, or, speculative, by ``spec_request_decode_cost``
 from the verify ticks it sat through, as the reference prices it.
 
-Not ported yet, and refused with ``NotImplementedError``: mesh serving and
-weight reloads (ROADMAP Queue 1 item 8).
+:meth:`ServeEngine.reload_params` swaps the weights between ticks: the
+engine reads the new tree (nothing is copied, so engines that share a
+tree never see each other's reloads) and drops its graphs, which bound
+the old tensors; they are captured again at their next tick.
+
+Not ported yet, and refused with ``NotImplementedError``: mesh serving
+(ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
@@ -79,11 +88,12 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.interop import tree_leaves
+from repro_torch.interop import tree_leaves, tree_paths
 from repro_torch.kernels import _build
 from repro_torch.launch.costing import (request_decode_cost,
                                         spec_request_decode_cost)
-from repro_torch.layers.attention import (dequantize_kv, last_of_equal,
+from repro_torch.layers.attention import (DENSE_PAGE, dequantize_kv,
+                                          last_of_equal,
                                           resolve_attn_backend)
 from repro_torch.models.api import Model, build_model
 from repro_torch.serve import graphs
@@ -93,9 +103,39 @@ from repro_torch.serve.metrics import (RequestMetrics, aggregate,
 from repro_torch.serve.request import FinishReason, Request, RequestResult
 from repro_torch.serve.sampling import sample_batch
 from repro_torch.serve.scheduler import SlotScheduler
-from repro_torch.serve.spec import Drafter, verify_accept
+from repro_torch.serve.spec import (DraftModelDrafter, Drafter,
+                                    OracleDrafter, verify_accept)
 
-__all__ = ["ServeEngine"]
+__all__ = ["ServeEngine", "fit_max_len"]
+
+
+def _walks_dense_pages(attn_backend: str, device, paged: bool,
+                       drafter: Optional[Drafter]) -> bool:
+    """Whether a dense-slot cache of the engine goes through the
+    paged-attention kernel, walked in ``DENSE_PAGE``-token pages: the
+    engine's own (``paged=False``) or a model drafter's, on the kernel
+    route (CUDA). An oracle drafts with the engine's model, a draft-model
+    drafter with its own."""
+    routes = [] if paged else [attn_backend]
+    if isinstance(drafter, OracleDrafter):
+        routes.append(attn_backend)
+    elif isinstance(drafter, DraftModelDrafter):
+        routes.append(drafter.model.cfg.attn_backend)
+    return any(resolve_attn_backend(r, device) == "kernel" for r in routes)
+
+
+def fit_max_len(max_len: int, *, attn_backend: str, device,
+                paged: bool = False, block_size: int = 16,
+                drafter: Optional[Drafter] = None) -> int:
+    """``max_len`` rounded up to a length the engine takes: whole blocks
+    of a paged pool, and whole ``DENSE_PAGE`` pages of every dense-slot
+    cache the paged-attention kernel walks (``attn_backend`` is the
+    engine model's)."""
+    step = block_size if paged else 1
+    if _walks_dense_pages(attn_backend, resolve_device(device), paged,
+                          drafter):
+        step = math.lcm(step, DENSE_PAGE)
+    return -(-max_len // step) * step
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -379,6 +419,21 @@ class ServeEngine:
                     f"on {self.device}")
         # resolve now: a 'kernel' request on the CPU fails at construction
         resolve_attn_backend(model.cfg.attn_backend, self.device)
+        if _walks_dense_pages(model.cfg.attn_backend, self.device, paged,
+                              drafter):
+            if max_len % DENSE_PAGE:
+                raise ValueError(
+                    f"max_len {max_len}: the paged-attention kernel walks "
+                    f"a dense-slot cache in pages of {DENSE_PAGE} tokens, "
+                    "so max_len must be a multiple (fit_max_len rounds it "
+                    "up)")
+            if paged and isinstance(drafter, OracleDrafter) \
+                    and block_size != DENSE_PAGE:
+                raise ValueError(
+                    f"an oracle drafter walks its dense-slot cache in pages "
+                    f"of {DENSE_PAGE} tokens; it shares the target's "
+                    f"arithmetic only over a pool of {DENSE_PAGE}-token "
+                    f"blocks, not {block_size}")
         self.model = model
         self.params = params
         self.n_slots = n_slots
@@ -1173,8 +1228,55 @@ class ServeEngine:
                     "admitted")
         self.scheduler.submit(request)
 
+    @torch.no_grad()
     def reload_params(self, params) -> None:
-        raise _not_ported("reload_params")
+        """Swap the weight tree between ticks (live reload).
+
+        The new tree must match the current one's structure, shapes and
+        dtypes (the reference's checks and errors; leaves are numbered in
+        sorted-key order, as ``jax.tree_util`` flattens a dict), and lie on
+        the engine's device. The engine then reads the new tree, as the
+        reference's swaps its reference: nothing is copied and no tensor
+        is written, so a tree shared with other engines (a replica fleet's
+        factory shares one) stays theirs unchanged. The captured graphs
+        bound the old tensors, so every one is dropped first (after the
+        device has finished its replays) and captured again at its next
+        call. An oracle drafter that drafts with the engine's weights
+        follows them. A paged engine forgets its prefix cache
+        (:meth:`BlockPool.forget_cached`): its pages hold K/V of the old
+        weights, which the reference's engine would go on matching, so a
+        request admitted after a reload prefills under the new weights
+        alone. In-flight slots keep decoding, now against the new weights;
+        callers that need every generation pinned to one weight version
+        (the replica router's rolling reload) drain the engine first."""
+        old, new = tree_paths(self.params), tree_paths(params)
+        if list(old) != list(new):
+            raise ValueError(
+                "reload_params: new weight tree structure differs from the "
+                f"serving one ({sorted(new)} vs {sorted(old)})")
+        for i, (key, cur) in enumerate(old.items()):
+            leaf = new[key]
+            if (tuple(cur.shape) != tuple(leaf.shape)
+                    or cur.dtype != leaf.dtype):
+                raise ValueError(
+                    f"reload_params: leaf {i} changed layout "
+                    f"({tuple(leaf.shape)}/{leaf.dtype} vs "
+                    f"{tuple(cur.shape)}/{cur.dtype}) — a reload may not "
+                    "change the architecture")
+            if leaf.device != self.device:
+                raise ValueError(
+                    f"reload_params: leaf {key} is on {leaf.device}, the "
+                    f"engine runs on {self.device}")
+        if self.paged:   # cached pages hold K/V of the old weights
+            self._pool.forget_cached()
+        if self._graphs is not None:
+            if self.device.type == "cuda":   # no replay still reads them
+                torch.cuda.synchronize(self.device)
+            self._graphs.drop()
+        if self.drafter is not None \
+                and getattr(self.drafter, "params", None) is self.params:
+            self.drafter.params = params
+        self.params = params
 
     @torch.no_grad()
     def start_run(self, *, warmup: bool = False,

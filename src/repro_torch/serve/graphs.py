@@ -34,7 +34,12 @@ the engine's cache tensors, of the static input buffers here and of the
 kernels' workspaces for the capture stream. So a cache belongs to one
 engine, where the reference's module cache is shared by engines of one
 layout. Nothing may reassign a tensor of the engine's cache: every write is
-in place. The cache holds the workspaces its graphs bind
+in place. A weight reload (``ServeEngine.reload_params``) rebinds the
+weights to the new tree, which may be shared with other engines and is
+never written; it first drops every graph (:meth:`GraphCache.drop`), so
+no graph outlives the tensors it reads: each is captured again at its
+next call, and the cache's addresses stay where they were. The cache
+holds the workspaces its graphs bind
 (:func:`repro_torch.kernels._build.stream_workspaces`), so a later growth
 cannot hand their memory back to the allocator.
 
@@ -173,6 +178,7 @@ class GraphCache:
         self.captures: collections.Counter = collections.Counter()
         self.replays: collections.Counter = collections.Counter()
         self.capture_s = 0.0
+        self.drops = 0
         # static inputs: decode's tokens, and the prefill's in one buffer
         # (one copy an admission): tokens | write_ids | row | slot | length
         self._tokens = torch.zeros((n_slots, 1), dtype=torch.int32,
@@ -251,6 +257,14 @@ class GraphCache:
         self._bound.update((id(t), t)
                            for t in self._api.bound_buffers(self._stream))
         return _Graph(replay, {k: after[k] - before[k] for k in after})
+
+    def drop(self) -> None:
+        """Forget every graph, before the engine replaces tensors they bind
+        (its weights, at a reload): the next call of each ``(path,
+        bucket)`` runs its body eagerly and captures it again. Counted in
+        ``drops``."""
+        self._graphs.clear()
+        self.drops += 1
 
     def report(self) -> dict:
         """Graphs held, captures, replays and eager first runs since the

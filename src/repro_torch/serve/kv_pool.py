@@ -233,6 +233,19 @@ class BlockPool:
         it (callers follow up with :meth:`share`)."""
         return self._trie.get(tuple(chain))
 
+    def forget_cached(self) -> int:
+        """Drop every trie registration: no prompt block is matchable any
+        more. Evictable cached blocks go back to the free list (oldest
+        first); referenced blocks keep their owners and free normally. The
+        engine calls this when its weights change, since a cached page
+        holds K/V computed under the old ones. Returns the blocks freed."""
+        freed = list(self._evictable)
+        self._evictable.clear()
+        self._free.extend(freed)
+        self._trie.clear()
+        self._block_key.clear()
+        return len(freed)
+
     def _drop_registration(self, block_id: int) -> None:
         key = self._block_key.pop(block_id, None)
         if key is not None:

@@ -201,3 +201,72 @@ def test_repeated_scatter_targets_take_the_last_write():
                                 jnp.asarray(off.numpy())].set(
         jnp.arange(6.0))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _kernel_route(monkeypatch):
+    """Resolve ``auto`` as the GPU does (the paged-attention kernel) in
+    the engine's length checks alone: the layers still run the plain
+    versions on the CPU."""
+    monkeypatch.setattr(
+        tengine, "resolve_attn_backend",
+        lambda backend, device: "torch" if backend == "torch" else "kernel")
+
+
+def test_fit_max_len_on_the_kernel_route(models, monkeypatch):
+    """On the kernel route a dense-slot cache (the engine's, or an oracle
+    drafter's beside a paged target) is walked in ``DENSE_PAGE``-token
+    pages: ``fit_max_len`` rounds the CLI's default lengths up to whole
+    pages, and the engine refuses at construction a length it could not
+    walk, and an oracle over a pool of other blocks."""
+    from repro_torch.serve import resolve_drafter
+
+    _, _, tm, tp = models["llama3"]
+    oracle = lambda: resolve_drafter("oracle", 3)  # noqa: E731
+    fit = lambda n, **kw: tengine.fit_max_len(  # noqa: E731
+        n, attn_backend="auto", device="cpu", **kw)
+    # the CPU walks no pages: nothing changes there
+    assert fit(194) == 194 and fit(200, drafter=oracle()) == 200
+    _kernel_route(monkeypatch)
+    assert fit(194) == 208 and fit(208) == 208
+    assert fit(200, drafter=oracle()) == 208
+    assert fit(194, paged=True) == 208
+    assert fit(196, paged=True, block_size=4) == 196
+    assert fit(196, paged=True, block_size=4, drafter=oracle()) == 208
+    assert fit(200, paged=True, block_size=8,
+               drafter=resolve_drafter("ngram?n=3", 3)) == 200
+    assert tengine.fit_max_len(194, attn_backend="torch",
+                               device="cpu") == 194
+    kw = dict(n_slots=2, device="cpu")
+    with pytest.raises(ValueError, match="pages of 16 tokens"):
+        ServeEngine(tm, tp, max_len=194, **kw)
+    with pytest.raises(ValueError, match="pages of 16 tokens"):
+        ServeEngine(tm, tp, max_len=200, paged=True, block_size=8,
+                    drafter=oracle(), **kw)
+    with pytest.raises(ValueError, match="not 8"):
+        ServeEngine(tm, tp, max_len=208, paged=True, block_size=8,
+                    drafter=oracle(), **kw)
+    assert ServeEngine(tm, tp, max_len=208, **kw).max_len == 208
+    assert ServeEngine(tm, tp, max_len=200, paged=True, block_size=8,
+                       **kw).max_len == 200
+    assert ServeEngine(tm, tp, max_len=194, attn_backend="torch",
+                       **kw).max_len == 194
+
+
+@pytest.mark.parametrize("extra", [[], ["--spec-decode", "--drafter",
+                                        "oracle"], ["--replicas", "2"]],
+                         ids=["dense-slot", "spec-oracle", "replicas"])
+def test_serve_cli_default_lengths_on_the_kernel_route(monkeypatch, capsys,
+                                                       extra):
+    """The CLI's default lengths ((64 + 32 + 1) * 2 = 194, 200 with a
+    speculative margin) on a dense-slot engine: the kernel route serves
+    them at 208, a whole number of pages, where the CPU keeps them."""
+    from repro_torch.launch import serve as cli
+
+    argv = ["--arch", "llama3-8b", "--smoke", "--device", "cpu",
+            "--requests", "3"] + extra
+    cli.main(argv)
+    plain = 200 if extra[:1] == ["--spec-decode"] else 194
+    assert f"max_len={plain} " in capsys.readouterr().out
+    _kernel_route(monkeypatch)
+    cli.main(argv)
+    assert "max_len=208 " in capsys.readouterr().out

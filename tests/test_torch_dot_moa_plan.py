@@ -69,9 +69,10 @@ def test_sub_ranges_tile_k_within_slices(m, k, n, bk, dt):
     for k0, k1 in ranges:
         assert 0 <= k0 < k1 <= k
         assert k0 // bk == (k1 - 1) // bk     # inside one slice
-    # the body follows the regime; a split only where it adds blocks
-    assert p.body == ("stream" if m * 16 // dt.itemsize <= STREAM_ACC
-                      else "wgmma" if dt == torch.bfloat16
+    # the body follows the regime (bf16: wgmma at every m, one per-row
+    # arithmetic); a split only where it adds blocks
+    assert p.body == ("wgmma" if dt == torch.bfloat16
+                      else "stream" if m * 16 // dt.itemsize <= STREAM_ACC
                       else "tc" if dt == torch.int8 else "simt")
     if p.splits:
         assert len(ranges) >= -(-k // bk)
@@ -82,11 +83,17 @@ def test_sub_ranges_tile_k_within_slices(m, k, n, bk, dt):
 
 
 def test_plan_fills_the_card_where_it_can():
-    # decode gate/up, bound by bytes: one wave that keeps every SM busy,
-    # workspace under 5 % of the weights
+    # decode gate/up in bf16: wgmma's 112 column tiles alone give half
+    # the SMs a block, so direct mode, no workspace
     p = plan(4, 14336, 4096, 2048, torch.bfloat16)
-    assert SMS <= p.blocks <= MIN_BLOCKS
-    assert p.workspace * 4 < 0.05 * 4096 * 14336 * 2
+    assert p.body == "wgmma" and p.splits == 0 and p.workspace == 0
+    assert p.blocks >= SMS // 2
+    # in f32 (stream, bound by bytes) its sub-ranges hold 16 rows' A in
+    # shared memory at any m, workspace under 5 % of the weights
+    p = plan(4, 14336, 4096, 2048, torch.float32)
+    assert p.body == "stream" and p.blocks >= SMS
+    assert p.sub <= 32 * 1024 // (4 * 16)
+    assert p.workspace * 4 < 0.05 * 4096 * 14336 * 4
     # the tiles alone fill the card: one sub-range, no workspace
     p = plan(48400, 96, 363, 363, torch.float32)
     assert (p.splits, p.workspace) == (0, 0) and p.tiles >= MIN_BLOCKS
@@ -269,13 +276,15 @@ def test_batched_plan(E, m, k, n, bk, dt):
 
 
 def test_served_expert_plans():
-    """Decode's expert rows stream B once, one split, 6 and 8 column tiles
-    a member (384 and 512 blocks); the 512-token prefill's run on wgmma in
-    direct mode, one slice a block."""
+    """Decode's expert rows run on wgmma as every bf16 row does, in direct
+    mode, one slice a block, 11 and 16 column tiles a member (704 and
+    1024 blocks); the 512-token prefill's too."""
     gate = plan(1, 1408, 2048, 2048, torch.bfloat16, 64)
     down = plan(1, 2048, 1408, 1408, torch.bfloat16, 64)
-    assert (gate.body, gate.splits, gate.blocks) == ("stream", 1, 384)
-    assert (down.body, down.splits, down.blocks) == ("stream", 1, 512)
+    assert (gate.body, gate.splits, gate.blocks, gate.one_slice) == \
+        ("wgmma", 0, 704, True)
+    assert (down.body, down.splits, down.blocks, down.one_slice) == \
+        ("wgmma", 0, 1024, True)
     pre = plan(60, 1408, 2048, 2048, torch.bfloat16, 64)
     assert (pre.body, pre.splits, pre.blocks, pre.one_slice) == \
         ("wgmma", 0, 704, True)

@@ -7,9 +7,10 @@ records the body and runs nothing, its replay runs the body). What the
 tests hold is everything around the graphs: the capture bodies (the
 device-side ``prompt_len`` prefill and the paged write with device-side
 ``slot``), when each bucket is captured, that no body runs twice on live
-state, the launch accounting, and that the cache tensors keep their
-addresses. On the card ``chip_smoke.py`` holds the real graphs to the eager
-engine bit for bit.
+state, the launch accounting, that the cache tensors keep their
+addresses, and a weight reload under graphs (every graph dropped and
+captured again at its next call). On the card ``chip_smoke.py`` holds
+the real graphs to the eager engine bit for bit.
 
 Tolerances: the captured and the eager engine run the same operations on
 the same values, so tokens, reports and logits must be equal bit for bit
@@ -427,6 +428,51 @@ def test_cache_tensors_keep_their_addresses(models, recording):
     assert report["paged"]["prefix_hits"] > 0
     assert report["paged"]["admissions"] == len(results) == 7
     assert engine._pool.in_use == 0          # every request released
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense-slot"])
+def test_reload_under_graphs(models, recording, paged):
+    """``reload_params`` on a captured engine. Each reload rebinds the
+    weights to the new tree, so every graph is dropped and captured again
+    at its next call; no tree is written (the caller's stays as it was)
+    and the cache keeps its addresses. After each reload the engine serves
+    as an eager engine built on the new weights, bit for bit (tokens and
+    every step's logits)."""
+    _, _, tm, tp = models["f32"]
+    kw = dict(ENGINE, paged=paged)
+    p1 = tm.init(seed=1, device="cpu")
+    kept = interop.tree_map(torch.clone, tp)
+
+    def served(engine):
+        logits = {}
+        _record_logits(engine, logits)
+        results, _ = engine.run(_workload("poisson", tm.cfg.vocab))
+        return [r.tokens.tolist() for r in results], logits
+
+    def same(got, want):
+        assert got[0] == want[0]
+        assert got[1].keys() == want[1].keys()
+        for key, x in want[1].items():
+            assert torch.equal(got[1][key], x), key
+
+    engine = ServeEngine(tm, tp, device="cpu", cuda_graphs=True, **kw)
+    engine.run([], warmup=True)
+    cache_ptrs = _cache_ptrs(engine) if paged else None
+    for drops, new in enumerate((p1, kept), start=1):
+        captures = sum(engine._graphs.captures.values())
+        assert captures > 0
+        engine.reload_params(new)
+        assert engine._graphs.drops == drops and not engine._graphs._graphs
+        assert engine.params is new
+        same(served(engine), served(ServeEngine(tm, new, device="cpu",
+                                                cuda_graphs=False, **kw)))
+        assert sum(engine._graphs.captures.values()) == captures + len(
+            engine._graphs._graphs)
+        for (_, a), (_, b) in zip(interop.tree_leaves(tp),
+                                  interop.tree_leaves(kept)):
+            assert torch.equal(a, b)            # the caller's tree
+        if paged:
+            assert _cache_ptrs(engine) == cache_ptrs
 
 
 def test_cuda_graphs_knob_on_the_cpu(models):

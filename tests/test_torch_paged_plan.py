@@ -11,7 +11,9 @@ rounded through ``dequant_dtype``; the warps, then the live splits, folded
 in order) is held against the reference's Pallas kernel in interpret mode,
 within 1e-5 in f32 and one bf16 ulp of ``max|ref|`` in bf16 -- the
 tolerances ``chip_smoke.py`` holds the kernel to on the card. The kernel
-itself runs on the card only.
+itself runs on the card only. Every call lays its query rows out in
+4-row tiles, so a row's arithmetic is the same at every T
+(``test_torch_spec_bf16.py`` replays it row by row).
 """
 
 import inspect
@@ -44,7 +46,7 @@ SHAPES = SERVED + [
     (4, 1, 32, 8, 128, 16, 32, torch.float32),
     (2, 5, 16, 4, 64, 8, 40, torch.bfloat16),     # R = 20: two row tiles
     (1, 1, 8, 8, 16, 4, 9000, torch.int8),        # S_MAX raises the pages
-    (2, 4, 16, 4, 36, 8, 16, torch.float32),      # 16 rows, D % 8: 2 x 8
+    (2, 4, 16, 4, 36, 8, 16, torch.float32),      # R = 16: four row tiles
 ]
 
 
@@ -92,25 +94,27 @@ def test_plan_grid_and_waves(shape):
     B, T, H, Hk, D, bs, n_blocks, dt = shape
     p = plan(*shape)
     R = T * H // Hk
-    assert p.rows >= min(R, 16 if D % 8 == 0 else 8)
+    assert (p.rows, p.cols) == (4, 16)        # one row layout at every T
     assert p.row_tiles == -(-R // p.rows)
-    assert p.cols == {4: 16, 8: 8, 16: 4}[p.rows]
     assert p.grid == (p.splits, Hk * p.row_tiles, B)
     assert p.splits == -(-n_blocks // p.pages) <= pa.S_MAX
-    heads = B * Hk * p.row_tiles
+    heads = B * Hk                             # the split ignores row tiles
     two_waves = 2 * p.wave
     floor = -(-n_blocks // pa.S_MAX)           # pages S_MAX splits need
     assert p.pages >= p.warps                  # at least a page a warp
     if p.pages > floor:
         # the least power of two from a page a warp within two waves
-        assert p.pages & (p.pages - 1) == 0 and p.blocks <= two_waves
+        # (two waves of one row tile a KV head: the split is T's alike)
+        assert p.pages & (p.pages - 1) == 0 \
+            and p.blocks // p.row_tiles <= two_waves
         if p.pages > p.warps:
             assert heads * -(-n_blocks // (p.pages // 2)) > two_waves
     # workspace and tickets only where splits are folded
     assert (p.workspace > 0) == (p.tickets > 0) == (p.splits > 1)
     if p.splits > 1:
-        assert p.workspace == heads * p.splits * (p.rows * D + 2 * p.rows) * 4
-        assert p.tickets == heads
+        assert p.workspace == heads * p.row_tiles * p.splits * (
+            p.rows * D + 2 * p.rows) * 4
+        assert p.tickets == heads * p.row_tiles
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
@@ -124,7 +128,8 @@ def test_plan_shared_memory_fits(shape):
 def test_plan_served_layout():
     """The served decode (B4 T1 H32/8 D128 bs16, bf16 pool): four warps
     with a two-page ring each, three blocks an SM, a page a warp; the
-    long-context and verify shapes and an int8 pool fit too."""
+    long-context and verify shapes and an int8 pool fit too, the verify
+    (T = 4) in four 4-row tiles with the decode's split."""
     p = plan(4, 1, 32, 8, 128, 16, 32, torch.bfloat16)
     assert (p.warps, p.stages, p.rows, p.cols) == (4, 2, 4, 16)
     # ring 4 x 2 x 8 KB, q rows 2 KB, p buffers 2.5 KB, fold statistics
@@ -134,7 +139,9 @@ def test_plan_served_layout():
     assert plan(4, 1, 32, 8, 128, 16, 256, torch.bfloat16).pages == 16
     assert plan(16, 1, 32, 8, 128, 16, 512, torch.bfloat16).pages == 128
     v = plan(4, 4, 32, 8, 128, 16, 256, torch.bfloat16)
-    assert (v.rows, v.cols, v.row_tiles, v.blocks_per_sm) == (16, 4, 1, 2)
+    assert (v.rows, v.cols, v.row_tiles, v.blocks_per_sm) == (4, 16, 4, 3)
+    assert v.pages == plan(4, 1, 32, 8, 128, 16, 256,
+                           torch.bfloat16).pages   # T leaves the split be
     assert v.smem <= pa.MAX_SMEM
     i8 = plan(4, 1, 32, 8, 128, 16, 256, torch.int8)
     assert i8.stages == 3 and i8.blocks_per_sm == 3

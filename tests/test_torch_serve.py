@@ -182,9 +182,11 @@ def test_unported_engine_modes_raise(engines):
         assert (eng.drafter, eng._chunk, eng.scheduling) == (
             extra.get("drafter"), extra.get("prefill_chunk_tokens"),
             extra.get("scheduling", "fifo"))
+    # weight reloads are ported: the engine reads the new tree
     eng = ServeEngine(tm, tp, paged=True, **base)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        eng.reload_params(tp)
+    fresh = interop.tree_map(torch.clone, tp)
+    eng.reload_params(fresh)
+    assert eng.params is fresh
     with pytest.raises(ValueError, match="kernel"):
         ServeEngine(tm, tp, paged=True, attn_backend="kernel", **base)
 
