@@ -23,7 +23,9 @@ a non-zero exit:
               drafter's dense-slot decode against the paged verify;
               ``trace`` lines naming the first op that differs), and each
               op alone at m = 1..16 and T = 1 against T = 4 (``op``
-              lines); fails on any row that differs in a bit.
+              lines); then mamba2-370m's 1024-token prefill in one shot
+              against 256-token chunks, op by op and its logits
+              (``chunk`` lines); fails on any row that differs in a bit.
 2. kernels  — each of the six kernels against its plain PyTorch version on
               the card, at the shapes its path gives it (the served model's
               projections and attention; every contraction, reduction
@@ -39,9 +41,12 @@ a non-zero exit:
               call launched with the device time of each, and fails if any
               is not one of the kernel's own; flash and paged rows also
               fail on two calls that differ in a bit, paged rows on a read
-              of a dead page (NaN-poisoned). Flash rows run at llama3-8b's
-              and moonshot-v1-16b-a3b's served prefills; paged rows at both
-              models' served decode (bf16 and int8 pools), long context
+              of a dead page (NaN-poisoned). Flash rows run at llama3-8b's,
+              moonshot-v1-16b-a3b's and zamba2-1.2b's (H32/32, head_dim
+              64) served prefills; paged rows at the three models' served
+              decode (bf16 and int8 pools; zamba2's also through the
+              dense-slot identity table, its dead pages poisoned), long
+              context
               (to 4096 tokens, and 16 slots to 8192) and the T = 4 verify
               shape, also as served (B4 T4 H32/8, bf16 and int8 pools) at
               each live-block bucket of the spec phase's max_len, and a
@@ -56,8 +61,10 @@ a non-zero exit:
               rows each, one launch), each also bit for bit against a
               member-by-member loop under the same plan and beside
               ``torch.bmm``; the router (bf16 in, f32 out) and the top-6
-              combine (``moa_reduce``, one 6-row cluster). A last row
-              gives the wrapper's host time per call.
+              combine (``moa_reduce``, one 6-row cluster). Then
+              zamba2-1.2b's decode unembedding alone (a cuBLAS product,
+              failing below its byte bound). A last row gives the
+              wrapper's host time per call.
 3. serve    — llama3-8b at full width and full depth (bf16 weights from
               the port's own initializer, seed 0) served through the
               paged engine, 8 requests into 4 slots, twice in one
@@ -135,6 +142,26 @@ a non-zero exit:
               ``moa_reduce`` and, paged, 48 ``paged_attention``), and the
               captured engine's ticks profiled, by kernel group, beside the
               decode tick's weight floor; then its peak memory.
+   hybrid   — zamba2-1.2b at full width and depth (38 Mamba-2 layers, 6
+              applications of the shared attention + SwiGLU block, bf16
+              weights from seed 0, after moonshot is freed) on llama3's
+              workload, paged and dense-slot: per layout the bit-for-bit
+              eager / captured check (a captured decode tick must launch
+              42 ``dot_moa`` and 6 ``paged_attention``), a captured
+              Poisson run (``serve`` line), and the captured engine with
+              ``oracle`` and ``ngram?n=3`` at k = 3 (``spec`` lines: the
+              oracle accepts 1.0 and both drafters' tokens equal the plain
+              captured engine's bit for bit); paged, the decode ticks
+              profiled by kernel group beside the tick's weight floor
+              (weights, the shared block once an application, the
+              recurrent state read and written) and the unembedding's
+              device time (the kernels phase's ``zamba2 unembedding``
+              line), and one preemption whose recurrent state comes back bit for bit
+              (``slo`` line); then two 1024-token prompts in 256-token
+              chunks against one shot (``chunked`` line, near-tie rule).
+              Then mamba2-370m at full width (48 layers, dense-slot, no
+              kernel launched): eager / captured bit for bit and chunked
+              equal to one-shot bit for bit (every step's logits).
 4. parity   — the same engine at full width with 2 layers, once on the
               kernels (captured, each bucket at its first tick) and once
               on the plain PyTorch path (eager): float32 compute on the
@@ -150,13 +177,18 @@ a non-zero exit:
               quantum can cause, and its greedy token may differ only at
               a top-2 gap within twice the logits' difference. On the f32
               pool llama3's dense-slot engine is also held to its paged
-              one (tokens equal but at a near-tie). Then moonshot at 2
-              layers (f32, capacity factor 1.25) in both layouts, kernel
-              path teacher-forced on the plain path's tokens: every
-              routing call of both is logged, the first difference must
-              sit at a near-tie of the plain path's router probabilities
-              (``ROUTE_GAP``), and until it every step's logits agree
-              within ``LOGIT_TOL``. Last, speculative parity at 2 layers
+              one (tokens equal but at a near-tie). Then zamba2-1.2b at 6
+              layers (one application of the shared block, f32) in both
+              layouts: tokens equal but at a near-tie, and the kernel
+              path fed the plain path's tokens within ``LOGIT_TOL`` at
+              every step. Then moonshot at 2 layers (f32, capacity factor
+              1.25) in both layouts, kernel path teacher-forced on the
+              plain path's tokens and expert choices: every step's logits
+              agree within ``LOGIT_TOL`` (an f32 pool; every token whose
+              own expert choice differs must sit at a near-tie of the
+              plain path's router probabilities, ``ROUTE_GAP``) or within
+              the one-quantum bound (an int8 pool). Last, speculative
+              parity at 2 layers
               on f32 and bf16 pools: the oracle accepts every draft and
               its greedy tokens equal the plain engine's exactly, llama3
               and a dropless moonshot (capacity factor 11), both layouts,
@@ -182,7 +214,9 @@ The last lines are the kernel summary (JSON; ``launches_by_path`` has one
 key per counted run: ``serve/llama3-8b``, ``serve/llama3-8b-spec-paged``,
 ``serve/llama3-8b-spec-dense-slot``, ``serve/llama3-8b-slo``,
 ``serve/llama3-8b-fleet``,
-``serve/moonshot-dense-slot``, ``serve/moonshot-paged``, ``paper``; the
+``serve/moonshot-dense-slot``, ``serve/moonshot-paged``,
+``serve/zamba2-paged``, ``serve/zamba2-dense-slot``,
+``serve/mamba2-dense-slot``, ``paper``; the
 paged row also carries the served verify row), the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a GPU, or
 without the rest of the repository beside it, the script exits non-zero
@@ -381,12 +415,25 @@ class Timer:
         self.torch = torch
         self.flush = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            self.evict()
-            torch.cuda.synchronize()
         cuda = torch.autograd.DeviceType.CUDA
-        self.flush_kernels = {e.key for e in prof.key_averages()
-                              if e.device_type == cuda}
+        # the flush's kernels, as three profiler sessions saw them: a
+        # session may lose events, and a flush kernel missed here would be
+        # counted as the timed call's own
+        self.flush_kernels, seen = set(), 0
+        for _ in range(6):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                self.evict()
+                torch.cuda.synchronize()
+            keys = {e.key for e in prof.key_averages()
+                    if e.device_type == cuda}
+            self.flush_kernels |= keys
+            seen += bool(keys)
+            if seen == 3:
+                break
+        else:
+            raise AssertionError("the profiler saw the flush in fewer than "
+                                 "three of six sessions")
         #: what the last :meth:`device` call saw launched: the kernel's own
         #: CUDA functions with the device ms of each per call, and any other
         #: (neither the kernel's nor the flush's)
@@ -409,7 +456,10 @@ class Timer:
         torch.cuda.synchronize()
         cuda = torch.autograd.DeviceType.CUDA
         symbols = KERNELS[kernel].symbols if kernel else ()
-        for _ in range(6):   # the profiler now and then returns no events
+        # the profiler now and then returns no events, or only some: a
+        # session whose flush or own kernels did not run a whole number of
+        # times per call lost events, and is taken again
+        for _ in range(6):
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 for _ in range(iters):
@@ -421,11 +471,15 @@ class Timer:
             own = [e for e in events
                    if any(sym in e.key for sym in symbols)
                    or not kernel and e.key not in self.flush_kernels]
-            if own:
+            whole = all(e.count % iters == 0 for e in events
+                        if e in own or e.key in self.flush_kernels)
+            if own and whole:
                 break
         else:
-            raise AssertionError(f"the profiler saw no {kernel or 'call'} "
-                                 "kernel in six tries")
+            raise AssertionError(
+                f"the profiler saw no whole set of {kernel or 'call'} "
+                f"kernels in six tries of {iters} calls; the last: "
+                f"{[(e.key[:60], e.count) for e in events]}")
         self.kernels = {}
         for e in own:
             name = e.key[:100]
@@ -666,6 +720,13 @@ def kernel_phase(torch, timer, parent=None):
               for l in (0, 4)
               for k, n in ((4096, 6144), (4096, 4096), (4096, 14336),
                            (14336, 4096))]
+    # zamba2-1.2b's shared block (d_model 2048, d_ff 8192): q / k / v / o
+    # (one 2048 slice), gate / up and down (four slices) at its decode
+    # (4), verify (16), a ragged exact-length prefill (37) and a prefill
+    # (64)
+    cases += [(m, k, n, block_k, torch.bfloat16, 0)
+              for m in (4, 16, 37, 64)
+              for k, n in ((2048, 2048), (2048, 8192), (8192, 2048))]
     cases += [(37, 1000, 333, 256, torch.float32, 0),
               (37, 1000, 333, 256, torch.bfloat16, 0),
               (37, 1000, 333, 256, torch.int8, 0),
@@ -759,6 +820,11 @@ def kernel_phase(torch, timer, parent=None):
              for s in (16, 32, 64, 96, 100, 512, 2048)]
     cases += [(1, s, s, 16, 16, 128, torch.bfloat16, True)
               for s in (16, 26, 44, 64)]
+    # zamba2-1.2b's shared block (H32/32, head_dim 64): its exact-length
+    # prefills (a ragged 37 among them), S = 512, and the 1024-token
+    # one-shot prefill of the hybrid phase's chunked check
+    cases += [(1, s, s, 32, 32, 64, torch.bfloat16, True)
+              for s in (16, 37, 64, 512, 1024)]
     cases += [(2, 100, 100, 4, 2, 64, torch.float32, True),
               (2, 37, 53, 4, 2, 64, torch.float32, False)]
     for B, Sq, Skv, H, Hk, D, dt, causal in cases:
@@ -804,8 +870,8 @@ def kernel_phase(torch, timer, parent=None):
             "library_ms": lib, "library": "scaled_dot_product_attention",
             "bound_ms": b_ms, "bound_by": b_by,
         })
-        if (Sq, dt) == (512, torch.bfloat16):
-            summary["flash_attention"] = row
+        if (Sq, dt) == (512, torch.bfloat16):     # llama3-8b's, the first
+            summary.setdefault("flash_attention", row)
 
     # ---- paged attention: decode over block tables ------------------------
     # the served decode (depths 5..511), the same with an int8 pool, long
@@ -825,6 +891,8 @@ def kernel_phase(torch, timer, parent=None):
               torch.bfloat16),
              (4, 1, 16, 16, 128, 16, (16, 37, 58, 79), torch.bfloat16,
               torch.int8),
+             (4, 1, 32, 32, 64, 16, (5, 70, 200, 511), torch.bfloat16,
+              torch.bfloat16),
              (4, 4, 4, 2, 64, 16, (0, 13, 40, 60), torch.float32,
               torch.float32),
              (4, 1, 32, 8, 128, 16, long, torch.bfloat16, torch.bfloat16),
@@ -951,7 +1019,61 @@ def kernel_phase(torch, timer, parent=None):
         if given and n_blocks == max(VERIFY_BUCKETS) \
                 and pdt == torch.bfloat16:
             summary["paged_attention verify"] = row
+    dense_slot_rows(torch, timer, randn, err)
     return summary
+
+
+def dense_slot_rows(torch, timer, randn, err) -> None:
+    """zamba2-1.2b's dense-slot decode (B4 T1 H32/32 D64, a cache of
+    max_len 512 walked as 16-token pages through the identity block table,
+    ``attention.dense_attention``) against the plain version over the same
+    rows (``full_attention``, ``kv_len = start + 1``): a same-bits rerun,
+    and the cache's pages past each slot's deepest query poisoned with NaN
+    must give the same bits."""
+    from repro_torch.layers import attention as A
+    from repro_torch.kernels import ops
+
+    B, H, Hk, D, max_len = 4, 32, 32, 64, 512
+    starts = (5, 70, 200, 511)
+    cache = {"k": randn(B, max_len, Hk, D, dtype=torch.bfloat16),
+             "v": randn(B, max_len, Hk, D, dtype=torch.bfloat16)}
+    q = randn(B, 1, H, D, dtype=torch.bfloat16)
+    start = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    run = lambda: A.dense_attention(q, cache, start,
+                                    compute_dtype=torch.bfloat16)
+    plain = lambda: A.full_attention(q, cache["k"], cache["v"], causal=False,
+                                     kv_len=start + 1)
+    before = ops.launch_counts()["paged_attention"]
+    got, want = run(), plain()
+    if ops.launch_counts()["paged_attention"] != before + 1:
+        raise AssertionError("dense_attention did not launch paged_attention")
+    if not torch.equal(run(), got):
+        raise AssertionError("dense-slot paged_attention: two calls gave "
+                             "other bits")
+    for b, s in enumerate(starts):
+        first_dead = (s // A.DENSE_PAGE + 1) * A.DENSE_PAGE
+        cache["k"][b, first_dead:] = float("nan")
+        cache["v"][b, first_dead:] = float("nan")
+    if not torch.equal(run(), got):
+        raise AssertionError("dense-slot paged_attention read a dead page")
+    torch.cuda.synchronize()
+    tokens = sum(s + 1 for s in starts)
+    b_ms, b_by = bound(tokens * Hk * D * 2 * 2 + 2 * q.numel() * 2 + B * 4,
+                       sum(4.0 * H * D * (s + 1) for s in starts), "bfloat16")
+    tol = bf16_ulp(float(want.float().abs().max()))
+    check({
+        "kernel": "paged_attention", "case": "dense-slot pool=bfloat16 T=1",
+        "shape": {"B": B, "T": 1, "H": H, "Hk": Hk, "D": D,
+                  "bs": A.DENSE_PAGE, "max_len": max_len,
+                  "start": list(starts)},
+        "max_abs_err": err(got, want), "tol": tol,
+        "tol_reason": "1 bf16 ulp at max|ref|: f32 split online vs one-shot "
+                      "softmax, one rounding to bf16",
+        "kernel_ms": timer(run),
+        "device_ms": timer.device(run, "paged_attention"),
+        **own_kernels(timer, "paged_attention"),
+        "plain_ms": timer(plain, 5), "library_ms": None,
+        "bound_ms": b_ms, "bound_by": b_by})
 
 
 def moe_kernel_phase(torch, timer):
@@ -1632,7 +1754,8 @@ def eager_vs_captured(torch, make_engine, workload, *, warmup: bool,
     same batches, live-block buckets and kernel plans. Fails on a token, a
     logit bit or a launch count that differs, on a served kernel launched
     no time (``served``), and, with ``warmup``, on a kernel workspace that
-    grew after the captured engine's warmup. Emits one ``graphs`` line."""
+    grew after the captured engine's warmup. Emits one ``graphs`` line. Returns
+    both runs (:func:`serve_once`'s) by path."""
     runs, logits = {}, {}
     for path, cuda_graphs in (("eager", False), ("captured", True)):
         engine = make_engine(cuda_graphs)
@@ -1666,6 +1789,7 @@ def eager_vs_captured(torch, make_engine, workload, *, warmup: bool,
             f"tokens of {tokens}, logits at {differ[:10]}, launches "
             f"{eager['launches']} / {captured['launches']}, workspace grew "
             f"{grew}, kernels launched no time {missing}")
+    return runs
 
 
 def llama3_full(torch):
@@ -2418,7 +2542,9 @@ def rows_phase(torch) -> None:
     slot's decode step against row 0 of a verify over the same tokens, op
     by op (paged, dense-slot, and the drafter's dense-slot decode against
     the paged verify), and each op alone at m = 1..16 and T = 1 against
-    T = 4. Fails on any op whose row differs in a bit."""
+    T = 4; then mamba2-370m's prefill of 1024 tokens in one shot against
+    256-token chunks, op by op and whole (``chunk`` lines). Fails on any
+    op whose row differs in a bit."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
@@ -2427,6 +2553,7 @@ def rows_phase(torch) -> None:
     spec.loader.exec_module(rows)
     rows.emit = emit              # its lines go to the --log file too
     bad = rows.check(n_layers=2, device="cuda")
+    bad += rows.chunk_rows(device="cuda")
     if bad:
         raise AssertionError(f"a row's result depends on the rows beside "
                              f"it: {bad}")
@@ -2532,6 +2659,342 @@ def moe_serve_phase(torch):
     return launches
 
 
+def unembed_phase(torch, timer) -> dict:
+    """zamba2-1.2b's decode unembedding alone (4 rows against its untied
+    32000 x 2048 bf16 table, f32 logits: one cuBLAS product) on random
+    operands of those shapes, timed with the kernels phase's timer (late in
+    the run the profiler's sessions lose events): device ms, the CUDA
+    functions seen, and the bound of the bytes it must move. Fails below
+    the bound. One ``kernels`` line; returns it."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.layers.embedding import unembed
+
+    cfg = get_config("zamba2-1.2b")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    table = torch.randn((cfg.vocab, cfg.d_model), device="cuda",
+                        generator=g).to(torch.bfloat16)
+    h = torch.randn((4, 1, cfg.d_model), device="cuda",
+                    generator=g).to(torch.bfloat16)
+    b_ms, b_by = bound(table.numel() * 2 + h.numel() * 2 + 4 * cfg.vocab * 4,
+                       2.0 * 4 * cfg.d_model * cfg.vocab, "bfloat16")
+    row = {"phase": "kernels", "case": "zamba2 unembedding",
+           "shape": {"m": 4, "k": cfg.d_model, "n": cfg.vocab},
+           "device_ms": timer.device(lambda: unembed(
+               {"table": table}, h, compute_dtype=torch.bfloat16)),
+           "device_kernels": timer.kernels,
+           "bound_ms": b_ms, "bound_by": b_by}
+    emit(row)
+    if row["device_ms"] < b_ms:
+        raise AssertionError(f"zamba2's unembedding: {row['device_ms']} ms "
+                             f"device below its bound {b_ms} ms")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# the SSM and hybrid families: zamba2-1.2b and mamba2-370m
+# ---------------------------------------------------------------------------
+
+#: zamba2-1.2b's chunked prefill: two prompts of this many tokens, in
+#: chunks of ``HYBRID_CHUNK`` (its ssd_chunk, and 16 pages of 16 tokens)
+HYBRID_PROMPT = 1024
+HYBRID_CHUNK = 256
+
+
+def _state_bytes(cache, key: str, n_slots: int) -> int:
+    """Bytes of the per-slot recurrent state of ``n_slots`` slots."""
+    return sum(t.numel() * t.element_size() for t in cache[key].values()) \
+        * n_slots // next(iter(cache[key].values())).shape[1]
+
+
+def long_prompts(cfg, n: int, seed: int, new_tokens: int = 8):
+    """``n`` greedy requests of ``HYBRID_PROMPT`` random tokens at 0."""
+    import numpy as np
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i, prompt=tuple(int(t) for t in rng.integers(
+        0, cfg.vocab, HYBRID_PROMPT)), max_new_tokens=new_tokens)
+        for i in range(n)]
+
+
+def chunked_vs_one_shot(torch, model, params, *, paged: bool, what: str,
+                        exact: bool) -> dict:
+    """Two ``HYBRID_PROMPT``-token prompts served in ``HYBRID_CHUNK``-token
+    chunks and in one shot by captured engines (2 slots): greedy tokens
+    must agree, a divergence passing only at a top-2 gap below
+    ``NEAR_TIE`` (``exact``: every step's logits equal bit for bit, the
+    first token's among them: the SSM's scan runs chunk by chunk in both,
+    and ``scripts/row_invariance.py``'s ``chunk`` lines hold each op's
+    rows alike at 256 and 1024 rows). The line also says whether the
+    first token's logits are equal bit for bit and by how much they
+    differ. One ``chunked`` line."""
+    from repro_torch.serve import ServeEngine
+
+    max_len = HYBRID_PROMPT + 32
+    runs, first = {}, {}
+    for label, chunk in (("one-shot", None), ("chunked", HYBRID_CHUNK)):
+        e = ServeEngine(model, params, n_slots=2, max_len=max_len,
+                        paged=paged, block_size=16, device="cuda",
+                        prefill_chunk_tokens=chunk)
+        logits = first[label] = {}
+        _replay(torch, e, logits)
+        t0 = time.monotonic()
+        runs[label] = e.run(long_prompts(model.cfg, 2, seed=5),
+                            warmup=True)
+        runs[label] += (time.monotonic() - t0,)
+        del e
+        gc.collect()
+    (one, _, one_s), (chk, rep, chk_s) = runs["one-shot"], runs["chunked"]
+    steps0 = [(r.uid, 0) for r in one]
+    logits_equal = all(torch.equal(first["one-shot"][k], first["chunked"][k])
+                       for k in steps0)
+    logits_diff = max(float((first["one-shot"][k] - first["chunked"][k])
+                            .abs().max()) for k in steps0)
+    div = near_ties(torch, model, params, long_prompts(model.cfg, 2, seed=5),
+                    one, chk, 0.0 if exact else NEAR_TIE, what)
+    line = {"phase": "chunked", "what": what, "arch": model.cfg.name,
+            "layout": "paged" if paged else "dense-slot",
+            "prompt_tokens": HYBRID_PROMPT, "chunk": HYBRID_CHUNK,
+            "chunks": [r.metrics.prefill_chunks for r in chk],
+            "chunk_ticks": rep["slo"]["prefill_chunk_count"]
+            if "slo" in rep else None,
+            "first_logits_equal": logits_equal,
+            "first_logits_max_diff": logits_diff, "divergences": div,
+            "near_tie": 0.0 if exact else NEAR_TIE,
+            "one_shot_s": one_s, "chunked_s": chk_s}
+    emit(line)
+    if max(line["chunks"]) != HYBRID_PROMPT // HYBRID_CHUNK:
+        raise AssertionError(f"{what}: chunks {line['chunks']}")
+    if exact and (set(first["one-shot"]) != set(first["chunked"]) or not all(
+            torch.equal(z, first["chunked"][k])
+            for k, z in first["one-shot"].items())):
+        raise AssertionError(f"{what}: the chunked run's logits differ from "
+                             f"the one-shot run's (first token's by "
+                             f"{logits_diff})")
+    return line
+
+
+def preempt_revive(torch, engine_fn, workload, state_key: str,
+                   what: str) -> None:
+    """One preemption of a decoding request on a captured engine and its
+    revival: the spilled state, and the revived slot's state before its
+    next step, must equal the preempted slot's bit for bit, and every
+    token the unpreempted run's. One ``slo`` line."""
+    want, _ = engine_fn().run(workload())
+    e = engine_fn()
+    e.start_run(warmup=True)
+    for r in workload():
+        e.submit(r)
+    results = []
+    for _ in range(4):
+        e.tick(results)
+    slot = max(e._inflight)
+    uid = e._inflight[slot].request.uid
+    before = {n: t[:, slot].clone() for n, t in e.cache[state_key].items()}
+    e.preempt(slot)
+    snap = e._spilled[uid]["snap"][state_key]
+    spilled_ok = all(torch.equal(snap[n][:, 0], t) for n, t in before.items())
+    revived, orig = [], e._revive
+
+    def revive(s, req):
+        orig(s, req)
+        revived.append({"slot": s, "state_equal": all(
+            torch.equal(e.cache[state_key][n][:, s], t)
+            for n, t in before.items())})
+
+    e._revive = revive
+    while not e.scheduler.done:
+        e.tick(results)
+    got, rep = e.finish_run(results)
+    differ = differing_tokens(want, got)
+    emit({"phase": "slo", "what": what, "preempted_uid": uid,
+          "spilled_state_equal": spilled_ok, "revived": revived,
+          "differing_tokens": differ,
+          "preemptions": e._preemptions, "revivals": e._revivals})
+    if not (spilled_ok and revived and all(r["state_equal"] for r in revived)
+            and not differ):
+        raise AssertionError(f"{what}: spill {spilled_ok}, revive {revived},"
+                             f" tokens differ for {differ}")
+
+
+def hybrid_phase(torch, unembed_row: dict) -> dict:
+    """zamba2-1.2b, then mamba2-370m (:func:`zamba2_phase`, beside its
+    unembedding's row from :func:`unembed_phase`, and
+    :func:`mamba2_phase`): the captured runs' launches by run
+    (``serve/zamba2-paged``, ``serve/zamba2-dense-slot``,
+    ``serve/mamba2-dense-slot``)."""
+    launches = zamba2_phase(torch, unembed_row)
+    launches.update(mamba2_phase(torch))
+    return launches
+
+
+def zamba2_phase(torch, unembed_row: dict) -> dict:
+    """zamba2-1.2b at full width and depth (38 Mamba-2 layers, 6
+    applications of the shared block, bf16 weights from the port's
+    initializer, seed 0), its unembedding's time (``unembed_row``) beside
+    the decode tick's: returns the captured runs' launches by run."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serve import ServeEngine, resolve_drafter
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config("zamba2-1.2b"),
+                              param_dtype="bfloat16")
+    t0 = time.monotonic()
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    n_apps = cfg.n_layers // cfg.attn_every
+
+    def size(tree):
+        return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+    # a decode tick reads every weight once (the embedding table only
+    # through its 4 gathered rows), the shared block once an application,
+    # and each slot's recurrent state once and writes it once
+    shared = size(params["shared_attn"]) + size(params["shared_mlp"])
+    cache = model.init_cache(4, 16, device="cuda")
+    state = _state_bytes(cache, "ssm", 4)
+    del cache
+    weights = size(params) - params["embed"]["table"].numel() * 2
+    floor_bytes = weights + (n_apps - 1) * shared + 2 * state
+    floor_ms = floor_bytes / HBM_BPS * 1e3
+    unembed_ms = unembed_row["device_ms"]
+    unembed_bound = unembed_row["bound_ms"]
+    emit({"phase": "serve", "what": "zamba2 init", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "applications": n_apps,
+          "n_params": model.param_count(), "init_s": init_s,
+          "param_gb": size(params) / 1e9, "shared_block_bytes": shared,
+          "state_bytes_4_slots": state, "decode_weight_bytes": floor_bytes,
+          "decode_weight_floor_ms": floor_ms, "unembed_device_ms": unembed_ms,
+          "unembed_bound_ms": unembed_bound,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+    def workload():
+        return llama3_workload(cfg)
+
+    served = served_kernels(cfg)
+    want = {"dot_moa": 7 * n_apps, "paged_attention": n_apps}
+    launches = {}
+    for paged in (True, False):
+        layout = "paged" if paged else "dense-slot"
+
+        def engine(cuda_graphs=None, drafter=None):
+            return ServeEngine(model, params, n_slots=4, max_len=96,
+                               paged=paged, block_size=16, device="cuda",
+                               cuda_graphs=cuda_graphs,
+                               drafter=resolve_drafter(drafter, SPEC_K)
+                               if drafter else None)
+
+        runs = eager_vs_captured(torch, engine, workload, warmup=True,
+                                 what=f"serve zamba2 {layout}", served=served)
+        plain = runs["captured"]["results"]
+        per = runs["captured"]["report"]["graphs"]["launches_per_replay"]
+        if per.get("decode") != want:
+            raise AssertionError(f"zamba2 {layout}: a captured decode tick "
+                                 f"launches {per.get('decode')}, not {want}")
+        e = engine(True)
+        run = serve_once(torch, e, workload(), warmup=True)
+        del e
+        gc.collect()
+        for req, r in zip(workload(), run["results"]):
+            if r.tokens.shape != (req.max_new_tokens,) or not (
+                    (r.tokens >= 0) & (r.tokens < cfg.vocab)).all():
+                raise AssertionError(f"zamba2 {layout}: request {r.uid}: "
+                                     f"bad tokens {r.tokens}")
+        serve_line(torch, cfg, model, run, path="captured", init_s=init_s,
+                   layout=layout, decode_weight_floor_ms=floor_ms)
+        launches[f"serve/zamba2-{layout}"] = run["launches"]
+        for drafter in ("oracle", "ngram?n=3"):
+            e = engine(True, drafter)
+            spec = serve_once(torch, e, [dataclasses.replace(
+                r, arrival_s=0.0) for r in workload()], warmup=True)
+            del e
+            gc.collect()
+            differ = differing_tokens(plain, spec["results"])
+            rep = spec["report"]
+            emit({"phase": "spec", "what": "zamba2", "layout": layout,
+                  "drafter": drafter, "k": SPEC_K, "path": "captured",
+                  "accept_rate": rep["spec"]["accept_rate"],
+                  "tokens_per_step": rep["spec"]["tokens_per_step"],
+                  "accepted_hist": rep["spec"]["accepted_hist"],
+                  "tok_per_s": rep["tok_per_s"],
+                  "launches_per_replay":
+                      rep["graphs"]["launches_per_replay"],
+                  "differing_tokens": differ})
+            if differ or (drafter == "oracle"
+                          and rep["spec"]["accept_rate"] != 1.0):
+                raise AssertionError(
+                    f"zamba2 spec {layout} {drafter}: tokens differ from the "
+                    f"plain engine's for {differ}, accept "
+                    f"{rep['spec']['accept_rate']}")
+        if paged:
+            e = engine(True)
+            e.run([], warmup=True)
+            profile_served(torch, e, workload(),
+                           label="zamba2 paged captured",
+                           extra={"decode_weight_floor_ms": floor_ms,
+                                  "unembed_device_ms": unembed_ms,
+                                  "unembed_bound_ms": unembed_bound,
+                                  "layout": layout})
+            del e
+            gc.collect()
+            preempt_revive(torch, lambda: engine(True), lambda: [
+                dataclasses.replace(r, arrival_s=0.0)
+                for r in workload()[:3]], "ssm", "zamba2 paged preempt")
+    chunked_vs_one_shot(torch, model, params, paged=True,
+                        what="zamba2 chunked", exact=False)
+    emit({"phase": "serve", "what": "zamba2 memory",
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mamba2_phase(torch) -> dict:
+    """mamba2-370m at full width (48 layers, bf16 weights from seed 0): no
+    K/V, so dense-slot only, and none of the kernels runs. Eager / captured
+    bit for bit on llama3's workload, and chunked equal to one-shot (no
+    divergence allowed). Returns ``{"serve/mamba2-dense-slot":
+    launches}``, all zero."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(get_config("mamba2-370m"),
+                              param_dtype="bfloat16")
+    t0 = time.monotonic()
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    emit({"phase": "serve", "what": "mamba2 init", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "n_params": model.param_count(),
+          "init_s": time.monotonic() - t0})
+
+    def mamba_engine(cuda_graphs=None):
+        return ServeEngine(model, params, n_slots=4, max_len=96,
+                           device="cuda", cuda_graphs=cuda_graphs)
+
+    runs = eager_vs_captured(torch, mamba_engine,
+                             lambda: llama3_workload(cfg), warmup=True,
+                             what="serve mamba2 dense-slot", served=[])
+    got = runs["captured"]["launches"]
+    if any(got.values()):
+        raise AssertionError(f"mamba2 launched kernels: {got}")
+    serve_line(torch, cfg, model, runs["captured"], path="captured",
+               init_s=0.0, layout="dense-slot", arrivals="all at 0")
+    chunked_vs_one_shot(torch, model, params, paged=False,
+                        what="mamba2 chunked", exact=True)
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"serve/mamba2-dense-slot": got}
+
+
 def _greedy_gap(torch, models, params, prompt, generated) -> dict:
     """At a divergence: the top-2 logit gap of the plain path's next-token
     logits after ``prompt + generated`` (full causal forward, no KV cache),
@@ -2610,6 +3073,7 @@ def _int8_step_bound(torch, cfg, model, params, requests, tokens) -> dict:
     ``q_max``, ``a_max`` and ``v_max`` from the run, ``z_max`` and ``rms``
     from each step. Returns the parts and each request's ``rms`` by
     step; :func:`_step_bound` puts them together."""
+    from repro_torch.models import moe_transformer as M
     from repro_torch.models import transformer as T
 
     G, D, d = cfg.n_heads // cfg.n_kv_heads, cfg.head_dim, cfg.d_model
@@ -2643,7 +3107,7 @@ def _int8_step_bound(torch, cfg, model, params, requests, tokens) -> dict:
             got["final"] = x
         return norm(p, x, **kw)
 
-    T._layer_qkv, T.rms_norm = layer_qkv, rms_norm
+    T._layer_qkv, T.rms_norm, M.rms_norm = layer_qkv, rms_norm, rms_norm
     try:
         for req in requests:
             got.clear()
@@ -2659,7 +3123,7 @@ def _int8_step_bound(torch, cfg, model, params, requests, tokens) -> dict:
                 q_max = max(q_max, float(k.abs().amax(-1).max()) / 127,
                             float(v.abs().amax(-1).max()) / 127)
     finally:
-        T._layer_qkv, T.rms_norm = qkv, norm
+        T._layer_qkv, T.rms_norm, M.rms_norm = qkv, norm, norm
     parts.update(q_max=q_max, a_max=a_max, v_max=v_max,
                  k=a_max * v_max / (2 * math.sqrt(D)))
     return {"parts": parts, "rms": rms}
@@ -2844,129 +3308,206 @@ def layouts(torch, cfg, params, dense, paged_results, requests,
           "dense_launches": report["graphs"]["launches_per_replay"]})
 
 
-#: the MoE parity's bounds. ROUTE_GAP: a routing difference between the
-#: kernel and the plain path (f32) passes only where the plain path's
-#: router probabilities at the first differing choice lie closer than
-#: this; the two compute the router logits with f32 sums in other orders
-#: over K = 2048 (about 1e-6 relative), so a probability moves by 1e-6 at
-#: most, and 1e-4 leaves a hundredfold margin. LOGIT_TOL: at the ticks
-#: before the first routing difference the next-token logits (O(1))
-#: differ by f32 reassociation through 2 layers, bounded as the f32 pool's
-#: near-tie (``parity_phase``).
+def zamba2_parity_phase(torch) -> None:
+    """zamba2-1.2b at full width and 6 layers (one application of the
+    shared block, no tail), f32 compute, the kernel path (captured) against
+    the plain path (eager: the serial PyTorch MOA, ``attn_backend="torch"``)
+    in both layouts on the serve phase's Poisson workload. The Mamba-2
+    layers are plain PyTorch on both paths, so the two differ only where
+    the shared block runs ``dot_moa`` (its seven projections at k = 2048
+    and 8192), flash attention (D 64) and paged attention. Greedy tokens
+    must agree but at a near-tie (the f32 pool's bound); then the kernel
+    path is fed the plain path's tokens (teacher forcing) and every step's
+    logits must agree within ``LOGIT_TOL``."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(get_config("zamba2-1.2b"), n_layers=6,
+                              compute_dtype="float32")
+    plain_cfg = dataclasses.replace(cfg, moa="serial?backend=torch&"
+                                    "chunk=4096", attn_backend="torch")
+    params = build_model(cfg).init(seed=0, device="cuda")
+    gap_tol = 1e-3                           # the f32 pool's near-tie
+    for paged in (True, False):
+        layout = "paged" if paged else "dense-slot"
+
+        def serve(c, logits, forced=None):
+            kernel = c is cfg
+            eng = ServeEngine(build_model(c), params, n_slots=4, max_len=96,
+                              paged=paged, block_size=16, device="cuda",
+                              cuda_graphs=None if kernel else False)
+            _replay(torch, eng, logits, forced)
+            ops.reset_launch_counts()
+            out, _ = eng.run(llama3_workload(cfg))
+            counts = ops.launch_counts()
+            if (kernel and not all(counts[k] for k in served_kernels(cfg))
+                    ) or (not kernel and any(counts.values())):
+                raise AssertionError(f"zamba2 parity {layout}: "
+                                     f"{'kernel' if kernel else 'plain'} "
+                                     f"path launches {counts}")
+            return out
+
+        plain_logits, free_logits, forced_logits = {}, {}, {}
+        plain = serve(plain_cfg, plain_logits)
+        free = serve(cfg, free_logits)
+        divergences = near_ties(torch, build_model(cfg), params,
+                                llama3_workload(cfg), plain, free, gap_tol,
+                                f"zamba2 parity {layout}")
+        serve(cfg, forced_logits, {r.uid: r.tokens for r in plain})
+        if set(plain_logits) != set(forced_logits):
+            raise AssertionError(f"zamba2 parity {layout}: teacher-forced "
+                                 f"steps differ")
+        worst = max(float((forced_logits[k] - z).abs().max())
+                    for k, z in plain_logits.items())
+        emit({"phase": "parity", "what": "zamba2", "layout": layout,
+              "arch": cfg.name, "n_layers": cfg.n_layers,
+              "applications": cfg.n_layers // cfg.attn_every,
+              "compute_dtype": cfg.compute_dtype,
+              "requests": len(plain), "identical": not divergences,
+              "divergences": divergences, "gap_tol": gap_tol,
+              "logit_steps": len(plain_logits), "max_logit_diff": worst,
+              "logit_tol": LOGIT_TOL,
+              "max_abs_logit": max(float(z.abs().max())
+                                   for z in plain_logits.values())})
+        if not worst <= LOGIT_TOL:
+            raise AssertionError(f"zamba2 parity {layout}: teacher-forced "
+                                 f"logits {worst} apart > {LOGIT_TOL}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+#: the MoE parity's bounds. ROUTE_GAP: where the kernel path's own expert
+#: choice differs from the plain path's (f32), the plain path's router
+#: probabilities at the first differing choice must lie closer than this;
+#: the two compute the router logits with f32 sums in other orders over K
+#: = 2048 (about 1e-6 relative), so a probability moves by 1e-6 at most,
+#: and 1e-4 leaves a hundredfold margin. LOGIT_TOL: every step's
+#: next-token logits (O(1)) differ by f32 reassociation through 2 layers,
+#: bounded as the f32 pool's near-tie (``parity_phase``).
 ROUTE_GAP = 1e-4
 LOGIT_TOL = 1e-3
 
 
-def _routing_log(torch, moe_mod, ticks):
+def _routing(torch, moe_mod, ticks, forced=None):
     """Record every ``route`` call of the MoE layer as ``(tick, expert
-    ids, keep, probs)`` on the host; ``ticks`` is a one-item list holding
-    the engine tick in progress. Returns the log and an undo."""
+    ids, keep, probs)`` on the host (the call's own choice); ``ticks`` is a
+    one-item list holding the engine tick in progress. ``forced`` (an
+    earlier run's log): each call instead returns that run's expert ids at
+    the same call, with gates from this call's own probabilities and the
+    capacity ranks recomputed (teacher-forced routing). Returns the log and
+    an undo."""
     log, route = [], moe_mod.route
+    F = torch.nn.functional
 
     def recorded(*args, **kw):
         r = route(*args, **kw)
         log.append((ticks[0], r.expert_ids.cpu(), r.keep.cpu(),
                     r.probs.cpu()))
-        return r
+        if forced is None:
+            return r
+        ids = forced[len(log) - 1][1].to(r.expert_ids.device)
+        if ids.shape != r.expert_ids.shape:
+            raise AssertionError(f"routing call {len(log) - 1}: shapes "
+                                 f"{tuple(ids.shape)} and "
+                                 f"{tuple(r.expert_ids.shape)}")
+        gates = torch.gather(r.probs, -1, ids)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        G, tg, k = ids.shape
+        onehot = F.one_hot(ids.reshape(G, tg * k), r.probs.shape[-1])
+        slot = ((torch.cumsum(onehot, dim=1) - onehot) * onehot).sum(-1)
+        return moe_mod.Routing(r.probs, gates, ids, slot, slot < r.capacity,
+                               r.capacity)
 
     moe_mod.route = recorded
     return log, lambda: setattr(moe_mod, "route", route)
 
 
-def _first_routing_difference(plain, kernel, top_k: int):
-    """The first call whose expert ids or keep mask differ, checked: each
-    token whose ids differ must sit at a near-tie of the plain path's
-    sorted probabilities (gap below ``ROUTE_GAP`` at the first differing
-    choice), and a keep that differs with equal ids must follow such a
-    token in its group (capacity ranks run in token order). Returns
-    ``None`` or ``{call, tick, tokens, gaps, passed}``."""
+def _routing_differences(plain, kernel) -> list:
+    """Every token whose expert ids differ between two routing logs of the
+    same calls: ``{call, tick, group, token, gap}``, ``gap`` the plain
+    path's sorted-probability gap at the first differing choice."""
     if len(plain) != len(kernel):
         raise AssertionError(f"routing calls differ in number: {len(plain)} "
                              f"and {len(kernel)}")
-    for i, ((tick, ip, kp, pp), (_, ik, kk, _)) in enumerate(
+    out = []
+    for i, ((tick, ip, _, pp), (_, ik, _, _)) in enumerate(
             zip(plain, kernel)):
         if ip.shape != ik.shape:
             raise AssertionError(f"routing call {i}: shapes {ip.shape} and "
                                  f"{ik.shape}")
-        if (ip == ik).all() and (kp == kk).all():
-            continue
-        G, tg, k = ip.shape
-        gaps, passed = [], True
-        for gi in range(G):
-            first = None
-            for t in range(tg):
-                if (ip[gi, t] == ik[gi, t]).all():
-                    continue
-                j = int((ip[gi, t] != ik[gi, t]).nonzero()[0])
-                srt = pp[gi, t].sort(descending=True).values
-                gap = float(srt[j] - srt[j + 1])
-                gaps.append(gap)
-                passed &= gap < ROUTE_GAP
-                first = t if first is None else first
-            ks, kk2 = kp[gi].reshape(tg, k), kk[gi].reshape(tg, k)
-            for t in range(tg):
-                if not (ks[t] == kk2[t]).all() and (first is None
-                                                    or t < first):
-                    passed = False
-        return {"call": i, "tick": tick, "gaps": gaps, "passed": passed}
-    return None
+        for gi, t in (ip != ik).any(-1).nonzero().tolist():
+            j = int((ip[gi, t] != ik[gi, t]).nonzero()[0])
+            srt = pp[gi, t].sort(descending=True).values
+            out.append({"call": i, "tick": tick, "group": gi, "token": t,
+                        "gap": float(srt[j] - srt[j + 1])})
+    return out
 
 
 def moe_parity_phase(torch):
     """moonshot at full width and 2 layers, f32 compute, kernel path
-    against plain path (both eager), dense-slot and paged: the plain path
-    serves a workload (every request at 0) greedily; the kernel path is
-    fed its tokens (teacher forcing) so both run the same ticks. Every
-    routing call of both is logged: the first difference must sit at a
-    near-tie
-    (:func:`_first_routing_difference`), after which the states differ
-    and no logit is compared; before it, every step's logits must agree
-    within ``LOGIT_TOL``. The capacity factor is the real 1.25, so idle
-    slots compete for capacity with live ones."""
+    against plain path (both eager), dense-slot and paged, on an f32 and
+    an int8 pool: the plain path serves a workload (every request at 0)
+    greedily; the kernel path is fed its tokens and its expert choices
+    (teacher forcing of tokens and routing), so both run the same ticks
+    through the same experts, and every step's logits are compared: within
+    ``LOGIT_TOL`` (the f32 pool) or within the move one int8 quantum of the
+    pool can cause (:func:`_int8_step_bound`, as llama3's int8 parity; the
+    int8 pool). Every routing call of both is logged with the kernel path's
+    own choice: on the f32 pool each token whose own choice differs must
+    sit at a near-tie of the plain path's router probabilities
+    (``ROUTE_GAP``); on the int8 pool the two paths quantize K and V from
+    f32 values that differ by reassociation, an entry may land one quantum
+    apart and move a router's input as it moves the logits, so the
+    differing choices are printed and the logits' bound decides. The
+    capacity factor is the real 1.25, so idle slots compete for capacity
+    with live ones."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops
     from repro_torch.layers import moe as moe_mod
     from repro_torch.models.api import build_model
     from repro_torch.serve import ServeEngine, poisson_workload
 
-    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), n_layers=2,
-                              compute_dtype="float32")
-    params = build_model(cfg).init(seed=0, device="cuda")
-    plain_cfg = dataclasses.replace(cfg, moa="serial?backend=torch&"
-                                    "chunk=4096", attn_backend="torch")
+    base = dataclasses.replace(get_config("moonshot-v1-16b-a3b"),
+                               n_layers=2, compute_dtype="float32")
+    params = build_model(base).init(seed=0, device="cuda")
 
     def workload():
         return [dataclasses.replace(r, arrival_s=0.0) for r in
-                poisson_workload(n_requests=6, vocab=cfg.vocab,
+                poisson_workload(n_requests=6, vocab=base.vocab,
                                  rate_rps=50.0, prompt_len_range=(16, 64),
                                  gen_len_range=(8, 16), seed=1)]
 
-    for paged in (False, True):
+    for pool, paged in ((p, g) for p in ("f32", "int8")
+                        for g in (False, True)):
         layout = "paged" if paged else "dense-slot"
+        cfg = dataclasses.replace(
+            base, kv_cache_dtype="int8" if pool == "int8" else "bfloat16")
+        plain_cfg = dataclasses.replace(cfg, moa="serial?backend=torch&"
+                                        "chunk=4096", attn_backend="torch")
         runs = {}
         for path, c in (("torch", plain_cfg), ("kernel", cfg)):
             # both eager: a graph's replay runs no Python, so its routing
-            # could not be logged (captured = eager bit for bit is the
-            # serve phase's check)
+            # could not be logged or forced (captured = eager bit for bit
+            # is the serve phase's check)
             eng = ServeEngine(build_model(c), params, n_slots=4, max_len=96,
                               paged=paged, block_size=16, device="cuda",
                               cuda_graphs=False)
-            logits, ticks, tick_of = {}, [0], {}
+            logits, ticks = {}, [0]
             forced = None if path == "torch" else {
                 r.uid: r.tokens for r in runs["torch"]["results"]}
             _replay(torch, eng, logits, forced)
             tick = eng.tick
 
-            def counted(results, tick=tick, logits=logits, ticks=ticks,
-                        tick_of=tick_of):
-                before = set(logits)
+            def counted(results, tick=tick, ticks=ticks):
                 tick(results)
-                for key in set(logits) - before:
-                    tick_of[key] = ticks[0]
                 ticks[0] += 1
 
             eng.tick = counted
-            log, undo = _routing_log(torch, moe_mod, ticks)
+            log, undo = _routing(torch, moe_mod, ticks, None if forced is None
+                                 else runs["torch"]["log"])
             ops.reset_launch_counts()
             try:
                 results, _ = eng.run(workload())
@@ -2978,36 +3519,55 @@ def moe_parity_phase(torch):
                     path == "torch" and any(counts.values())):
                 raise AssertionError(f"moe parity {layout} {path} "
                                      f"launches: {counts}")
-            runs[path] = {"results": results, "logits": logits,
-                          "tick_of": tick_of, "log": log}
+            runs[path] = {"results": results, "logits": logits, "log": log}
             del eng
         plain, kern = runs["torch"], runs["kernel"]
-        diff = _first_routing_difference(plain["log"], kern["log"],
-                                         cfg.top_k)
-        upto = math.inf if diff is None else diff["tick"]
-        worst, compared = 0.0, 0
+        if set(plain["logits"]) != set(kern["logits"]):
+            raise AssertionError(f"moe parity {pool} {layout}: teacher-"
+                                 "forced steps differ")
+        differ = _routing_differences(plain["log"], kern["log"])
+        away = [d for d in differ if d["gap"] >= ROUTE_GAP]
+        bound = None
+        if pool == "int8":
+            bound = _int8_step_bound(
+                torch, cfg, build_model(plain_cfg), params, workload(),
+                {r.uid: r.tokens for r in plain["results"]})
+        worst, over = 0.0, []
         for key, zp in plain["logits"].items():
-            if plain["tick_of"][key] >= upto:
-                continue
-            worst = max(worst, float((kern["logits"][key] - zp).abs().max()))
-            compared += 1
+            d = float((kern["logits"][key] - zp).abs().max())
+            lim = LOGIT_TOL if bound is None else _step_bound(
+                bound["parts"], float(zp.abs().max()),
+                bound["rms"][key[0]][key[1]])
+            if d > lim:
+                over.append({"uid": key[0], "step": key[1], "diff": d,
+                             "bound": lim})
+            worst = max(worst, d)
         drops = sum(int((~keep).sum()) for _, _, keep, _ in plain["log"])
         line = {"phase": "parity", "what": "moe", "layout": layout,
+                "pool": pool, "kv_cache_dtype": cfg.kv_cache_dtype,
                 "arch": cfg.name, "n_layers": 2, "compute_dtype": "float32",
                 "requests": len(plain["results"]),
                 "routing_calls": len(plain["log"]),
                 "dropped_choices": drops,
-                "routing_difference": diff, "route_gap": ROUTE_GAP,
-                "logit_steps_compared": compared,
-                "logit_steps": len(plain["logits"]),
-                "max_logit_diff": worst, "logit_tol": LOGIT_TOL}
+                "routing": "teacher-forced",
+                "own_choices_differ": len(differ),
+                "own_choice_differences": differ[:5],
+                "route_gap": ROUTE_GAP if bound is None else None,
+                "logit_steps_compared": len(plain["logits"]),
+                "max_logit_diff": worst,
+                "logit_tol": LOGIT_TOL if bound is None else "one quantum",
+                "out_of_bound": over[:5]}
+        if bound is not None:
+            line["bound_parts"] = bound["parts"]
         emit(line)
-        if diff is not None and not diff["passed"]:
-            raise AssertionError(f"moe parity {layout}: routing differs "
-                                 f"away from a near-tie: {diff}")
-        if not worst <= LOGIT_TOL:
-            raise AssertionError(f"moe parity {layout}: logits differ by "
-                                 f"{worst} > {LOGIT_TOL}")
+        if bound is None and away:
+            raise AssertionError(f"moe parity {pool} {layout}: the kernel "
+                                 f"path's routing differs away from a "
+                                 f"near-tie: {away[:5]}")
+        if over or not plain["logits"]:
+            raise AssertionError(f"moe parity {pool} {layout}: logits out "
+                                 f"of bound at {over[:5]} "
+                                 f"({len(plain['logits'])} steps compared)")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3144,6 +3704,7 @@ def main() -> int:
     rows = kernel_phase(torch, timer, parent)
     rows.update(paper_kernel_phase(torch, timer, parent))
     rows.update(moe_kernel_phase(torch, timer))
+    unembed = unembed_phase(torch, timer)
     emit({"phase": "kernels", "kernel": "dot_moa", "case": "host path",
           "iters": 1000, **host_path(torch)})
     # the main path's runs, each with the launches its counts gave: the
@@ -3159,7 +3720,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     runs.update(moe_serve_phase(torch))
+    runs.update(hybrid_phase(torch, unembed))
     parity_phase(torch)
+    zamba2_parity_phase(torch)
     moe_parity_phase(torch)
     spec_parity_phase(torch)
     cli_phase(torch)

@@ -263,6 +263,126 @@ def op_rows(model, params, device) -> list:
     return bad
 
 
+def chunk_rows(*, device: str = "cuda", arch: str = "mamba2-370m",
+               n_layers: int = 48, prompt: int = 1024, smoke: bool = False
+               ) -> list:
+    """``chunk`` lines: the SSM's prefill of ``prompt`` tokens in one shot
+    against the same tokens in chunks of ``ssd_chunk`` (``prefill_chunk``
+    continuing from the carried state), op by op on the same inputs (the
+    RMSNorm, the in projection, the causal conv continued from its
+    history, the SSD scan continued from its state, the gated norm, the out
+    projection), then one whole Mamba-2 mixer and the whole prefill's
+    last-position logits. Each chunk's rows against the same rows of the
+    one-shot call. Returns the ops that differ in a bit."""
+    from repro_torch.configs.registry import get_config, smoke_config
+    from repro_torch.layers import ssd
+    from repro_torch.layers.common import rms_norm
+    from repro_torch.models.api import build_model
+    from repro_torch.models.transformer import layer
+
+    cfg = get_config(arch)
+    if smoke:
+        cfg = smoke_config(cfg)
+    cfg = dataclasses.replace(cfg, n_layers=n_layers, param_dtype="bfloat16")
+    model = build_model(cfg)
+    params = model.init(seed=0, device=device)
+    L, cd = cfg.ssd_chunk, cfg.cdtype
+    if prompt % L:
+        raise ValueError(f"prompt {prompt} is not a multiple of {L}")
+    mixer = layer(params["layers"], 0)["mixer"]
+    g = torch.Generator(device="cpu").manual_seed(11)
+
+    def rand(*shape, dtype=cd, scale=1.0):
+        return (scale * torch.randn(shape, generator=g)).to(dtype).to(device)
+
+    d, di = cfg.d_model, cfg.d_inner
+    H, P, N = di // cfg.headdim, cfg.headdim, cfg.d_state
+    bad = []
+
+    def compare(op, full, pieces):
+        """``full`` (one shot) against ``pieces`` (one a chunk, in order),
+        each a tensor or a tuple of them, split along dim 1."""
+        full = full if isinstance(full, tuple) else (full,)
+        pieces = [p if isinstance(p, tuple) else (p,) for p in pieces]
+        for j, f in enumerate(full):
+            joined = torch.cat([p[j] for p in pieces], dim=1)
+            dd = differ(joined, f)
+            emit(dict(phase="chunk", arch=cfg.name, op=op, output=j,
+                      rows=prompt, against=L, **dd))
+            if not dd["bit_equal"]:
+                bad.append(f"{op}[{j}]")
+
+    n = prompt // L
+    cut = [slice(i * L, (i + 1) * L) for i in range(n)]
+    with torch.no_grad():
+        x = rand(1, prompt, d)
+        norm = layer(params["layers"], 0)["norm"]
+        compare("rms_norm", rms_norm(norm, x),
+                [rms_norm(norm, x[:, c]) for c in cut])
+        w_in = mixer["in_proj"].to(cd)
+        compare("in_proj", x @ w_in, [x[:, c] @ w_in for c in cut])
+        conv_in = rand(1, prompt, mixer["conv_w"].shape[1])
+        w, b = mixer["conv_w"].to(cd), mixer["conv_b"].to(cd)
+        k1 = w.shape[0] - 1
+        compare("conv", ssd._causal_depthwise_conv(conv_in, w, b),
+                [ssd._causal_depthwise_conv(
+                    conv_in[:, c], w, b,
+                    hist=None if i == 0 else conv_in[:, c.start - k1:c.start])
+                 for i, c in enumerate(cut)])
+        xs, bs, cs = (rand(1, prompt, H, P), rand(1, prompt, H, N),
+                      rand(1, prompt, H, N))
+        a = -torch.rand((1, prompt, H), generator=g).to(device) * 0.1
+        y, h = ssd.ssd_chunked(xs, a, bs, cs, chunk=L)
+        ys, hs, state = [], [], None
+        for c in cut:
+            yi, state = ssd.ssd_chunked(xs[:, c], a[:, c], bs[:, c],
+                                        cs[:, c], chunk=L, h0=state)
+            ys.append(yi)
+        compare("ssd y", y, ys)
+        dd = differ(state, h)
+        emit(dict(phase="chunk", arch=cfg.name, op="ssd h_last",
+                  rows=prompt, against=L, **dd))
+        if not dd["bit_equal"]:
+            bad.append("ssd h_last")
+        yg = rand(1, prompt, di)
+        compare("gate_norm", rms_norm(mixer["gate_norm"], yg),
+                [rms_norm(mixer["gate_norm"], yg[:, c]) for c in cut])
+        w_out = mixer["out_proj"].to(cd)
+        compare("out_proj", yg @ w_out, [yg[:, c] @ w_out for c in cut])
+        # one whole mixer: the composition of the above
+        kw = dict(d_state=N, headdim=P, n_groups=cfg.n_groups,
+                  expand=cfg.expand, ssd_chunk=L, compute_dtype=cd)
+        full_y, _ = ssd.mamba2_forward(mixer, x, **kw)
+        st = {"h": torch.zeros((1, H, P, N), device=device),
+              "conv": torch.zeros((1, k1, w.shape[1]), dtype=torch.bfloat16,
+                                  device=device)}
+        parts = []
+        for c in cut:
+            yi, hi = ssd.mamba2_forward(mixer, x[:, c], initial_state=st,
+                                        **kw)
+            tail = ssd.conv_tail(mixer, x[:, c], d_inner=di,
+                                 n_groups=cfg.n_groups, d_state=N,
+                                 compute_dtype=cd)
+            st = {"h": hi, "conv": torch.cat(
+                [st["conv"], tail.to(torch.bfloat16)], dim=1)[:, -k1:]}
+            parts.append(yi)
+        compare("mamba2_forward", full_y, parts)
+        # the whole prefill: last-position logits
+        tokens = torch.randint(0, cfg.vocab, (1, prompt), generator=g,
+                               dtype=torch.int32).to(device)
+        one, _ = model.prefill(params, {"tokens": tokens}, max_len=prompt)
+        state = model.init_cache(1, prompt, device=device)
+        for c in cut:
+            logits, state = model.prefill_chunk(
+                params, {"tokens": tokens[:, c]}, state=state)
+        dd = differ(logits, one)
+        emit(dict(phase="chunk", arch=cfg.name, op="prefill logits",
+                  n_layers=cfg.n_layers, rows=prompt, against=L, **dd))
+        if not dd["bit_equal"]:
+            bad.append("prefill logits")
+    return bad
+
+
 def check(*, n_layers: int = 2, device: str = "cuda",
           smoke: bool = False) -> list:
     """Build the model, print the ``trace`` and ``op`` lines and the
@@ -301,11 +421,20 @@ def main() -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--smoke", action="store_true",
                     help="the smoke config (a CPU rehearsal)")
+    ap.add_argument("--chunks", action="store_true",
+                    help="only the chunk lines: mamba2-370m's prefill in one "
+                         "shot against ssd_chunk-token chunks")
     args = ap.parse_args()
     if args.device == "cuda" and not torch.cuda.is_available():
         print("row_invariance: no CUDA device", file=sys.stderr)
         return 2
-    bad = check(n_layers=args.layers, device=args.device, smoke=args.smoke)
+    if args.chunks:
+        bad = chunk_rows(device=args.device, smoke=args.smoke,
+                         n_layers=args.layers,
+                         prompt=32 if args.smoke else 1024)
+    else:
+        bad = check(n_layers=args.layers, device=args.device,
+                    smoke=args.smoke)
     return 1 if bad else 0
 
 

@@ -6,6 +6,10 @@ over a paged KV pool (``--paged``), driven by a synthetic Poisson workload
       --param-dtype bfloat16 --requests 8 --slots 4
   python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b \
       --param-dtype bfloat16 [--paged]
+  python -m repro_torch.launch.serve --arch zamba2-1.2b \
+      --param-dtype bfloat16 [--paged]
+  python -m repro_torch.launch.serve --arch mamba2-370m \
+      --param-dtype bfloat16
   python -m repro_torch.launch.serve --arch llama3-8b --paged \
       --param-dtype bfloat16 --spec-decode --drafter oracle --spec-k 3
   python -m repro_torch.launch.serve --arch llama3-8b --paged \
@@ -17,7 +21,10 @@ over a paged KV pool (``--paged``), driven by a synthetic Poisson workload
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       --smoke --device cpu --replicas 3 --kill 6:1 --reload-at 10
 
-Runs on the GPU unless ``--device cpu`` is given. ``--layers`` cuts the
+Runs on the GPU unless ``--device cpu`` is given. mamba2-370m (the SSM
+family) has no K/V cache, so ``--paged`` is refused for it; the SSM and
+hybrid families take ``--prefill-chunk`` in multiples of their
+``ssd_chunk`` (256). ``--layers`` cuts the
 depth (``n_layers``) and nothing else. On the GPU the engine replays CUDA
 graphs of its decode and padded full-prompt prefill (captured at warmup, or
 at the first tick of each bucket with ``--no-warmup``); ``--eager`` runs

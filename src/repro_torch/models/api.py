@@ -1,5 +1,5 @@
 """Uniform model API — the port of ``repro/models/api.py`` for the served
-dense and MoE families.
+families: dense, MoE, SSM (Mamba-2) and hybrid (Zamba2).
 
 ``build_model(cfg)`` returns a :class:`Model`, an ``nn.Module`` whose
 parameters, once :meth:`Model.init` or :meth:`Model.load_params` ran, are
@@ -19,17 +19,19 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.layers.common import Params
-from repro_torch.models import moe_transformer, transformer
+from repro_torch.models import mamba2, moe_transformer, transformer, zamba2
 
 __all__ = ["CacheSpec", "Model", "build_model"]
 
 #: the module of each ported family
-_FAMILIES = {"dense": transformer, "moe": moe_transformer}
+_FAMILIES = {"dense": transformer, "moe": moe_transformer, "ssm": mamba2,
+             "hybrid": zamba2}
+
+#: the families with a recurrent (per-slot, constant-size) decode state
+_RECURRENT = ("ssm", "hybrid")
 
 #: where each unported family lands (ROADMAP Queue 1)
 _UNPORTED = {
-    "ssm": "ROADMAP Queue 1, item 10 (SSM and hybrid)",
-    "hybrid": "ROADMAP Queue 1, item 10 (SSM and hybrid)",
     "encoder": "ROADMAP Queue 1, item 12 (training; the engine serves no "
                "encoder)",
     "vlm": "ROADMAP Queue 1, item 12 (training; the engine serves no vlm)",
@@ -41,7 +43,8 @@ class CacheSpec:
     """Decode-cache layout summary (the reference's ``CacheSpec``):
     ``n_kv_stacks`` KV stacks (layers), ``kv_bytes_per_token`` across all
     of them (int8 scales included), ``slot_state_bytes`` of per-slot
-    constant state (0 for the dense family)."""
+    constant state (the SSM and hybrid families' recurrent state; 0 for
+    the dense and MoE families)."""
 
     family: str
     n_kv_stacks: int
@@ -49,6 +52,11 @@ class CacheSpec:
     head_dim: int
     kv_bytes_per_token: int
     slot_state_bytes: int
+
+    @property
+    def pageable(self) -> bool:
+        """Whether the family has K/V to page (not the pure SSM)."""
+        return self.n_kv_stacks > 0
 
     def kv_block_bytes(self, block_size: int) -> int:
         """Bytes of one physical page across all KV stacks."""
@@ -79,8 +87,8 @@ class _ParamTree(nn.Module):
 
 
 class Model(nn.Module):
-    """A dense or MoE decoder with the reference ``Model``'s serving
-    surface."""
+    """A dense, MoE, SSM or hybrid decoder with the reference ``Model``'s
+    serving surface."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -133,22 +141,55 @@ class Model(nn.Module):
         """Whether right-padded prompts are exact: padded K/V rows are
         masked; an MoE's pad tokens compete for expert capacity, so it is
         exact only in the dropless regime (``capacity_factor >= n_experts
-        / top_k``)."""
+        / top_k``); a recurrent state would absorb the pad tokens, so the
+        SSM and hybrid families prefill at the exact length."""
         cfg = self.cfg
         if cfg.family == "moe":
             return cfg.capacity_factor >= cfg.n_experts / max(cfg.top_k, 1)
-        return True
+        return cfg.family == "dense"
+
+    @property
+    def kv_key(self) -> Optional[str]:
+        """The cache key of the K/V stacks: ``"kv"`` (hybrid), ``"layers"``
+        (dense, MoE), ``None`` (SSM: no K/V)."""
+        return {"hybrid": "kv", "ssm": None}.get(self.cfg.family, "layers")
+
+    @property
+    def state_key(self) -> Optional[str]:
+        """The cache key of the per-slot recurrent state: ``"ssm"``
+        (hybrid), ``"layers"`` (SSM), ``None`` (dense, MoE)."""
+        return {"hybrid": "ssm", "ssm": "layers"}.get(self.cfg.family)
 
     def cache_spec(self) -> CacheSpec:
+        """Bytes a token of K/V takes across all stacks, and a slot's
+        constant recurrent state (the reference's, from ``init_cache``'s
+        shapes: the hybrid's K/V in the compute type, the conv history in
+        bf16 and ``h`` in f32)."""
         cfg = self.cfg
-        item = transformer.kv_dtype(cfg).itemsize
-        per_layer = 2 * cfg.n_kv_heads * cfg.head_dim * item
-        if cfg.kv_cache_dtype == "int8":
-            per_layer += 2 * cfg.n_kv_heads * 4            # f32 scales
-        return CacheSpec(family=cfg.family, n_kv_stacks=cfg.n_layers,
+        slot_state = 0
+        if cfg.family in _RECURRENT:
+            conv_dim = cfg.d_inner + 2 * cfg.n_groups * cfg.d_state
+            slot_state = cfg.n_layers * (
+                cfg.n_ssm_heads * cfg.headdim * cfg.d_state * 4
+                + (cfg.d_conv - 1) * conv_dim * 2)
+        if cfg.family == "ssm":
+            return CacheSpec(family=cfg.family, n_kv_stacks=0,
+                             n_kv_heads=cfg.n_kv_heads,
+                             head_dim=cfg.head_dim, kv_bytes_per_token=0,
+                             slot_state_bytes=slot_state)
+        if cfg.family == "hybrid":
+            stacks = zamba2.n_applications(cfg)
+            per_stack = 2 * cfg.n_kv_heads * cfg.head_dim * cfg.cdtype.itemsize
+        else:
+            stacks = cfg.n_layers
+            item = transformer.kv_dtype(cfg).itemsize
+            per_stack = 2 * cfg.n_kv_heads * cfg.head_dim * item
+            if cfg.kv_cache_dtype == "int8":
+                per_stack += 2 * cfg.n_kv_heads * 4         # f32 scales
+        return CacheSpec(family=cfg.family, n_kv_stacks=stacks,
                          n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
-                         kv_bytes_per_token=cfg.n_layers * per_layer,
-                         slot_state_bytes=0)
+                         kv_bytes_per_token=stacks * per_stack,
+                         slot_state_bytes=slot_state)
 
     def init_cache(self, batch: int, max_len: int, *, device):
         """Zeroed dense-slot decode state for ``batch`` sequences of
@@ -158,20 +199,39 @@ class Model(nn.Module):
 
     def init_paged_cache(self, n_slots: int, n_phys_blocks: int,
                          block_size: int, max_blocks: int, *, device):
+        """Paged decode state: K/V page pools, per-slot block tables and
+        cursors (a hybrid's Mamba-2 states dense per slot). The SSM family
+        has no K/V to page and raises."""
+        if not self.cache_spec().pageable:
+            raise ValueError(
+                f"family {self.cfg.family!r} has no KV cache to page — its "
+                "decode state is constant-size per slot")
         return self._mod.init_paged_cache(self.cfg, n_slots, n_phys_blocks,
                                           block_size, max_blocks,
                                           device=device)
 
     def split_prefill_cache(self, pre):
-        """``(kv leaves (L, 1, max_len, ...), per-slot state)``; the dense
-        and MoE families keep no per-slot state."""
+        """``(kv leaves (stack, 1, max_len, ...), per-slot state or
+        None)``: the hybrid's K/V and Mamba-2 states; the dense and MoE
+        families keep no per-slot state."""
+        if self.cfg.family == "hybrid":
+            return pre["kv"], pre["ssm"]
         return pre["layers"], None
 
     def prefill(self, params: Params, batch: dict, *, max_len: int,
                 prompt_len: Union[int, torch.Tensor, None] = None):
         """``prompt_len``: a Python int, or a 0-d int32 tensor on the
         tokens' device (the last real row is then picked on the device, as
-        a CUDA graph of the prefill needs)."""
+        a CUDA graph of the prefill needs). Only where
+        :attr:`supports_padded_prefill`: the SSM and hybrid families take
+        exact-length prompts and raise on a ``prompt_len``."""
+        if self.cfg.family in _RECURRENT:
+            if prompt_len is not None:
+                raise ValueError(
+                    f"family {self.cfg.family!r} cannot prefill padded "
+                    "prompts: recurrent state would absorb the pad tokens")
+            return self._mod.prefill(params, batch, self.cfg,
+                                     max_len=max_len)
         return self._mod.prefill(params, batch, self.cfg, max_len=max_len,
                                  prompt_len=prompt_len)
 
@@ -179,11 +239,14 @@ class Model(nn.Module):
                        prompt_len: int):
         """Suffix-only prefill against cached prefix K/V: the dense family
         always, an MoE only in the dropless regime (below it, expert
-        capacity couples the suffix to the prefix it no longer sees)."""
-        if self.cfg.family == "moe" and not self.supports_padded_prefill:
+        capacity couples the suffix to the prefix it no longer sees). The
+        recurrent families have no position-addressed prefix to resume
+        from and chunk through :meth:`prefill_chunk` instead."""
+        if self.cfg.family in _RECURRENT or (
+                self.cfg.family == "moe" and not self.supports_padded_prefill):
             raise ValueError(
                 f"family {self.cfg.family!r} cannot skip prefix prefill "
-                "compute (expert-capacity coupling)")
+                "compute (expert-capacity or recurrent-state coupling)")
         return self._mod.prefill_suffix(params, batch, self.cfg,
                                         prefix=prefix, prompt_len=prompt_len)
 
@@ -202,27 +265,48 @@ class Model(nn.Module):
         """Whether a prompt can be prefilled in chunks interleaved with
         decode ticks, equal to the one-shot prefill: the attention families
         chunk through :meth:`prefill_suffix` (dense always, an MoE only
-        dropless)."""
+        dropless), the SSM and hybrid families through
+        :meth:`prefill_chunk` (carried recurrent state)."""
         if self.cfg.family == "moe":
             return self.supports_padded_prefill
-        return self.cfg.family == "dense"
+        return self.cfg.family in ("dense",) + _RECURRENT
 
     @property
     def prefill_chunk_alignment(self) -> int:
-        """Chunk boundaries must be multiples of this many tokens: 1 for
-        the attention families (the paged engine still aligns chunks to
-        ``block_size``)."""
+        """Chunk boundaries must be multiples of this many tokens: the
+        recurrent families' ``ssd_chunk`` (the chunked scan's grouping must
+        be the one-shot scan's), 1 for the attention families (the paged
+        engine still aligns chunks to ``block_size``)."""
+        if self.cfg.family in _RECURRENT:
+            return self.cfg.ssd_chunk
         return 1
+
+    def prefill_chunk(self, params: Params, batch: dict, *, state,
+                      prefix_kv=None):
+        """Continue a recurrent family's chunked prefill from carried
+        ``state`` (what :meth:`prefill` or an earlier chunk returned); the
+        hybrid also takes ``prefix_kv``, the shared block's prefix K/V
+        ``(n_apps, 1, P, Hk, D)``. Attention families raise: they chunk
+        through :meth:`prefill_suffix`."""
+        if self.cfg.family == "ssm":
+            return mamba2.prefill_chunk(params, batch, self.cfg, state=state)
+        if self.cfg.family == "hybrid":
+            return zamba2.prefill_chunk(params, batch, self.cfg, state=state,
+                                        prefix_kv=prefix_kv)
+        raise ValueError(
+            f"family {self.cfg.family!r} has no carried-state prefill "
+            "chunk — attention families chunk via prefill_suffix")
 
     # ---- speculative decoding ---------------------------------------------
     @property
     def supports_spec_decode(self) -> bool:
         """Whether a T-token verify is exact: the dense family always, an
         MoE only in the dropless regime (below it, expert capacity couples
-        the draft window's tokens)."""
+        the draft window's tokens), the SSM and hybrid families by
+        construction (T scanned decode steps with state snapshots)."""
         if self.cfg.family == "moe":
             return self.supports_padded_prefill
-        return self.cfg.family == "dense"
+        return self.cfg.family in ("dense",) + _RECURRENT
 
     def _check_spec(self) -> None:
         if not self.supports_spec_decode:
@@ -235,7 +319,8 @@ class Model(nn.Module):
         """Score ``tokens (B, T)`` in one call against the dense-slot cache
         (column 0 each slot's pending token, then its draft): ``(logits
         (B, T, V), cache, aux)``, the T rows written tentatively in place,
-        ``pos`` still at the pre-verify cursor."""
+        ``pos`` still at the pre-verify cursor; ``aux`` is ``None``, or a
+        recurrent family's state snapshots for :meth:`commit_verified`."""
         self._check_spec()
         return self._mod.verify_step(params, cache, tokens, self.cfg)
 
@@ -249,7 +334,8 @@ class Model(nn.Module):
 
     def commit_verified(self, cache, keep, aux=None):
         """Advance each slot's ``pos`` by ``keep (B,)`` (accepted drafts +
-        1; 0 for idle slots), in place."""
+        1; 0 for idle slots), in place; a recurrent family also restores
+        each slot's state from the snapshot ``aux`` holds at ``keep``."""
         return self._mod.commit_verified(cache, keep, aux, self.cfg)
 
 

@@ -40,6 +40,15 @@ MoE prefills each prompt at its exact length and refuses a drafter and
 chunks, since pad tokens, draft windows and chunk boundaries would compete
 for expert capacity. Suffix prefill is the dense family's; a
 capacity-limited MoE also keeps its prompt pages out of the prefix trie.
+The SSM (mamba2) and hybrid (zamba2) families prefill at the exact length
+(a recurrent state would absorb pad tokens), chunk through
+``Model.prefill_chunk`` with their recurrent state carried from chunk to
+chunk (chunks multiples of ``ssd_chunk``), and verify as ``k + 1``
+scanned decode steps whose per-step state snapshots the commit selects
+from. Their recurrent state is dense per slot in both layouts (the cache's
+``ssm`` entry for the hybrid, ``layers`` for the SSM); the SSM has no K/V
+and refuses the paged layout. A spill and a revive copy it with the
+slot's cursor.
 
 The host logic is the reference's, line for line, and so is every device
 write an idle slot makes: a capacity-limited MoE routes the idle rows
@@ -48,7 +57,8 @@ reference's do. The cache tensors are updated **in place**. The
 reference's compile cache becomes CUDA graphs
 (:mod:`repro_torch.serve.graphs`, on by default for a CUDA engine): the
 paged decode and verify are captured once per live-block bucket, the
-dense-slot decode and verify once, and the padded full-prompt prefill with
+dense-slot decode and verify once (the recurrent families' too, their
+verify with its snapshot copies), and the padded full-prompt prefill with
 its write into the cache once per prompt bucket; each tick replays them.
 The acceptance and the commit run after a verify's replay. The prefix-hit
 (suffix) prefill, the exact-length prefill, the prefill chunks, the SLO
@@ -96,6 +106,7 @@ from repro_torch.layers.attention import (DENSE_PAGE, dequantize_kv,
                                           last_of_equal,
                                           resolve_attn_backend)
 from repro_torch.models.api import Model, build_model
+from repro_torch.models.verify_common import SNAP_KEY
 from repro_torch.serve import graphs
 from repro_torch.serve.kv_pool import TRASH_BLOCK, BlockPool, blocks_needed
 from repro_torch.serve.metrics import (RequestMetrics, aggregate,
@@ -168,7 +179,8 @@ class _Prefilling:
     slot's installed row stays all-trash (pos 0) until the final chunk,
     so interleaved decode ticks write only to the trash page. Dense-slot:
     per-chunk suffix K/V accumulates in ``kv_parts`` and the final chunk
-    writes the whole slot row at once.
+    writes the whole slot row at once. The SSM and hybrid families carry
+    their recurrent state from chunk to chunk in ``state``.
     """
 
     request: Request
@@ -176,6 +188,8 @@ class _Prefilling:
     admitted_s: float
     done: int                 # prompt tokens already consumed
     chunks: int = 0
+    #: recurrent families: the carried ``{state key, "pos"}`` between chunks
+    state: Optional[dict] = None
     kv_parts: List = dataclasses.field(default_factory=list)
     plan: Optional[object] = None
     table: Optional["_SlotTable"] = None
@@ -203,28 +217,37 @@ class _SlotTable:
 
 def _write_slot(cache, pre, slot) -> None:
     """Copy a batch-1 prefill cache into row ``slot`` of the batched cache
-    (every KV leaf ``(L, n_slots, max_len, ...)``) and its cursor into
-    ``pos[slot]``. ``slot`` is a Python int, or a CUDA graph's ``(1,)``
-    device tensor (then the rows are installed by ``index_copy_``)."""
+    and its cursor into ``pos[slot]``: every entry of ``pre`` but ``pos``
+    (``layers``; the hybrid's ``kv`` and ``ssm``) is a tree of leaves laid
+    out ``(stack, batch, ...)``, cast to the cache's types (a prefill's
+    conv history arrives in the compute type). ``slot`` is a Python int,
+    or a CUDA graph's ``(1,)`` device tensor (then the rows are installed
+    by ``index_copy_``)."""
+    trees = [(cache[key], tree) for key, tree in pre.items() if key != "pos"]
     if isinstance(slot, torch.Tensor):
         idx = slot.long()
-        for name, leaf in cache["layers"].items():
-            leaf.index_copy_(1, idx, pre["layers"][name].to(leaf.dtype))
+        for big, small in trees:
+            for name, leaf in big.items():
+                leaf.index_copy_(1, idx, small[name].to(leaf.dtype))
         cache["pos"].index_copy_(
             0, idx, torch.as_tensor(pre["pos"]).reshape(1).to(
                 cache["pos"].dtype))
     else:
-        for name, leaf in cache["layers"].items():
-            leaf[:, slot] = pre["layers"][name][:, 0].to(leaf.dtype)
+        for big, small in trees:
+            for name, leaf in big.items():
+                leaf[:, slot] = small[name][:, 0].to(leaf.dtype)
         cache["pos"][slot] = pre["pos"]
 
 
 def _read_slot(cache, slot: int):
     """Exact inverse of :func:`_write_slot`: row ``slot`` of the batched
-    cache as a batch-1 prefill-shaped tree (copies, in the cache types)."""
-    return {"layers": {name: leaf[:, slot:slot + 1].clone()
-                       for name, leaf in cache["layers"].items()},
-            "pos": cache["pos"][slot].clone()}
+    cache (every entry but ``pos`` and the verify's snapshot buffer) as a
+    batch-1 prefill-shaped tree (copies, in the cache types)."""
+    out = {key: {name: leaf[:, slot:slot + 1].clone()
+                 for name, leaf in tree.items()}
+           for key, tree in cache.items() if key not in ("pos", SNAP_KEY)}
+    out["pos"] = cache["pos"][slot].clone()
+    return out
 
 
 # ---- paged device helpers (in place on the cache tensors) ------------------
@@ -245,24 +268,28 @@ def _gather_prefix(pool, ids, *, cdtype):
     return {"k": k, "v": v}
 
 
-def _paged_write(cache, pre_kv, write_ids, table_row, slot, pre_pos) -> None:
-    """Scatter a prefill's K/V into the pool pages named by ``write_ids``
-    (one per written logical block; shared and overhang blocks arrive
-    redirected to the trash page, so the ids may repeat: every repeat
-    carries the last one's block, as the reference's sequential scatter
-    leaves the page, since idle slots read it), then install the slot's
-    block-table row and cursor.
+def _paged_write(cache, pre_kv, pre_state, write_ids, table_row, slot,
+                 pre_pos, *, kv_key: str) -> None:
+    """Scatter a prefill's K/V into the pool pages of ``cache[kv_key]``
+    named by ``write_ids`` (one per written logical block; shared and
+    overhang blocks arrive redirected to the trash page, so the ids may
+    repeat: every repeat carries the last one's block, as the reference's
+    sequential scatter leaves the page, since idle slots read it), write a
+    hybrid's per-slot Mamba-2 states ``pre_state`` (``None``: none), then
+    install the slot's block-table row and cursor.
 
     ``slot`` and ``pre_pos`` are Python ints, or a CUDA graph's static
     inputs: a ``(1,)`` and a 0-d int32 device tensor, installed by
     ``index_copy_`` on the device."""
     nb = write_ids.shape[0]
     last = last_of_equal(write_ids)
-    for name, leaf in cache["layers"].items():
+    for name, leaf in cache[kv_key].items():
         s = pre_kv[name][:, 0]                   # (L, S, ...)
         s = s.reshape((s.shape[0], nb, s.shape[1] // nb)
                       + tuple(s.shape[2:]))
         leaf[:, write_ids] = s[:, last].to(leaf.dtype)
+    if pre_state is not None:
+        _write_slot(cache, {"ssm": pre_state, "pos": pre_pos}, slot)
     if isinstance(slot, torch.Tensor):
         slot = slot.long()
         cache["block_tables"].index_copy_(0, slot, table_row[None])
@@ -272,11 +299,12 @@ def _paged_write(cache, pre_kv, write_ids, table_row, slot, pre_pos) -> None:
         cache["pos"][slot] = pre_pos
 
 
-def _cow_copy(cache, src: int, dst: int, slot: int, logical_idx: int) -> None:
+def _cow_copy(cache, src: int, dst: int, slot: int, logical_idx: int, *,
+              kv_key: str) -> None:
     """Copy-on-write: duplicate page ``src`` into the reserved spare
     ``dst`` and repoint this slot's table entry, so the imminent divergent
     write lands on a private page."""
-    for leaf in cache["layers"].values():
+    for leaf in cache[kv_key].values():
         leaf[:, dst] = leaf[:, src]
     cache["block_tables"][slot, logical_idx] = dst
 
@@ -289,18 +317,22 @@ def _clear_slot(cache, slot: int) -> None:
     cache["pos"][slot] = 0
 
 
-def _read_paged_slot(cache, slot: int):
-    """Snapshot a paged slot's per-slot state, its cursor (the dense and
-    MoE families keep no other). The K/V itself is not copied: the spilled
-    request keeps its ref-counted pool pages pinned."""
-    return {"pos": cache["pos"][slot].clone()}
+def _read_paged_slot(cache, slot: int, *, has_ssm: bool):
+    """Snapshot a paged slot's per-slot state: its cursor and, for the
+    hybrid (``has_ssm``), its Mamba-2 states. The K/V itself is not
+    copied: the spilled request keeps its ref-counted pool pages pinned."""
+    out = {"pos": cache["pos"][slot].clone()}
+    if has_ssm:
+        out["ssm"] = {name: leaf[:, slot:slot + 1].clone()
+                      for name, leaf in cache["ssm"].items()}
+    return out
 
 
 def _restore_paged_slot(cache, snap, table_row, slot: int) -> None:
     """Revive a spilled paged request into ``slot``: reinstall its block
-    table row and cursor."""
+    table row and cursor, and any Mamba-2 states."""
     cache["block_tables"][slot] = table_row
-    cache["pos"][slot] = snap["pos"]
+    _write_slot(cache, snap, slot)
 
 
 class ServeEngine:
@@ -436,6 +468,8 @@ class ServeEngine:
                     f"blocks, not {block_size}")
         self.model = model
         self.params = params
+        #: the cache keys of the K/V stacks and of the recurrent state
+        self._kv_key, self._state_key = model.kv_key, model.state_key
         self.n_slots = n_slots
         self.max_len = max_len
         self.drafter = drafter
@@ -488,6 +522,10 @@ class ServeEngine:
 
     # ---- paged setup -------------------------------------------------------
     def _init_paged(self, block_size: int, n_blocks: Optional[int]) -> None:
+        if not self.model.cache_spec().pageable:
+            raise ValueError(
+                f"family {self.model.cfg.family!r} has no KV cache to page "
+                "— its decode state is constant-size per slot")
         if self.max_len % block_size:
             raise ValueError(
                 f"block_size {block_size} must divide max_len "
@@ -669,7 +707,7 @@ class ServeEngine:
             if self._suffix_capable else 0
         if n_pref > 0:
             prefix = _gather_prefix(
-                self.cache["layers"], self._dev(table.blocks[:n_pref]),
+                self.cache[self._kv_key], self._dev(table.blocks[:n_pref]),
                 cdtype=self.model.cfg.cdtype)
             suffix = prompt[0, n_pref * bs:]
             pad = -len(suffix) % bs
@@ -680,8 +718,9 @@ class ServeEngine:
                 prompt_len=p)
             kv, _ = self.model.split_prefill_cache(pre)
             write_ids = self._write_ids(table, n_pref, kv["k"].shape[2] // bs)
-            _paged_write(self.cache, kv, self._dev(write_ids),
-                         self._dev(row), slot, pre["pos"])
+            _paged_write(self.cache, kv, None, self._dev(write_ids),
+                         self._dev(row), slot, pre["pos"],
+                         kv_key=self._kv_key)
         else:
             # the prefill writes every logical block of max_len
             logits = self._full_prefill(
@@ -708,7 +747,8 @@ class ServeEngine:
         if table.cow_spare is None:
             return
         src, dst = table.blocks[table.tail_idx], table.cow_spare
-        _cow_copy(self.cache, src, dst, slot, table.tail_idx)
+        _cow_copy(self.cache, src, dst, slot, table.tail_idx,
+                  kv_key=self._kv_key)
         self._pool.free(src)
         table.blocks[table.tail_idx] = dst
         table.shared.discard(table.tail_idx)
@@ -794,7 +834,8 @@ class ServeEngine:
     def _begin_chunked(self, slot: int, req: Request, now_s: float) -> None:
         """Open a chunked prefill: paged, reserve the blocks up front (the
         slot's installed table row stays all-trash until the final chunk)
-        and start past a prefix-cache hit's matched blocks."""
+        and start past a prefix-cache hit's matched blocks; seed a
+        recurrent family's carried state with zeros."""
         self._admissions += 1
         pf = _Prefilling(request=req, slot=slot, admitted_s=now_s, done=0)
         if self.paged:
@@ -809,12 +850,17 @@ class ServeEngine:
                 n_pref = min(len(plan.full_matched),
                              (req.prompt_len - 1) // self.block_size)
                 pf.done = pf.cached_tokens = n_pref * self.block_size
+        if self._state_key is not None:
+            one = self.model.init_cache(1, self.max_len, device=self.device)
+            pf.state = {self._state_key: one[self._state_key],
+                        "pos": torch.zeros((), dtype=torch.int32,
+                                           device=self.device)}
         self._prefilling[slot] = pf
 
     def _empty_prefix(self):
         """Zero-length prefix K/V: chunk 0 of a chunked prefill is a suffix
-        prefill with nothing in front."""
-        kv = self.cache["layers"]
+        prefill (the hybrid's: a chunk) with nothing in front."""
+        kv = self.cache[self._kv_key]
         return {name: torch.zeros(
             (kv[name].shape[0], 1, 0) + tuple(kv[name].shape[3:]),
             dtype=self.model.cfg.cdtype, device=self.device)
@@ -828,7 +874,7 @@ class ServeEngine:
             return self._empty_prefix()
         if self.paged:
             ids = pf.table.blocks[: pf.done // self.block_size]
-            return _gather_prefix(self.cache["layers"], self._dev(ids),
+            return _gather_prefix(self.cache[self._kv_key], self._dev(ids),
                                   cdtype=self.model.cfg.cdtype)
         if len(pf.kv_parts) > 1:
             pf.kv_parts = [{name: torch.cat([part[name]
@@ -836,14 +882,15 @@ class ServeEngine:
                             for name in pf.kv_parts[0]}]
         return pf.kv_parts[0]
 
-    def _store_chunk_kv(self, pf: _Prefilling, kv, final: bool,
+    def _store_chunk_kv(self, pf: _Prefilling, kv, final: bool, state_final,
                         slot: int) -> None:
         """Bank one chunk's suffix K/V. Paged: scatter it onto this chunk's
         pool pages now (shared and overhang blocks to the trash page, rows
         zero-padded to whole pages) and install the real table row and
-        cursor only with the final chunk. Dense-slot: keep it, and write
-        the whole slot row at the final chunk. Rows past the prompt are
-        masked by ``pos`` until decode overwrites them."""
+        cursor, and a hybrid's Mamba-2 states ``state_final``, only with
+        the final chunk. Dense-slot: keep it, and write the whole slot row
+        at the final chunk. Rows past the prompt are masked by ``pos`` until
+        decode overwrites them."""
         p = pf.request.prompt_len
         if self.paged:
             bs = self.block_size
@@ -858,8 +905,9 @@ class ServeEngine:
             row = np.full((self._max_blocks,), TRASH_BLOCK, np.int32)
             if final:
                 row[: len(table.blocks)] = table.blocks
-            _paged_write(self.cache, kv, self._dev(write_ids),
-                         self._dev(row), slot, p if final else 0)
+            _paged_write(self.cache, kv, state_final, self._dev(write_ids),
+                         self._dev(row), slot, p if final else 0,
+                         kv_key=self._kv_key)
             return
         pf.kv_parts.append(kv)
         if final:
@@ -868,7 +916,10 @@ class ServeEngine:
             merged = {name: torch.nn.functional.pad(
                 x, (0, 0) * (x.dim() - 3) + (0, pad_rows))
                 for name, x in merged.items()}
-            _write_slot(self.cache, {"layers": merged, "pos": p}, slot)
+            pre = {self._kv_key: merged, "pos": p}
+            if state_final is not None:
+                pre["ssm"] = state_final
+            _write_slot(self.cache, pre, slot)
 
     def _prefill_tick(self, results: List[RequestResult]) -> None:
         """Advance the lowest-numbered prefilling slot by one chunk; the
@@ -883,12 +934,26 @@ class ServeEngine:
         final = end >= p
         pf.chunks += 1
         self._chunk_ticks += 1
-        prefix = self._chunk_prefix_kv(pf)
-        toks = np.asarray(req.prompt[pf.done:end], np.int32)[None, :]
-        logits, pre = self.model.prefill_suffix(
-            self.params, {"tokens": self._dev(toks)}, prefix=prefix,
-            prompt_len=end)
-        self._store_chunk_kv(pf, pre["layers"], final, slot)
+        toks = {"tokens": self._dev(
+            np.asarray(req.prompt[pf.done:end], np.int32)[None, :])}
+        family = self.model.cfg.family
+        if family == "ssm":
+            logits, pf.state = self.model.prefill_chunk(self.params, toks,
+                                                        state=pf.state)
+            if final:      # the carried state is the prefill cache
+                _write_slot(self.cache, pf.state, slot)
+        elif family == "hybrid":
+            logits, out = self.model.prefill_chunk(
+                self.params, toks, state=pf.state,
+                prefix_kv=self._chunk_prefix_kv(pf))
+            pf.state = {"ssm": out["ssm"], "pos": out["pos"]}
+            self._store_chunk_kv(pf, out["kv"], final,
+                                 out["ssm"] if final else None, slot)
+        else:
+            logits, pre = self.model.prefill_suffix(
+                self.params, toks, prefix=self._chunk_prefix_kv(pf),
+                prompt_len=end)
+            self._store_chunk_kv(pf, pre["layers"], final, None, slot)
         pf.done = end
         if final:
             self._prefilling.pop(slot)
@@ -916,7 +981,8 @@ class ServeEngine:
             rec = {"request": inf.request, "generated": inf.generated,
                    "next_token": inf.next_token, "metrics": inf.metrics}
             if self.paged:
-                rec["snap"] = _read_paged_slot(self.cache, slot)
+                rec["snap"] = _read_paged_slot(
+                    self.cache, slot, has_ssm=self._state_key is not None)
                 rec["table"] = self._tables.pop(slot)
                 _clear_slot(self.cache, slot)
             else:
@@ -1133,8 +1199,9 @@ class ServeEngine:
         if not self.paged:
             _write_slot(self.cache, pre, slot)
             return logits
-        kv, _ = self.model.split_prefill_cache(pre)
-        _paged_write(self.cache, kv, write_ids, row, slot, pre["pos"])
+        kv, state = self.model.split_prefill_cache(pre)
+        _paged_write(self.cache, kv, state, write_ids, row, slot, pre["pos"],
+                     kv_key=self._kv_key)
         return logits
 
     def _decode(self, hw: int, toks: np.ndarray) -> torch.Tensor:
@@ -1193,7 +1260,8 @@ class ServeEngine:
         if self.paged:
             # copying page 0 onto itself and re-clearing an empty slot are
             # no-ops by construction
-            _cow_copy(self.cache, TRASH_BLOCK, TRASH_BLOCK, 0, 0)
+            _cow_copy(self.cache, TRASH_BLOCK, TRASH_BLOCK, 0, 0,
+                      kv_key=self._kv_key)
             _clear_slot(self.cache, 0)
         buckets = self._hw_buckets() if self.paged else [0]
         greedy = np.ones((n,), bool)

@@ -23,10 +23,13 @@ stands for ``jax.jit``. :class:`GraphCache` captures
   stays inside the graph, so no bucket keeps one alive.
 
 Some prefills stay eager: a prefix-hit (suffix) prefill, whose prefix
-length varies, the exact-length prefill of a capacity-limited MoE (where
-padding is not exact), which has a shape per prompt length, and a chunked
-prefill's chunks, whose prefix grows: one graph each would be a capture
-per admission. So do an SLO spill and revive (a few copies) and a
+length varies, the exact-length prefill of a capacity-limited MoE or of
+the SSM and hybrid families (where padding is not exact), which has a
+shape per prompt length, and a chunked prefill's chunks, whose prefix
+grows: one graph each would be a capture per admission. A recurrent
+family's verify writes its state snapshots into a buffer of the cache,
+made at its first (eager) run, which the commit reads after the
+replay. So do an SLO spill and revive (a few copies) and a
 drafter's model calls.
 
 **One engine's graphs.** A graph binds addresses: of the parameters, of

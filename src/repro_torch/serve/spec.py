@@ -14,7 +14,9 @@ of ``repro/serve/spec.py``.
 * :class:`DraftModelDrafter` — a model greedily continuing each slot on its
   own dense-slot cache, teacher-forced on the committed tokens each tick
   through its ``verify_step`` / ``commit_verified``; the rollout runs on a
-  ``clone()`` of that cache. Its model calls run eagerly.
+  ``clone()`` of that cache (a recurrent drafter's: of its K/V and its
+  recurrent state, not of its verify's snapshots). Its model calls run
+  eagerly.
 * :class:`OracleDrafter` — the target model drafting for itself;
   ``accept_prob < 1`` corrupts proposals from ``np.random.default_rng(seed)``
   as the reference does, so the accept patterns are the reference's.
@@ -31,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.interop import tree_map
+from repro_torch.models.verify_common import SNAP_KEY
 
 __all__ = ["Drafter", "NgramDrafter", "DraftModelDrafter", "OracleDrafter",
            "verify_accept", "resolve_drafter"]
@@ -240,8 +243,10 @@ class DraftModelDrafter(Drafter):
         drafts = np.zeros((B, k), np.int32)
         drafts[:, 0] = first.cpu().numpy()
         # greedy rollout of the remaining k - 1 drafts on a throwaway copy
+        # (a recurrent drafter's verify snapshots are not part of it)
         if k > 1:
-            work = tree_map(torch.clone, self.cache)
+            work = {key: tree_map(torch.clone, tree)
+                    for key, tree in self.cache.items() if key != SNAP_KEY}
             cur = first.to(torch.int32)
             for j in range(1, k):
                 lg, work = self.model.decode_step(self.params, work,

@@ -112,9 +112,9 @@ def test_params_round_trip(param_dtype):
 def test_other_families_not_ported():
     assert tbuild(tsmoke(tget("moonshot-v1-16b-a3b"))).cfg.family == "moe"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbuild(tsmoke(tget("zamba2-1.2b")))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tbuild(tsmoke(tget("mamba2-370m")))
+        tbuild(tsmoke(tget("hubert-xlarge")))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tbuild(tsmoke(tget("llava-next-34b")))
 
 
 # ---------------------------------------------------------------------------
