@@ -28,7 +28,9 @@ a non-zero exit:
               (``chunk`` lines); fails on any row that differs in a bit.
 2. kernels  — each of the six kernels against its plain PyTorch version on
               the card, at the shapes its path gives it (the served model's
-              projections and attention; every contraction, reduction
+              projections and attention; the train phase's projections,
+              llama3-8b's at m = 4096 and moonshot's attention at m =
+              1024; every contraction, reduction
               and LOA add of the paper path) plus ragged and wrapping
               edge cases: error against a stated tolerance (integer and LOA
               rows bit-exact), and the kernel's, the plain version's and
@@ -56,12 +58,13 @@ a non-zero exit:
               plan (route, splits, blocks), fails on two calls that differ
               in a bit, gives ``chain_ms`` (the ordered fold chain's floor)
               on the ordered route, and a time target, met or missed.
-              moonshot-v1-16b-a3b's served calls: the batched expert
-              projections (64 experts, C = 1, 60 and a ragged 4 and 5
-              rows each, one launch), each also bit for bit against a
-              member-by-member loop under the same plan and beside
-              ``torch.bmm``; the router (bf16 in, f32 out) and the top-6
-              combine (``moa_reduce``, one 6-row cluster). Then
+              moonshot-v1-16b-a3b's served and trained calls: the
+              batched expert projections (64 experts, C = 1, 60, a ragged
+              4 and 5, and the train step's 120 rows each, one launch),
+              each also bit for bit against a member-by-member loop under
+              the same plan and beside ``torch.bmm``; the router (bf16
+              in, f32 out) and the top-6 combine (``moa_reduce``, one
+              6-row cluster), also at the train step's 1024 tokens. Then
               zamba2-1.2b's decode unembedding alone (a cuBLAS product,
               failing below its byte bound). A last row gives the
               wrapper's host time per call.
@@ -162,6 +165,33 @@ a non-zero exit:
               Then mamba2-370m at full width (48 layers, dense-slot, no
               kernel launched): eager / captured bit for bit and chunked
               equal to one-shot bit for bit (every step's logits).
+   train    — training, every served model freed: llama3-8b at full
+              width cut to 4 layers (the reference's train state: f32
+              weights and AdamW moments, 16 bytes a parameter; bf16
+              compute, remat "full"), 8 × 512 tokens a step of
+              ``SyntheticLMData``: one step's loss and gradients with
+              ``dot_moa`` against the plain route (``backend=torch``),
+              within ``TRAIN_LOSS_TOL`` and ``TRAIN_GRAD_REL_TOL``; the
+              same 3 steps twice from one init, bit for bit (losses and
+              every leaf of the state); 10 timed steps (``steps`` line:
+              wall ms a step between synchronisations, tokens/s, model
+              TFLOP/s and its share of 989, launches a step, peak memory,
+              every loss finite) and one step profiled by group
+              (``dot_moa``, cuBLAS, the optimizer, other). Then
+              moonshot-v1-16b-a3b at full width cut to 2 layers, 4 × 256
+              tokens (kernel against plain with the plain route's expert
+              choices teacher-forced, each routing call's probabilities
+              within ``TRAIN_GRAD_REL_TOL`` of the plain route's and each
+              of its own choices that differs at a near-tie those
+              probabilities allow; the same 3 steps twice, bit for bit;
+              3 counted steps, ``dot_moa`` and ``moa_reduce`` launched).
+              Each counted run fails on a kernel launch whose type,
+              shapes and options no kernels-phase row checked. Then a
+              smoke ``TrainLoop`` with
+              two injected failures against the failure-free run, bit for
+              bit (``restart``), and the quickstart's 60 smoke steps,
+              which must lose more than ``LEARN_DROP`` (``learn``). The
+              ``nvidia-smi`` name and power limit precede each line.
 4. parity   — the same engine at full width with 2 layers, once on the
               kernels (captured, each bucket at its first tick) and once
               on the plain PyTorch path (eager): float32 compute on the
@@ -196,7 +226,8 @@ a non-zero exit:
               (llama3-8b, 2 layers, bf16): a dense-slot engine, the same
               with the oracle drafter, and 2 dense-slot replicas; each
               must finish with ``max_len`` rounded up to whole 16-token
-              pages (``cli`` lines).
+              pages (``cli`` lines); then the train CLI (the smoke
+              llama3-8b, 20 steps, a failure at step 7 survived).
 5. paper    — the paper path, ``repro_torch.launch.paper_repro``, on the
               card: Table 1, Fig. 4 (serial ``moa_reduce``), Fig. 5 (LOA
               MRED, ``loa_add``, the LOA MOA through ``loa_reduce``) and the
@@ -216,7 +247,8 @@ key per counted run: ``serve/llama3-8b``, ``serve/llama3-8b-spec-paged``,
 ``serve/llama3-8b-fleet``,
 ``serve/moonshot-dense-slot``, ``serve/moonshot-paged``,
 ``serve/zamba2-paged``, ``serve/zamba2-dense-slot``,
-``serve/mamba2-dense-slot``, ``paper``; the
+``serve/mamba2-dense-slot``, ``train/llama3-8b``, ``train/moonshot``,
+``paper``; the
 paged row also carries the served verify row), the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a GPU, or
 without the rest of the repository beside it, the script exits non-zero
@@ -268,7 +300,8 @@ CHAIN_ASSUMES = {
 KERNELS = {
     "dot_moa": Kernel("src/repro/kernels/dot_moa.py:108", "dot_moa",
                       ("dot_moa_stream", "dot_moa_wgmma", "dot_moa_tc",
-                       "dot_moa_simt", "dot_moa_fold"), ("serve", "paper")),
+                       "dot_moa_simt", "dot_moa_fold"),
+                      ("serve", "paper", "train")),
     "flash_attention": Kernel("src/repro/kernels/flash_attention.py:86",
                               "flash_attention",
                               ("flash_wgmma", "flash_simt"), ("serve",)),
@@ -276,7 +309,7 @@ KERNELS = {
                               "paged_attention", ("paged_split",),
                               ("serve",)),
     "moa_reduce": Kernel("src/repro/kernels/moa_reduce.py:47", "moa_reduce",
-                         ("moa_reduce_kernel",), ("serve", "paper")),
+                         ("moa_reduce_kernel",), ("serve", "paper", "train")),
     "loa_reduce": Kernel("src/repro/kernels/loa_add.py:92", "loa_add",
                          ("loa_reduce_kernel",), ("paper",)),
     "loa_add": Kernel("src/repro/kernels/loa_add.py:48", "loa_add",
@@ -554,11 +587,18 @@ CHECKED = set()
 def call_key(kernel: str, x, *rest, **kw) -> tuple:
     """What a launch of ``kernel``'s wrapper depends on besides the operand
     values: operand type, shapes and options, block sizes as the wrapper
-    clips them. ``x, *rest, **kw`` are the wrapper's arguments."""
+    clips them. ``x, *rest, **kw`` are the wrapper's arguments. A batched
+    ``dot_moa`` adds its member count, and an output type other than the
+    default (the operands', int32 for integers) adds that type."""
     if kernel == "dot_moa":
-        (m, k), n = x.shape, rest[0].shape[1]
-        return (kernel, str(x.dtype), m, k, n, min(int(kw["block_k"]), k),
-                int(kw.get("approx_bits", 0)))
+        *batch, m, k = x.shape
+        n = rest[0].shape[-1]
+        key = (kernel, str(x.dtype), m, k, n, min(int(kw["block_k"]), k),
+               int(kw.get("approx_bits", 0)))
+        out = str(kw.get("out_dtype") or x.dtype).replace("torch.", "")
+        default = str(x.dtype if x.dtype.is_floating_point
+                      else "int32").replace("torch.", "")
+        return key + tuple(batch) + ((out,) if out != default else ())
     if kernel == "moa_reduce":    # the base's alignment picks the instance
         n, f = x.shape
         return (kernel, str(x.dtype), n, f,
@@ -737,6 +777,11 @@ def kernel_phase(torch, timer, parent=None):
     # int32); the prefill down-projection is among the m = 64 rows
     cases += [(m, 4096, 14336, block_k, torch.bfloat16, 0)
               for m in (1, 8, 9, 17)]
+    # the train phase's projections (forward and remat recompute):
+    # llama3-8b's four shapes at m = 4096 (8 sequences of 512 tokens),
+    # moonshot's attention at m = 1024 (4 of 256)
+    cases += [(m, k, n, block_k, torch.bfloat16, 0)
+              for arch in TRAIN_RUNS for m, k, n in train_projections(arch)]
     # a ragged k whose block_k (1000) is not a multiple of the sub-range
     cases += [(m, 5000, 4096, 1000, torch.bfloat16, 0) for m in (4, 64)]
     # int8 at block_k 256, l = 4: 16 LOA folds, on both int8 bodies
@@ -1077,15 +1122,17 @@ def dense_slot_rows(torch, timer, randn, err) -> None:
 
 
 def moe_kernel_phase(torch, timer):
-    """moonshot-v1-16b-a3b's served kernel calls against their plain
-    versions: the batched expert projections (64 experts, d_model 2048,
-    d_ff 1408; capacity C rows an expert: 1 at 4 decode slots, 60 in a
-    512-token prefill, and ragged 4 and 5 of short exact-length prefills),
-    the router (bf16 operands, f32 logits) and the top-6 combine. Each
-    batched row also holds the launch bit for bit to a member-by-member
-    loop under the same plan (``plan_batch``), and times ``torch.bmm`` on
-    the same operands. Returns the summary rows (the served combine, and
-    the decode gate/up row as ``dot_moa batched``)."""
+    """moonshot-v1-16b-a3b's served and trained kernel calls against their
+    plain versions: the batched expert projections (64 experts, d_model
+    2048, d_ff 1408; capacity C rows an expert: 1 at 4 decode slots, 60 in
+    a 512-token prefill, ragged 4 and 5 of short exact-length prefills,
+    and the train step's, :func:`train_moe_shapes`), the router (bf16
+    operands, f32 logits) and the top-6 combine, each also at the train
+    step's tokens. Each batched row also holds the launch bit for bit to a
+    member-by-member loop under the same plan (``plan_batch``), and times
+    ``torch.bmm`` on the same operands. Every row records its launch's
+    ``call_key`` as checked. Returns the summary rows (the served combine,
+    and the decode gate/up row as ``dot_moa batched``)."""
     from repro_torch.kernels import dot_moa as dm
     from repro_torch.kernels import moa_reduce as mr
     from repro_torch.kernels import ref
@@ -1102,7 +1149,9 @@ def moe_kernel_phase(torch, timer):
         return float((got.double() - want.double()).abs().max())
 
     E, d, f = 64, 2048, 1408
-    cases = [(c, k, n) for c in (1, 60, 4, 5) for k, n in ((d, f), (f, d))]
+    train = train_moe_shapes("moonshot-v1-16b-a3b")
+    cases = [(c, k, n) for c in (1, 60, 4, 5, train["rows"])
+             for k, n in ((d, f), (f, d))]
     for c, k, n in cases:
         a, w = randn(E, c, k), randn(E, k, n, scale=k ** -0.5)
         bk = min(2048, k)          # serial?chunk=4096 at the 2048 cap
@@ -1132,7 +1181,8 @@ def moe_kernel_phase(torch, timer):
             "plain_ms": timer(plain, 2),
             "library_ms": timer.device(lambda: torch.bmm(a, w)),
             "library": "torch.bmm",
-            "bound_ms": b_ms, "bound_by": b_by})
+            "bound_ms": b_ms, "bound_by": b_by},
+            call_key("dot_moa", a, w, block_k=bk))
         if not same:
             raise AssertionError(f"batched dot_moa C={c} {k}x{n}: differs "
                                  "from its member-by-member loop")
@@ -1140,7 +1190,7 @@ def moe_kernel_phase(torch, timer):
             out["dot_moa batched"] = row
 
     # the router: (tokens, 2048) @ (2048, 64), bf16 operands, f32 logits
-    for t in (4, 512):
+    for t in (4, 512, train["tokens"]):
         a, w = randn(t, d), randn(d, E, scale=d ** -0.5)
         run = lambda: dm.dot_moa_cuda(a, w, block_k=2048,
                                       out_dtype=torch.float32)
@@ -1164,11 +1214,13 @@ def moe_kernel_phase(torch, timer):
                "library_ms": timer.device(lambda: torch.mm(
                    a, w, out_dtype=torch.float32)),
                "library": "torch.mm(out_dtype=float32)",
-               "bound_ms": b_ms, "bound_by": b_by})
+               "bound_ms": b_ms, "bound_by": b_by},
+              call_key("dot_moa", a, w, block_k=2048,
+                       out_dtype=torch.float32))
 
     # the top-6 combine: strat.sum(weighted, axis=2) flattens (G, tg, 6, d)
     # to (6, tg * d), one cluster of 6 rows (block_n = min(4096, 6))
-    for t in (4, 40, 512):
+    for t in (4, 40, 512, train["tokens"]):
         x = randn(6, t * d)
         run = lambda: mr.moa_reduce_cuda(x, block_n=4096)
         plain = lambda: ref.moa_reduce_ref(x, block_n=4096)
@@ -1197,7 +1249,8 @@ def moe_kernel_phase(torch, timer):
             "library_ms": timer.device(lambda: torch.sum(
                 x, dim=0, dtype=torch.float32)),
             "library": "torch.sum(x, 0) in f32",
-            "bound_ms": b_ms, "bound_by": b_by})
+            "bound_ms": b_ms, "bound_by": b_by},
+            call_key("moa_reduce", x, block_n=4096))
         if t == 4:
             out["moa_reduce"] = row
     return out
@@ -2205,7 +2258,9 @@ def cli_phase(torch) -> None:
     tokens, 200 with a speculative margin) on dense-slot engines, which
     walk their cache in 16-token pages: llama3-8b at 2 layers in bf16, the
     plain engine, the oracle drafter, and 2 replicas. Each must finish,
-    and serve at ``max_len`` 208."""
+    and serve at ``max_len`` 208. Then the train CLI: the smoke llama3-8b,
+    20 steps, a failure injected at step 7 and survived from a
+    checkpoint."""
     import contextlib
     import io
 
@@ -2231,6 +2286,25 @@ def cli_phase(torch) -> None:
                                  "not 208")
         gc.collect()
         torch.cuda.empty_cache()
+    # the train CLI: the smoke llama3-8b, one injected failure
+    import tempfile
+
+    from repro_torch.launch import train as train_cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--arch", "llama3-8b", "--smoke", "--steps", "20",
+                "--fail-at", "7", "--ckpt-dir", tmp]
+        out = io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(out):
+            train_cli.main(argv)
+    lines = out.getvalue().splitlines()
+    done = next((line for line in lines if line.startswith("[train] done")),
+                None)
+    emit({"phase": "cli", "argv": argv, "seconds": time.monotonic() - t0,
+          "done": done, "last": lines[-1] if lines else None})
+    if done is None or "restarts=1 completed=True" not in done:
+        raise AssertionError(f"train CLI {argv}: {done}")
 
 
 def slo_phase(torch, llama3) -> dict:
@@ -3643,6 +3717,415 @@ def paper_phase(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: training
+# ---------------------------------------------------------------------------
+
+#: the train phase's full-width runs: arch, depth, batch, sequence, steps.
+#: The depth is cut so that the reference's train state fits one card: f32
+#: master weights, two f32 AdamW moments and f32 gradients are 16 bytes a
+#: parameter (llama3-8b's 8.03 B at 32 layers would take ~128 GB)
+TRAIN_RUNS = {"llama3-8b": dict(layers=4, batch=8, seq=512, steps=10),
+              "moonshot-v1-16b-a3b": dict(layers=2, batch=4, seq=256,
+                                          steps=3)}
+#: one step's loss, ``dot_moa`` against the plain route (``backend=torch``)
+#: from the same state and batch: both take the same bf16 operands and
+#: round each product once to bf16 after f32 sums in other orders (1 bf16
+#: ulp, relative 2**-8, apart at most per product), so activations drift
+#: by a few bf16 ulps through the layers; a loss near ln(vocab) ~ 12 moves
+#: far less than 1e-2
+TRAIN_LOSS_TOL = 1e-2
+#: the worst parameter leaf's relative gradient error ``|g_k - g_p| /
+#: |g_p|`` (Frobenius norms) between the two routes: each gradient is a
+#: sum over 4096 tokens of products of activations that differ by a few
+#: bf16 ulps (2**-8 each), so the sums agree to about 1e-2
+TRAIN_GRAD_REL_TOL = 5e-2
+#: each MoE routing call's router probabilities, kernel route against the
+#: plain route (relative error, Frobenius): each logit is a sum over
+#: d_model of activations that drift by a few bf16 ulps, as each
+#: gradient's sum is, and a probability's relative change is its logit's
+#: change (less the mean change), logits of order 1 at init (normed
+#: activations against 1/sqrt(d_model) weights): about 1e-2 apart
+TRAIN_ROUTE_REL_TOL = 5e-2
+#: the quickstart's learn check: 60 smoke steps must lose more than this
+LEARN_DROP = 0.2
+
+
+def train_projections(arch: str) -> list:
+    """``(m, k, n)`` of every unbatched ``dot_moa`` projection a train step
+    of ``arch`` (``TRAIN_RUNS``) launches, ``m`` its batch's tokens: q, k,
+    v and o, and a dense MLP's gate, up and down (the MoE's router and
+    experts: :func:`train_moe_shapes`)."""
+    from repro_torch.configs.registry import get_config
+
+    cfg, run = get_config(arch), TRAIN_RUNS[arch]
+    m, d = run["batch"] * run["seq"], cfg.d_model
+    hd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    shapes = {(m, d, hd), (m, d, kvd), (m, hd, d)}
+    if cfg.family == "dense":
+        shapes |= {(m, d, cfg.d_ff), (m, cfg.d_ff, d)}
+    return sorted(shapes)
+
+
+def train_moe_shapes(arch: str) -> dict:
+    """An MoE train step's kernel shapes (``TRAIN_RUNS``): ``tokens`` (the
+    router's rows and the top-k combine's columns over ``d_model``) and
+    ``rows`` (each expert's rows in the batched projections: the groups'
+    capacity, as ``layers/moe.py`` splits the tokens and sizes it)."""
+    from repro_torch.configs.registry import get_config
+
+    cfg, run = get_config(arch), TRAIN_RUNS[arch]
+    T = run["batch"] * run["seq"]
+    G = max(T // 4096, 1)              # moe_forward's group_size
+    while T % G:
+        G -= 1
+    C = max(int(T // G * cfg.top_k / cfg.n_experts * cfg.capacity_factor),
+            1)
+    return {"tokens": T, "rows": G * C}
+
+
+def train_emit(row: dict) -> None:
+    """A ``train`` line, after the card's name and power limit."""
+    print(nvidia_smi(), flush=True)
+    emit(dict({"phase": "train"}, **row))
+
+
+def _cuda_batch(data, step: int) -> dict:
+    return {k: v.cuda() for k, v in data.batch_for_step(step).items()}
+
+
+def _grad_errors(torch, got, want) -> dict:
+    """``|got - want| / |want|`` (Frobenius) per gradient leaf."""
+    from repro_torch.interop import tree_leaves
+
+    w = dict(tree_leaves(want))
+    return {path: float(torch.linalg.vector_norm((g - w[path]).double())
+                        / max(float(torch.linalg.vector_norm(
+                            w[path].double())), 1e-30))
+            for path, g in tree_leaves(got)}
+
+
+def _route_drift(torch, plain, kernel, differ) -> dict:
+    """Two routing logs of the same calls (:func:`_routing`), ``differ``
+    their :func:`_routing_differences`: each call's relative error of the
+    kernel route's router probabilities ``q`` against the plain route's
+    ``p`` (Frobenius), the largest ``|q - p|``, and the choices whose gap
+    exceeds the near-tie the drift allows at their token, ``2 max_e |q_e -
+    p_e|``: where the plain route ranks ``a`` at the first differing place
+    and the kernel route ``c`` (so ``q_c >= q_a``, and ``p_c`` is at most
+    the next probability), ``gap <= p_a - p_c <= (p_a - q_a) + (q_c -
+    p_c)``."""
+    rel, worst, over = [], 0.0, []
+    for (_, _, _, p), (_, _, _, q) in zip(plain, kernel):
+        d = q.double() - p.double()
+        rel.append(float(d.norm() / p.double().norm()))
+        worst = max(worst, float(d.abs().max()))
+    for x in differ:
+        p, q = (log[x["call"]][3][x["group"], x["token"]].double()
+                for log in (plain, kernel))
+        tie = 2 * float((q - p).abs().max())
+        if x["gap"] > tie:
+            over.append(dict(x, near_tie=tie))
+    return {"prob_rel_errs": rel, "prob_max_abs_diff": worst,
+            "prob_rel_tol": TRAIN_ROUTE_REL_TOL,
+            "gap_bound": 2 * worst, "past_near_tie": over[:5],
+            "ok": max(rel) <= TRAIN_ROUTE_REL_TOL and not over}
+
+
+def train_kernel_vs_plain(torch, cfg, params, batch) -> dict:
+    """One step's loss and gradients at ``params`` on ``batch``: the
+    ``dot_moa`` route (``auto``: the kernel on the card, through its
+    ``autograd.Function``) against the plain route (``backend=torch``: f32
+    products of the same operands). An MoE's kernel route is
+    teacher-forced on the plain route's expert choices (``_routing``; at a
+    random init the router's probabilities over 64 experts lie close
+    together, and bf16 activations a few ulps apart pick other experts for
+    some tokens): the number of tokens whose own choice differed is
+    reported, and each routing call is held to :func:`_route_drift`. Fails
+    over ``TRAIN_LOSS_TOL``, ``TRAIN_GRAD_REL_TOL`` or
+    ``TRAIN_ROUTE_REL_TOL``, or on an own choice that differs past its
+    near-tie."""
+    from repro_torch.launch import steps
+    from repro_torch.layers import moe as moe_mod
+    from repro_torch.models.api import build_model
+
+    spec = cfg.moa + ("&" if "?" in cfg.moa else "?") + "backend=torch"
+    plain_cfg = dataclasses.replace(cfg, moa=spec)
+    moe = cfg.family == "moe"
+    if moe:
+        plain_log, undo = _routing(torch, moe_mod, [0])
+    try:
+        g_p, m_p = steps.loss_and_grads(build_model(plain_cfg), params,
+                                        batch)
+    finally:
+        if moe:
+            undo()
+    if moe:
+        kernel_log, undo = _routing(torch, moe_mod, [0], forced=plain_log)
+    try:
+        g_k, m_k = steps.loss_and_grads(build_model(cfg), params, batch)
+    finally:
+        if moe:
+            undo()
+    routing = {}
+    if moe:
+        diffs = _routing_differences(plain_log, kernel_log)
+        routing = {"routing_calls": len(plain_log),
+                   "own_choice_differences": len(diffs),
+                   "max_gap": max((d["gap"] for d in diffs), default=None),
+                   **_route_drift(torch, plain_log, kernel_log, diffs)}
+    errs = _grad_errors(torch, g_k, g_p)
+    worst = max(errs, key=errs.get)
+    row = {"what": f"{cfg.name} kernel vs plain",
+           **routing,
+           "plain_moa": spec, "loss_kernel": float(m_k["loss"]),
+           "loss_plain": float(m_p["loss"]),
+           "loss_diff": abs(float(m_k["loss"]) - float(m_p["loss"])),
+           "loss_tol": TRAIN_LOSS_TOL, "worst_leaf": worst,
+           "worst_grad_rel_err": errs[worst],
+           "grad_rel_tol": TRAIN_GRAD_REL_TOL,
+           "grad_rel_errs": errs}
+    train_emit(row)
+    if not (row["loss_diff"] <= TRAIN_LOSS_TOL
+            and errs[worst] <= TRAIN_GRAD_REL_TOL
+            and routing.get("ok", True)):
+        raise AssertionError(f"train {cfg.name}: kernel vs plain loss "
+                             f"{row['loss_diff']}, {worst} {errs[worst]}, "
+                             f"routing {routing}")
+    return row
+
+
+def _states_equal(torch, a, b) -> list:
+    """The leaves (by path) in which two train states differ in a bit."""
+    from repro_torch.interop import tree_leaves
+
+    wb = dict(tree_leaves(b))
+    return [path for path, t in tree_leaves(a)
+            if not torch.equal(t.detach(), wb[path].detach())]
+
+
+def _profiled_step(torch, model, state, batch, hyper) -> tuple:
+    """One train step in two ``torch.profiler`` sessions, the gradients
+    and then the optimizer: device ms by group (``dot_moa``, ``library
+    gemm`` (cuBLAS), ``other``; ``optimizer`` is the second session's
+    whole), launches and host ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import steps
+
+    cuda = torch.autograd.DeviceType.CUDA
+    groups, calls = collections.Counter(), collections.Counter()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        grads, metrics = steps.loss_and_grads(model, state["params"], batch)
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if e.device_type == cuda:
+            groups[kernel_group(e.key)] += e.device_time_total / 1e3
+            calls[kernel_group(e.key)] += e.count
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, metrics = steps.apply_gradients(state, grads, metrics,
+                                               hyper=hyper)
+        torch.cuda.synchronize()
+    host_ms = (time.monotonic() - t0) * 1e3
+    for e in prof.key_averages():
+        if e.device_type == cuda:
+            groups["optimizer"] += e.device_time_total / 1e3
+            calls["optimizer"] += e.count
+    return state, {"groups_ms": dict(groups), "kernels": dict(calls),
+                   "device_ms": sum(groups.values()),
+                   "host_ms_profiled": host_ms}
+
+
+def train_full_width(torch, arch: str) -> dict:
+    """``arch`` at full width, its depth cut (``TRAIN_RUNS``): the
+    reference's train state (f32 master weights from the port's
+    initializer, seed 0; f32 AdamW moments; bf16 compute, remat "full")
+    on ``SyntheticLMData`` (seed 0). Kernel against plain on the first
+    batch; the same 3 steps twice, bit for bit (losses and every leaf of
+    the state); then the counted run: ``steps`` steps, each timed on the
+    host clock between synchronisations, every loss finite, every kernel
+    launch at a type, shapes and options a kernels-phase row checked;
+    llama3 then one profiled step by group. Returns the counted run's
+    launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models.api import build_model
+
+    run = TRAIN_RUNS[arch]
+    cfg = dataclasses.replace(get_config(arch), n_layers=run["layers"])
+    hyper = steps.TrainHyper(peak_lr=3e-4, warmup_steps=2, total_steps=100)
+    data = SyntheticLMData(vocab=cfg.vocab, seq_len=run["seq"],
+                           global_batch=run["batch"], seed=0)
+    batches = [_cuda_batch(data, s) for s in range(run["steps"] + 4)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_model(cfg)
+    t0 = time.monotonic()
+    state = steps.init_train_state(model, hyper=hyper, seed=0,
+                                   device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    n_params = sum(t.numel() for t in _leaves(state["params"]))
+    emb = state["params"]["embed"]["table"].numel()
+    train_emit({"what": f"{arch} init", "n_layers": cfg.n_layers,
+                "n_params": n_params,
+                "state_gb": torch.cuda.memory_allocated() / 1e9,
+                "init_s": init_s, "param_dtype": cfg.param_dtype,
+                "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
+                "moa": cfg.moa, "batch": run["batch"], "seq": run["seq"]})
+    train_kernel_vs_plain(torch, cfg, state["params"], batches[0])
+    step_fn = steps.build_train_step(model, hyper=hyper)
+    # determinism: the same 3 steps from the same init, twice
+    ends, losses = [], []
+    for i in range(2):
+        # the second init on a model of its own: a model keeps the
+        # parameters it drew registered (their storage is the state's),
+        # and they must be freed with that state before the counted run
+        st = state if i == 0 else steps.init_train_state(
+            build_model(cfg), hyper=hyper, seed=0, device="cuda")
+        got = []
+        for s in range(3):
+            st, m = step_fn(st, batches[s])
+            got.append(float(m["loss"]))
+        ends.append(st)
+        losses.append(got)
+    state, again = ends
+    differ = _states_equal(torch, state, again)
+    del again, ends, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_emit({"what": f"{arch} determinism", "steps": 3, "losses": losses,
+                "losses_equal": losses[0] == losses[1],
+                "state_leaves_differing": differ})
+    if losses[0] != losses[1] or differ:
+        raise AssertionError(f"train {arch}: two runs of 3 steps differ: "
+                             f"losses {losses}, leaves {differ}")
+    start = 3
+    # the counted run
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    wall, losses = [], []
+    with recorded_calls(ops, ["dot_moa", "moa_reduce"]) as calls:
+        for s in range(start, start + run["steps"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batches[s])
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tokens = run["batch"] * run["seq"]
+    # model FLOPs: 6 a multiplying parameter a token (the embedding's
+    # gather multiplies nothing; attention's score products not counted)
+    flops = 6.0 * (n_params - emb) * tokens
+    step_ms = statistics.median(wall)
+    row = {"what": f"{arch} steps",
+           "n_layers": cfg.n_layers, "batch": run["batch"], "seq": run["seq"],
+           "steps": run["steps"], "losses": losses,
+           "step_ms": wall, "step_ms_median": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3,
+           "model_tflop_per_step": flops / 1e12,
+           "model_tflop_per_s": flops / step_ms / 1e9,
+           "peak_share_989": flops / step_ms / 1e9 / 989.0,
+           "launches": launches,
+           "launches_per_step": {k: v / run["steps"]
+                                 for k, v in launches.items()},
+           "distinct_calls": len(calls),
+           "unchecked_calls": sorted(calls - CHECKED),
+           "peak_mem_gb": peak_gb}
+    if arch == "llama3-8b":
+        state, prof = _profiled_step(torch, model, state,
+                                     batches[start + run["steps"]], hyper)
+        row["profiled_step"] = prof
+    train_emit(row)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train {arch}: a loss is not finite: {losses}")
+    missing = [k for k in (["dot_moa", "moa_reduce"] if cfg.family == "moe"
+                           else ["dot_moa"]) if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"train {arch}: the counted run launched no "
+                             f"{missing}")
+    if row["unchecked_calls"]:
+        raise AssertionError(f"train {arch}: the counted run launched "
+                             f"kernels at {row['unchecked_calls']}, which no "
+                             "kernels-phase row checked")
+    del state, model, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _smoke_loop(ckpt_dir, fails, *, steps=20, warmup=2, seq_len=32,
+                save_every=5, log_every=1):
+    """The quickstart's smoke llama3-8b (batch 8, lr 5e-3) on a
+    ``TrainLoop`` on the card, failing at the steps ``fails``."""
+    from repro_torch.configs.registry import get_config, smoke_config
+    from repro_torch.launch.steps import TrainHyper
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.runtime import FailureInjector
+
+    return TrainLoop(smoke_config(get_config("llama3-8b")), steps=steps,
+                     global_batch=8, seq_len=seq_len, ckpt_dir=ckpt_dir,
+                     save_every=save_every, log_every=log_every,
+                     hyper=TrainHyper(peak_lr=5e-3, warmup_steps=warmup,
+                                      total_steps=steps),
+                     injector=FailureInjector(fails), device="cuda",
+                     async_save=False)
+
+
+def train_phase(torch) -> dict:
+    """Training on the card (every served model freed first): llama3-8b
+    and moonshot at full width (``train_full_width``); a smoke
+    ``TrainLoop`` with two injected failures against the failure-free run,
+    bit for bit (every step's loss and every leaf of the final state); the
+    quickstart's 60 smoke steps must lose more than ``LEARN_DROP``.
+    Returns the counted runs' launches by run."""
+    import io
+    import tempfile
+
+    runs = {"train/llama3-8b": train_full_width(torch, "llama3-8b"),
+            "train/moonshot": train_full_width(torch, "moonshot-v1-16b-a3b")}
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(out):
+        t0 = time.monotonic()
+        base = _smoke_loop(os.path.join(tmp, "a"), [])
+        want, _ = base.run()
+        faulty = _smoke_loop(os.path.join(tmp, "b"), [7, 13])
+        got, result = faulty.run(max_restarts=2)
+        restart_s = time.monotonic() - t0
+    clean = {m["step"]: m["loss"] for m in base.metrics_history}
+    resumed = {m["step"]: m["loss"] for m in faulty.metrics_history}
+    differ = _states_equal(torch, want, got)
+    train_emit({"what": "restart", "restarts": result.restarts,
+                "completed": result.completed, "failures": result.failures,
+                "losses_equal": clean == resumed,
+                "state_leaves_differing": differ, "seconds": restart_s})
+    if not (result.completed and result.restarts == 2 and clean == resumed
+            and not differ):
+        raise AssertionError(f"train restart: {result}, losses equal "
+                             f"{clean == resumed}, leaves {differ}")
+    with contextlib.redirect_stdout(out):
+        t0 = time.monotonic()
+        loop = _smoke_loop(None, [], steps=60, warmup=5, seq_len=64,
+                           log_every=10)
+        loop.run_segment(0, None)
+    losses = [m["loss"] for m in loop.metrics_history]
+    train_emit({"what": "learn", "steps": 60, "losses": losses,
+                "drop": losses[0] - losses[-1], "min_drop": LEARN_DROP,
+                "seconds": time.monotonic() - t0})
+    if not losses[0] - losses[-1] > LEARN_DROP:
+        raise AssertionError(f"train learn: {losses}")
+    return runs
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3721,6 +4204,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     runs.update(moe_serve_phase(torch))
     runs.update(hybrid_phase(torch, unembed))
+    runs.update(train_phase(torch))
     parity_phase(torch)
     zamba2_parity_phase(torch)
     moe_parity_phase(torch)

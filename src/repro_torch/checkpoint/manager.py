@@ -80,14 +80,16 @@ def _to_host(leaf) -> Tuple[np.ndarray, str]:
 
 
 def _to_tensor(arr: np.ndarray, logical: str) -> torch.Tensor:
-    """The tensor a stored array holds (bit-stored dtypes reinterpreted)."""
+    """The tensor a stored array holds (bit-stored dtypes reinterpreted),
+    of the stored shape (a 0-d leaf stays 0-d: ``np.ascontiguousarray``
+    alone would make it 1-d)."""
+    arr = np.ascontiguousarray(arr).reshape(arr.shape)
     if logical in _BITS_DTYPES:
         dt, _ = _BITS_DTYPES[logical]
-        return torch.from_numpy(np.ascontiguousarray(arr).view(
-            np.int16).copy()).view(dt)
+        return torch.from_numpy(arr.view(np.int16).copy()).view(dt)
     if logical not in _NATIVE_DTYPES:
         raise TypeError(f"checkpoint dtype {logical!r} has no tensor type")
-    return torch.from_numpy(np.ascontiguousarray(arr).copy())
+    return torch.from_numpy(arr.copy())
 
 
 class CheckpointManager:

@@ -29,12 +29,24 @@ _WRAPPERS = {"dot_moa": dot_moa_cuda, "flash_attention": flash_attention_cuda,
              "loa_reduce": loa_reduce_cuda}
 
 
-def _on_cpu(x: torch.Tensor, what: str) -> bool:
+def _on_cpu(x: torch.Tensor, what: str, *operands) -> bool:
+    """Whether ``x`` takes the plain version (a CPU tensor); a CUDA tensor
+    takes the kernel, which has no backward: where autograd would record
+    the call on ``x`` or ``operands``, raise rather than return an output
+    that drops the gradient (the autograd paths wrap the kernels in their
+    own ``autograd.Function``, inside which nothing is recorded)."""
     if x.device.type == "cpu":
         return True
-    if x.is_cuda:
-        return False
-    raise ValueError(f"{what}: no kernel for device {x.device}")
+    if not x.is_cuda:
+        raise ValueError(f"{what}: no kernel for device {x.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x,) + operands):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward, and an input "
+            "requires grad; call it under torch.no_grad() or through the "
+            "MOA backends' autograd path (the causal forward attends "
+            "through the plain versions)")
+    return False
 
 
 def dot_moa(a, b, *, block_k: int = 512, approx_bits: int = 0,
@@ -42,7 +54,7 @@ def dot_moa(a, b, *, block_k: int = 512, approx_bits: int = 0,
     """K-blocked matmul with serialized-MOA contraction ``(m,k)@(k,n)``,
     or, for 3-D operands, ``(E,m,k)@(E,k,n)`` member by member (one launch
     on the card)."""
-    if _on_cpu(a, "dot_moa"):
+    if _on_cpu(a, "dot_moa", b):
         fn = ref.dot_moa_batched_ref if a.dim() == 3 else ref.dot_moa_ref
         return fn(a, b, block_k=block_k, approx_bits=approx_bits,
                   out_dtype=out_dtype)
@@ -56,7 +68,7 @@ def flash_attention(q, k, v, *, causal: bool = True, q_chunk: int = 256,
     ``(B, Skv, Hk, D)``. ``q_chunk``/``kv_chunk`` are the plain version's
     chunk sizes (they shape only its float reassociation); the kernel's
     tiles are fixed in its source."""
-    if _on_cpu(q, "flash_attention"):
+    if _on_cpu(q, "flash_attention", k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        q_chunk=q_chunk, kv_chunk=kv_chunk)
     return flash_attention_cuda(q, k, v, causal=causal)
@@ -66,7 +78,7 @@ def paged_attention(q, k_pool, v_pool, block_tables, start, *, k_scale=None,
                     v_scale=None, dequant_dtype=torch.bfloat16):
     """Paged flash attention ``(B, T, H, D)`` over a block-table KV pool
     (int8 pools dequantized through ``dequant_dtype``)."""
-    if _on_cpu(q, "paged_attention"):
+    if _on_cpu(q, "paged_attention", k_pool, v_pool, k_scale, v_scale):
         return ref.paged_attention_ref(q, k_pool, v_pool, block_tables, start,
                                        k_scale=k_scale, v_scale=v_scale,
                                        dequant_dtype=dequant_dtype)

@@ -1,6 +1,8 @@
-"""GQA attention for the served path — the port of the pieces of
-``repro/layers/attention.py`` that prefill, dense-slot and paged decode,
-and the speculative verify of both layouts use.
+"""GQA attention — the port of the pieces of ``repro/layers/attention.py``
+that prefill, dense-slot and paged decode, the speculative verify of both
+layouts, and the training forward use (the last through the plain
+versions only, :func:`flash_attention` or :func:`full_attention`, as the
+reference's ``attention_forward``).
 
 Layouts: q ``(B, Sq, H, D)``, k/v ``(B, Skv, Hk, D)``; GQA groups
 ``G = H // Hk`` stay a separate axis. Dense-slot caches are ``(B, max_len,

@@ -28,19 +28,38 @@ def embed(params: Params, token_ids: torch.Tensor, *,
     return params["table"][token_ids.long()].to(compute_dtype)
 
 
+class _Unembed(torch.autograd.Function):
+    """``x (m, d) bf16 @ table (V, d)ᵀ bf16`` with f32 logits: one bf16
+    product with f32 output (``aten::mm.dtype``, which has no derivative).
+    Backward: the reference's rule for ``preferred_element_type=f32``, the
+    f32 products of the cotangent with the same bf16 operands, each
+    rounded to its operand's type."""
+
+    @staticmethod
+    def forward(ctx, x, table):
+        ctx.save_for_backward(x, table)
+        return torch.mm(x, table.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, table = ctx.saved_tensors
+        dx = torch.mm(g, table.float()).to(x.dtype)
+        dtable = torch.mm(g.t(), x.float()).to(table.dtype)
+        return dx, dtable
+
+
 def unembed(params: Params, x: torch.Tensor, *,
             compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Logits ``(B, S, d) -> (B, S, V)`` in f32 from ``compute_dtype``
     operands — the reference's einsum with ``preferred_element_type=f32``,
     outside any kernel there too, so it stays a library product. On CUDA a
     bf16 contraction is one bf16 product with f32 output (``aten::mm.dtype``:
-    the table is read once in bf16, never copied to f32); CPU tensors, which
-    have no kernel for that overload, and f32 compute take the f32 product
-    of the same operands."""
+    the table is read once in bf16, never copied to f32; differentiable
+    through :class:`_Unembed`); CPU tensors, which have no kernel for that
+    overload, and f32 compute take the f32 product of the same operands."""
     table = params.get("unembed", params["table"]).to(compute_dtype)
     x = x.to(compute_dtype)
     if x.is_cuda and compute_dtype == torch.bfloat16:
-        out = torch.mm(x.reshape(-1, x.shape[-1]), table.t(),
-                       out_dtype=torch.float32)
+        out = _Unembed.apply(x.reshape(-1, x.shape[-1]), table)
         return out.reshape(*x.shape[:-1], table.shape[0])
     return torch.matmul(x.float(), table.float().t())

@@ -121,8 +121,10 @@ def moe_forward(params: Params, x: torch.Tensor, *, n_experts: int,
     safe_slot = torch.where(r.keep, r.slot, torch.zeros_like(r.slot))
 
     # dispatch: token-major repeat (jnp.repeat), dropped choices as zero
-    # rows at slot 0 of their expert, added into the capacity buffers
-    xrep = torch.repeat_interleave(xt, top_k, dim=1)       # (G, tk, d)
+    # rows at slot 0 of their expert, added into the capacity buffers; the
+    # repeat as a broadcast, whose backward is a sum over the k copies in
+    # a fixed order (repeat_interleave's adds them with atomics on CUDA)
+    xrep = xt[:, :, None].expand(G, tg, top_k, d).reshape(G, tg * top_k, d)
     contrib = torch.where(keep, xrep, torch.zeros_like(xrep))
     g_idx = torch.arange(G, device=x.device)[:, None]
     dest = ((g_idx * n_experts + flat_ids) * C + safe_slot).reshape(-1)

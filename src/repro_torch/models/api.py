@@ -1,11 +1,15 @@
-"""Uniform model API — the port of ``repro/models/api.py`` for the served
-families: dense, MoE, SSM (Mamba-2) and hybrid (Zamba2).
+"""Uniform model API — the port of ``repro/models/api.py`` for the dense,
+MoE, SSM (Mamba-2) and hybrid (Zamba2) families: serving for all four,
+training (:meth:`Model.loss`) for the dense and MoE families.
 
 ``build_model(cfg)`` returns a :class:`Model`, an ``nn.Module`` whose
 parameters, once :meth:`Model.init` or :meth:`Model.load_params` ran, are
 registered under the reference pytree's paths (``layers.attn.wq``, stacked
-on a leading ``L`` axis). Like the reference, the serving methods take the
-parameter tree explicitly (``model.prefill(params, batch, ...)``).
+on a leading ``L`` axis). Like the reference, the serving and training
+methods take the parameter tree explicitly (``model.prefill(params,
+batch, ...)``, ``model.loss(params, batch)``): the serving tree is the
+registered one, without gradients; a train state holds its own leaves
+that require grad (:func:`repro_torch.launch.steps.init_train_state`).
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.layers.common import Params
-from repro_torch.models import mamba2, moe_transformer, transformer, zamba2
+from repro_torch.models import (losses, mamba2, moe_transformer,
+                                transformer, zamba2)
 
 __all__ = ["CacheSpec", "Model", "build_model"]
 
@@ -69,7 +74,9 @@ class CacheSpec:
 
 class _ParamTree(nn.Module):
     """A nested dict of tensors registered as submodules and parameters
-    under its own keys (no gradients: the port serves)."""
+    under its own keys, without gradients: the serving tree. Training
+    differentiates a train state's own leaves, which share these tensors'
+    storage when the state was drawn through :meth:`Model.init`."""
 
     def __init__(self, tree: Mapping):
         super().__init__()
@@ -88,7 +95,7 @@ class _ParamTree(nn.Module):
 
 class Model(nn.Module):
     """A dense, MoE, SSM or hybrid decoder with the reference ``Model``'s
-    serving surface."""
+    serving surface, and its ``loss`` (trained: dense and MoE)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -121,6 +128,12 @@ class Model(nn.Module):
         """The registered parameters as the reference's nested dict."""
         return {k: m.tree() for k, m in self._modules.items()}
 
+    def abstract_params(self) -> Params:
+        """The parameter tree's shapes and dtypes as ``meta`` tensors (the
+        reference's ``eval_shape`` of ``init``): no memory, no draws."""
+        return self._mod.init_params(self.cfg, torch.Generator(),
+                                     torch.device("meta"))
+
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
@@ -134,6 +147,21 @@ class Model(nn.Module):
     def forward(self, params: Params, batch: dict):
         """Causal forward → logits ``(B, S, V)``."""
         return self.forward_with_aux(params, batch)[0]
+
+    # ---- training ---------------------------------------------------------
+    def loss(self, params: Params, batch: dict):
+        """``(loss, metrics)`` of ``batch`` (``tokens``, ``labels``, an
+        optional ``loss_mask``): mean cross-entropy, plus ``0.01 * aux``
+        for the MoE (``metrics["aux_loss"]``); ``metrics`` also has
+        ``tokens`` and ``accuracy``, each a 0-d f32 tensor."""
+        logits, aux = self.forward_with_aux(params, batch)
+        loss, metrics = losses.softmax_cross_entropy(
+            logits, batch["labels"], mask=batch.get("loss_mask"),
+            impl=self.cfg.loss_impl)
+        if aux is not None:
+            loss = loss + 0.01 * aux
+            metrics = dict(metrics, aux_loss=aux)
+        return loss, dict(metrics, loss=loss)
 
     # ---- serving ----------------------------------------------------------
     @property

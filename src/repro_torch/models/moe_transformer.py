@@ -74,16 +74,23 @@ def moe_mlp(cfg: ModelConfig, lyr: Params, h):
     return h + _moe(cfg, lyr, h)[0]
 
 
+def _block(cfg: ModelConfig, lyr: Params, h, positions):
+    """One layer: attention, then the experts → ``(h, aux)``."""
+    q, k, v = dense._layer_qkv(cfg, lyr, h, positions)
+    h = dense._attn_out(cfg, lyr, h, dense._train_attention(cfg, q, k, v))
+    m, aux = _moe(cfg, lyr, h)
+    return h + m, aux
+
+
 def forward(params: Params, batch: dict, cfg: ModelConfig):
-    """Full causal forward → ``(logits (B, S, V) in f32, aux_loss_mean)``."""
+    """Full causal forward → ``(logits (B, S, V) in f32, aux_loss_mean)``;
+    differentiable, each layer under ``cfg.remat`` (as the dense
+    family's)."""
     h, positions, _ = dense.embed_inputs(params, batch, cfg)
     aux_sum = torch.zeros((), dtype=torch.float32, device=h.device)
-    for i in range(cfg.n_layers):
-        lyr = dense.layer(params["layers"], i)
-        q, k, v = dense._layer_qkv(cfg, lyr, h, positions)
-        h = dense._attn_out(cfg, lyr, h, dense._attention(cfg, q, k, v))
-        m, aux = _moe(cfg, lyr, h)
-        h, aux_sum = h + m, aux_sum + aux
+    for lyr in dense.layers(params["layers"], cfg.n_layers):
+        h, aux = dense.remat(cfg, _block, cfg, lyr, h, positions)
+        aux_sum = aux_sum + aux
     h = rms_norm(params["final_norm"], h)
     logits = unembed(params["embed"], h, compute_dtype=cfg.cdtype)
     return logits, aux_sum / cfg.n_layers

@@ -1,5 +1,5 @@
 """Dense GQA transformer LM — the port of ``repro/models/transformer.py``
-for the served path (``family="dense"``).
+(``family="dense"``): the training forward and the serving functions.
 
 Structure per layer (pre-norm): ``h += attn(rms(h)); h += mlp(rms(h))``.
 Layer parameters are stacked on a leading ``L`` axis exactly as the
@@ -13,7 +13,12 @@ runs the paged-attention kernel; dense-slot decode and verify attend over
 their cache through the same kernel, the cache's rows walked as pages
 (``attention.dense_attention``; the plain version, the reference's jnp
 ``full_attention``, on the CPU or ``attn_backend="torch"``); every
-projection runs ``dot_moa`` through the configured MOA strategy.
+projection runs ``dot_moa`` through the configured MOA strategy. The
+causal forward (:func:`forward`, the training forward) attends through
+the plain versions only, as the reference's does, and runs each layer under
+``cfg.remat`` (:func:`remat`); its projections run ``dot_moa`` through the
+MOA backend's ``autograd.Function`` (the plain f32 transpose rule
+backward).
 
 Both decode steps update the cache **in place** (KV rows or pool pages, and
 the ``pos`` cursors) and return it, where the reference returns a new tree;
@@ -28,6 +33,7 @@ expert layer, as the reference's MoE module repeats it.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Union
 
 import torch
@@ -41,9 +47,9 @@ from repro_torch.layers.mlp import swiglu
 from repro_torch.layers.rope import apply_rope
 
 __all__ = [
-    "init_params", "layer", "embed_inputs", "forward", "init_cache",
-    "init_paged_cache", "prefill", "prefill_suffix", "decode_step",
-    "paged_decode_step", "verify_impl", "verify_step", "paged_verify_step",
+    "init_params", "layer", "layers", "remat", "embed_inputs", "forward",
+    "init_cache", "init_paged_cache", "prefill", "prefill_suffix",
+    "decode_step", "paged_decode_step", "verify_impl", "verify_step", "paged_verify_step",
     "commit_verified",
 ]
 
@@ -106,13 +112,25 @@ def layer(stacked: Params, i: int) -> Params:
 
 
 def _attention(cfg: ModelConfig, q, k, v):
-    """Causal softmax·V over a whole prompt (``cfg.attn_impl``)."""
+    """Causal softmax·V over a whole prompt (``cfg.attn_impl``) for the
+    serving functions: the flash kernel on the ``kernel`` backend."""
     if cfg.attn_impl == "full":
         return attn_lib.full_attention(q, k, v, causal=True)
     return attn_lib.prefill_attention(q, k, v, causal=True,
                                       q_chunk=cfg.q_chunk,
                                       kv_chunk=cfg.kv_chunk,
                                       backend=cfg.attn_backend)
+
+
+def _train_attention(cfg: ModelConfig, q, k, v):
+    """The causal forward's softmax·V (``cfg.attn_impl``), as the
+    reference's ``attention_forward``: the plain chunked twin or the
+    one-shot scores, never a kernel (the kernel has no backward)."""
+    if cfg.attn_impl == "full":
+        return attn_lib.full_attention(q, k, v, causal=True)
+    return attn_lib.flash_attention(q, k, v, causal=True,
+                                    q_chunk=cfg.q_chunk,
+                                    kv_chunk=cfg.kv_chunk)
 
 
 def _mlp(cfg: ModelConfig, lyr: Params, h):
@@ -151,13 +169,63 @@ def embed_inputs(params: Params, batch: dict, cfg: ModelConfig):
     return h, torch.arange(tokens.shape[1], device=tokens.device), 0
 
 
+def layers(stacked: Params, n_layers: int) -> list:
+    """Every layer's parameters as views of the stacked tree, one
+    ``unbind`` a leaf: under autograd one node then stacks the layers'
+    gradients into the leaf's, where ``n_layers`` selects would each fill
+    a leaf-sized buffer of zeros."""
+    per = tree_map(lambda t: t.unbind(0), stacked)
+    return [tree_map(lambda views: views[i], per) for i in range(n_layers)]
+
+
+#: the products the ``"dots"`` remat policy saves (the plain route's; a
+#: ``dot_moa`` launch is no aten op, so the kernel route recomputes it)
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+             torch.ops.aten.addmm.default, torch.ops.aten.mm.dtype)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in _PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)`` under ``cfg.remat`` where autograd records it (the
+    reference's ``_remat`` of a scanned layer): ``"none"`` saves every
+    activation; ``"dots"`` saves the products and recomputes the rest
+    (``dots_with_no_batch_dims_saveable``; a selective checkpoint);
+    anything else (``"full"``, the registry's default) keeps only the
+    layer's inputs and recomputes the layer in the backward."""
+    from torch.utils import checkpoint
+
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if cfg.remat == "dots":
+        return checkpoint.checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=functools.partial(
+                checkpoint.create_selective_checkpoint_contexts,
+                _save_products))
+    return checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
+def _block(cfg: ModelConfig, lyr: Params, h, positions):
+    """One layer of the causal forward: ``h += attn(rms(h)); h +=
+    mlp(rms(h))``."""
+    q, k, v = _layer_qkv(cfg, lyr, h, positions)
+    return _mlp(cfg, lyr, _attn_out(cfg, lyr, h,
+                                    _train_attention(cfg, q, k, v)))
+
+
 def forward(params: Params, batch: dict, cfg: ModelConfig):
-    """Full causal forward → logits ``(B, S, V)`` in f32."""
+    """Full causal forward → logits ``(B, S, V)`` in f32; differentiable
+    (the training forward: plain attention, :func:`_train_attention`,
+    each layer under ``cfg.remat``)."""
     h, positions, _ = embed_inputs(params, batch, cfg)
-    for i in range(cfg.n_layers):
-        lyr = layer(params["layers"], i)
-        q, k, v = _layer_qkv(cfg, lyr, h, positions)
-        h = _mlp(cfg, lyr, _attn_out(cfg, lyr, h, _attention(cfg, q, k, v)))
+    for lyr in layers(params["layers"], cfg.n_layers):
+        h = remat(cfg, _block, cfg, lyr, h, positions)
     h = rms_norm(params["final_norm"], h)
     return unembed(params["embed"], h, compute_dtype=cfg.cdtype)
 

@@ -76,6 +76,7 @@ def _smoke():
 
 def test_entry_points_need_a_gpu_unless_told_cpu(no_gpu):
     from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
     from repro_torch.serve import ServeEngine
 
     model = _smoke()
@@ -89,6 +90,8 @@ def test_entry_points_need_a_gpu_unless_told_cpu(no_gpu):
                 device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_cli.main(["--arch", "llama3-8b", "--smoke", "--paged"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.main(["--arch", "llama3-8b", "--smoke", "--steps", "2"])
 
 
 def test_chip_smoke_refuses_without_gpu(tmp_path):
