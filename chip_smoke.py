@@ -30,8 +30,12 @@ a non-zero exit:
               the card, at the shapes its path gives it (the served model's
               projections and attention; the train phase's projections,
               llama3-8b's at m = 4096 and moonshot's attention at m =
-              1024; every contraction, reduction
-              and LOA add of the paper path) plus ragged and wrapping
+              1024; the families phase's: hubert-xlarge's at 4000 (its
+              encode) and 4096, llava-next-34b's at 2 (decode), 4736
+              (prefill) and 5120, zamba2-1.2b's shared block at 4096;
+              every contraction, reduction
+              and LOA add of the paper path, the moa_scope loss line's
+              smoke llama3-8b among them) plus ragged and wrapping
               edge cases: error against a stated tolerance (integer and LOA
               rows bit-exact), and the kernel's, the plain version's and
               (where one PyTorch call computes the same function) the
@@ -45,9 +49,12 @@ a non-zero exit:
               fail on two calls that differ in a bit, paged rows on a read
               of a dead page (NaN-poisoned). Flash rows run at llama3-8b's,
               moonshot-v1-16b-a3b's and zamba2-1.2b's (H32/32, head_dim
-              64) served prefills; paged rows at the three models' served
-              decode (bf16 and int8 pools; zamba2's also through the
-              dense-slot identity table, its dead pages poisoned), long
+              64) served prefills, hubert-xlarge's encode (bidirectional,
+              H16/16, head_dim 80, 4 x 1000) and llava-next-34b's prefill
+              (H56/8, 2 x 2368); paged rows at the three models' served
+              decode (bf16 and int8 pools; zamba2's, and llava-next-34b's
+              (B2 H56/8 over 2384 positions), through the dense-slot
+              identity table, its dead pages poisoned), long
               context
               (to 4096 tokens, and 16 slots to 8192) and the T = 4 verify
               shape, also as served (B4 T4 H32/8, bf16 and int8 pools) at
@@ -192,6 +199,33 @@ a non-zero exit:
               bit (``restart``), and the quickstart's 60 smoke steps,
               which must lose more than ``LEARN_DROP`` (``learn``). The
               ``nvidia-smi`` name and power limit precede each line.
+   families — the encoder and VLM families and the SSM and hybrid
+              gradients, every earlier model freed. hubert-xlarge at full
+              width and depth (48 layers, bf16 weights) encodes 4 x 1000
+              frames through ``Model.prefill`` (``dot_moa``, the flash
+              kernel bidirectional at head_dim 80) against the plain route
+              (a ``families`` line: logits within
+              ``FAMILY_LOGIT_REL_TOL``, every differing argmax at a
+              near-tie); then trains at full depth (``train`` lines as
+              above: kernel against plain, 3 steps twice bit for bit, 10
+              counted steps, 8 x 512 frames). llava-next-34b at 2 layers
+              in f32: prefill of 2 x (2304 patches + 64 text tokens) and
+              16 greedy decode steps, kernel route against plain route
+              (``parity`` line ``llava``: tokens equal but at a near-tie,
+              teacher-forced logits within ``LOGIT_TOL``); at full width
+              and depth (60 layers, 34.4 B parameters, bf16 weights) the
+              same through the kernels, counted, then again for its times
+              (bit for bit), then on the plain route (a ``families`` line:
+              init, prefill and decode ms, the decode tick's weight floor,
+              peak memory; logits within ``FAMILY_LOGIT_REL_TOL`` up to a
+              divergence, which must be a near-tie); then trains at 2
+              layers on 2 x 2560 tokens. zamba2-1.2b and mamba2-370m train
+              at full depth, 8 x 512 tokens (zamba2's kernel route is also
+              held to its bf16 noise floor, the plain route summed in
+              other chunks: ``TRAIN_FLOOR_RATIO``; mamba2 launches no
+              kernel: its gradients are checked finite in place of a
+              kernel comparison). Each counted run fails on a launch whose call
+              key no kernels row checked.
 4. parity   — the same engine at full width with 2 layers, once on the
               kernels (captured, each bucket at its first tick) and once
               on the plain PyTorch path (eager): float32 compute on the
@@ -248,6 +282,8 @@ key per counted run: ``serve/llama3-8b``, ``serve/llama3-8b-spec-paged``,
 ``serve/moonshot-dense-slot``, ``serve/moonshot-paged``,
 ``serve/zamba2-paged``, ``serve/zamba2-dense-slot``,
 ``serve/mamba2-dense-slot``, ``train/llama3-8b``, ``train/moonshot``,
+``encode/hubert-xlarge``, ``vlm/llava-next-34b``, ``train/hubert-xlarge``,
+``train/llava-next-34b``, ``train/zamba2-1.2b``, ``train/mamba2-370m``,
 ``paper``; the
 paged row also carries the served verify row), the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -301,13 +337,14 @@ KERNELS = {
     "dot_moa": Kernel("src/repro/kernels/dot_moa.py:108", "dot_moa",
                       ("dot_moa_stream", "dot_moa_wgmma", "dot_moa_tc",
                        "dot_moa_simt", "dot_moa_fold"),
-                      ("serve", "paper", "train")),
+                      ("serve", "paper", "train", "encode", "vlm")),
     "flash_attention": Kernel("src/repro/kernels/flash_attention.py:86",
                               "flash_attention",
-                              ("flash_wgmma", "flash_simt"), ("serve",)),
+                              ("flash_wgmma", "flash_simt"),
+                              ("serve", "encode", "vlm")),
     "paged_attention": Kernel("src/repro/kernels/paged_attention.py:119",
                               "paged_attention", ("paged_split",),
-                              ("serve",)),
+                              ("serve", "vlm")),
     "moa_reduce": Kernel("src/repro/kernels/moa_reduce.py:47", "moa_reduce",
                          ("moa_reduce_kernel",), ("serve", "paper", "train")),
     "loa_reduce": Kernel("src/repro/kernels/loa_add.py:92", "loa_add",
@@ -589,7 +626,20 @@ def call_key(kernel: str, x, *rest, **kw) -> tuple:
     values: operand type, shapes and options, block sizes as the wrapper
     clips them. ``x, *rest, **kw`` are the wrapper's arguments. A batched
     ``dot_moa`` adds its member count, and an output type other than the
-    default (the operands', int32 for integers) adds that type."""
+    default (the operands', int32 for integers) adds that type. Flash
+    attention: q's type and shape, the KV length and heads, the mask;
+    paged attention: q's type and shape, the pool's type, page size and
+    heads, the table's width and the dequantization type (its plan reads
+    no cursor)."""
+    if kernel == "flash_attention":
+        k = rest[0]
+        return (kernel, str(x.dtype), *x.shape, k.shape[1], k.shape[2],
+                bool(kw.get("causal", True)))
+    if kernel == "paged_attention":
+        pool, tables = rest[0], rest[2]
+        return (kernel, str(x.dtype), *x.shape, str(pool.dtype),
+                *pool.shape[1:3], tables.shape[1],
+                str(kw.get("dequant_dtype")))
     if kernel == "dot_moa":
         *batch, m, k = x.shape
         n = rest[0].shape[-1]
@@ -777,11 +827,19 @@ def kernel_phase(torch, timer, parent=None):
     # int32); the prefill down-projection is among the m = 64 rows
     cases += [(m, 4096, 14336, block_k, torch.bfloat16, 0)
               for m in (1, 8, 9, 17)]
-    # the train phase's projections (forward and remat recompute):
+    # the train runs' projections (forward and remat recompute):
     # llama3-8b's four shapes at m = 4096 (8 sequences of 512 tokens),
-    # moonshot's attention at m = 1024 (4 of 256)
+    # moonshot's attention at m = 1024 (4 of 256); the families phase's
+    # hubert-xlarge (4096), llava-next-34b (5120: 2 x (2304 + 256)) and
+    # zamba2-1.2b's shared block (4096)
     cases += [(m, k, n, block_k, torch.bfloat16, 0)
               for arch in TRAIN_RUNS for m, k, n in train_projections(arch)]
+    # the families phase's served runs: hubert-xlarge's encode (m = 4000:
+    # 4 x 1000 frames), llava-next-34b's prefill (4736: 2 x (2304 + 64))
+    # and decode (2)
+    cases += [(m, k, n, block_k, torch.bfloat16, 0)
+              for arch, ms in FAMILY_SERVED_M.items() for m in ms
+              for _, k, n in projections(arch, m)]
     # a ragged k whose block_k (1000) is not a multiple of the sub-range
     cases += [(m, 5000, 4096, 1000, torch.bfloat16, 0) for m in (4, 64)]
     # int8 at block_k 256, l = 4: 16 LOA folds, on both int8 bodies
@@ -872,6 +930,11 @@ def kernel_phase(torch, timer, parent=None):
               for s in (16, 37, 64, 512, 1024)]
     cases += [(2, 100, 100, 4, 2, 64, torch.float32, True),
               (2, 37, 53, 4, 2, 64, torch.float32, False)]
+    # the families phase: hubert-xlarge's encode (bidirectional, H16/16,
+    # head_dim 80, 4 x 1000 frames) and llava-next-34b's prefill (causal,
+    # H56/8: a group of 7, 2 x 2368 tokens, not a multiple of 64)
+    cases += [(4, 1000, 1000, 16, 16, 80, torch.bfloat16, False),
+              (2, 2368, 2368, 56, 8, 128, torch.bfloat16, True)]
     for B, Sq, Skv, H, Hk, D, dt, causal in cases:
         q = randn(B, Sq, H, D, dtype=dt)
         k, v = randn(B, Skv, Hk, D, dtype=dt), randn(B, Skv, Hk, D, dtype=dt)
@@ -914,7 +977,7 @@ def kernel_phase(torch, timer, parent=None):
             "plain_ms": timer(plain, 5),
             "library_ms": lib, "library": "scaled_dot_product_attention",
             "bound_ms": b_ms, "bound_by": b_by,
-        })
+        }, call_key("flash_attention", q, k, v, causal=causal))
         if (Sq, dt) == (512, torch.bfloat16):     # llama3-8b's, the first
             summary.setdefault("flash_attention", row)
 
@@ -1059,7 +1122,8 @@ def kernel_phase(torch, timer, parent=None):
         row.update(beside_parent(timer, parent, "paged_attention", lambda f: f(
             q, kp, vp, parent_tables, start, dequant_dtype=qdt, **scales),
             want, err))
-        check(row)
+        check(row, call_key("paged_attention", q, kp, vp, tables, start,
+                            dequant_dtype=qdt, **scales))
         summary.setdefault("paged_attention", row)   # the served decode
         if given and n_blocks == max(VERIFY_BUCKETS) \
                 and pdt == torch.bfloat16:
@@ -1068,9 +1132,17 @@ def kernel_phase(torch, timer, parent=None):
     return summary
 
 
+#: dense-slot decodes walked as pages (``B, H, Hk, D, max_len, starts``):
+#: zamba2-1.2b's served decode (H32/32, max_len 512), and llava-next-34b's
+#: 16 decode steps after its 2 x 2368-token prefill (H56/8: a group of 7,
+#: two 4-row tiles; max_len 2384, 149 pages)
+DENSE_SLOT_ROWS = [(4, 32, 32, 64, 512, (5, 70, 200, 511)),
+                   (2, 56, 8, 128, 2384, (2368, 2383))]
+
+
 def dense_slot_rows(torch, timer, randn, err) -> None:
-    """zamba2-1.2b's dense-slot decode (B4 T1 H32/32 D64, a cache of
-    max_len 512 walked as 16-token pages through the identity block table,
+    """Each of ``DENSE_SLOT_ROWS``: a dense-slot decode (T1, bf16, the
+    cache walked as 16-token pages through the identity block table,
     ``attention.dense_attention``) against the plain version over the same
     rows (``full_attention``, ``kv_len = start + 1``): a same-bits rerun,
     and the cache's pages past each slot's deepest query poisoned with NaN
@@ -1078,47 +1150,52 @@ def dense_slot_rows(torch, timer, randn, err) -> None:
     from repro_torch.layers import attention as A
     from repro_torch.kernels import ops
 
-    B, H, Hk, D, max_len = 4, 32, 32, 64, 512
-    starts = (5, 70, 200, 511)
-    cache = {"k": randn(B, max_len, Hk, D, dtype=torch.bfloat16),
-             "v": randn(B, max_len, Hk, D, dtype=torch.bfloat16)}
-    q = randn(B, 1, H, D, dtype=torch.bfloat16)
-    start = torch.tensor(starts, dtype=torch.int32, device="cuda")
-    run = lambda: A.dense_attention(q, cache, start,
-                                    compute_dtype=torch.bfloat16)
-    plain = lambda: A.full_attention(q, cache["k"], cache["v"], causal=False,
-                                     kv_len=start + 1)
-    before = ops.launch_counts()["paged_attention"]
-    got, want = run(), plain()
-    if ops.launch_counts()["paged_attention"] != before + 1:
-        raise AssertionError("dense_attention did not launch paged_attention")
-    if not torch.equal(run(), got):
-        raise AssertionError("dense-slot paged_attention: two calls gave "
-                             "other bits")
-    for b, s in enumerate(starts):
-        first_dead = (s // A.DENSE_PAGE + 1) * A.DENSE_PAGE
-        cache["k"][b, first_dead:] = float("nan")
-        cache["v"][b, first_dead:] = float("nan")
-    if not torch.equal(run(), got):
-        raise AssertionError("dense-slot paged_attention read a dead page")
-    torch.cuda.synchronize()
-    tokens = sum(s + 1 for s in starts)
-    b_ms, b_by = bound(tokens * Hk * D * 2 * 2 + 2 * q.numel() * 2 + B * 4,
-                       sum(4.0 * H * D * (s + 1) for s in starts), "bfloat16")
-    tol = bf16_ulp(float(want.float().abs().max()))
-    check({
-        "kernel": "paged_attention", "case": "dense-slot pool=bfloat16 T=1",
-        "shape": {"B": B, "T": 1, "H": H, "Hk": Hk, "D": D,
-                  "bs": A.DENSE_PAGE, "max_len": max_len,
-                  "start": list(starts)},
-        "max_abs_err": err(got, want), "tol": tol,
-        "tol_reason": "1 bf16 ulp at max|ref|: f32 split online vs one-shot "
-                      "softmax, one rounding to bf16",
-        "kernel_ms": timer(run),
-        "device_ms": timer.device(run, "paged_attention"),
-        **own_kernels(timer, "paged_attention"),
-        "plain_ms": timer(plain, 5), "library_ms": None,
-        "bound_ms": b_ms, "bound_by": b_by})
+    for B, H, Hk, D, max_len, starts in DENSE_SLOT_ROWS:
+        cache = {"k": randn(B, max_len, Hk, D, dtype=torch.bfloat16),
+                 "v": randn(B, max_len, Hk, D, dtype=torch.bfloat16)}
+        q = randn(B, 1, H, D, dtype=torch.bfloat16)
+        start = torch.tensor(starts, dtype=torch.int32, device="cuda")
+        run = lambda: A.dense_attention(q, cache, start,
+                                        compute_dtype=torch.bfloat16)
+        plain = lambda: A.full_attention(q, cache["k"], cache["v"],
+                                         causal=False, kv_len=start + 1)
+        before = ops.launch_counts()["paged_attention"]
+        with recorded_calls(ops, ["paged_attention"]) as calls:
+            got, want = run(), plain()
+        if ops.launch_counts()["paged_attention"] != before + 1:
+            raise AssertionError("dense_attention did not launch "
+                                 "paged_attention")
+        (key,) = calls                  # the launch as the model makes it
+        if not torch.equal(run(), got):
+            raise AssertionError("dense-slot paged_attention: two calls "
+                                 "gave other bits")
+        for b, s in enumerate(starts):
+            first_dead = (s // A.DENSE_PAGE + 1) * A.DENSE_PAGE
+            cache["k"][b, first_dead:] = float("nan")
+            cache["v"][b, first_dead:] = float("nan")
+        if not torch.equal(run(), got):
+            raise AssertionError("dense-slot paged_attention read a dead "
+                                 "page")
+        torch.cuda.synchronize()
+        tokens = sum(s + 1 for s in starts)
+        b_ms, b_by = bound(tokens * Hk * D * 2 * 2 + 2 * q.numel() * 2
+                           + B * 4, sum(4.0 * H * D * (s + 1)
+                                        for s in starts), "bfloat16")
+        tol = bf16_ulp(float(want.float().abs().max()))
+        check({
+            "kernel": "paged_attention",
+            "case": "dense-slot pool=bfloat16 T=1",
+            "shape": {"B": B, "T": 1, "H": H, "Hk": Hk, "D": D,
+                      "bs": A.DENSE_PAGE, "max_len": max_len,
+                      "start": list(starts)},
+            "max_abs_err": err(got, want), "tol": tol,
+            "tol_reason": "1 bf16 ulp at max|ref|: f32 split online vs "
+                          "one-shot softmax, one rounding to bf16",
+            "kernel_ms": timer(run),
+            "device_ms": timer.device(run, "paged_attention"),
+            **own_kernels(timer, "paged_attention"),
+            "plain_ms": timer(plain, 5), "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by}, key)
 
 
 def moe_kernel_phase(torch, timer):
@@ -1314,14 +1391,22 @@ def paper_kernel_phase(torch, timer, parent=None):
               for bk in (2048, 256)]
     cases += [(12544, 25, 6, 25, 0, "f32", "LeNet-5 conv1, batch 16"),
               (1600, 150, 16, 150, 0, "f32", "LeNet-5 conv2, batch 16")]
+    # the strategy sweep's moa_scope loss line: the smoke llama3-8b's
+    # projections (d_model 64, one KV head of 16, d_ff 128) over 4 x 64
+    # tokens in bf16, under "tree" (block_k = k) and "serial?chunk=16"
+    cases += [(256, k, n, bk, 0, "bf16", "strategy sweep, moa_scope loss")
+              for k, n in ((64, 64), (64, 16), (64, 128), (128, 64))
+              for bk in (k, 16)]
     # edge cases: full-range int32 products that wrap, and 2**20 * 2**6
     # summed 4096 times = 2**38, which wraps to 0
     cases += [(64, 384, 40, 128, 3, "full", "edge: full-range wrap"),
               (2, 4096, 3, 4096, 0, "2**38", "edge: sum wraps to 0")]
     for m, k, n, bk, l, operands, where in cases:
-        if operands == "f32":
-            a = torch.randn((m, k), device=dev, generator=g)
-            b = torch.randn((k, n), device=dev, generator=g) * k ** -0.5
+        if operands in ("f32", "bf16"):
+            dt = torch.float32 if operands == "f32" else torch.bfloat16
+            a = torch.randn((m, k), device=dev, generator=g).to(dt)
+            b = (torch.randn((k, n), device=dev, generator=g)
+                 * k ** -0.5).to(dt)
         else:
             (alo, ahi), (blo, bhi) = {
                 "q8x4": ((0, 256), (0, 16)), "u3": ((0, 8), (0, 8)),
@@ -1334,8 +1419,9 @@ def paper_kernel_phase(torch, timer, parent=None):
         torch.cuda.synchronize()
         if operands == "2**38" and (want.any() or got.any()):
             raise AssertionError("dot_moa int32: 2**38 must wrap to 0")
-        name = "float32" if operands == "f32" else "int32"
-        b_ms, b_by = bound(4 * (m * k + k * n + m * n), 2.0 * m * k * n,
+        name = {"f32": "float32", "bf16": "bfloat16"}.get(operands, "int32")
+        b_ms, b_by = bound(a.element_size() * (m * k + k * n)
+                           + got.element_size() * m * n, 2.0 * m * k * n,
                            name)
         if operands == "f32":
             tol = 1e-4 + 1e-5 * float(want.abs().max())
@@ -1343,6 +1429,12 @@ def paper_kernel_phase(torch, timer, parent=None):
                    "rtol 1e-5 of max|ref|, as tests/test_kernels.py")
             lib = {"library_ms": timer.device(lambda: torch.matmul(a, b)),
                    "library": "torch.matmul, TF32 off"}
+        elif operands == "bf16":
+            tol = bf16_ulp(float(want.float().abs().max()))
+            why = ("1 bf16 ulp at max|ref|: both accumulate in f32 in "
+                   "different orders, then round once to bf16")
+            lib = {"library_ms": timer.device(lambda: torch.matmul(a, b)),
+                   "library": "torch.matmul"}
         else:
             tol, why = 0.0, exact_why
             lib = {"library_ms": None,
@@ -3686,6 +3778,13 @@ def paper_phase(torch):
         if name == "fig4_serialization" and d["route"] != "kernel":
             raise AssertionError(f"fig4 ran on the {d['route']} route")
         if name == "moa_strategies":
+            # the moa_scope loss line: one model's loss under "tree" and
+            # "serial?chunk=16", the same bf16 operands summed in f32 in
+            # other groupings, each product rounded once to bf16: the
+            # losses (~5.6) move far less than TRAIN_LOSS_TOL
+            if not float(d["loss_delta"]) < TRAIN_LOSS_TOL:
+                raise AssertionError(f"moa_strategies: loss_delta "
+                                     f"{d['loss_delta']}")
             # the exact strategies' f32 products against float64, K = 4096
             # unit-normal products: a random walk of K roundings at
             # ulp(|partial| < 256) = 2**-16 gives sqrt(K) * 2**-17 = 4.9e-4;
@@ -3726,7 +3825,29 @@ def paper_phase(torch):
 #: parameter (llama3-8b's 8.03 B at 32 layers would take ~128 GB)
 TRAIN_RUNS = {"llama3-8b": dict(layers=4, batch=8, seq=512, steps=10),
               "moonshot-v1-16b-a3b": dict(layers=2, batch=4, seq=256,
-                                          steps=3)}
+                                          steps=3),
+              # the families phase: full depth where the state fits (hubert
+              # 0.99 B parameters, ~16 GB; zamba2 1.2 B; mamba2 0.37 B),
+              # llava cut to 2 layers (2.08 B: ~33 GB) on 2 x (2304
+              # patches + 256 text tokens)
+              "hubert-xlarge": dict(layers=48, batch=8, seq=512, steps=10),
+              "llava-next-34b": dict(layers=2, batch=2, seq=2560, steps=3),
+              # zamba2's routes drift apart through 38 Mamba-2 layers
+              # at a random init: its kernel route is also held to the
+              # noise floor (``floor``, :func:`train_kernel_vs_plain`)
+              "zamba2-1.2b": dict(layers=38, batch=8, seq=512, steps=10,
+                                  floor=True),
+              "mamba2-370m": dict(layers=48, batch=8, seq=512, steps=10)}
+#: the families phase's served runs, ``m`` of their projections: hubert's
+#: encode of 4 x 1000 frames; llava's prefill of 2 x (2304 patches + 64
+#: text tokens) and its decode steps (2 rows)
+HUBERT_ENCODE = dict(batch=4, frames=1000)
+LLAVA_SERVE = dict(batch=2, patches=2304, text=64, decode=16)
+FAMILY_SERVED_M = {
+    "hubert-xlarge": (HUBERT_ENCODE["batch"] * HUBERT_ENCODE["frames"],),
+    "llava-next-34b": (LLAVA_SERVE["batch"] * (LLAVA_SERVE["patches"]
+                                              + LLAVA_SERVE["text"]),
+                       LLAVA_SERVE["batch"])}
 #: one step's loss, ``dot_moa`` against the plain route (``backend=torch``)
 #: from the same state and batch: both take the same bf16 operands and
 #: round each product once to bf16 after f32 sums in other orders (1 bf16
@@ -3746,24 +3867,50 @@ TRAIN_GRAD_REL_TOL = 5e-2
 #: change (less the mean change), logits of order 1 at init (normed
 #: activations against 1/sqrt(d_model) weights): about 1e-2 apart
 TRAIN_ROUTE_REL_TOL = 5e-2
+#: the noise-floor witness of a run whose routes drift far apart through
+#: its depth (``floor`` in ``TRAIN_RUNS``): the plain route again with each
+#: product's K summed in chunks of this many operands (the plain route's
+#: 4096): the same bf16 operands, each product's f32 sum in another order
+#: and rounded once to bf16, as the kernel's are, so that its gradients'
+#: distance from the plain route's is the arch's bf16 noise floor
+TRAIN_FLOOR_CHUNK = 512
+#: such a run's kernel route: its worst leaf's relative gradient error
+#: against the plain route, at most this many times the witness's worst
+#: leaf's. Rounding alone reads about the floor (both are sums in other
+#: orders of the same products: zamba2 at full depth on an H100, 1.05x);
+#: a product that misses a 64-wide K tile reads 12x. A fault of rounding
+#: size (K slices each rounded to bf16, ~2x a right kernel's error a
+#: product) drowns in 38 layers of drift: the kernels rows catch it,
+#: product by product
+TRAIN_FLOOR_RATIO = 2.0
 #: the quickstart's learn check: 60 smoke steps must lose more than this
 LEARN_DROP = 0.2
 
 
-def train_projections(arch: str) -> list:
-    """``(m, k, n)`` of every unbatched ``dot_moa`` projection a train step
-    of ``arch`` (``TRAIN_RUNS``) launches, ``m`` its batch's tokens: q, k,
-    v and o, and a dense MLP's gate, up and down (the MoE's router and
-    experts: :func:`train_moe_shapes`)."""
+def projections(arch: str, m: int) -> list:
+    """``(m, k, n)`` of every unbatched ``dot_moa`` projection of
+    ``arch``'s layers at ``m`` tokens: q, k, v and o, and the MLP's (gate,
+    up and down of a SwiGLU, in and out of the encoder's GELU MLP; the
+    hybrid's shared block); none for the SSM family (its projections are
+    plain products), the MoE's experts and router apart
+    (:func:`train_moe_shapes`)."""
     from repro_torch.configs.registry import get_config
 
-    cfg, run = get_config(arch), TRAIN_RUNS[arch]
-    m, d = run["batch"] * run["seq"], cfg.d_model
+    cfg, d = get_config(arch), get_config(arch).d_model
+    if cfg.family == "ssm":
+        return []
     hd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
     shapes = {(m, d, hd), (m, d, kvd), (m, hd, d)}
-    if cfg.family == "dense":
+    if cfg.family != "moe":
         shapes |= {(m, d, cfg.d_ff), (m, cfg.d_ff, d)}
     return sorted(shapes)
+
+
+def train_projections(arch: str) -> list:
+    """:func:`projections` of a train step of ``arch`` (``TRAIN_RUNS``),
+    ``m`` its batch's tokens (a VLM's patches among them)."""
+    run = TRAIN_RUNS[arch]
+    return projections(arch, run["batch"] * run["seq"])
 
 
 def train_moe_shapes(arch: str) -> dict:
@@ -3831,7 +3978,15 @@ def _route_drift(torch, plain, kernel, differ) -> dict:
             "ok": max(rel) <= TRAIN_ROUTE_REL_TOL and not over}
 
 
-def train_kernel_vs_plain(torch, cfg, params, batch) -> dict:
+def _plain_cfg(cfg):
+    """``cfg`` on the plain route: the MOA backend ``torch`` and the plain
+    attention."""
+    spec = cfg.moa + ("&" if "?" in cfg.moa else "?") + "backend=torch"
+    return dataclasses.replace(cfg, moa=spec, attn_backend="torch")
+
+
+def train_kernel_vs_plain(torch, cfg, params, batch, *,
+                          floor: bool = False) -> dict:
     """One step's loss and gradients at ``params`` on ``batch``: the
     ``dot_moa`` route (``auto``: the kernel on the card, through its
     ``autograd.Function``) against the plain route (``backend=torch``: f32
@@ -3843,13 +3998,15 @@ def train_kernel_vs_plain(torch, cfg, params, batch) -> dict:
     reported, and each routing call is held to :func:`_route_drift`. Fails
     over ``TRAIN_LOSS_TOL``, ``TRAIN_GRAD_REL_TOL`` or
     ``TRAIN_ROUTE_REL_TOL``, or on an own choice that differs past its
-    near-tie."""
+    near-tie. With ``floor``, the noise floor's witness too (the plain
+    route at ``TRAIN_FLOOR_CHUNK``): it fails as well where the kernel
+    route's worst leaf exceeds ``TRAIN_FLOOR_RATIO`` times the witness's.
+    """
     from repro_torch.launch import steps
     from repro_torch.layers import moe as moe_mod
     from repro_torch.models.api import build_model
 
-    spec = cfg.moa + ("&" if "?" in cfg.moa else "?") + "backend=torch"
-    plain_cfg = dataclasses.replace(cfg, moa=spec)
+    plain_cfg = _plain_cfg(cfg)
     moe = cfg.family == "moe"
     if moe:
         plain_log, undo = _routing(torch, moe_mod, [0])
@@ -3875,23 +4032,60 @@ def train_kernel_vs_plain(torch, cfg, params, batch) -> dict:
                    **_route_drift(torch, plain_log, kernel_log, diffs)}
     errs = _grad_errors(torch, g_k, g_p)
     worst = max(errs, key=errs.get)
+    not_finite = _not_finite(torch, g_k)
+    witness = {}
+    if floor:
+        spec = plain_cfg.moa.replace("chunk=4096",
+                                     f"chunk={TRAIN_FLOOR_CHUNK}")
+        if spec == plain_cfg.moa:
+            raise AssertionError(f"{cfg.name}: no chunk=4096 in {spec!r}")
+        del g_k
+        g_w, m_w = steps.loss_and_grads(
+            build_model(dataclasses.replace(plain_cfg, moa=spec)), params,
+            batch)
+        floor_errs = _grad_errors(torch, g_w, g_p)
+        floor_worst = max(floor_errs, key=floor_errs.get)
+        witness = {
+            "floor_moa": spec,
+            "floor_loss_diff": abs(float(m_w["loss"])
+                                   - float(m_p["loss"])),
+            "floor_worst_leaf": floor_worst,
+            "floor_worst_grad_rel_err": floor_errs[floor_worst],
+            "floor_ratio": errs[worst] / max(floor_errs[floor_worst],
+                                             1e-30),
+            "floor_ratio_tol": TRAIN_FLOOR_RATIO,
+            "floor_grad_rel_errs": floor_errs}
+        del g_w
     row = {"what": f"{cfg.name} kernel vs plain",
            **routing,
-           "plain_moa": spec, "loss_kernel": float(m_k["loss"]),
+           "plain_moa": plain_cfg.moa, "loss_kernel": float(m_k["loss"]),
            "loss_plain": float(m_p["loss"]),
            "loss_diff": abs(float(m_k["loss"]) - float(m_p["loss"])),
            "loss_tol": TRAIN_LOSS_TOL, "worst_leaf": worst,
            "worst_grad_rel_err": errs[worst],
            "grad_rel_tol": TRAIN_GRAD_REL_TOL,
-           "grad_rel_errs": errs}
+           "grad_leaves_not_finite": not_finite
+           + _not_finite(torch, g_p),
+           "grad_rel_errs": errs, **witness}
     train_emit(row)
     if not (row["loss_diff"] <= TRAIN_LOSS_TOL
             and errs[worst] <= TRAIN_GRAD_REL_TOL
-            and routing.get("ok", True)):
+            and not row["grad_leaves_not_finite"]
+            and routing.get("ok", True)
+            and witness.get("floor_ratio", 0.0) <= TRAIN_FLOOR_RATIO):
         raise AssertionError(f"train {cfg.name}: kernel vs plain loss "
                              f"{row['loss_diff']}, {worst} {errs[worst]}, "
-                             f"routing {routing}")
+                             f"routing {routing}, noise floor "
+                             f"{witness.get('floor_worst_grad_rel_err')}")
     return row
+
+
+def _not_finite(torch, tree) -> list:
+    """The leaves (by path) of ``tree`` holding a NaN or an infinity."""
+    from repro_torch.interop import tree_leaves
+
+    return [path for path, t in tree_leaves(tree)
+            if not bool(torch.isfinite(t).all())]
 
 
 def _states_equal(torch, a, b) -> list:
@@ -3900,14 +4094,16 @@ def _states_equal(torch, a, b) -> list:
 
     wb = dict(tree_leaves(b))
     return [path for path, t in tree_leaves(a)
-            if not torch.equal(t.detach(), wb[path].detach())]
+            if not torch.equal(t.detach(), wb[path].detach().to(t.device))]
 
 
 def _profiled_step(torch, model, state, batch, hyper) -> tuple:
     """One train step in two ``torch.profiler`` sessions, the gradients
     and then the optimizer: device ms by group (``dot_moa``, ``library
     gemm`` (cuBLAS), ``other``; ``optimizer`` is the second session's
-    whole), launches and host ms."""
+    whole), launches and host ms. CUDA activity only: recording the CPU's
+    ops too gives the same device ms and takes three times the host time
+    (zamba2 on an H100: 20.9 s against 6.5 s a profiled step)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import steps
@@ -3916,16 +4112,14 @@ def _profiled_step(torch, model, state, batch, hyper) -> tuple:
     groups, calls = collections.Counter(), collections.Counter()
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         grads, metrics = steps.loss_and_grads(model, state["params"], batch)
         torch.cuda.synchronize()
     for e in prof.key_averages():
         if e.device_type == cuda:
             groups[kernel_group(e.key)] += e.device_time_total / 1e3
             calls[kernel_group(e.key)] += e.count
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         state, metrics = steps.apply_gradients(state, grads, metrics,
                                                hyper=hyper)
         torch.cuda.synchronize()
@@ -3939,19 +4133,46 @@ def _profiled_step(torch, model, state, batch, hyper) -> tuple:
                    "host_ms_profiled": host_ms}
 
 
+def train_flops(torch, cfg, params, batch: int, seq: int) -> float:
+    """Model FLOPs of a train step: 6 for each multiplying parameter and
+    token it multiplies (the embedding's gather, the encoder's position
+    and mask tables and the norms multiply nothing; the hybrid's shared
+    block counts once an application; a VLM's unembedding multiplies its
+    text tokens, its projector its patches; attention's score products and
+    the SSD scan are not counted)."""
+    def size(tree):
+        return sum(t.numel() for t in _leaves(tree))
+
+    emb = params["embed"]
+    per_token = size(params["layers"])
+    if cfg.family == "hybrid":
+        per_token += (cfg.n_layers // cfg.attn_every) * (
+            size(params["shared_attn"]) + size(params["shared_mlp"]))
+    tokens, text = batch * seq, batch * (seq - cfg.n_patches)
+    flops = per_token * tokens + emb.get("unembed", emb["table"]).numel() \
+        * text
+    if cfg.family == "vlm":
+        flops += size(params["mm_projector"]) * batch * cfg.n_patches
+    return 6.0 * flops
+
+
 def train_full_width(torch, arch: str) -> dict:
-    """``arch`` at full width, its depth cut (``TRAIN_RUNS``): the
+    """``arch`` at full width, its depth cut where ``TRAIN_RUNS`` says: the
     reference's train state (f32 master weights from the port's
     initializer, seed 0; f32 AdamW moments; bf16 compute, remat "full")
-    on ``SyntheticLMData`` (seed 0). Kernel against plain on the first
-    batch; the same 3 steps twice, bit for bit (losses and every leaf of
-    the state); then the counted run: ``steps`` steps, each timed on the
-    host clock between synchronisations, every loss finite, every kernel
-    launch at a type, shapes and options a kernels-phase row checked;
-    llama3 then one profiled step by group. Returns the counted run's
-    launches."""
+    on ``SyntheticLMData`` (seed 0; the encoder's frames, the VLM's
+    patches). Kernel against plain on the first batch (a family that runs
+    no kernel, the SSM: its gradients, every one finite); the same 3 steps
+    twice from one init, bit for bit (losses and every leaf of the state:
+    the first run's end state is kept on the host, so that one state is on
+    the card at a time); then the counted run: ``steps`` steps, each timed
+    on the host clock between synchronisations, every loss finite, every
+    kernel launch at a type, shapes and options a kernels-phase row
+    checked (the SSM: none launched); then, but for the MoE, one
+    profiled step by group. Returns the counted run's launches."""
     from repro_torch.configs.registry import get_config
     from repro_torch.data import SyntheticLMData
+    from repro_torch.interop import tree_map
     from repro_torch.kernels import ops
     from repro_torch.launch import steps
     from repro_torch.models.api import build_model
@@ -3959,46 +4180,67 @@ def train_full_width(torch, arch: str) -> dict:
     run = TRAIN_RUNS[arch]
     cfg = dataclasses.replace(get_config(arch), n_layers=run["layers"])
     hyper = steps.TrainHyper(peak_lr=3e-4, warmup_steps=2, total_steps=100)
-    data = SyntheticLMData(vocab=cfg.vocab, seq_len=run["seq"],
-                           global_batch=run["batch"], seed=0)
+    data = SyntheticLMData(
+        vocab=cfg.vocab, seq_len=run["seq"], global_batch=run["batch"],
+        seed=0, family="encoder" if cfg.family == "encoder" else "lm",
+        d_model=cfg.d_model, n_patches=cfg.n_patches)
     batches = [_cuda_batch(data, s) for s in range(run["steps"] + 4)]
     gc.collect()
     torch.cuda.empty_cache()
-    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+
+    def fresh():
+        # a model of its own each time: a model keeps the parameters it
+        # drew registered (their storage is the state's), and they must be
+        # freed with that state
+        return steps.init_train_state(build_model(cfg), hyper=hyper,
+                                      seed=0, device="cuda")
+
     t0 = time.monotonic()
-    state = steps.init_train_state(model, hyper=hyper, seed=0,
-                                   device="cuda")
+    state = fresh()
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
     n_params = sum(t.numel() for t in _leaves(state["params"]))
-    emb = state["params"]["embed"]["table"].numel()
-    train_emit({"what": f"{arch} init", "n_layers": cfg.n_layers,
-                "n_params": n_params,
+    train_emit({"what": f"{arch} init", "family": cfg.family,
+                "n_layers": cfg.n_layers, "n_params": n_params,
                 "state_gb": torch.cuda.memory_allocated() / 1e9,
                 "init_s": init_s, "param_dtype": cfg.param_dtype,
                 "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
                 "moa": cfg.moa, "batch": run["batch"], "seq": run["seq"]})
-    train_kernel_vs_plain(torch, cfg, state["params"], batches[0])
+    model = build_model(cfg)
+    if cfg.family == "ssm":
+        grads, metrics = steps.loss_and_grads(model, state["params"],
+                                              batches[0])
+        bad = _not_finite(torch, grads)
+        train_emit({"what": f"{arch} gradients", "loss":
+                    float(metrics["loss"]), "leaves": len(_leaves(grads)),
+                    "grad_leaves_not_finite": bad})
+        del grads
+        if bad or not math.isfinite(float(metrics["loss"])):
+            raise AssertionError(f"train {arch}: gradients not finite in "
+                                 f"{bad}")
+    else:
+        train_kernel_vs_plain(torch, cfg, state["params"], batches[0],
+                              floor=run.get("floor", False))
     step_fn = steps.build_train_step(model, hyper=hyper)
     # determinism: the same 3 steps from the same init, twice
-    ends, losses = [], []
+    losses = []
     for i in range(2):
-        # the second init on a model of its own: a model keeps the
-        # parameters it drew registered (their storage is the state's),
-        # and they must be freed with that state before the counted run
-        st = state if i == 0 else steps.init_train_state(
-            build_model(cfg), hyper=hyper, seed=0, device="cuda")
+        if i:
+            state = fresh()
         got = []
         for s in range(3):
-            st, m = step_fn(st, batches[s])
+            state, m = step_fn(state, batches[s])
             got.append(float(m["loss"]))
-        ends.append(st)
         losses.append(got)
-    state, again = ends
-    differ = _states_equal(torch, state, again)
-    del again, ends, st
+        if not i:
+            first = tree_map(lambda t: t.detach().cpu(), state)
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+    differ = _states_equal(torch, state, first)
+    del first
     gc.collect()
-    torch.cuda.empty_cache()
     train_emit({"what": f"{arch} determinism", "steps": 3, "losses": losses,
                 "losses_equal": losses[0] == losses[1],
                 "state_leaves_differing": differ})
@@ -4021,9 +4263,8 @@ def train_full_width(torch, arch: str) -> dict:
     launches = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     tokens = run["batch"] * run["seq"]
-    # model FLOPs: 6 a multiplying parameter a token (the embedding's
-    # gather multiplies nothing; attention's score products not counted)
-    flops = 6.0 * (n_params - emb) * tokens
+    flops = train_flops(torch, cfg, state["params"], run["batch"],
+                        run["seq"])
     step_ms = statistics.median(wall)
     row = {"what": f"{arch} steps",
            "n_layers": cfg.n_layers, "batch": run["batch"], "seq": run["seq"],
@@ -4039,18 +4280,20 @@ def train_full_width(torch, arch: str) -> dict:
            "distinct_calls": len(calls),
            "unchecked_calls": sorted(calls - CHECKED),
            "peak_mem_gb": peak_gb}
-    if arch == "llama3-8b":
+    if cfg.family != "moe":
         state, prof = _profiled_step(torch, model, state,
                                      batches[start + run["steps"]], hyper)
         row["profiled_step"] = prof
     train_emit(row)
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"train {arch}: a loss is not finite: {losses}")
-    missing = [k for k in (["dot_moa", "moa_reduce"] if cfg.family == "moe"
-                           else ["dot_moa"]) if launches[k] == 0]
-    if missing:
+    want = {"moe": ["dot_moa", "moa_reduce"], "ssm": []}.get(cfg.family,
+                                                             ["dot_moa"])
+    missing = [k for k in want if launches[k] == 0]
+    extra = [k for k, n in launches.items() if n and k not in want]
+    if missing or extra:
         raise AssertionError(f"train {arch}: the counted run launched no "
-                             f"{missing}")
+                             f"{missing}, or launched {extra}")
     if row["unchecked_calls"]:
         raise AssertionError(f"train {arch}: the counted run launched "
                              f"kernels at {row['unchecked_calls']}, which no "
@@ -4122,6 +4365,329 @@ def train_phase(torch) -> dict:
                 "seconds": time.monotonic() - t0})
     if not losses[0] - losses[-1] > LEARN_DROP:
         raise AssertionError(f"train learn: {losses}")
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the encoder and VLM families, and the SSM / hybrid gradients
+# ---------------------------------------------------------------------------
+
+#: the served runs' bf16 logits, kernel route against plain route: the
+#: relative (Frobenius) difference of a call's logits. Each of a layer's
+#: seven products rounds once to bf16 on both routes after f32 sums in
+#: other orders, so each product's output differs by up to 1 bf16 ulp
+#: (2**-8 relative); the residual stream sums the layers' outputs, so the
+#: hidden state drifts like a random walk of those roundings, sqrt(48 or 60
+#: layers x 7) x 2**-8 / sqrt(7) ~ 3e-2 relative to a layer's output at
+#: most, and the logits (a product of it) by as much
+FAMILY_LOGIT_REL_TOL = 5e-2
+
+
+def _rel(torch, got, want) -> float:
+    return float(torch.linalg.vector_norm((got - want).double())
+                 / torch.linalg.vector_norm(want.double()))
+
+
+def _argmax_near_ties(torch, got, want) -> dict:
+    """Rows of two logit tensors ``(..., V)`` whose argmax differs, and
+    those whose plain-route (``want``) top-2 gap exceeds twice the row's
+    largest difference: two vectors that differ by at most ``d`` anywhere
+    can rank their top two apart only where those lie within ``2 d``."""
+    g, w = got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1])
+    differ = (g.argmax(-1) != w.argmax(-1)).nonzero().flatten().tolist()
+    top = torch.topk(w, 2, dim=-1).values
+    gap = (top[:, 0] - top[:, 1])
+    bound = 2 * (g - w).abs().amax(-1)
+    past = [i for i in differ if float(gap[i]) > float(bound[i])]
+    return {"rows": g.shape[0], "argmax_agree": 1 - len(differ) / g.shape[0],
+            "argmax_differ": len(differ), "past_near_tie": past[:5]}
+
+
+def hubert_encode(torch) -> dict:
+    """hubert-xlarge at full width and depth (48 layers, bf16 weights from
+    the port's initializer, seed 0) encodes 4 x 1000 frames (0.02 x normal
+    frame embeddings, 35 % masked, seed 0) through ``Model.prefill``: the
+    counted run on the kernel route (``dot_moa`` for every projection, the
+    flash kernel bidirectional at head_dim 80), then the same call on the
+    plain route. The logits must be finite and of shape (4, 1000, 504),
+    within ``FAMILY_LOGIT_REL_TOL`` of the plain route's, and every frame
+    whose argmax differs must sit at a near-tie; every launch at a call
+    key a kernels row checked; the plain route launches nothing. Returns
+    the counted run's launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+
+    cfg = dataclasses.replace(get_config("hubert-xlarge"),
+                              param_dtype="bfloat16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, plain = build_model(cfg), build_model(_plain_cfg(cfg))
+    t0 = time.monotonic()
+    params = model.init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    B, T = HUBERT_ENCODE["batch"], HUBERT_ENCODE["frames"]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"frames": 0.02 * torch.randn((B, T, cfg.d_model), device="cuda",
+                                          generator=g),
+             "mask": torch.rand((B, T), device="cuda", generator=g) < 0.35}
+
+    def encode(m):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = m.prefill(params, batch, max_len=T)
+        torch.cuda.synchronize()
+        return logits, cache, (time.perf_counter() - t0) * 1e3
+
+    with torch.no_grad():
+        encode(model)                     # plans and workspaces
+        ops.reset_launch_counts()
+        with recorded_calls(ops, ["dot_moa", "flash_attention"]) as calls:
+            got, cache, ms = encode(model)
+        launches = ops.launch_counts()
+        ops.reset_launch_counts()
+        want, _, plain_ms = encode(plain)
+        plain_launches = ops.launch_counts()
+    flops = 2.0 * sum(t.numel() for t in _leaves(params["layers"])) * B * T \
+        + 2.0 * params["embed"]["unembed"].numel() * B * T
+    row = {"phase": "families", "what": "hubert-xlarge encode",
+           "n_layers": cfg.n_layers, "n_params": model.param_count(),
+           "init_s": init_s, "batch": B, "frames": T,
+           "shape": list(got.shape), "pos": int(cache["pos"]),
+           "encode_ms": ms, "plain_ms": plain_ms,
+           "model_tflop": flops / 1e12,
+           "model_tflop_per_s": flops / ms / 1e9,
+           "max_logit_diff": float((got - want).abs().max()),
+           "max_abs_logit": float(want.abs().max()),
+           "logit_rel_err": _rel(torch, got, want),
+           "logit_rel_tol": FAMILY_LOGIT_REL_TOL,
+           **_argmax_near_ties(torch, got, want),
+           "launches": launches, "plain_launches": plain_launches,
+           "unchecked_calls": sorted(calls - CHECKED),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(nvidia_smi(), flush=True)
+    emit(row)
+    ok = (list(got.shape) == [B, T, cfg.vocab] and row["pos"] == T
+          and bool(torch.isfinite(got).all())
+          and row["logit_rel_err"] <= FAMILY_LOGIT_REL_TOL
+          and not row["past_near_tie"] and not row["unchecked_calls"]
+          and launches["dot_moa"] and launches["flash_attention"]
+          and not any(plain_launches.values()))
+    if not ok:
+        raise AssertionError(f"hubert encode: {row}")
+    del params, model, plain, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _llava_batch(torch, cfg, seed: int) -> dict:
+    """``LLAVA_SERVE``'s prompts: 0.02 x normal patch embeddings and
+    uniform text tokens, drawn on the card from ``seed``."""
+    B, P, S = (LLAVA_SERVE[k] for k in ("batch", "patches", "text"))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return {"patches": 0.02 * torch.randn((B, P, cfg.d_model), device="cuda",
+                                          generator=g),
+            "tokens": torch.randint(0, cfg.vocab, (B, S), device="cuda",
+                                    generator=g, dtype=torch.int32)}
+
+
+def vlm_generate(torch, model, params, batch, steps: int, forced=None):
+    """``Model.prefill`` of ``batch`` (patches ahead of the text) into a
+    dense-slot cache of whole 16-token pages, then ``steps`` greedy
+    ``decode_step`` calls (``forced (B, steps)``: feed those tokens
+    instead). Returns the greedy tokens ``(B, steps + 1)``, the next-token
+    logits of every call ``(B, steps + 1, V)`` in f32, and the host ms of
+    the prefill and of each decode step (each ending in a
+    synchronisation)."""
+    B, S = batch["tokens"].shape
+    n = batch["patches"].shape[1] + S
+    max_len = -(-(n + steps) // 16) * 16
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, batch, max_len=max_len)
+    torch.cuda.synchronize()
+    times = [(time.perf_counter() - t0) * 1e3]
+    if int(cache["pos"]) != n:
+        raise AssertionError(f"vlm prefill: cursor {cache['pos']} != {n}")
+    cache["pos"] = torch.tensor(n, dtype=torch.int32, device="cuda")
+    out = [logits[:, -1].float()]
+    for s in range(steps):
+        nxt = out[-1].argmax(-1) if forced is None else forced[:, s]
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(params, cache,
+                                          nxt[:, None].to(torch.int32))
+        out.append(logits[:, -1].float())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    logits = torch.stack(out, 1)
+    return logits.argmax(-1), logits, times
+
+
+def _first_divergence(torch, got_toks, want_toks, got, want) -> list:
+    """Per row, the first step whose greedy token differs between two
+    runs, with the plain run's top-2 gap there and both runs' largest
+    logit difference at that step (both read the same tokens up to it)."""
+    out = []
+    for b in range(want_toks.shape[0]):
+        differ = (got_toks[b] != want_toks[b]).nonzero().flatten()
+        if len(differ):
+            i = int(differ[0])
+            top = torch.topk(want[b, i], 2).values
+            out.append({"row": b, "step": i, "gap": float(top[0] - top[1]),
+                        "logit_diff": float((got[b, i] - want[b, i])
+                                            .abs().max())})
+    return out
+
+
+def llava_parity(torch) -> None:
+    """llava-next-34b at full width and 2 layers, f32 compute and weights:
+    ``vlm_generate`` on the kernel route against the plain route. Greedy
+    tokens must agree but at a near-tie (``LOGIT_TOL``, the f32 pool's
+    bound); then the kernel route fed the plain route's tokens (teacher
+    forcing), every call's logits within ``LOGIT_TOL``."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import build_model
+
+    cfg = dataclasses.replace(get_config("llava-next-34b"), n_layers=2,
+                              compute_dtype="float32")
+    model, plain = build_model(cfg), build_model(_plain_cfg(cfg))
+    params = model.init(seed=0, device="cuda")
+    batch = _llava_batch(torch, cfg, 1)
+    steps = LLAVA_SERVE["decode"]
+    with torch.no_grad():
+        want_toks, want, _ = vlm_generate(torch, plain, params, batch, steps)
+        got_toks, got, _ = vlm_generate(torch, model, params, batch, steps)
+        _, forced, _ = vlm_generate(torch, model, params, batch, steps,
+                                    forced=want_toks)
+    div = _first_divergence(torch, got_toks, want_toks, got, want)
+    worst = float((forced - want).abs().max())
+    row = {"phase": "parity", "what": "llava", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "compute_dtype": cfg.compute_dtype,
+           "prompts": want_toks.shape[0], "steps": steps,
+           "identical": not div, "divergences": div, "gap_tol": LOGIT_TOL,
+           "max_logit_diff": worst, "logit_tol": LOGIT_TOL,
+           "max_abs_logit": float(want.abs().max())}
+    emit(row)
+    if worst > LOGIT_TOL or any(d["gap"] > LOGIT_TOL for d in div):
+        raise AssertionError(f"llava parity: {row}")
+    del params, model, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def llava_serve(torch) -> dict:
+    """llava-next-34b at full width and depth (60 layers, 34.4 B
+    parameters, bf16 weights from the port's initializer, seed 0): 2
+    prompts of 2304 patches and 64 text tokens prefilled and decoded for
+    16 greedy steps through ``Model.prefill`` / ``decode_step`` (the
+    engine serves no VLM). The counted run on the kernel route, then the
+    same run again (its times; every token and logit must equal the
+    counted run's bit for bit), then the plain route: every call's logits
+    up to a row's first divergence within ``FAMILY_LOGIT_REL_TOL`` of the
+    plain route's, and a divergence only at a near-tie (a top-2 gap within
+    twice the logits' difference there). Every launch at a call key a
+    kernels row checked. A ``families`` line with the init, prefill and
+    decode times, the decode tick's weight floor and the peak memory.
+    Returns the counted run's launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+
+    cfg = dataclasses.replace(get_config("llava-next-34b"),
+                              param_dtype="bfloat16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, plain = build_model(cfg), build_model(_plain_cfg(cfg))
+    t0 = time.monotonic()
+    params = model.init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    batch = _llava_batch(torch, cfg, 0)
+    steps = LLAVA_SERVE["decode"]
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        with recorded_calls(ops, ["dot_moa", "flash_attention",
+                                  "paged_attention"]) as calls:
+            toks, logits, _ = vlm_generate(torch, model, params, batch, steps)
+        launches = ops.launch_counts()
+        again_toks, again, times = vlm_generate(torch, model, params, batch,
+                                                steps)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        ops.reset_launch_counts()
+        want_toks, want, plain_times = vlm_generate(torch, plain, params,
+                                                    batch, steps)
+        plain_launches = ops.launch_counts()
+    div = _first_divergence(torch, toks, want_toks, logits, want)
+    # each call's logits while both runs have read the same tokens
+    same = [min([d["step"] for d in div if d["row"] == b] + [steps])
+            for b in range(toks.shape[0])]
+    rel = max(_rel(torch, logits[b, :n + 1], want[b, :n + 1])
+              for b, n in enumerate(same))
+    emb = params["embed"]
+    layer_bytes = sum(t.numel() * t.element_size()
+                      for t in _leaves(params["layers"]))
+    floor_bytes = layer_bytes + emb["unembed"].numel() * 2
+    tokens = batch["patches"].shape[1] + batch["tokens"].shape[1]
+    prefill_flops = 2.0 * sum(t.numel() for t in _leaves(params["layers"])) \
+        * toks.shape[0] * tokens
+    row = {"phase": "families", "what": "llava-next-34b serve",
+           "n_layers": cfg.n_layers, "n_params": model.param_count(),
+           "init_s": init_s, "weights_gb": weights_gb,
+           "prompts": toks.shape[0], "patches": LLAVA_SERVE["patches"],
+           "text": LLAVA_SERVE["text"], "decode_steps": steps,
+           "prefill_ms": times[0], "plain_prefill_ms": plain_times[0],
+           "prefill_tflop": prefill_flops / 1e12,
+           "prefill_tflop_per_s": prefill_flops / times[0] / 1e9,
+           "decode_ms": times[1:],
+           "decode_ms_median": statistics.median(times[1:]),
+           "plain_decode_ms_median": statistics.median(plain_times[1:]),
+           "decode_weight_bytes": floor_bytes,
+           "decode_weight_floor_ms": floor_bytes / HBM_BPS * 1e3,
+           "rerun_equal": bool(torch.equal(again, logits)
+                               and torch.equal(again_toks, toks)),
+           "tokens": toks.tolist(), "identical": not div,
+           "divergences": div, "logit_rel_err": rel,
+           "logit_rel_tol": FAMILY_LOGIT_REL_TOL,
+           "max_abs_logit": float(want.abs().max()),
+           "launches": launches, "plain_launches": plain_launches,
+           "unchecked_calls": sorted(calls - CHECKED),
+           "peak_mem_gb": peak_gb}
+    print(nvidia_smi(), flush=True)
+    emit(row)
+    ok = (bool(torch.isfinite(logits).all()) and row["rerun_equal"]
+          and rel <= FAMILY_LOGIT_REL_TOL
+          and all(d["gap"] <= 2 * d["logit_diff"] for d in div)
+          and not row["unchecked_calls"]
+          and all(launches[k] for k in ("dot_moa", "flash_attention",
+                                        "paged_attention"))
+          and not any(plain_launches.values()))
+    if not ok:
+        raise AssertionError(f"llava serve: {row}")
+    del params, model, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def families_phase(torch) -> dict:
+    """The encoder and VLM families and the SSM and hybrid gradients, every
+    earlier model freed: hubert-xlarge's encode (:func:`hubert_encode`)
+    and training; llava-next-34b's parity at 2 layers
+    (:func:`llava_parity`), its full-depth serve (:func:`llava_serve`) and
+    training at 2 layers; zamba2-1.2b's and mamba2-370m's training at full
+    depth (:func:`train_full_width`). Returns the counted runs' launches
+    by run."""
+    runs = {"encode/hubert-xlarge": hubert_encode(torch),
+            "train/hubert-xlarge": train_full_width(torch, "hubert-xlarge")}
+    llava_parity(torch)
+    runs["vlm/llava-next-34b"] = llava_serve(torch)
+    for arch in ("llava-next-34b", "zamba2-1.2b", "mamba2-370m"):
+        runs[f"train/{arch}"] = train_full_width(torch, arch)
     return runs
 
 
@@ -4205,6 +4771,7 @@ def main() -> int:
     runs.update(moe_serve_phase(torch))
     runs.update(hybrid_phase(torch, unembed))
     runs.update(train_phase(torch))
+    runs.update(families_phase(torch))
     parity_phase(torch)
     zamba2_parity_phase(torch)
     moe_parity_phase(torch)

@@ -128,6 +128,10 @@ class ModelConfig:
     def cdtype(self) -> torch.dtype:
         return as_dtype(self.compute_dtype)
 
+    @property
+    def is_causal(self) -> bool:
+        return self.family != "encoder"
+
     def param_count(self) -> int:
         """Analytic parameter count (embedding + layers), for 6·N·D."""
         d, L = self.d_model, self.n_layers

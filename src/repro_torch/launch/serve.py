@@ -24,7 +24,9 @@ over a paged KV pool (``--paged``), driven by a synthetic Poisson workload
 Runs on the GPU unless ``--device cpu`` is given. mamba2-370m (the SSM
 family) has no K/V cache, so ``--paged`` is refused for it; the SSM and
 hybrid families take ``--prefill-chunk`` in multiples of their
-``ssd_chunk`` (256). ``--layers`` cuts the
+``ssd_chunk`` (256). An encoder (hubert-xlarge) has no decode step and
+is refused, as the reference refuses it; the engine refuses a VLM, whose
+prefill needs a patch batch. ``--layers`` cuts the
 depth (``n_layers``) and nothing else. On the GPU the engine replays CUDA
 graphs of its decode and padded full-prompt prefill (captured at warmup, or
 at the first tick of each bucket with ``--no-warmup``); ``--eager`` runs
@@ -74,6 +76,9 @@ def _build(args):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
+    if cfg.family == "encoder":
+        raise SystemExit("encoder-only arch has no decode step "
+                         "(assignment skip rule)")
     updates = {}
     if args.layers:
         updates["n_layers"] = args.layers

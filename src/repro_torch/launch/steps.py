@@ -26,11 +26,7 @@ from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
 
 __all__ = ["TrainHyper", "init_train_state", "loss_and_grads",
            "apply_gradients", "build_train_step", "build_prefill_step",
-           "build_decode_step", "check_trainable", "trainable",
-           "TRAINABLE_FAMILIES"]
-
-#: the families whose gradients are held against the reference
-TRAINABLE_FAMILIES = ("dense", "moe")
+           "build_decode_step", "trainable"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,16 +40,6 @@ class TrainHyper:
     # microbatches processed in turn — divides the live activation
     # footprint by the same factor at identical math (loss/grads averaged)
     microbatches: int = 1
-
-
-def check_trainable(model: Model) -> None:
-    """Raise for a family whose training is not ported yet."""
-    family = model.cfg.family
-    if family not in TRAINABLE_FAMILIES:
-        raise NotImplementedError(
-            f"training the {family!r} family is not ported yet: ROADMAP "
-            "Queue 1, item 12 (its gradients are not yet held against the "
-            "reference's)")
 
 
 def trainable(t: torch.Tensor) -> torch.Tensor:
@@ -70,7 +56,6 @@ def init_train_state(model: Model, generator: Optional[torch.Generator]
     :func:`repro_torch.interop.from_numpy`); zero f32 moments, step 0.
     The parameter leaves require grad; drawn by ``Model.init`` they share
     storage with the model's registered (serving) tree."""
-    check_trainable(model)
     if params is None:
         params = model.init(generator, seed=seed, device=device)
     params = tree_map(trainable, params)
@@ -146,7 +131,6 @@ def build_train_step(model: Model, *, hyper: TrainHyper) -> Callable:
     """``train_step(state, batch) -> (state, metrics)``; the state is
     updated in place (module docstring). The batch's tensors must be on
     the state's device."""
-    check_trainable(model)
 
     def train_step(state: dict, batch: dict) -> Tuple[dict, dict]:
         grads, metrics = loss_and_grads(model, state["params"], batch,

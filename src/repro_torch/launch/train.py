@@ -6,8 +6,8 @@ int8 gradient compression) → synthetic data pipeline → atomic async
 checkpoints in the reference's format → failure injection → restart
 supervisor → heartbeats. Runs on the GPU unless ``--device cpu`` is
 given; there is no mesh (a mesh other than one device raises: ROADMAP
-Queue 1 item 13). The dense and MoE families train; the SSM and hybrid
-families raise (item 12).
+Queue 1 item 13). Every family trains: the encoder on ``frames``,
+``mask`` and ``targets``, the VLM on ``patches`` before its text.
 
   python -m repro_torch.launch.train --arch llama3-8b --layers 4 \
       --steps 10 --batch 8 --seq 512
@@ -15,6 +15,8 @@ families raise (item 12).
       --smoke --device cpu --steps 50 --batch 8 --seq 128
   ... --ckpt-dir DIR --fail-at 20 --fail-at 35   # two injected node losses
   ... --compress-grads                           # int8 with error feedback
+  PYTHONPATH=src python -m repro_torch.launch.train --arch hubert-xlarge \
+      --smoke --device cpu --steps 20 --batch 4 --seq 32
 """
 
 from __future__ import annotations
@@ -151,7 +153,9 @@ class TrainLoop:
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Train a registry arch with the port's trainer")
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="a registry arch of any family (dense, moe, ssm, "
+                         "hybrid, encoder, vlm)")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-runnable)")
     ap.add_argument("--layers", type=int, default=0,
@@ -161,7 +165,9 @@ def main(argv=None):
                          "runs the plain PyTorch versions of the kernels)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--seq", type=int, default=128,
+                    help="positions a sequence (a VLM's patch prefix "
+                         "included; the encoder's frames)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--save-every", type=int, default=20)
     ap.add_argument("--fail-at", type=int, action="append", default=[])

@@ -1,4 +1,5 @@
-"""Feed-forward block: SwiGLU (llama family) — ``repro/layers/mlp.py``.
+"""Feed-forward blocks: SwiGLU (llama family) and GELU (encoder family) —
+``repro/layers/mlp.py``.
 
 The d_ff contraction of ``w_down`` is the widest MOA of a dense arch; it
 routes through the model's strategy (``cfg.moa_for("mlp")``).
@@ -8,11 +9,11 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.layers.common import Params
+from repro_torch.layers.common import Params, dense_init
 from repro_torch.layers.linear import project
 from repro_torch.layers.numerics import silu_f32
 
-__all__ = ["swiglu"]
+__all__ = ["swiglu", "init_gelu_mlp", "gelu_mlp"]
 
 
 def swiglu(params: Params, x: torch.Tensor, *, strategy=None,
@@ -24,3 +25,30 @@ def swiglu(params: Params, x: torch.Tensor, *, strategy=None,
     h = silu_f32(g, out_dtype=compute_dtype) * u
     return project({"w": params["w_down"]}, h, strategy=strategy,
                    compute_dtype=compute_dtype)
+
+
+def init_gelu_mlp(generator: torch.Generator, d_model: int, d_ff: int,
+                  dtype=torch.float32, *, lead=(), device=None) -> Params:
+    """The GELU MLP's weights (stddev ``1/sqrt(fan_in)``) and zero biases,
+    each with the leading axes ``lead`` (a stack of layers: ``(L,)``)."""
+    lead = tuple(lead)
+    return {
+        "w_in": dense_init(generator, lead + (d_model, d_ff), dtype,
+                           fan_in=d_model, device=device),
+        "b_in": torch.zeros(lead + (d_ff,), dtype=dtype, device=device),
+        "w_out": dense_init(generator, lead + (d_ff, d_model), dtype,
+                            fan_in=d_ff, device=device),
+        "b_out": torch.zeros(lead + (d_model,), dtype=dtype, device=device),
+    }
+
+
+def gelu_mlp(params: Params, x: torch.Tensor, *, strategy=None,
+             compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """``gelu(x @ w_in + b_in) @ w_out + b_out``: the GELU in f32 with the
+    tanh approximation (``jax.nn.gelu``'s default)."""
+    h = project({"w": params["w_in"], "b": params["b_in"]}, x,
+                strategy=strategy, compute_dtype=compute_dtype)
+    h = torch.nn.functional.gelu(h.float(), approximate="tanh") \
+        .to(compute_dtype)
+    return project({"w": params["w_out"], "b": params["b_out"]}, h,
+                   strategy=strategy, compute_dtype=compute_dtype)

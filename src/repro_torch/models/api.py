@@ -1,6 +1,8 @@
-"""Uniform model API — the port of ``repro/models/api.py`` for the dense,
-MoE, SSM (Mamba-2) and hybrid (Zamba2) families: serving for all four,
-training (:meth:`Model.loss`) for the dense and MoE families.
+"""Uniform model API — the port of ``repro/models/api.py`` for all six
+families: dense, MoE, SSM (Mamba-2), hybrid (Zamba2), the encoder (HuBERT:
+its prefill is the bidirectional encode, and it has no decode step) and
+the VLM (LLaVA: its prefill takes the patch batch); training
+(:meth:`Model.loss`) for all six.
 
 ``build_model(cfg)`` returns a :class:`Model`, an ``nn.Module`` whose
 parameters, once :meth:`Model.init` or :meth:`Model.load_params` ran, are
@@ -28,19 +30,13 @@ from repro_torch.models import (losses, mamba2, moe_transformer,
 
 __all__ = ["CacheSpec", "Model", "build_model"]
 
-#: the module of each ported family
-_FAMILIES = {"dense": transformer, "moe": moe_transformer, "ssm": mamba2,
+#: the module of each family
+_FAMILIES = {"dense": transformer, "encoder": transformer,
+             "vlm": transformer, "moe": moe_transformer, "ssm": mamba2,
              "hybrid": zamba2}
 
 #: the families with a recurrent (per-slot, constant-size) decode state
 _RECURRENT = ("ssm", "hybrid")
-
-#: where each unported family lands (ROADMAP Queue 1)
-_UNPORTED = {
-    "encoder": "ROADMAP Queue 1, item 12 (training; the engine serves no "
-               "encoder)",
-    "vlm": "ROADMAP Queue 1, item 12 (training; the engine serves no vlm)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,8 +90,8 @@ class _ParamTree(nn.Module):
 
 
 class Model(nn.Module):
-    """A dense, MoE, SSM or hybrid decoder with the reference ``Model``'s
-    serving surface, and its ``loss`` (trained: dense and MoE)."""
+    """A model of any of the six families with the reference ``Model``'s
+    serving surface and its ``loss``."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -118,15 +114,19 @@ class Model(nn.Module):
     def load_params(self, params: Params) -> Params:
         """Register ``params`` (e.g. from :func:`repro_torch.interop.
         from_numpy`) and return the registered tree."""
-        for key in list(self._modules):
-            del self._modules[key]
+        self._modules.clear()
+        self._parameters.clear()
         for key, value in params.items():
-            self.add_module(key, _ParamTree(value))
+            if isinstance(value, Mapping):
+                self.add_module(key, _ParamTree(value))
+            else:               # a top-level leaf (the encoder's pos_embed)
+                self.register_parameter(
+                    key, nn.Parameter(value, requires_grad=False))
         return self.params()
 
     def params(self) -> Params:
         """The registered parameters as the reference's nested dict."""
-        return {k: m.tree() for k, m in self._modules.items()}
+        return _ParamTree.tree(self)
 
     def abstract_params(self) -> Params:
         """The parameter tree's shapes and dtypes as ``meta`` tensors (the
@@ -140,24 +140,33 @@ class Model(nn.Module):
     # ---- forward ----------------------------------------------------------
     def forward_with_aux(self, params: Params, batch: dict):
         """``(logits, aux)``: the MoE router's load-balance loss beside the
-        logits (``None`` for the dense family)."""
+        logits (``None`` for the other families)."""
         out = self._mod.forward(params, batch, self.cfg)
         return out if isinstance(out, tuple) else (out, None)
 
     def forward(self, params: Params, batch: dict):
-        """Causal forward → logits ``(B, S, V)``."""
+        """The training forward → logits ``(B, S, V)`` (the VLM's text
+        positions only)."""
         return self.forward_with_aux(params, batch)[0]
 
     # ---- training ---------------------------------------------------------
     def loss(self, params: Params, batch: dict):
-        """``(loss, metrics)`` of ``batch`` (``tokens``, ``labels``, an
-        optional ``loss_mask``): mean cross-entropy, plus ``0.01 * aux``
-        for the MoE (``metrics["aux_loss"]``); ``metrics`` also has
-        ``tokens`` and ``accuracy``, each a 0-d f32 tensor."""
+        """``(loss, metrics)`` of ``batch``: mean cross-entropy of
+        ``tokens`` (a VLM's also ``patches``) against ``labels`` over an
+        optional ``loss_mask``, plus ``0.01 * aux`` for the MoE
+        (``metrics["aux_loss"]``); the encoder's masked-prediction loss of
+        ``frames`` against ``targets`` at the frames ``mask`` marks.
+        ``metrics`` also has ``tokens`` and ``accuracy``, each a 0-d f32
+        tensor."""
         logits, aux = self.forward_with_aux(params, batch)
-        loss, metrics = losses.softmax_cross_entropy(
-            logits, batch["labels"], mask=batch.get("loss_mask"),
-            impl=self.cfg.loss_impl)
+        if self.cfg.family == "encoder":
+            loss, metrics = losses.masked_lm_loss(
+                logits, batch["targets"], batch["mask"],
+                impl=self.cfg.loss_impl)
+        else:
+            loss, metrics = losses.softmax_cross_entropy(
+                logits, batch["labels"], mask=batch.get("loss_mask"),
+                impl=self.cfg.loss_impl)
         if aux is not None:
             loss = loss + 0.01 * aux
             metrics = dict(metrics, aux_loss=aux)
@@ -170,7 +179,9 @@ class Model(nn.Module):
         masked; an MoE's pad tokens compete for expert capacity, so it is
         exact only in the dropless regime (``capacity_factor >= n_experts
         / top_k``); a recurrent state would absorb the pad tokens, so the
-        SSM and hybrid families prefill at the exact length."""
+        SSM and hybrid families prefill at the exact length; a VLM's
+        ``prompt_len`` would count text while its sequence carries the
+        patch prefix; the encoder has no prefill cache."""
         cfg = self.cfg
         if cfg.family == "moe":
             return cfg.capacity_factor >= cfg.n_experts / max(cfg.top_k, 1)
@@ -192,8 +203,12 @@ class Model(nn.Module):
         """Bytes a token of K/V takes across all stacks, and a slot's
         constant recurrent state (the reference's, from ``init_cache``'s
         shapes: the hybrid's K/V in the compute type, the conv history in
-        bf16 and ``h`` in f32)."""
+        bf16 and ``h`` in f32); all zeros for the encoder."""
         cfg = self.cfg
+        if cfg.family == "encoder":
+            return CacheSpec(family=cfg.family, n_kv_stacks=0, n_kv_heads=0,
+                             head_dim=0, kv_bytes_per_token=0,
+                             slot_state_bytes=0)
         slot_state = 0
         if cfg.family in _RECURRENT:
             conv_dim = cfg.d_inner + 2 * cfg.n_groups * cfg.d_state
@@ -248,19 +263,26 @@ class Model(nn.Module):
 
     def prefill(self, params: Params, batch: dict, *, max_len: int,
                 prompt_len: Union[int, torch.Tensor, None] = None):
-        """``prompt_len``: a Python int, or a 0-d int32 tensor on the
+        """``(logits (B, 1, V) at the last real position, cache)``; a VLM's
+        ``batch`` also holds ``patches``, prefilled ahead of the text (the
+        cursor is then ``P + S_text``). The encoder's "prefill" is the
+        bidirectional encode: ``(logits (B, T, V), {"pos": T})``, no KV
+        cache. ``prompt_len``: a Python int, or a 0-d int32 tensor on the
         tokens' device (the last real row is then picked on the device, as
-        a CUDA graph of the prefill needs). Only where
-        :attr:`supports_padded_prefill`: the SSM and hybrid families take
-        exact-length prompts and raise on a ``prompt_len``."""
-        if self.cfg.family in _RECURRENT:
-            if prompt_len is not None:
-                raise ValueError(
-                    f"family {self.cfg.family!r} cannot prefill padded "
-                    "prompts: recurrent state would absorb the pad tokens")
-            return self._mod.prefill(params, batch, self.cfg,
-                                     max_len=max_len)
-        return self._mod.prefill(params, batch, self.cfg, max_len=max_len,
+        a CUDA graph of the prefill needs); only where
+        :attr:`supports_padded_prefill`, else it raises."""
+        cfg = self.cfg
+        if cfg.family == "encoder":
+            logits = transformer.encode(params, batch, cfg)
+            return logits, {"pos": torch.tensor(
+                logits.shape[1], dtype=torch.int32, device=logits.device)}
+        if prompt_len is None:
+            return self._mod.prefill(params, batch, cfg, max_len=max_len)
+        if not self.supports_padded_prefill:
+            raise ValueError(
+                f"family {cfg.family!r} cannot prefill padded prompts: "
+                "recurrent state would absorb the pad tokens")
+        return self._mod.prefill(params, batch, cfg, max_len=max_len,
                                  prompt_len=prompt_len)
 
     def prefill_suffix(self, params: Params, batch: dict, *, prefix,
@@ -270,8 +292,8 @@ class Model(nn.Module):
         capacity couples the suffix to the prefix it no longer sees). The
         recurrent families have no position-addressed prefix to resume
         from and chunk through :meth:`prefill_chunk` instead."""
-        if self.cfg.family in _RECURRENT or (
-                self.cfg.family == "moe" and not self.supports_padded_prefill):
+        if not (self.cfg.family == "dense" or (
+                self.cfg.family == "moe" and self.supports_padded_prefill)):
             raise ValueError(
                 f"family {self.cfg.family!r} cannot skip prefix prefill "
                 "compute (expert-capacity or recurrent-state coupling)")
@@ -279,7 +301,8 @@ class Model(nn.Module):
                                         prefix=prefix, prompt_len=prompt_len)
 
     def decode_step(self, params: Params, cache, tokens):
-        """One decode step against the dense-slot cache, in place."""
+        """One decode step against the dense-slot cache, in place
+        (``tokens (B, 1)``; a VLM continues at ``pos = P + S_text``)."""
         return self._mod.decode_step(params, cache, tokens, self.cfg)
 
     def paged_decode_step(self, params: Params, cache, tokens, *,
@@ -294,7 +317,8 @@ class Model(nn.Module):
         decode ticks, equal to the one-shot prefill: the attention families
         chunk through :meth:`prefill_suffix` (dense always, an MoE only
         dropless), the SSM and hybrid families through
-        :meth:`prefill_chunk` (carried recurrent state)."""
+        :meth:`prefill_chunk` (carried recurrent state). The encoder has no
+        decode; the VLM is not served."""
         if self.cfg.family == "moe":
             return self.supports_padded_prefill
         return self.cfg.family in ("dense",) + _RECURRENT
@@ -331,7 +355,8 @@ class Model(nn.Module):
         """Whether a T-token verify is exact: the dense family always, an
         MoE only in the dropless regime (below it, expert capacity couples
         the draft window's tokens), the SSM and hybrid families by
-        construction (T scanned decode steps with state snapshots)."""
+        construction (T scanned decode steps with state snapshots). The
+        encoder has no decode; the VLM is not served."""
         if self.cfg.family == "moe":
             return self.supports_padded_prefill
         return self.cfg.family in ("dense",) + _RECURRENT
@@ -369,9 +394,5 @@ class Model(nn.Module):
 
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.family not in _FAMILIES:
-        where = _UNPORTED.get(cfg.family)
-        if where is None:
-            raise ValueError(f"unknown family {cfg.family!r}")
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: {where}")
+        raise ValueError(f"unknown family {cfg.family!r}")
     return Model(cfg)

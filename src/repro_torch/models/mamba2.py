@@ -24,10 +24,10 @@ from repro_torch.layers.ssd import (conv_tail, init_mamba2_block,
                                     init_ssm_state, mamba2_decode,
                                     mamba2_forward)
 from repro_torch.models import verify_common
-from repro_torch.models.transformer import layer
+from repro_torch.models.transformer import layer, layers, remat
 
-__all__ = ["init_params", "init_layers", "layer_forward", "layer_decode",
-           "forward", "init_cache", "prefill", "prefill_chunk",
+__all__ = ["init_params", "init_layers", "layer_forward", "block",
+           "layer_decode", "forward", "init_cache", "prefill", "prefill_chunk",
            "decode_step", "verify_step", "commit_verified"]
 
 
@@ -96,6 +96,13 @@ def layer_forward(cfg: ModelConfig, lyr: Params, h, initial_state=None):
     return h + y, h_last, tail
 
 
+def block(cfg: ModelConfig, lyr: Params, h):
+    """One layer of the training forward: ``h + mamba2(rms(h))``."""
+    y, _ = mamba2_forward(lyr["mixer"], rms_norm(lyr["norm"], h),
+                          ssd_chunk=cfg.ssd_chunk, **_ssm_kw(cfg))
+    return h + y
+
+
 def layer_decode(cfg: ModelConfig, lyr: Params, h, state: Params):
     """One layer's decode step, its state updated in place."""
     return h + mamba2_decode(lyr["mixer"], rms_norm(lyr["norm"], h), state,
@@ -103,10 +110,12 @@ def layer_decode(cfg: ModelConfig, lyr: Params, h, state: Params):
 
 
 def forward(params: Params, batch: dict, cfg: ModelConfig):
-    """Full forward → logits ``(B, S, V)`` in f32."""
+    """Full forward → logits ``(B, S, V)`` in f32; differentiable (the
+    training forward: each layer under ``cfg.remat``, as the reference's
+    scan is)."""
     h = embed(params["embed"], batch["tokens"], compute_dtype=cfg.cdtype)
-    for i in range(cfg.n_layers):
-        h = layer_forward(cfg, layer(params["layers"], i), h)[0]
+    for lyr in layers(params["layers"], cfg.n_layers):
+        h = remat(cfg, block, cfg, lyr, h)
     h = rms_norm(params["final_norm"], h)
     return unembed(params["embed"], h, compute_dtype=cfg.cdtype)
 

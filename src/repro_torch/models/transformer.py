@@ -1,5 +1,9 @@
-"""Dense GQA transformer LM — the port of ``repro/models/transformer.py``
-(``family="dense"``): the training forward and the serving functions.
+"""Dense GQA transformer LM — the port of ``repro/models/transformer.py``:
+the dense family, the encoder (hubert-xlarge: bidirectional, no RoPE, a
+GELU MLP with biases, learned absolute positions and a mask embedding over
+precomputed frame embeddings) and the VLM backbone (llava-next-34b: a
+``mm_projector`` maps precomputed patch embeddings into a prefix of the
+token sequence); the training forward and the serving functions.
 
 Structure per layer (pre-norm): ``h += attn(rms(h)); h += mlp(rms(h))``.
 Layer parameters are stacked on a leading ``L`` axis exactly as the
@@ -43,11 +47,12 @@ from repro_torch.interop import tree_map
 from repro_torch.layers import attention as attn_lib
 from repro_torch.layers.common import Params, dense_init, rms_norm
 from repro_torch.layers.embedding import embed, init_embedding, unembed
-from repro_torch.layers.mlp import swiglu
+from repro_torch.layers.mlp import gelu_mlp, init_gelu_mlp, swiglu
 from repro_torch.layers.rope import apply_rope
 
 __all__ = [
     "init_params", "layer", "layers", "remat", "embed_inputs", "forward",
+    "encode",
     "init_cache", "init_paged_cache", "prefill", "prefill_suffix",
     "decode_step", "paged_decode_step", "verify_impl", "verify_step", "paged_verify_step",
     "commit_verified",
@@ -71,7 +76,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device, *,
     ``cfg.param_dtype``. The draws differ from ``jax.random``'s; parity
     tests move the reference's parameters across with :mod:`interop`.
     ``mlp()`` draws the layers' MLP entry after the embedding: by default
-    ``{"mlp": ...}``, the SwiGLU's; the MoE family passes its experts'."""
+    ``{"mlp": ...}``, the SwiGLU's (the encoder's GELU MLP); the MoE family
+    passes its experts'. The encoder adds ``pos_embed`` ``(min(max_position,
+    32768), d)`` and ``mask_embed`` ``(d,)``, the VLM ``mm_projector.w``
+    ``(d, d)``, each 0.02 × a normal draw."""
     dt, L, d = cfg.pdtype, cfg.n_layers, cfg.d_model
     hd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
 
@@ -88,17 +96,31 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device, *,
             attn[name] = torch.zeros((L, width), dtype=dt, device=device)
     embed = init_embedding(generator, cfg.vocab, d, tie=cfg.tie_embeddings,
                            dtype=dt, device=device)
-    if mlp is None:
+    if mlp is not None:
+        mlp_entry = mlp()
+    elif cfg.family == "encoder":
+        mlp_entry = {"mlp": init_gelu_mlp(generator, d, cfg.d_ff, dt,
+                                          lead=(L,), device=device)}
+    else:
         mlp_entry = {"mlp": {"w_gate": w(d, cfg.d_ff), "w_up": w(d, cfg.d_ff),
                              "w_down": w(cfg.d_ff, d)}}
-    else:
-        mlp_entry = mlp()
-    return {
+    params = {
         "embed": embed,
         "layers": {"attn_norm": {"scale": ones(L, d)}, "attn": attn,
                    "mlp_norm": {"scale": ones(L, d)}, **mlp_entry},
         "final_norm": {"scale": ones(d)},
     }
+
+    def normal(*shape):
+        return (0.02 * torch.randn(shape, generator=generator, device=device)
+                ).to(dt)
+
+    if cfg.family == "encoder":
+        params["pos_embed"] = normal(min(cfg.max_position, 32768), d)
+        params["mask_embed"] = normal(d)
+    if cfg.family == "vlm":
+        params["mm_projector"] = {"w": normal(d, d)}
+    return params
 
 
 def layer(stacked: Params, i: int) -> Params:
@@ -112,43 +134,48 @@ def layer(stacked: Params, i: int) -> Params:
 
 
 def _attention(cfg: ModelConfig, q, k, v):
-    """Causal softmax·V over a whole prompt (``cfg.attn_impl``) for the
-    serving functions: the flash kernel on the ``kernel`` backend."""
+    """Softmax·V over a whole prompt (``cfg.attn_impl``; causal but for
+    the encoder) for the serving functions and the encoder's encode: the
+    flash kernel on the ``kernel`` backend."""
     if cfg.attn_impl == "full":
-        return attn_lib.full_attention(q, k, v, causal=True)
-    return attn_lib.prefill_attention(q, k, v, causal=True,
+        return attn_lib.full_attention(q, k, v, causal=cfg.is_causal)
+    return attn_lib.prefill_attention(q, k, v, causal=cfg.is_causal,
                                       q_chunk=cfg.q_chunk,
                                       kv_chunk=cfg.kv_chunk,
                                       backend=cfg.attn_backend)
 
 
 def _train_attention(cfg: ModelConfig, q, k, v):
-    """The causal forward's softmax·V (``cfg.attn_impl``), as the
-    reference's ``attention_forward``: the plain chunked twin or the
-    one-shot scores, never a kernel (the kernel has no backward)."""
+    """The training forward's softmax·V (``cfg.attn_impl``; causal but for
+    the encoder), as the reference's ``attention_forward``: the plain
+    chunked twin or the one-shot scores, never a kernel (the kernel has no
+    backward)."""
     if cfg.attn_impl == "full":
-        return attn_lib.full_attention(q, k, v, causal=True)
-    return attn_lib.flash_attention(q, k, v, causal=True,
+        return attn_lib.full_attention(q, k, v, causal=cfg.is_causal)
+    return attn_lib.flash_attention(q, k, v, causal=cfg.is_causal,
                                     q_chunk=cfg.q_chunk,
                                     kv_chunk=cfg.kv_chunk)
 
 
 def _mlp(cfg: ModelConfig, lyr: Params, h):
-    """``h + swiglu(rms(h))``."""
+    """``h + swiglu(rms(h))`` (the encoder: ``gelu_mlp``)."""
     hn = rms_norm(lyr["mlp_norm"], h)
-    return h + swiglu(lyr["mlp"], hn, strategy=cfg.moa_for("mlp"),
-                      compute_dtype=cfg.cdtype)
+    fn = gelu_mlp if cfg.family == "encoder" else swiglu
+    return h + fn(lyr["mlp"], hn, strategy=cfg.moa_for("mlp"),
+                  compute_dtype=cfg.cdtype)
 
 
 def _layer_qkv(cfg: ModelConfig, lyr: Params, h, positions):
-    """RMSNorm, the q/k/v projections and RoPE of one layer."""
+    """RMSNorm, the q/k/v projections and RoPE (none for the encoder) of
+    one layer."""
     hn = rms_norm(lyr["attn_norm"], h)
     q, k, v = attn_lib._project_qkv(
         lyr["attn"], hn, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.head_dim, compute_dtype=cfg.cdtype,
         strategy=cfg.moa_for("attention"))
-    q = apply_rope(q, positions, theta=cfg.rope_theta)
-    k = apply_rope(k, positions, theta=cfg.rope_theta)
+    if cfg.family != "encoder":
+        q = apply_rope(q, positions, theta=cfg.rope_theta)
+        k = apply_rope(k, positions, theta=cfg.rope_theta)
     return q, k, v
 
 
@@ -162,10 +189,30 @@ def _attn_out(cfg: ModelConfig, lyr: Params, h, o):
 
 
 def embed_inputs(params: Params, batch: dict, cfg: ModelConfig):
-    """Token embedding → ``(h, positions, text_offset)`` (dense: no
-    modality prefix, so the offset is 0)."""
+    """Token (+ modality prefix) embedding → ``(h, positions,
+    text_offset)``.
+
+    The encoder takes ``frames (B, T, d)`` (the stubbed frontend's frame
+    embeddings), replaces the frames ``mask`` marks by ``mask_embed`` and
+    adds ``pos_embed[:T]``; the VLM prepends ``patches (B, P, d) @
+    mm_projector.w`` (a plain product: the reference's ``@`` runs outside
+    any kernel) to the token embeddings, so the text starts at ``P``."""
+    cd = cfg.cdtype
+    if cfg.family == "encoder":
+        frames = batch["frames"].to(cd)
+        if "mask" in batch:
+            frames = torch.where(batch["mask"][..., None],
+                                 params["mask_embed"].to(cd), frames)
+        T = frames.shape[1]
+        h = frames + params["pos_embed"][:T].to(cd)[None]
+        return h, torch.arange(T, device=h.device), 0
     tokens = batch["tokens"]
-    h = embed(params["embed"], tokens, compute_dtype=cfg.cdtype)
+    h = embed(params["embed"], tokens, compute_dtype=cd)
+    if cfg.family == "vlm":
+        patches = batch["patches"].to(cd) @ params["mm_projector"]["w"].to(cd)
+        h = torch.cat([patches, h], dim=1)
+        return (h, torch.arange(h.shape[1], device=h.device),
+                patches.shape[1])
     return h, torch.arange(tokens.shape[1], device=tokens.device), 0
 
 
@@ -211,23 +258,35 @@ def remat(cfg: ModelConfig, fn, *args):
     return checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
-def _block(cfg: ModelConfig, lyr: Params, h, positions):
-    """One layer of the causal forward: ``h += attn(rms(h)); h +=
+def _block(cfg: ModelConfig, lyr: Params, h, positions,
+           attention=_train_attention):
+    """One layer of the forward: ``h += attn(rms(h)); h +=
     mlp(rms(h))``."""
     q, k, v = _layer_qkv(cfg, lyr, h, positions)
-    return _mlp(cfg, lyr, _attn_out(cfg, lyr, h,
-                                    _train_attention(cfg, q, k, v)))
+    return _mlp(cfg, lyr, _attn_out(cfg, lyr, h, attention(cfg, q, k, v)))
 
 
-def forward(params: Params, batch: dict, cfg: ModelConfig):
-    """Full causal forward → logits ``(B, S, V)`` in f32; differentiable
-    (the training forward: plain attention, :func:`_train_attention`,
-    each layer under ``cfg.remat``)."""
-    h, positions, _ = embed_inputs(params, batch, cfg)
+def forward(params: Params, batch: dict, cfg: ModelConfig, *,
+            attention=_train_attention):
+    """Full forward → logits ``(B, S_text, V)`` in f32 (the VLM's text
+    positions only); differentiable: the training forward, each layer
+    under ``cfg.remat``, attends through the plain versions
+    (:func:`_train_attention`); :func:`encode` passes the serving
+    ``attention``."""
+    h, positions, text_off = embed_inputs(params, batch, cfg)
     for lyr in layers(params["layers"], cfg.n_layers):
-        h = remat(cfg, _block, cfg, lyr, h, positions)
+        h = remat(cfg, _block, cfg, lyr, h, positions, attention)
     h = rms_norm(params["final_norm"], h)
+    if text_off:
+        h = h[:, text_off:]
     return unembed(params["embed"], h, compute_dtype=cfg.cdtype)
+
+
+def encode(params: Params, batch: dict, cfg: ModelConfig):
+    """The encoder's bidirectional encode (its "prefill": no cache, no
+    decode step) → logits ``(B, T, V)``: :func:`forward` with the serving
+    attention, the flash kernel on the ``kernel`` backend."""
+    return forward(params, batch, cfg, attention=_attention)
 
 
 # ---------------------------------------------------------------------------

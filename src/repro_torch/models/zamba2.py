@@ -40,7 +40,8 @@ from repro_torch.layers.rope import apply_rope
 from repro_torch.layers.ssd import init_ssm_state
 from repro_torch.models import mamba2 as mamba_lm
 from repro_torch.models import verify_common
-from repro_torch.models.transformer import _attention, _pad_seq, layer
+from repro_torch.models.transformer import (_pad_seq, _train_attention,
+                                            layer, layers, remat)
 
 __all__ = ["init_params", "forward", "init_cache", "init_paged_cache",
            "prefill", "prefill_chunk", "decode_step", "paged_decode_step",
@@ -144,18 +145,22 @@ def _app_norm(params: Params, a: int) -> Params:
 
 
 def forward(params: Params, batch: dict, cfg: ModelConfig):
-    """Full forward → logits ``(B, S, V)`` in f32; the shared block's
-    softmax·V per ``cfg.attn_impl``."""
+    """Full forward → logits ``(B, S, V)`` in f32; differentiable (the
+    training forward): each Mamba-2 layer under ``cfg.remat`` as the
+    reference's scans are (the shared block is not), the shared block's
+    softmax·V through the plain versions per ``cfg.attn_impl``
+    (``transformer._train_attention``)."""
     h = embed(params["embed"], batch["tokens"], compute_dtype=cfg.cdtype)
     positions = torch.arange(h.shape[1], device=h.device)
+    mamba = layers(params["layers"], cfg.n_layers)
+    norms = layers(params["app_norms"], n_applications(cfg))
     for a, idx in _schedule(cfg):
         for i in idx:
-            h = mamba_lm.layer_forward(cfg, layer(params["layers"], i), h)[0]
+            h = remat(cfg, mamba_lm.block, cfg, mamba[i], h)
         if a is None:
             continue
-        norms = _app_norm(params, a)
-        o = _attention(cfg, *_qkv(params, norms, h, positions, cfg))
-        h = _mlp(params, norms, _attn_out(params, h, o, cfg), cfg)
+        o = _train_attention(cfg, *_qkv(params, norms[a], h, positions, cfg))
+        h = _mlp(params, norms[a], _attn_out(params, h, o, cfg), cfg)
     h = rms_norm(params["final_norm"], h)
     return unembed(params["embed"], h, compute_dtype=cfg.cdtype)
 

@@ -5,9 +5,10 @@ Every registered strategy contributes its ``bench_specs()``; each spec runs
 ``strategy.dot`` on its own backend (``kernel`` specs need CUDA tensors and
 are skipped on the CPU) against a float64 (floats) or exact integer
 product, showing that the schedule does not change the math of the exact
-strategies. Not ported yet: the reference's model-level ``moa_scope`` loss
-line, which needs ``Model.loss`` (ROADMAP Queue 1, item 12); the int8
-gradient-compression line is the same analytic count.
+strategies. The model-level line retargets one built model with
+:func:`~repro_torch.moa.moa_scope` (the smoke llama3-8b's loss under
+``tree`` and under ``serial?chunk=16``, :func:`scope_losses`), and the int8
+gradient-compression line is the reference's analytic count.
 """
 
 from __future__ import annotations
@@ -16,12 +17,39 @@ import time
 
 import torch
 
-from repro_torch.configs.registry import get_config
+from repro_torch.configs.registry import get_config, smoke_config
 from repro_torch.device import resolve_device
-from repro_torch.moa import available_strategies, get_strategy_class, resolve
+from repro_torch.models.api import build_model
+from repro_torch.moa import (available_strategies, get_strategy_class,
+                             moa_scope, resolve)
 from repro_torch.paper.timing import derived, time_us
 
-__all__ = ["run"]
+__all__ = ["run", "scope_losses", "SCOPES"]
+
+#: the model-level line's two strategies
+SCOPES = ("tree", "serial?chunk=16")
+
+
+def scope_losses(model, params, batch) -> tuple:
+    """``model.loss`` of ``batch`` under each of :data:`SCOPES`, as
+    floats: one built model retargeted by the ambient scope."""
+    out = []
+    with torch.no_grad():
+        for spec in SCOPES:
+            with moa_scope(spec):
+                out.append(float(model.loss(params, batch)[0]))
+    return tuple(out)
+
+
+def _scope_line(dev) -> tuple:
+    """The smoke llama3-8b (seed 0) on 4 sequences of 64 random tokens."""
+    model = build_model(smoke_config(get_config("llama3-8b")))
+    params = model.init(seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, model.cfg.vocab, (4, 65), generator=g,
+                           device=dev, dtype=torch.int32)
+    return scope_losses(model, params, {"tokens": tokens[:, :-1],
+                                        "labels": tokens[:, 1:]})
 
 
 def run(verbose: bool = True, device="cuda"):
@@ -64,16 +92,20 @@ def run(verbose: bool = True, device="cuda"):
             if verbose:
                 print(f"{spec:>32s} {strat.resolve_backend(x):>6s} "
                       f"{us:9.1f} {err:9.2e}")
+    lt, ls = _scope_line(dev)
     # int8 gradient all-reduce wire bytes (analytic, llama3-8b, 16 devices)
     pbytes = get_config("llama3-8b").param_count() * 4
     full = 2 * (pbytes / 16) * 15 / 16
     compressed = full / 4
     if verbose:
+        print(f"# model-level loss under moa_scope: tree={lt:.4f} "
+              f"serial={ls:.4f} (delta {abs(lt - ls):.2e})")
         print(f"# int8 grad all-reduce wire bytes: {full / 1e9:.1f}GB → "
               f"{compressed / 1e9:.1f}GB per device ({full / compressed:.1f}x)")
     return {
         "us_per_call": (time.perf_counter() - t0) * 1e6,
         "derived": derived(strategy_max_err=f"{exact_max_err:.2e}",
+                           loss_delta=f"{abs(lt - ls):.2e}",
                            grad_compress=f"{full / compressed:.1f}x",
                            clock=clock),
     }

@@ -403,6 +403,12 @@ class ServeEngine:
                  device="cuda", cuda_graphs: Optional[bool] = None):
         if mesh is not None:
             raise _not_ported("mesh serving")
+        if model.cfg.family == "encoder":
+            raise ValueError("encoder-only arch has no decode step")
+        if model.cfg.family == "vlm":
+            raise ValueError("vlm serving is not supported: the engine "
+                             "feeds token-only prompts, but vlm prefill "
+                             "needs a patch batch")
         if attn_backend is not None:
             model = build_model(dataclasses.replace(
                 model.cfg, attn_backend=attn_backend))

@@ -109,12 +109,57 @@ def test_params_round_trip(param_dtype):
         np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
 
 
+def test_truncated_normal_draws_in_flat_chunks(monkeypatch):
+    """A tensor larger than ``DRAW_ELEMS`` is drawn that many elements at a
+    time along its flat index, also where one row of its leading axis
+    alone holds more: every value within 2 stddev, the chunks not repeats
+    of one another, the same seed the same tensor; a tensor within the
+    limit is one draw. ``meta`` draws nothing, at llama3-405b's MLP stack
+    (872 M elements a row)."""
+    from repro_torch.layers import common
+
+    def draw(shape, dtype=torch.bfloat16):
+        return common.truncated_normal_init(
+            torch.Generator().manual_seed(3), shape, 0.5, dtype)
+
+    whole = draw((2, 4, 5))
+    monkeypatch.setattr(common, "DRAW_ELEMS", 7)
+    got = draw((2, 4, 5))
+    assert got.shape == (2, 4, 5) and got.dtype == torch.bfloat16
+    assert torch.equal(got, draw((2, 4, 5)))
+    assert float(got.float().abs().max()) <= 1.0
+    flat = got.view(-1)
+    assert not torch.equal(flat[:7], flat[7:14])
+    assert not torch.equal(got, whole)
+    assert torch.equal(draw((7,), torch.float32),
+                       draw((40,), torch.float32)[:7])
+    monkeypatch.undo()
+    cfg = dataclasses.replace(tget("llama3-405b"), n_layers=1)
+    meta = tbuild(cfg).abstract_params()
+    assert meta["layers"]["mlp"]["w_gate"].shape == (1, 16384, 53248)
+    assert meta["layers"]["mlp"]["w_gate"].is_meta
+
+
 def test_other_families_not_ported():
+    """Every family of the registry builds; what stays refused is what the
+    reference refuses: a family no module serves, and serving an encoder
+    (no decode step) or a VLM (the engine feeds token-only prompts)."""
+    from repro_torch.serve import ServeEngine
+
     assert tbuild(tsmoke(tget("moonshot-v1-16b-a3b"))).cfg.family == "moe"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbuild(tsmoke(tget("hubert-xlarge")))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tbuild(tsmoke(tget("llava-next-34b")))
+    for arch, match in (("hubert-xlarge", "encoder-only arch"),
+                        ("llava-next-34b", "vlm serving is not supported")):
+        tm = tbuild(tsmoke(tget(arch)))
+        assert tm.cfg.family == jbuild(jsmoke(jget(arch))).cfg.family
+        with pytest.raises(ValueError, match=match):
+            ServeEngine(tm, tm.init(seed=0, device="cpu"), n_slots=1,
+                        max_len=16, device="cpu")
+    bogus = dataclasses.replace(tsmoke(tget("llama3-8b")), family="bogus")
+    with pytest.raises(ValueError, match="unknown family"):
+        tbuild(bogus)
+    with pytest.raises(ValueError, match="unknown family"):
+        jbuild(dataclasses.replace(jsmoke(jget("llama3-8b")),
+                                   family="bogus"))
 
 
 # ---------------------------------------------------------------------------

@@ -59,6 +59,39 @@ def test_ssd_chunked(S, chunk, with_h0):
     _close(th, jh)
 
 
+def test_ssd_chunked_gradients_at_steep_decay():
+    """Gradients through the chunked scan where the decays are steep (log
+    decays to ~-300 a step: an upper-triangle sum of ``_segsum`` would
+    overflow ``exp`` in f32): the masked sums are ``-inf`` before the
+    ``exp``, whose backward multiplies by ``exp(-inf) = 0``, so every
+    gradient is finite, as the reference's are, and equal to them."""
+    B, S, H, P, N, chunk = 2, 16, 3, 4, 5, 8
+    x, b, c = (_rand(s, i) for i, s in enumerate(
+        [(B, S, H, P), (B, S, H, N), (B, S, H, N)]))
+    a = -100 * np.abs(_rand((B, S, H), 3))
+    h0 = _rand((B, H, P, N), 4)
+    wy, wh = _rand((B, S, H, P), 5), _rand((B, H, P, N), 6)
+
+    def jloss(*args):
+        y, h = jssd.ssd_chunked(*args[:4], chunk=chunk, h0=args[4])
+        return jnp.sum(y * wy) + jnp.sum(h * wh)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2, 3, 4))(
+        *(jnp.asarray(t) for t in (x, a, b, c, h0)))
+    ts = [torch.from_numpy(t).requires_grad_() for t in (x, a, b, c, h0)]
+    y, h = tssd.ssd_chunked(*ts[:4], chunk=chunk, h0=ts[4])
+    (torch.sum(y * torch.from_numpy(wy))
+     + torch.sum(h * torch.from_numpy(wh))).backward()
+    assert float(np.abs(a).max()) > 88.0
+    for t, w in zip(ts, want):
+        assert np.isfinite(np.asarray(w)).all()
+        assert torch.isfinite(t.grad).all()
+        # the backward's transposed contractions sum more products than
+        # the forward, in orders of their own in each package
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w),
+                                   rtol=1e-4, atol=1e-5)
+
+
 def test_segsum_mask():
     a = _rand((3, 6), 5)
     got = tssd._segsum(torch.from_numpy(a)).numpy()

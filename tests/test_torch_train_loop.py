@@ -245,11 +245,24 @@ def test_train_cli_on_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b"])
 def test_ssm_and_hybrid_training_refused(arch):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        _loop(arch=arch)
+    """The SSM and hybrid families train, as the reference's do (their
+    gradients are held against it in ``test_torch_train_families.py``);
+    what the reference refuses stays refused: a padded prefill, whose pad
+    tokens a recurrent state would absorb, and a family no module
+    serves."""
+    loop = _loop(arch=arch, steps_=1)
+    assert loop.model.cfg.family == jbuild(jsmoke(jget(arch))).cfg.family
     model = build_model(smoke_config(get_config(arch)))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        steps.build_train_step(model, hyper=steps.TrainHyper())
+    steps.build_train_step(model, hyper=steps.TrainHyper())
+    params = model.init(seed=0, device="cpu")
+    with pytest.raises(ValueError, match="cannot prefill padded"):
+        model.prefill(params, {"tokens": torch.zeros((1, 8),
+                                                     dtype=torch.int32)},
+                      max_len=16, prompt_len=5)
+    bogus = dataclasses.replace(smoke_config(get_config(arch)),
+                                family="bogus")
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(bogus)
 
 
 def test_mesh_refused():
