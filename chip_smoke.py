@@ -73,7 +73,12 @@ a non-zero exit:
               in, f32 out) and the top-6 combine (``moa_reduce``, one
               6-row cluster), also at the train step's 1024 tokens. Then
               zamba2-1.2b's decode unembedding alone (a cuBLAS product,
-              failing below its byte bound). A last row gives the
+              failing below its byte bound). Then every call key the mesh
+              phase's runs launch at their shard shapes that no row above
+              checked (``mesh_call_keys``: TP2 and f32 TP2 llama3-8b, its
+              DP2 shapes, EP2 moonshot's 32 experts a rank, DP2 zamba2),
+              each against its plain version on random operands
+              (``check_call_keys``; error and tolerance, no times). A last row gives the
               wrapper's host time per call.
 3. serve    — llama3-8b at full width and full depth (bf16 weights from
               the port's own initializer, seed 0) served through the
@@ -226,6 +231,33 @@ a non-zero exit:
               kernel: its gradients are checked finite in place of a
               kernel comparison). Each counted run fails on a launch whose call
               key no kernels row checked.
+   mesh     — the served models on a device mesh, every earlier model
+              freed (the kernels phase checks every call key of these runs
+              at the shard shapes: ``mesh_call_keys``). First a (1, 1)
+              mesh over NCCL in this process: llama3-8b at 2 layers
+              (bf16, paged) captured in CUDA graphs, tokens and every
+              step's logits bit for bit with the single-device captured
+              engine. Then two ranks spawned on the one card over a gloo
+              group carrying CUDA tensors (NCCL refuses two ranks on one
+              card), which first report which collectives gloo carries
+              for CUDA tensors here; both meshes, (1, 2) and (2, 1), over
+              them; eager engines of the serve phase's shape (4 slots,
+              max_len 96, 16-token pages), its 8 requests every one at 0:
+              llama3-8b at full width and depth on DP2 (the single-device
+              eager tokens bit for bit), TP2 (heads, ff and vocab over
+              ``model``; tokens but at a near-tie, ``NEAR_TIE``) and TP2
+              with the oracle drafter (the same rule); llama3-8b at 2
+              layers in f32 on TP2 (tokens identical, every step's logits
+              within 1e-4 of its largest); moonshot-v1-16b-a3b at 4 layers
+              on EP2 (experts and heads over ``model``), fed the
+              single-device run's tokens and expert choices, each own
+              choice that differs at a gap under twice its token's router
+              probability difference; zamba2-1.2b at full depth on DP2
+              (its serve rules: nothing over ``model``), bit for bit.
+              ``mesh`` lines: the mesh, backend and ranks, tokens or
+              divergences, launches and peak memory by rank,
+              ``unchecked_calls``, collective calls a tick. A failed rank
+              fails the phase.
 4. parity   — the same engine at full width with 2 layers, once on the
               kernels (captured, each bucket at its first tick) and once
               on the plain PyTorch path (eager): float32 compute on the
@@ -284,7 +316,8 @@ key per counted run: ``serve/llama3-8b``, ``serve/llama3-8b-spec-paged``,
 ``serve/mamba2-dense-slot``, ``train/llama3-8b``, ``train/moonshot``,
 ``encode/hubert-xlarge``, ``vlm/llava-next-34b``, ``train/hubert-xlarge``,
 ``train/llava-next-34b``, ``train/zamba2-1.2b``, ``train/mamba2-370m``,
-``paper``; the
+``mesh/llama3-8b-tp2``, ``mesh/llama3-8b-dp2``, ``mesh/moonshot-ep2``,
+``mesh/zamba2-dp2`` (both ranks' launches), ``paper``; the
 paged row also carries the served verify row), the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a GPU, or
 without the rest of the repository beside it, the script exits non-zero
@@ -337,16 +370,17 @@ KERNELS = {
     "dot_moa": Kernel("src/repro/kernels/dot_moa.py:108", "dot_moa",
                       ("dot_moa_stream", "dot_moa_wgmma", "dot_moa_tc",
                        "dot_moa_simt", "dot_moa_fold"),
-                      ("serve", "paper", "train", "encode", "vlm")),
+                      ("serve", "paper", "train", "encode", "vlm", "mesh")),
     "flash_attention": Kernel("src/repro/kernels/flash_attention.py:86",
                               "flash_attention",
                               ("flash_wgmma", "flash_simt"),
-                              ("serve", "encode", "vlm")),
+                              ("serve", "encode", "vlm", "mesh")),
     "paged_attention": Kernel("src/repro/kernels/paged_attention.py:119",
                               "paged_attention", ("paged_split",),
-                              ("serve", "vlm")),
+                              ("serve", "vlm", "mesh")),
     "moa_reduce": Kernel("src/repro/kernels/moa_reduce.py:47", "moa_reduce",
-                         ("moa_reduce_kernel",), ("serve", "paper", "train")),
+                         ("moa_reduce_kernel",),
+                         ("serve", "paper", "train", "mesh")),
     "loa_reduce": Kernel("src/repro/kernels/loa_add.py:92", "loa_add",
                          ("loa_reduce_kernel",), ("paper",)),
     "loa_add": Kernel("src/repro/kernels/loa_add.py:48", "loa_add",
@@ -1976,8 +2010,10 @@ def serve_phase(torch, llama3, parent=None):
         return llama3_workload(cfg)
 
     served = served_kernels(cfg)
-    eager_vs_captured(torch, engine, workload, warmup=True, what="serve",
-                      served=served)
+    runs = eager_vs_captured(torch, engine, workload, warmup=True,
+                             what="serve", served=served)
+    SINGLE_DEVICE["llama3-8b"] = {r.uid: r.tokens.tolist()
+                                  for r in runs["eager"]["results"]}
     # the served workload as it arrives, timed: eager, then captured
     runs = {}
     for path, cuda_graphs in (("eager", False), ("captured", True)):
@@ -3057,6 +3093,9 @@ def zamba2_phase(torch, unembed_row: dict) -> dict:
 
         runs = eager_vs_captured(torch, engine, workload, warmup=True,
                                  what=f"serve zamba2 {layout}", served=served)
+        if paged:
+            SINGLE_DEVICE["zamba2-1.2b"] = {
+                r.uid: r.tokens.tolist() for r in runs["eager"]["results"]}
         plain = runs["captured"]["results"]
         per = runs["captured"]["report"]["graphs"]["launches_per_replay"]
         if per.get("decode") != want:
@@ -4692,6 +4731,723 @@ def families_phase(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the mesh phase: the served models on a device mesh
+# ---------------------------------------------------------------------------
+
+#: the single-device engines' eager tokens with every request at 0 (the
+#: serve phase's llama3-8b and the hybrid phase's paged zamba2-1.2b), by
+#: arch: what the mesh phase's runs are held to
+SINGLE_DEVICE = {}
+#: a mesh rank's collectives fail after this many seconds; the spawn
+#: fails if its ranks have not finished after MESH_JOIN_S
+MESH_TIMEOUT_S = 300.0
+MESH_JOIN_S = 900.0
+#: the mesh runs' engines: the serve phase's (4 slots, max_len 96, 16-token
+#: pages, its 8 requests every one at 0), eager
+MESH_ENGINE = dict(n_slots=4, max_len=96, paged=True, block_size=16)
+
+
+def mesh_workload(cfg) -> list:
+    return [dataclasses.replace(r, arrival_s=0.0)
+            for r in llama3_workload(cfg)]
+
+
+def _bucket(p: int) -> int:
+    return 1 << (p - 1).bit_length()
+
+
+def mesh_call_keys() -> list:
+    """The ``call_key`` of every kernel launch the mesh phase's counted
+    runs make, from their configurations: the shard shapes of llama3-8b at
+    TP2 (bf16; and f32 at 2 layers), its full shapes at 2 slots a rank
+    (DP2) and in the (1, 1) captured run, moonshot-v1-16b-a3b at EP2 (32
+    experts a rank, exact-length prefills) and zamba2-1.2b at 2 slots a
+    rank (its shared block; exact-length prefills)."""
+    from repro_torch.configs.registry import get_config
+
+    bf, f32 = "torch.bfloat16", "torch.float32"
+    lens = [r.prompt_len for r in mesh_workload(get_config("llama3-8b"))]
+    buckets = sorted({_bucket(p) for p in lens})
+    width = MESH_ENGINE["max_len"] // MESH_ENGINE["block_size"]
+    keys = []
+
+    def dot(dt, m, k, n, out=None, batch=()):
+        key = ("dot_moa", dt, m, k, n, min(2048, k), 0, *batch)
+        keys.append(key + ((out,) if out else ()))
+
+    def paged(dt, B, T, H, D, Hk):
+        keys.append(("paged_attention", dt, B, T, H, D, dt, 16, Hk, width,
+                     dt))
+
+    # llama3-8b TP2: q 16 heads, k/v 4, o and down row-parallel (f32 out);
+    # decode 4, verify and the oracle's teacher forcing 16, prefill buckets
+    for dt, ms in ((bf, [4, 16] + buckets), (f32, [4] + buckets)):
+        out = "float32" if dt == bf else None
+        for m in ms:
+            dot(dt, m, 4096, 2048)
+            dot(dt, m, 4096, 512)
+            dot(dt, m, 2048, 4096, out)
+            dot(dt, m, 4096, 7168)
+            dot(dt, m, 7168, 4096, out)
+        for s in buckets:
+            keys.append(("flash_attention", dt, 1, s, 16, 128, s, 4, True))
+        for T in ((1, 4) if dt == bf else (1,)):
+            paged(dt, 4, T, 16, 128, 4)
+    # llama3-8b's full shapes: DP2 (2 slots a rank), the (1, 1) captured
+    # run (4 slots) and both's prefill buckets
+    for m in [2, 4] + buckets:
+        for k, n in ((4096, 4096), (4096, 1024), (4096, 14336),
+                     (14336, 4096)):
+            dot(bf, m, k, n)
+    for s in buckets:
+        keys.append(("flash_attention", bf, 1, s, 32, 128, s, 8, True))
+    for B in (2, 4):
+        paged(bf, B, 1, 32, 128, 8)
+    # moonshot EP2: attention 8 q / 8 kv heads a rank at each exact
+    # prompt length and decode; the replicated router; 32 experts a rank
+    # at each prefill's capacity and decode's; the top-6 combine
+    for m in lens + [4]:
+        dot(bf, m, 2048, 1024)
+        dot(bf, m, 1024, 2048, "float32")
+        dot(bf, m, 2048, 64, "float32")
+        cap = max(int(m * 6 / 64 * 1.25), 1)
+        dot(bf, cap, 2048, 1408, batch=(32,))
+        dot(bf, cap, 1408, 2048, batch=(32,))
+        keys.append(("moa_reduce", bf, 6, m * 2048, 6, True))
+    for s in lens:
+        keys.append(("flash_attention", bf, 1, s, 8, 128, s, 8, True))
+    paged(bf, 4, 1, 8, 128, 8)
+    # zamba2-1.2b DP2: the shared block at 2 slots a rank and at each
+    # exact prompt length; its attention H32/32 head_dim 64
+    for m in lens + [2]:
+        for k, n in ((2048, 2048), (2048, 8192), (8192, 2048)):
+            dot(bf, m, k, n)
+    for s in lens:
+        keys.append(("flash_attention", bf, 1, s, 32, 64, s, 32, True))
+    paged(bf, 2, 1, 32, 64, 32)
+    return sorted(set(keys))
+
+
+def check_call_keys(torch, keys, where: str) -> None:
+    """Each ``call_key`` of ``keys`` that no kernels row checked: the
+    kernel against its plain version on random operands of the key's
+    shapes and options, within the tolerance its kernels rows state
+    (``dot_moa``: 1 bf16 ulp of max|ref| for a bf16 result, f32 relative
+    1e-5; flash and paged attention: 1 bf16 ulp, f32 1e-5; ``moa_reduce``:
+    1e-4 + 1e-5 max|ref|); one ``kernels`` row each."""
+    from repro_torch.kernels import dot_moa as dm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moa_reduce as mr
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(11)
+    dts = {"torch.bfloat16": torch.bfloat16, "torch.float32": torch.float32}
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, device=dev, generator=g) * scale).to(dtype)
+
+    def err(got, want):
+        return float((got.double() - want.double()).abs().max())
+
+    def tol_for(dt, want):
+        if dt == torch.bfloat16:
+            return bf16_ulp(float(want.float().abs().max()))
+        return 1e-5 * max(1.0, float(want.abs().max()))
+
+    for key in keys:
+        if key in CHECKED:
+            continue
+        kernel, dt = key[0], dts[key[1]]
+        if kernel == "dot_moa":
+            _, _, m, k, n, bk, l, *rest = key
+            out = getattr(torch, rest.pop()) \
+                if rest and isinstance(rest[-1], str) else None
+            a = randn(*rest, m, k, dtype=dt)
+            b = randn(*rest, k, n, scale=k ** -0.5, dtype=dt)
+            plain = ref.dot_moa_batched_ref if rest else ref.dot_moa_ref
+            got = dm.dot_moa_cuda(a, b, block_k=bk, approx_bits=l,
+                                  out_dtype=out)
+            want = plain(a, b, block_k=bk, approx_bits=l, out_dtype=out)
+            tol = tol_for(got.dtype, want)
+            shape = {"batch": rest, "m": m, "k": k, "n": n, "block_k": bk,
+                     "out": str(got.dtype)[6:]}
+            again = call_key("dot_moa", a, b, block_k=bk, approx_bits=l,
+                             out_dtype=out)
+        elif kernel == "flash_attention":
+            _, _, B, Sq, H, D, Skv, Hk, causal = key
+            q = randn(B, Sq, H, D, dtype=dt)
+            k, v = randn(B, Skv, Hk, D, dtype=dt), randn(B, Skv, Hk, D,
+                                                         dtype=dt)
+            got = fa.flash_attention_cuda(q, k, v, causal=causal)
+            want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                           q_chunk=256, kv_chunk=512)
+            tol = tol_for(dt, want)
+            shape = {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "Hk": Hk, "D": D}
+            again = call_key("flash_attention", q, k, v, causal=causal)
+        elif kernel == "paged_attention":
+            _, _, B, T, H, D, _, bs, Hk, width, _ = key
+            n_phys = 1 + B * width
+            starts = torch.randint(0, width * bs - T + 1, (B,), device=dev,
+                                   generator=g, dtype=torch.int32)
+            tables = torch.zeros((B, width), dtype=torch.int32, device=dev)
+            for i, s in enumerate(starts.tolist()):
+                live = (s + T - 1) // bs + 1
+                tables[i, :live] = 1 + i * width + torch.arange(live,
+                                                                device=dev)
+            q = randn(B, T, H, D, dtype=dt)
+            kp, vp = randn(n_phys, bs, Hk, D, dtype=dt), \
+                randn(n_phys, bs, Hk, D, dtype=dt)
+            got = pa.paged_attention_cuda(q, kp, vp, tables, starts,
+                                          dequant_dtype=dt)
+            want = ref.paged_attention_ref(q, kp, vp, tables, starts,
+                                           dequant_dtype=dt)
+            tol = tol_for(dt, want)
+            shape = {"B": B, "T": T, "H": H, "Hk": Hk, "D": D, "bs": bs,
+                     "n_blocks": width, "start": starts.tolist()}
+            again = call_key("paged_attention", q, kp, vp, tables, starts,
+                             dequant_dtype=dt)
+        elif kernel == "moa_reduce":
+            _, _, n, f, bn, aligned = key
+            x = randn(n * f + 8, dtype=dt)
+            x = (x[:n * f] if aligned else x[1:n * f + 1]).view(n, f)
+            got = mr.moa_reduce_cuda(x, block_n=bn)
+            want = ref.moa_reduce_ref(x, block_n=bn)
+            tol = 1e-4 + 1e-5 * float(want.abs().max())
+            shape = {"n": n, "f": f, "block_n": bn, "aligned": aligned}
+            again = call_key("moa_reduce", x, block_n=bn)
+        else:
+            raise KeyError(kernel)
+        torch.cuda.synchronize()
+        if again != key:
+            raise AssertionError(f"{where}: operands for {key} make the "
+                                 f"call key {again}")
+        check({"kernel": kernel, "case": f"{key[1][6:]} {where}",
+               "shape": shape, "max_abs_err": err(got, want), "tol": tol,
+               "tol_reason": "the kernels rows' rule for this type"}, key)
+
+
+def _mesh_replay(torch, engine, logits_by_step, forced=None) -> None:
+    """:func:`_replay` for a mesh engine of unsplit slots: each step's
+    whole-vocabulary logits (gathered over ``model``), and with
+    ``forced`` each request's tokens teacher-forced."""
+    from repro_torch.parallel import collectives
+
+    if engine._n_rows != engine.n_slots:
+        raise AssertionError("a replay reads every slot's logits")
+    seed, sample = engine._seed, engine._sample
+
+    def _seed(slot, req, logits, *rest):
+        whole = collectives.vocab_gather(logits)
+        logits_by_step[(req.uid, 0)] = whole[0, -1].float().clone()
+        if forced is not None:     # one finite logit: greedy takes it
+            tok = int(forced[req.uid][0])
+            rng = collectives.split("vocab") or (0, whole.shape[-1])
+            logits = torch.full_like(logits, -math.inf)
+            if rng[0] <= tok < rng[1]:
+                logits[0, -1, tok - rng[0]] = 0.0
+        return seed(slot, req, logits, *rest)
+
+    def _sample(logits, temps, greedy):
+        whole = collectives.vocab_gather(logits)
+        toks = sample(logits, temps, greedy)
+        for slot, inf in engine._inflight.items():
+            step = len(inf.generated)
+            logits_by_step[(inf.request.uid, step)] = \
+                whole[slot].float().clone()
+            if forced is not None:
+                toks[slot] = forced[inf.request.uid][step]
+        return toks
+
+    engine._seed, engine._sample = _seed, _sample
+
+
+def _mesh_run(torch, engine, requests, checked, *, warmup=True,
+              ticks=None) -> dict:
+    """Serve ``requests`` on a mesh engine, counted (after a warmup run
+    with ``warmup``): results, tokens, launches, the launches' call keys
+    that no kernels row checked, collective calls in all and a tick, and
+    this rank's peak memory. ``ticks``: a one-item list the tick count is
+    kept in (the routing log reads it)."""
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import collectives
+
+    if warmup:
+        engine.run([], warmup=True)
+    ticks = ticks if ticks is not None else [0]
+    tick = engine.tick
+
+    def counted(results):
+        tick(results)
+        ticks[0] += 1
+
+    engine.tick = counted
+    ops.reset_launch_counts()
+    collectives.reset_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    with recorded_calls(ops, list(KERNELS)) as calls:
+        t0 = time.monotonic()
+        results, report = engine.run(requests)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    coll = collectives.counts()
+    return {"results": results,
+            "tokens": {r.uid: r.tokens.tolist() for r in results},
+            "launches": ops.launch_counts(),
+            "unchecked_calls": sorted(calls - checked),
+            "collectives": coll, "ticks": ticks[0],
+            "collectives_per_tick": {k: v / max(ticks[0], 1)
+                                     for k, v in coll.items()},
+            "wall_s": wall, "mesh": report["mesh"],
+            "peak_before_gb": peak,
+            "accept_rate": (report.get("spec") or {}).get("accept_rate"),
+            "graphs": report["graphs"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _mesh_gaps(torch, engine, requests, want, got) -> list:
+    """Each request whose tokens differ: the first differing index and the
+    top-2 gap there of the mesh model's next-token logits after the
+    prompt and the tokens both runs share (a no-cache forward on the
+    shards, the whole vocabulary gathered)."""
+    from repro_torch.parallel import collectives
+
+    out = []
+    for req in requests:
+        a, b = want[req.uid], got[req.uid]
+        if a == b:
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        toks = torch.tensor([list(req.prompt) + list(a[:i])], device="cuda")
+        with torch.no_grad(), engine._mesh_context():
+            z = collectives.vocab_gather(engine.model.forward(
+                engine.params, {"tokens": toks}))[0, -1].float()
+        top = torch.topk(z, 2).values
+        out.append({"uid": req.uid, "index": i,
+                    "gap": float(top[0] - top[1])})
+    return out
+
+
+def _mesh_llama3(torch, tp, dp, want, checked) -> dict:
+    """llama3-8b at full width and depth (bf16 weights, seed 0): DP2 on
+    the full tree (nothing splits, nothing is copied), then TP2 (each
+    rank's pieces copied out, the full tree freed), plain and with the
+    oracle drafter."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serve import ServeEngine, resolve_drafter
+
+    cfg = dataclasses.replace(get_config("llama3-8b"),
+                              param_dtype="bfloat16")
+    requests = mesh_workload(cfg)
+    mem = {}
+
+    def held(stage):
+        gc.collect()
+        mem[stage] = torch.cuda.memory_allocated() / 1e9
+
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    held("full tree")
+    e = ServeEngine(model, params, device="cuda", cuda_graphs=False,
+                    mesh=dp, **MESH_ENGINE)
+    out = {"llama3-8b-dp2": _mesh_run(torch, e, requests, checked)}
+    del e
+    held("dp2 freed")
+    e = ServeEngine(model, params, device="cuda", cuda_graphs=False,
+                    mesh=tp, **MESH_ENGINE)
+    held("tp2 built")
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    held("full tree freed")
+    run = out["llama3-8b-tp2"] = _mesh_run(torch, e, requests, checked)
+    run["held_gb"] = mem
+    run["near_ties"] = _mesh_gaps(torch, e, requests, want, run["tokens"])
+    local = e.params
+    del e
+    gc.collect()
+    e = ServeEngine(build_model(cfg), local, device="cuda",
+                    cuda_graphs=False, mesh=tp,
+                    drafter=resolve_drafter("oracle", SPEC_K), **MESH_ENGINE)
+    run = out["llama3-8b-tp2-oracle"] = _mesh_run(torch, e, requests,
+                                                  checked)
+    run["near_ties"] = _mesh_gaps(torch, e, requests, want, run["tokens"])
+    del e, local
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_llama3_f32(torch, tp, checked) -> dict:
+    """llama3-8b at full width, 2 layers, f32 compute: the single-device
+    engine, then TP2, each step's logits recorded; tokens must be
+    identical and the logits within 1e-4 of each step's largest."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=2,
+                              compute_dtype="float32")
+    requests = mesh_workload(cfg)
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    one, logits = {}, {}
+    e = ServeEngine(model, params, device="cuda", cuda_graphs=False,
+                    **MESH_ENGINE)
+    _replay(torch, e, one)
+    e.run([], warmup=True)
+    results, _ = e.run(requests)
+    want = {r.uid: r.tokens.tolist() for r in results}
+    del e
+    e = ServeEngine(model, params, device="cuda", cuda_graphs=False,
+                    mesh=tp, **MESH_ENGINE)
+    del params, model
+    e.run([], warmup=True)
+    _mesh_replay(torch, e, logits)
+    run = _mesh_run(torch, e, requests, checked, warmup=False)
+    worst = 0.0
+    for key, z in one.items():
+        if key in logits:
+            worst = max(worst, float((logits[key] - z).abs().max()
+                                     / z.abs().max()))
+    run.update({"want": want, "max_logit_rel_diff": worst,
+                "steps": len(one), "steps_seen": len(set(one) & set(logits))})
+    del e
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"llama3-8b-f32-tp2": run}
+
+
+def _route_off_ties(plain, mine, differ) -> list:
+    """The routing differences (:func:`_routing_differences`) whose gap is
+    over twice the largest router-probability difference of that token
+    between the two runs."""
+    out = []
+    for d in differ:
+        pp = plain[d["call"]][3][d["group"], d["token"]]
+        pm = mine[d["call"]][3][d["group"], d["token"]]
+        lim = 2 * float((pm - pp).abs().max())
+        if d["gap"] > lim:
+            out.append(dict(d, limit=lim))
+    return out
+
+
+def _mesh_moonshot(torch, tp, checked) -> dict:
+    """moonshot-v1-16b-a3b at full width, 4 layers (bf16, capacity factor
+    1.25: exact-length prefills): the single-device engine logs its
+    tokens, logits and every routing call; EP2 (experts and heads over
+    ``model``) is fed those tokens and expert choices, and logs its own
+    choices and logits."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.layers import moe as moe_mod
+    from repro_torch.models.api import build_model
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), n_layers=4,
+                              param_dtype="bfloat16")
+    requests = mesh_workload(cfg)
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    e = ServeEngine(model, params, device="cuda", cuda_graphs=False,
+                    **MESH_ENGINE)
+    one, ticks = {}, [0]
+    _replay(torch, e, one)
+    tick = e.tick
+
+    def counted(results):
+        tick(results)
+        ticks[0] += 1
+
+    e.tick = counted
+    log, undo = _routing(torch, moe_mod, ticks)
+    try:
+        results, _ = e.run(requests)
+    finally:
+        undo()
+    want = {r.uid: r.tokens for r in results}
+    del e
+    e = ServeEngine(model, params, device="cuda", cuda_graphs=False,
+                    mesh=tp, **MESH_ENGINE)
+    del params, model
+    logits, mticks = {}, [0]
+    _mesh_replay(torch, e, logits, forced=want)
+    mlog, undo = _routing(torch, moe_mod, mticks, log)
+    try:
+        run = _mesh_run(torch, e, requests, checked, warmup=False,
+                        ticks=mticks)
+    finally:
+        undo()
+    differ = _routing_differences(log, mlog)
+    worst = max(float((logits[k] - z).abs().max() / z.abs().max())
+                for k, z in one.items())
+    run.update({"routing_calls": len(log), "own_choices_differ":
+                len(differ), "own_choice_differences": differ[:5],
+                "off_near_tie": _route_off_ties(log, mlog, differ)[:5],
+                "max_logit_rel_diff": worst, "steps": len(one),
+                "steps_seen": len(set(one) & set(logits))})
+    del e
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"moonshot-ep2": run}
+
+
+def _mesh_zamba2(torch, dp, want, checked) -> dict:
+    """zamba2-1.2b at full width and depth (bf16, seed 0) under its serve
+    rules (nothing over ``model``): DP2 on the full tree."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(get_config("zamba2-1.2b"),
+                              param_dtype="bfloat16")
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    e = ServeEngine(model, params, device="cuda", cuda_graphs=False,
+                    mesh=dp, **MESH_ENGINE)
+    run = _mesh_run(torch, e, mesh_workload(cfg), checked)
+    del e, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"zamba2-dp2": run}
+
+
+def mesh_rank(rank: int, want: dict, checked: set) -> dict:
+    """One of the mesh phase's two ranks on the one card (a gloo group
+    carrying CUDA tensors): both meshes, (1, 2) and (2, 1), over the same
+    two ranks, and every run of the phase. Returns each run's record
+    (:func:`_mesh_run`) without its results."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    tp, dp = make_mesh((1, 2), device="cuda"), make_mesh((2, 1),
+                                                         device="cuda")
+    carries = gloo_carries_cuda(torch, rank)
+    if carries["all_reduce"] is not True or carries["broadcast"] is not True:
+        raise AssertionError(f"gloo does not carry the mesh's collectives "
+                             f"(sum all-reduce, broadcast) for CUDA tensors "
+                             f"here: {carries}")
+    out = {"carries": carries}
+    out.update(_mesh_llama3(torch, tp, dp, want["llama3-8b"], checked))
+    out.update(_mesh_llama3_f32(torch, tp, checked))
+    out.update(_mesh_moonshot(torch, tp, checked))
+    out.update(_mesh_zamba2(torch, dp, want["zamba2-1.2b"], checked))
+    for name, run in out.items():
+        if name != "carries":
+            run.pop("results")
+    return out
+
+
+def gloo_carries_cuda(torch, rank: int) -> dict:
+    """Which of the collectives the mesh could use a gloo group carries
+    for CUDA tensors on this install: each tried on a small tensor, and
+    its result checked, or the error it raised kept."""
+    import torch.distributed as dist
+
+    x = torch.full((4,), float(rank + 1), device="cuda")
+    out = {}
+
+    def all_reduce():
+        y = x.clone()
+        dist.all_reduce(y)
+        return float(y[0]) == 3.0
+
+    def broadcast():
+        y = x.clone()
+        dist.broadcast(y, src=0)
+        return float(y[0]) == 1.0
+
+    def all_gather():
+        ys = [torch.empty_like(x) for _ in range(2)]
+        dist.all_gather(ys, x)
+        return [float(y[0]) for y in ys] == [1.0, 2.0]
+
+    for name, fn in (("all_reduce", all_reduce), ("broadcast", broadcast),
+                     ("all_gather", all_gather)):
+        try:
+            out[name] = bool(fn())
+        except Exception as e:       # noqa: BLE001 — the finding itself
+            out[name] = f"{type(e).__name__}: {str(e)[:160]}"
+    return out
+
+
+def mesh_captured(torch) -> dict:
+    """A (1, 1) mesh over NCCL in this process: llama3-8b at full width
+    and 2 layers (bf16), paged, captured, against the single-device
+    captured engine: tokens and every step's logits bit for bit."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import free_port, make_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=2,
+                              param_dtype="bfloat16")
+    requests = mesh_workload(cfg)
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    one = {}
+    e = ServeEngine(model, params, device="cuda", cuda_graphs=True,
+                    **MESH_ENGINE)
+    _replay(torch, e, one)
+    e.run([], warmup=True)
+    want = {r.uid: r.tokens.tolist() for r in e.run(requests)[0]}
+    del e
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+        rank=0, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        mesh = make_mesh((1, 1), device="cuda")
+        e = ServeEngine(model, params, device="cuda", cuda_graphs=True,
+                        mesh=mesh, **MESH_ENGINE)
+        logits = {}
+        e.run([], warmup=True)
+        _mesh_replay(torch, e, logits)
+        run = _mesh_run(torch, e, requests, CHECKED, warmup=False)
+        del e
+    finally:
+        dist.destroy_process_group()
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    run.pop("results")
+    run["differing_logits"] = sorted(
+        k for k in set(one) | set(logits)
+        if k not in one or k not in logits
+        or not torch.equal(one[k], logits[k]))[:10]
+    run["want"] = want
+    return run
+
+
+def mesh_phase(torch) -> dict:
+    """The served models on a device mesh (module docstring): which
+    collectives gloo carries for CUDA tensors, the (1, 1) NCCL captured
+    run in this process, then the two gloo ranks on the one card. Fails on
+    a failed rank, a run off its bar, or a launch no kernels row checked.
+    Returns the counted runs' launches by run (both ranks' summed)."""
+    from repro_torch.launch.mesh import run_ranks
+
+    smi = nvidia_smi()
+    cap = mesh_captured(torch)
+    bad = cap["tokens"] != cap["want"] or cap["differing_logits"] \
+        or cap["unchecked_calls"]
+    emit({"phase": "mesh", "what": "llama3-8b captured", "mesh": "1x1",
+          "backend": "nccl", "ranks": 1, "path": "captured", "n_layers": 2,
+          "nvidia_smi": smi, "tokens_equal": cap["tokens"] == cap["want"],
+          "differing_logits": cap["differing_logits"],
+          "launches": cap["launches"], "unchecked_calls":
+              cap["unchecked_calls"],
+          "collectives_per_tick": cap["collectives_per_tick"],
+          "peak_mem_gb": cap["peak_mem_gb"]})
+    if bad:
+        raise AssertionError("the (1, 1) NCCL captured engine differs from "
+                             "the single-device captured engine")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    ranks = run_ranks(2, mesh_rank, SINGLE_DEVICE, set(CHECKED),
+                      backend="gloo", timeout_s=MESH_TIMEOUT_S,
+                      join_timeout_s=MESH_JOIN_S, threads=0)
+    spawn_s = time.monotonic() - t0
+    emit({"phase": "mesh", "what": "gloo collectives on CUDA tensors",
+          "nvidia_smi": smi, "carries": ranks[0].pop("carries"),
+          "rank1": ranks[1].pop("carries"),
+          "built_on": "all_reduce (sum; all_gather as a sum of zero-padded "
+                      "pieces) and broadcast (CPU tensors)"})
+    runs, failures = {}, []
+    want = {"llama3-8b-dp2": SINGLE_DEVICE["llama3-8b"],
+            "llama3-8b-tp2": SINGLE_DEVICE["llama3-8b"],
+            "llama3-8b-tp2-oracle": SINGLE_DEVICE["llama3-8b"],
+            "zamba2-dp2": SINGLE_DEVICE["zamba2-1.2b"]}
+    shapes = {"llama3-8b-dp2": "2x1", "llama3-8b-tp2": "1x2",
+              "llama3-8b-tp2-oracle": "1x2", "llama3-8b-f32-tp2": "1x2",
+              "moonshot-ep2": "1x2", "zamba2-dp2": "2x1"}
+    for name, r0 in ranks[0].items():
+        per_rank = [r[name] for r in ranks]
+        line = {"phase": "mesh", "what": name, "mesh": shapes[name],
+                "backend": "gloo", "ranks": 2, "path": "eager",
+                "nvidia_smi": smi, "mesh_report": r0["mesh"],
+                "spawn_s": spawn_s,
+                "wall_s": [r["wall_s"] for r in per_rank],
+                "peak_mem_gb": [r["peak_mem_gb"] for r in per_rank],
+                "peak_before_gb": [r["peak_before_gb"] for r in per_rank],
+                "held_gb": r0.get("held_gb"),
+                "launches": [r["launches"] for r in per_rank],
+                "unchecked_calls": sorted(
+                    {k for r in per_rank for k in r["unchecked_calls"]}),
+                "collectives": r0["collectives"], "ticks": r0["ticks"],
+                "collectives_per_tick": r0["collectives_per_tick"]}
+        same = all(r["tokens"] == r0["tokens"] for r in per_rank)
+        if name in want:
+            ref = {int(k): v for k, v in want[name].items()}
+            differ = sorted(u for u in ref if ref[u] != r0["tokens"][u])
+            line["differing_tokens"] = differ
+            if "near_ties" in r0:
+                line["near_ties"] = r0["near_ties"]
+                off = [d for d in r0["near_ties"] if d["gap"] > NEAR_TIE]
+                if off:
+                    failures.append(f"{name}: divergences off a near-tie "
+                                    f"{off}")
+            elif differ:
+                failures.append(f"{name}: tokens of {differ} differ from "
+                                "the single-device engine's")
+        if name == "llama3-8b-f32-tp2":
+            differ = sorted(u for u in r0["want"]
+                            if r0["want"][u] != r0["tokens"][u])
+            line.update({"differing_tokens": differ,
+                         "max_logit_rel_diff": r0["max_logit_rel_diff"],
+                         "steps": r0["steps"],
+                         "steps_seen": r0["steps_seen"]})
+            if differ or r0["max_logit_rel_diff"] > 1e-4 \
+                    or r0["steps_seen"] != r0["steps"]:
+                failures.append(f"{name}: tokens {differ}, logits "
+                                f"{r0['max_logit_rel_diff']}")
+        if name == "llama3-8b-tp2-oracle":
+            line["accept_rate"] = r0["accept_rate"]
+        if name == "moonshot-ep2":
+            for k in ("routing_calls", "own_choices_differ",
+                      "own_choice_differences", "off_near_tie",
+                      "max_logit_rel_diff", "steps", "steps_seen"):
+                line[k] = r0[k]
+            line["routing"] = "teacher-forced"
+            if r0["off_near_tie"] or r0["steps_seen"] != r0["steps"]:
+                failures.append(f"{name}: expert choices off a near-tie "
+                                f"{r0['off_near_tie']}")
+        if not same:
+            failures.append(f"{name}: the ranks' tokens differ")
+        arch = name.split("-tp2")[0].split("-dp2")[0].split("-ep2")[0]
+        served = ["dot_moa", "flash_attention", "paged_attention"] + (
+            ["moa_reduce"] if arch == "moonshot" else [])
+        idle = [k for k in served
+                if not sum(r["launches"][k] for r in per_rank)]
+        if idle:
+            failures.append(f"{name}: launched no {idle}")
+        if line["unchecked_calls"]:
+            failures.append(f"{name}: launches no kernels row checked "
+                            f"{line['unchecked_calls'][:5]}")
+        emit(line)
+        runs[f"mesh/{name}"] = {
+            k: sum(r["launches"][k] for r in per_rank)
+            for k in r0["launches"]}
+    if failures:
+        raise AssertionError("mesh phase: " + "; ".join(failures))
+    return {"mesh/llama3-8b-tp2": runs["mesh/llama3-8b-tp2"],
+            "mesh/llama3-8b-dp2": runs["mesh/llama3-8b-dp2"],
+            "mesh/moonshot-ep2": runs["mesh/moonshot-ep2"],
+            "mesh/zamba2-dp2": runs["mesh/zamba2-dp2"]}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -4753,6 +5509,7 @@ def main() -> int:
     rows = kernel_phase(torch, timer, parent)
     rows.update(paper_kernel_phase(torch, timer, parent))
     rows.update(moe_kernel_phase(torch, timer))
+    check_call_keys(torch, mesh_call_keys(), "mesh shard shape")
     unembed = unembed_phase(torch, timer)
     emit({"phase": "kernels", "kernel": "dot_moa", "case": "host path",
           "iters": 1000, **host_path(torch)})
@@ -4772,6 +5529,7 @@ def main() -> int:
     runs.update(hybrid_phase(torch, unembed))
     runs.update(train_phase(torch))
     runs.update(families_phase(torch))
+    runs.update(mesh_phase(torch))
     parity_phase(torch)
     zamba2_parity_phase(torch)
     moe_parity_phase(torch)

@@ -19,8 +19,8 @@ import torch
 
 from repro_torch.device import as_dtype
 
-__all__ = ["from_numpy", "to_numpy", "tree_map", "tree_leaves",
-           "tree_paths"]
+__all__ = ["from_numpy", "to_numpy", "tree_map", "tree_map_with_keys",
+           "tree_get", "tree_leaves", "tree_paths"]
 
 
 def tree_map(fn, tree):
@@ -28,6 +28,22 @@ def tree_map(fn, tree):
     if isinstance(tree, Mapping):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def tree_map_with_keys(fn, tree, keys: Tuple[str, ...] = ()):
+    """``fn(keys, leaf)`` on every leaf of a nested dict, ``keys`` the
+    leaf's path as a tuple of keys, keeping the keys."""
+    if isinstance(tree, Mapping):
+        return {k: tree_map_with_keys(fn, v, keys + (str(k),))
+                for k, v in tree.items()}
+    return fn(keys, tree)
+
+
+def tree_get(tree, keys: Tuple[str, ...]):
+    """The entry of a nested dict at the path ``keys``."""
+    for k in keys:
+        tree = tree[k]
+    return tree
 
 
 def tree_leaves(tree, prefix: str = ""):

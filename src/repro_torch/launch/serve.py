@@ -20,6 +20,10 @@ over a paged KV pool (``--paged``), driven by a synthetic Poisson workload
       [--scheduling slo --dt 1e-3]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       --smoke --device cpu --replicas 3 --kill 6:1 --reload-at 10
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+      --smoke --device cpu --mesh 1x2 [--paged]
+  python -m repro_torch.launch.serve --arch llama3-8b --paged \
+      --param-dtype bfloat16 --mesh 1x2 --dist-backend gloo --eager
 
 Runs on the GPU unless ``--device cpu`` is given. mamba2-370m (the SSM
 family) has no K/V cache, so ``--paged`` is refused for it; the SSM and
@@ -39,6 +43,17 @@ bursty one (``--deadline``) and preempts (a ``[serve] slo`` line). ``--dt``
 runs the engine on a :class:`repro_torch.serve.StepClock` of that many
 virtual seconds a clock read (0, the default: the wall clock).
 
+``--mesh DxM`` (or ``PxDxM``) serves on a device mesh
+(:class:`repro_torch.serve.ServeEngine` with ``mesh=``): it starts one
+rank a device (:func:`repro_torch.launch.mesh.run_ranks`), each builds
+the engine from the same seeded tree and keeps its pieces, and rank 0
+prints the results and a ``[serve] mesh:`` line. ``--dist-backend``
+picks the process group: NCCL on the GPU and gloo on the CPU by default;
+more ranks than cards need ``--dist-backend gloo`` (NCCL refuses two
+ranks on one card), and a gloo mesh cannot capture CUDA graphs, so it
+needs ``--eager``. ``--replicas`` with ``--mesh`` is refused, as the
+reference refuses it.
+
 ``--replicas N`` serves through a fault-tolerant replica set of N engines
 (:class:`repro_torch.serve.router.ReplicaSet`) on a ``StepClock`` of
 ``--dt`` seconds (1e-3 unless given): a failure-free fleet, then a chaos
@@ -54,6 +69,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import tempfile
 import time
 
@@ -93,7 +109,9 @@ def _sampler(args) -> Sampler:
     return GREEDY if args.greedy else Sampler(args.temperature)
 
 
-def _run_engine(args):
+def _run_engine(args, mesh=None, say=print):
+    """One engine over the workload; on a mesh every rank runs this with
+    its ``DeviceMesh`` and only rank 0 prints (``say``)."""
     device = resolve_device(args.device)
     cfg, model = _build(args)
     params = model.init(seed=args.seed, device=device)
@@ -117,7 +135,8 @@ def _run_engine(args):
         scheduling=args.scheduling,
         clock=StepClock(dt=args.dt) if args.dt else time.monotonic,
         attn_backend=args.attn_backend or None, device=device,
-        cuda_graphs=False if args.eager else None)
+        cuda_graphs=False if args.eager else None, mesh=mesh)
+    del params          # on a mesh the engine keeps only this rank's pieces
     if args.scheduling == "slo":
         requests = bursty_workload(
             vocab=cfg.vocab, n_long=args.slots,
@@ -135,53 +154,62 @@ def _run_engine(args):
             sampler=_sampler(args), seed=args.seed)
     ops.reset_launch_counts()
     results, report = engine.run(requests, warmup=not args.no_warmup)
-    print(f"[serve] arch={cfg.name} layers={cfg.n_layers} "
-          f"device={report['device']} slots={args.slots} max_len={max_len} "
-          f"requests={args.requests} rate={args.rate}/s")
+    say(f"[serve] arch={cfg.name} layers={cfg.n_layers} "
+        f"device={report['device']} slots={args.slots} max_len={max_len} "
+        f"requests={args.requests} rate={args.rate}/s")
+    mr = report["mesh"]
+    if mr is not None:
+        axes = ", ".join(f"{a}={n}" for a, n in mr["axes"].items())
+        say(f"[serve] mesh: ({axes}) over {mr['ranks']} devices, family "
+            f"rules for {mr['family_rules']!r} ({mr['backend']}; split: "
+            f"{', '.join(k for k, v in mr['split'].items() if v) or 'none'})")
     for r in results:
         m = r.metrics
-        print(f"[serve]   req {r.uid}: slot={r.slot} prompt={r.prompt_len} "
-              f"gen={r.tokens.size} ttft={m.ttft_s*1e3:.0f}ms "
-              f"{m.per_token_ms:.1f}ms/tok moa_flops={m.moa_flops:.4g} "
-              f"({r.finish_reason.value})")
-    print(f"[serve] aggregate: {report['tok_per_s']:.1f} tok/s, "
-          f"ttft p50={report['ttft_ms']['p50']:.0f}ms "
-          f"p95={report['ttft_ms']['p95']:.0f}ms, "
-          f"occupancy={report['slot_occupancy']:.2f}, "
-          f"slot_reuse={report['slot_reuse']}, "
-          f"warmup={report['compile_s']*1e3:.0f}ms (kept out of wall_s), "
-          f"moa_flops={report['moa_flops_total']:.4g}, "
-          f"layout={'paged' if args.paged else 'dense-slot'}, "
-          f"path={'cuda-graphs' if report['cuda_graphs'] else 'eager'}")
+        say(f"[serve]   req {r.uid}: slot={r.slot} prompt={r.prompt_len} "
+            f"gen={r.tokens.size} ttft={m.ttft_s*1e3:.0f}ms "
+            f"{m.per_token_ms:.1f}ms/tok moa_flops={m.moa_flops:.4g} "
+            f"({r.finish_reason.value})")
+    say("[serve] tokens: " + "; ".join(
+        f"{r.uid}:{','.join(str(int(t)) for t in r.tokens)}"
+        for r in results))
+    say(f"[serve] aggregate: {report['tok_per_s']:.1f} tok/s, "
+        f"ttft p50={report['ttft_ms']['p50']:.0f}ms "
+        f"p95={report['ttft_ms']['p95']:.0f}ms, "
+        f"occupancy={report['slot_occupancy']:.2f}, "
+        f"slot_reuse={report['slot_reuse']}, "
+        f"warmup={report['compile_s']*1e3:.0f}ms (kept out of wall_s), "
+        f"moa_flops={report['moa_flops_total']:.4g}, "
+        f"layout={'paged' if args.paged else 'dense-slot'}, "
+        f"path={'cuda-graphs' if report['cuda_graphs'] else 'eager'}")
     gr = report["graphs"]
     if gr is not None:
-        print(f"[serve] graphs: {gr['graphs']} captured in "
-              f"{gr['capture_s']:.2f}s, pool={gr['pool_mb']:.1f}MB, "
-              f"replays={gr['replays']}, eager first runs="
-              f"{gr['eager_runs']}, launches/replay="
-              f"{gr['launches_per_replay']}")
+        say(f"[serve] graphs: {gr['graphs']} captured in "
+            f"{gr['capture_s']:.2f}s, pool={gr['pool_mb']:.1f}MB, "
+            f"replays={gr['replays']}, eager first runs="
+            f"{gr['eager_runs']}, launches/replay="
+            f"{gr['launches_per_replay']}")
     if args.spec_decode:
         sp = report["spec"]
-        print(f"[serve] spec: drafter={args.drafter} k={sp['k']}, "
-              f"{sp['tokens_per_step']:.2f} tokens/step "
-              f"(plain decode = 1.00), accept rate "
-              f"{sp['accept_rate']:.2f}, accepted hist "
-              f"{sp['accepted_hist']}, draft steps {sp['draft_steps']}")
+        say(f"[serve] spec: drafter={args.drafter} k={sp['k']}, "
+            f"{sp['tokens_per_step']:.2f} tokens/step "
+            f"(plain decode = 1.00), accept rate "
+            f"{sp['accept_rate']:.2f}, accepted hist "
+            f"{sp['accepted_hist']}, draft steps {sp['draft_steps']}")
     pg = report.get("paged")
     if pg is not None:
-        _print_paged(pg)
+        say(_paged_line(pg))
     if "slo" in report:
         sl = report["slo"]
-        print(f"[serve] slo ({report['scheduling']}): attainment "
-              f"{sl['deadline_met']}/{sl['deadline_requests']} "
-              f"({sl['attainment']:.2f}), goodput "
-              f"{sl['goodput_tok_per_s']:.1f} tok/s, deadline ttft "
-              f"p99={sl['deadline_ttft_ms']['p99']:.0f}ms, "
-              f"preemptions={sl['preemptions']} "
-              f"(spills={sl['spills']}, revivals={sl['revivals']}), "
-              f"chunked ticks={sl['prefill_chunk_count']}")
-    print(f"[serve] kernel launches (warmup included): "
-          f"{ops.launch_counts()}")
+        say(f"[serve] slo ({report['scheduling']}): attainment "
+            f"{sl['deadline_met']}/{sl['deadline_requests']} "
+            f"({sl['attainment']:.2f}), goodput "
+            f"{sl['goodput_tok_per_s']:.1f} tok/s, deadline ttft "
+            f"p99={sl['deadline_ttft_ms']['p99']:.0f}ms, "
+            f"preemptions={sl['preemptions']} "
+            f"(spills={sl['spills']}, revivals={sl['revivals']}), "
+            f"chunked ticks={sl['prefill_chunk_count']}")
+    say(f"[serve] kernel launches (warmup included): "
+        f"{ops.launch_counts()}")
 
 
 def _parse_kill_schedule(spec: str):
@@ -304,16 +332,58 @@ def _run_replicas(args):
         raise SystemExit("[serve] FAIL: " + "; ".join(failures))
 
 
-def _print_paged(pg: dict) -> None:
-    print(f"[serve] paged: {pg['n_blocks']}x{pg['block_size']}-token "
-          f"blocks, backend={pg['attn_backend']}, "
-          f"occupancy={pg['block_occupancy']:.2f}, "
-          f"prefix hits={pg['prefix_hits']}/{pg['admissions']}, "
-          f"cow={pg['cow_count']}, "
-          f"resident={pg['resident_kv_bytes']:,}B "
-          f"(dense equiv {pg['dense_equiv_kv_bytes']:,}B), "
-          f"kv read/step gathered={pg['gathered_kv_bytes_per_step']:,.0f}B "
-          f"fused={pg['fused_kv_bytes_per_step']:,.0f}B")
+def _paged_line(pg: dict) -> str:
+    return (f"[serve] paged: {pg['n_blocks']}x{pg['block_size']}-token "
+            f"blocks, backend={pg['attn_backend']}, "
+            f"occupancy={pg['block_occupancy']:.2f}, "
+            f"prefix hits={pg['prefix_hits']}/{pg['admissions']}, "
+            f"cow={pg['cow_count']}, "
+            f"resident={pg['resident_kv_bytes']:,}B "
+            f"(dense equiv {pg['dense_equiv_kv_bytes']:,}B), "
+            f"kv read/step gathered="
+            f"{pg['gathered_kv_bytes_per_step']:,.0f}B "
+            f"fused={pg['fused_kv_bytes_per_step']:,.0f}B")
+
+
+def _mesh_rank(rank: int, args) -> None:
+    """One rank of ``--mesh``: its ``DeviceMesh``, then the engine."""
+    from repro_torch.launch.mesh import make_mesh, parse_mesh
+
+    mesh = make_mesh(parse_mesh(args.mesh), device=args.device)
+    _run_engine(args, mesh=mesh,
+                say=print if rank == 0 else (lambda *a, **k: None))
+
+
+def _run_mesh(args) -> None:
+    """``--mesh``: check the request, then run every rank (a rank's
+    failure fails the run)."""
+    from repro_torch.launch.mesh import parse_mesh, run_ranks
+
+    if args.replicas:
+        raise SystemExit("--replicas drives plain fifo engines tick-by-"
+                         "tick; --mesh is a single-engine mode")
+    try:
+        shape = parse_mesh(args.mesh)
+    except ValueError as e:
+        raise SystemExit(f"--mesh: {e}")
+    device = resolve_device(args.device)
+    backend = args.dist_backend \
+        or ("nccl" if device.type == "cuda" else "gloo")
+    n = math.prod(shape)
+    if device.type == "cpu" and backend != "gloo":
+        raise SystemExit(f"--dist-backend {backend} needs the GPU; a CPU "
+                         "mesh runs over gloo")
+    if device.type == "cuda":
+        if backend == "nccl" and n > torch.cuda.device_count():
+            raise SystemExit(
+                f"--mesh {args.mesh} needs {n} ranks and this machine has "
+                f"{torch.cuda.device_count()} GPU(s): NCCL refuses two ranks "
+                "on one card; pass --dist-backend gloo to share cards")
+        if backend == "gloo" and not args.eager:
+            raise SystemExit("a gloo mesh cannot capture its collectives "
+                             "in CUDA graphs: add --eager")
+    run_ranks(shape, _mesh_rank, args, backend=backend,
+              threads=1 if device.type == "cpu" else 0)
 
 
 def main(argv=None):
@@ -394,6 +464,15 @@ def main(argv=None):
                          "virtual seconds a clock read (deterministic "
                          "schedules); 0 = the wall clock (--replicas: "
                          "1e-3)")
+    ap.add_argument("--mesh", default="",
+                    help="serve on a DxM (or PxDxM) device mesh, one rank "
+                         "a device: heads, ff, experts and vocab over "
+                         "model, slots over data (the family's rules)")
+    ap.add_argument("--dist-backend", default="", choices=("", "nccl",
+                                                           "gloo"),
+                    help="[--mesh] process-group backend (default: nccl on "
+                         "the GPU, gloo on the CPU; gloo lets ranks share "
+                         "a card)")
     ap.add_argument("--replicas", type=int, default=0,
                     help="serve through a fault-tolerant replica set of N "
                          "engines on a deterministic StepClock; 0 = one "
@@ -414,6 +493,9 @@ def main(argv=None):
                     help="force greedy decode regardless of --temperature")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.mesh:
+        _run_mesh(args)
+        return
     if args.replicas == -1:
         from repro_torch.runtime import plan_replicas
         device = resolve_device(args.device)

@@ -5,8 +5,8 @@ Wires together: config registry → model → train step (AdamW, optional
 int8 gradient compression) → synthetic data pipeline → atomic async
 checkpoints in the reference's format → failure injection → restart
 supervisor → heartbeats. Runs on the GPU unless ``--device cpu`` is
-given; there is no mesh (a mesh other than one device raises: ROADMAP
-Queue 1 item 13). Every family trains: the encoder on ``frames``,
+given; there is no mesh (a mesh other than one device raises: meshed
+training is ROADMAP Queue 1 item 18). Every family trains: the encoder on ``frames``,
 ``mask`` and ``targets``, the VLM on ``patches`` before its text.
 
   python -m repro_torch.launch.train --arch llama3-8b --layers 4 \
@@ -54,7 +54,7 @@ class TrainLoop:
         if mesh_shape is not None and math.prod(mesh_shape) != 1:
             raise NotImplementedError(
                 f"mesh {tuple(mesh_shape)}: the port trains on one device; "
-                "meshes come with ROADMAP Queue 1, item 13")
+                "meshed training (FSDP and TP) is ROADMAP Queue 1, item 18")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.steps = steps

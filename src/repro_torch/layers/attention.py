@@ -126,6 +126,15 @@ def _moa_dot(x, w, *, strategy, compute_dtype):
     return project({"w": w}, x, strategy=strategy, compute_dtype=compute_dtype)
 
 
+def _out_proj(o, wo, *, strategy, compute_dtype):
+    """``o @ wo``: row-parallel over ``model`` where the heads are split
+    (:func:`repro_torch.layers.linear.project_rows`)."""
+    from repro_torch.layers.linear import project_rows
+
+    return project_rows({"w": wo}, o, site="heads", strategy=strategy,
+                        compute_dtype=compute_dtype)
+
+
 def _project_qkv(params: Params, x, *, n_heads, n_kv_heads, head_dim,
                  compute_dtype, strategy=None):
     B, S, _ = x.shape
@@ -292,8 +301,8 @@ def attention_decode(params: Params, x, cache: Params, pos, *, n_heads: int,
             k_cache, v_cache = cache["k"], cache["v"]
         o = full_attention(q, k_cache, v_cache, causal=False, kv_len=pos + 1)
     o = o.reshape(B, 1, n_heads * head_dim)
-    y = _moa_dot(o, params["wo"].to(compute_dtype), strategy=strategy,
-                 compute_dtype=compute_dtype)
+    y = _out_proj(o, params["wo"].to(compute_dtype), strategy=strategy,
+                  compute_dtype=compute_dtype)
     return y, cache
 
 
@@ -427,8 +436,8 @@ def attention_decode_paged(params: Params, x, pool: Params, block_tables,
                                            live_blocks=live_blocks)
         o = full_attention(q, k_cache, v_cache, causal=False, kv_len=cur + 1)
     o = o.reshape(B, 1, n_heads * head_dim)
-    y = _moa_dot(o, params["wo"].to(compute_dtype), strategy=strategy,
-                 compute_dtype=compute_dtype)
+    y = _out_proj(o, params["wo"].to(compute_dtype), strategy=strategy,
+                  compute_dtype=compute_dtype)
     return y, pool
 
 
@@ -520,8 +529,8 @@ def attention_verify(params: Params, x, cache: Params, pos, targets, *,
         o = full_attention(q, k_cache, v_cache, causal=True,
                            positions_q=pos_q)
     o = o.reshape(B, T, n_heads * head_dim)
-    y = _moa_dot(o, params["wo"].to(compute_dtype), strategy=strategy,
-                 compute_dtype=compute_dtype)
+    y = _out_proj(o, params["wo"].to(compute_dtype), strategy=strategy,
+                  compute_dtype=compute_dtype)
     return y, cache
 
 
@@ -578,6 +587,6 @@ def attention_verify_paged(params: Params, x, pool: Params, block_tables,
         o = full_attention(q, k_cache, v_cache, causal=True,
                            positions_q=pos_q)
     o = o.reshape(B, T, n_heads * head_dim)
-    y = _moa_dot(o, params["wo"].to(compute_dtype), strategy=strategy,
-                 compute_dtype=compute_dtype)
+    y = _out_proj(o, params["wo"].to(compute_dtype), strategy=strategy,
+                  compute_dtype=compute_dtype)
     return y, pool

@@ -1,11 +1,18 @@
 """Token embedding + (optionally tied) output projection
-(``repro/layers/embedding.py``)."""
+(``repro/layers/embedding.py``).
+
+On a mesh that splits ``vocab`` over ``model`` each rank holds rows ``[lo,
+hi)`` of the table: the lookup is masked to them and summed over the
+ranks, and the unembedding produces this rank's slice of the logits
+(:func:`repro_torch.parallel.collectives.vocab_argmax` and
+``vocab_gather`` read them)."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.layers.common import Params, truncated_normal_init
+from repro_torch.parallel.collectives import reduce_partial, split
 
 __all__ = ["init_embedding", "embed", "unembed"]
 
@@ -24,8 +31,18 @@ def init_embedding(generator: torch.Generator, vocab: int, d_model: int, *,
 def embed(params: Params, token_ids: torch.Tensor, *,
           compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Lookup ``(B, S) int -> (B, S, d)`` in ``compute_dtype`` (gather, then
-    cast: the same values as the reference's cast-then-gather)."""
-    return params["table"][token_ids.long()].to(compute_dtype)
+    cast: the same values as the reference's cast-then-gather). Vocab-split
+    over ``model``: each rank looks up the ids in its rows (zeros for the
+    rest) and the f32 sum over the ranks is the one row that is not zero,
+    exactly."""
+    rows = split("vocab")
+    if not rows:
+        return params["table"][token_ids.long()].to(compute_dtype)
+    local = token_ids.long() - rows[0]
+    mine = (local >= 0) & (local < rows[1] - rows[0])
+    out = params["table"][torch.where(mine, local, 0)].float()
+    out = torch.where(mine[..., None], out, 0.0)
+    return reduce_partial(out).to(compute_dtype)
 
 
 class _Unembed(torch.autograd.Function):

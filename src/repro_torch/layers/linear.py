@@ -2,7 +2,9 @@
 
 Every dense contraction goes through :func:`project`, which schedules its K
 reduction per a :mod:`repro_torch.moa` strategy; on a CUDA tensor the
-default ``auto`` backend runs the ``dot_moa`` kernel.
+default ``auto`` backend runs the ``dot_moa`` kernel. A row-parallel
+projection on a mesh (:func:`project_rows`) sums the ranks' f32 partial
+products before its one cast.
 """
 
 from __future__ import annotations
@@ -12,8 +14,9 @@ import torch
 from repro_torch.kernels.ref import matmul_accum
 from repro_torch.layers.common import Params
 from repro_torch.moa import active_strategy
+from repro_torch.parallel.collectives import reduce_partial, split
 
-__all__ = ["project"]
+__all__ = ["project", "project_rows"]
 
 
 def project(params: Params, x: torch.Tensor, *, strategy=None,
@@ -31,6 +34,30 @@ def project(params: Params, x: torch.Tensor, *, strategy=None,
         y = matmul_accum(x, w, torch.float32).to(compute_dtype)
     else:
         y = strat.dot(x, w, out_dtype=compute_dtype)
+    if "b" in params:
+        y = y + params["b"].to(compute_dtype)
+    return y
+
+
+def project_rows(params: Params, x: torch.Tensor, *, site: str,
+                 strategy=None, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """:func:`project` of a row-parallel weight: where the active mesh
+    splits ``site`` (``"heads"`` for ``wo``, ``"ff"`` for ``w_down``) over
+    ``model``, ``x`` and ``w`` hold this rank's slice of the contraction,
+    the product comes out of ``dot_moa`` in f32 (its bf16 → f32 instance
+    on the card), the ranks' partials are summed in f32, and the sum is
+    cast once, then the bias added. Elsewhere it is :func:`project`."""
+    if not split(site):
+        return project(params, x, strategy=strategy,
+                       compute_dtype=compute_dtype)
+    w = params["w"].to(compute_dtype)
+    x = x.to(compute_dtype)
+    strat = active_strategy(strategy)
+    if strat is None:
+        y = matmul_accum(x, w, torch.float32)
+    else:
+        y = strat.dot(x, w, out_dtype=torch.float32)
+    y = reduce_partial(y).to(compute_dtype)
     if "b" in params:
         y = y + params["b"].to(compute_dtype)
     return y

@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.layers.common import Params, dense_init
-from repro_torch.layers.linear import project
+from repro_torch.layers.linear import project, project_rows
 from repro_torch.layers.numerics import silu_f32
 
 __all__ = ["swiglu", "init_gelu_mlp", "gelu_mlp"]
@@ -18,13 +18,16 @@ __all__ = ["swiglu", "init_gelu_mlp", "gelu_mlp"]
 
 def swiglu(params: Params, x: torch.Tensor, *, strategy=None,
            compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """``(silu(x @ w_gate) * (x @ w_up)) @ w_down``; on a mesh that splits
+    ``ff`` over ``model``, ``w_gate`` / ``w_up`` are column-parallel (this
+    rank's ``ff`` columns) and ``w_down`` row-parallel."""
     g = project({"w": params["w_gate"]}, x, strategy=strategy,
                 compute_dtype=compute_dtype)
     u = project({"w": params["w_up"]}, x, strategy=strategy,
                 compute_dtype=compute_dtype)
     h = silu_f32(g, out_dtype=compute_dtype) * u
-    return project({"w": params["w_down"]}, h, strategy=strategy,
-                   compute_dtype=compute_dtype)
+    return project_rows({"w": params["w_down"]}, h, site="ff",
+                        strategy=strategy, compute_dtype=compute_dtype)
 
 
 def init_gelu_mlp(generator: torch.Generator, d_model: int, d_ff: int,

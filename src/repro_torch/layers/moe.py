@@ -11,6 +11,13 @@ the card); the outputs are gathered back and the top-k gate-weighted rows
 combined by the strategy's ``sum`` (``moa_reduce`` on the card). Choices
 over capacity are dropped; the Switch-style load-balance loss is returned.
 
+On a mesh that splits ``experts`` over ``model`` (expert parallelism) the
+router and the routing stay replicated, so every rank picks the same
+experts; each rank runs the batched contractions of its own ``E / M``
+experts, combines the top-k choices that landed on them (the others as
+exact zeros) and the f32 partial combines are summed over the ranks
+before the one cast.
+
 Where PyTorch differs from JAX, the port pins the reference's semantics:
 
 * top-k keeps the lower expert index first on ties (``lax.top_k``): a
@@ -30,6 +37,7 @@ import torch
 from repro_torch.layers.common import Params, dense_init
 from repro_torch.layers.numerics import silu_f32
 from repro_torch.moa import active_strategy
+from repro_torch.parallel.collectives import reduce_partial, split
 
 __all__ = ["Routing", "init_moe", "route", "moe_forward"]
 
@@ -132,6 +140,15 @@ def moe_forward(params: Params, x: torch.Tensor, *, n_experts: int,
                       device=x.device)
     buf.index_add_(0, dest, contrib.reshape(-1, d))
     buf = buf.reshape(G, n_experts, C, d)
+    experts = split("experts")
+    if experts:                      # this rank's experts only
+        lo, hi = experts
+        buf = buf[:, lo:hi].contiguous()
+        mine = (flat_ids >= lo) & (flat_ids < hi)
+        dest = ((g_idx * (hi - lo) + torch.clamp(flat_ids - lo, 0,
+                                                   hi - lo - 1)) * C
+                + safe_slot).reshape(-1)
+        keep = keep & mine[..., None]
 
     gates = expert_dot(buf, params["w_gate"])
     ups = expert_dot(buf, params["w_up"])
@@ -143,7 +160,11 @@ def moe_forward(params: Params, x: torch.Tensor, *, n_experts: int,
     gathered = torch.where(keep, gathered, torch.zeros_like(gathered))
     weighted = gathered * r.gates.reshape(G, tg * top_k, 1).to(compute_dtype)
     weighted = weighted.reshape(G, tg, top_k, d)
-    if strat is None:
+    if experts:                      # f32 partials, summed over ranks
+        part = weighted.float().sum(dim=2) if strat is None \
+            else strat.sum(weighted, axis=2).float()
+        y = reduce_partial(part).to(compute_dtype)
+    elif strat is None:
         y = torch.sum(weighted, dim=2)
     else:
         y = strat.sum(weighted, axis=2).to(compute_dtype)

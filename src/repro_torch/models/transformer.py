@@ -183,9 +183,9 @@ def _attn_out(cfg: ModelConfig, lyr: Params, h, o):
     """``h + o @ wo`` (``o`` is ``(B, S, H, D)``)."""
     B, S = o.shape[:2]
     o = o.reshape(B, S, cfg.n_heads * cfg.head_dim)
-    return h + attn_lib._moa_dot(o, lyr["attn"]["wo"].to(cfg.cdtype),
-                                 strategy=cfg.moa_for("attention"),
-                                 compute_dtype=cfg.cdtype)
+    return h + attn_lib._out_proj(o, lyr["attn"]["wo"].to(cfg.cdtype),
+                                  strategy=cfg.moa_for("attention"),
+                                  compute_dtype=cfg.cdtype)
 
 
 def embed_inputs(params: Params, batch: dict, cfg: ModelConfig):

@@ -8,7 +8,7 @@ The training function is handed ``(start_step, restored_state)`` and
 checkpoints through the manager; the data pipeline's determinism by step
 (:mod:`repro_torch.data.pipeline`) makes the resumed run bit-identical to
 an uninterrupted one. Re-planning the mesh for the surviving devices
-(elastic) comes with ROADMAP Queue 1 item 13.
+(elastic) comes after meshed training, ROADMAP Queue 1 item 18.
 """
 
 from __future__ import annotations

@@ -83,13 +83,38 @@ engine reads the new tree (nothing is copied, so engines that share a
 tree never see each other's reloads) and drops its graphs, which bound
 the old tensors; they are captured again at their next tick.
 
-Not ported yet, and refused with ``NotImplementedError``: mesh serving
-(ROADMAP Queue 1 item 8).
+**On a device mesh** (``mesh=``, a ``DeviceMesh`` with the reference's
+axis names, :func:`repro_torch.launch.mesh.make_mesh`) every rank builds
+the engine from the full parameter tree and keeps its own pieces
+(:class:`repro_torch.serve.mesh.MeshPlacement`): the attention's heads,
+the MLP's ``ff`` and the experts over ``model`` (tensor and expert
+parallel, the row-parallel products summed in f32), the vocabulary over
+``model`` where it divides, the slots over ``data``; the SSM and hybrid
+families serve data-parallel. The model runs on the local shards with
+explicit collectives (:mod:`repro_torch.parallel.collectives`); the
+kernels run unchanged on local tensors. Every rank runs the same host
+logic on rank 0's inputs, so all of them plan every tick alike and meet
+in the same collectives: each reading of the clock is rank 0's, broadcast
+over a CPU (gloo) group, and each sampled token, acceptance and first
+token is the lead rank's (:attr:`MeshPlacement.lead`), assembled over the
+ranks by one all-reduce, so every rank holds all slots' tokens; so are a
+drafter's proposals (rank 0's). Every rank calls the same methods of
+its engine in the same order (``run``, or ``start_run`` / ``tick`` /
+``finish_run``), as it would any collective. A
+prefill runs on every rank (its K/V lands in the pool on every rank, or
+in the slot's row where the slot lives); a decode or verify runs each
+rank's own slots. Refused on a mesh, with the ROADMAP item that would
+add them: ``scheduling="slo"`` (a preempted slot's state would have to
+move between data ranks), a model drafter other than the oracle, and
+CUDA graphs on a gloo group (which cannot capture a collective) or
+across a split slot axis.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
@@ -107,6 +132,8 @@ from repro_torch.layers.attention import (DENSE_PAGE, dequantize_kv,
                                           resolve_attn_backend)
 from repro_torch.models.api import Model, build_model
 from repro_torch.models.verify_common import SNAP_KEY
+from repro_torch.parallel import collectives
+from repro_torch.parallel.sharding import activate
 from repro_torch.serve import graphs
 from repro_torch.serve.kv_pool import TRASH_BLOCK, BlockPool, blocks_needed
 from repro_torch.serve.metrics import (RequestMetrics, aggregate,
@@ -116,6 +143,7 @@ from repro_torch.serve.sampling import sample_batch
 from repro_torch.serve.scheduler import SlotScheduler
 from repro_torch.serve.spec import (DraftModelDrafter, Drafter,
                                     OracleDrafter, verify_accept)
+from repro_torch.serve.mesh import MeshPlacement
 
 __all__ = ["ServeEngine", "fit_max_len"]
 
@@ -149,10 +177,31 @@ def fit_max_len(max_len: int, *, attn_backend: str, device,
     return -(-max_len // step) * step
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1, item 8: engine "
-        "features)")
+def _on_mesh(fn):
+    """Run a method of the engine inside its mesh context (the model's
+    collectives and the vocab-parallel sampling read it)."""
+    @functools.wraps(fn)
+    def wrapped(self, *args, **kwargs):
+        with self._mesh_context():
+            return fn(self, *args, **kwargs)
+    return wrapped
+
+
+class _LeadClock:
+    """A clock whose every reading is rank 0's, broadcast over the CPU
+    process group ``group``: each rank's replica of the scheduler then
+    admits on the same ticks."""
+
+    def __init__(self, clock: Callable[[], float], group):
+        import torch.distributed as dist
+
+        self._clock, self._group = clock, group
+        self._lead = dist.get_rank() == 0
+
+    def __call__(self) -> float:
+        t = torch.tensor([self._clock() if self._lead else 0.0],
+                         dtype=torch.float64)
+        return float(collectives.broadcast(t, 0, self._group)[0])
 
 
 @dataclasses.dataclass
@@ -280,7 +329,8 @@ def _paged_write(cache, pre_kv, pre_state, write_ids, table_row, slot,
 
     ``slot`` and ``pre_pos`` are Python ints, or a CUDA graph's static
     inputs: a ``(1,)`` and a 0-d int32 device tensor, installed by
-    ``index_copy_`` on the device."""
+    ``index_copy_`` on the device. ``slot`` ``None``: the slot lives on
+    another rank of a mesh, and only the pages are written."""
     nb = write_ids.shape[0]
     last = last_of_equal(write_ids)
     for name, leaf in cache[kv_key].items():
@@ -288,6 +338,8 @@ def _paged_write(cache, pre_kv, pre_state, write_ids, table_row, slot,
         s = s.reshape((s.shape[0], nb, s.shape[1] // nb)
                       + tuple(s.shape[2:]))
         leaf[:, write_ids] = s[:, last].to(leaf.dtype)
+    if slot is None:
+        return
     if pre_state is not None:
         _write_slot(cache, {"ssm": pre_state, "pos": pre_pos}, slot)
     if isinstance(slot, torch.Tensor):
@@ -302,11 +354,13 @@ def _paged_write(cache, pre_kv, pre_state, write_ids, table_row, slot,
 def _cow_copy(cache, src: int, dst: int, slot: int, logical_idx: int, *,
               kv_key: str) -> None:
     """Copy-on-write: duplicate page ``src`` into the reserved spare
-    ``dst`` and repoint this slot's table entry, so the imminent divergent
-    write lands on a private page."""
+    ``dst`` and repoint this slot's table entry (``slot`` ``None``: the
+    slot lives on another rank), so the imminent divergent write lands on
+    a private page."""
     for leaf in cache[kv_key].values():
         leaf[:, dst] = leaf[:, src]
-    cache["block_tables"][slot, logical_idx] = dst
+    if slot is not None:
+        cache["block_tables"][slot, logical_idx] = dst
 
 
 def _clear_slot(cache, slot: int) -> None:
@@ -369,7 +423,9 @@ class ServeEngine:
         graphs (:mod:`repro_torch.serve.graphs`) and replay them each
         tick.
         ``None``: on for a CUDA engine, off on the CPU; ``True`` on the CPU
-        raises; ``False`` runs every tick eagerly.
+        raises; ``False`` runs every tick eagerly. On a mesh graphs need an
+        NCCL group and unsplit slots; elsewhere a CUDA mesh engine raises
+        unless given ``False`` (nothing falls back to eager unasked).
     device:
         Where the engine runs: the GPU unless the caller asks for the CPU
         (no GPU raises). ``params`` must already be there.
@@ -387,8 +443,14 @@ class ServeEngine:
     scheduling:
         ``"fifo"`` or ``"slo"`` (admission by priority and earliest
         deadline, with preemption; not with a drafter).
-    mesh:
-        Refused: ROADMAP Queue 1, item 8.
+    mesh, rules:
+        A ``DeviceMesh`` (axes ``data``, ``model``, optionally a leading
+        ``pod``) to serve on, one rank a device, every rank building the
+        engine alike; ``params`` is then the full tree (on any device),
+        of which the rank keeps its pieces on ``device``. ``rules``
+        defaults to :func:`repro_torch.parallel.serve_rules_for` the
+        family (with :func:`~repro_torch.parallel.
+        replicate_uneven_kv_heads`). See the module docstring.
     """
 
     def __init__(self, model: Model, params, *, n_slots: int, max_len: int,
@@ -396,13 +458,12 @@ class ServeEngine:
                  block_size: int = 16, n_blocks: Optional[int] = None,
                  generator: Optional[torch.Generator] = None,
                  drafter: Optional[Drafter] = None, mesh=None,
+                 rules=None,
                  clock: Callable[[], float] = time.monotonic,
                  prefill_chunk_tokens: Optional[int] = None,
                  scheduling: str = "fifo",
                  attn_backend: Optional[str] = None,
                  device="cuda", cuda_graphs: Optional[bool] = None):
-        if mesh is not None:
-            raise _not_ported("mesh serving")
         if model.cfg.family == "encoder":
             raise ValueError("encoder-only arch has no decode step")
         if model.cfg.family == "vlm":
@@ -450,6 +511,30 @@ class ServeEngine:
                     "per-chunk suffix KV is quantized per chunk, which "
                     "breaks bit-exactness with the one-shot prefill scales")
         self.device = resolve_device(device)
+        #: the whole model: pricing, reports and the cache's specs (on a
+        #: mesh an unloaded copy, so no full tree outlives construction)
+        self._full_model = model if mesh is None else build_model(model.cfg)
+        self.mesh, self.rules, self._mp = mesh, None, None
+        if mesh is not None:
+            if scheduling == "slo":
+                raise ValueError(
+                    "scheduling='slo' is not served on a mesh: a preempted "
+                    "slot's state would have to move between data ranks "
+                    "(ROADMAP Queue 1 item 19)")
+            if isinstance(drafter, DraftModelDrafter) \
+                    and not isinstance(drafter, OracleDrafter):
+                raise ValueError(
+                    "a draft model is not served on a mesh: its own "
+                    "parameters would need their own placement (ROADMAP "
+                    "Queue 1 item 19); the oracle and ngram drafters are")
+            self._mp = MeshPlacement(mesh, model, rules, n_slots=n_slots)
+            self.rules = self._mp.rules
+            params = self._mp.local_params(params, self.device)
+            model = self._mp.local_model
+            clock = _LeadClock(clock, self._cpu_group())
+        #: the global slots whose rows this rank's cache holds
+        self._lo, self._hi = self._mp.rows if self._mp else (0, n_slots)
+        self._n_rows = self._hi - self._lo
         for path, leaf in tree_leaves(params):
             if leaf.device != self.device:
                 raise ValueError(
@@ -494,10 +579,16 @@ class ServeEngine:
         if paged:
             self._init_paged(block_size, n_blocks)
         else:
-            self.cache = model.init_cache(n_slots, max_len,
+            self.cache = model.init_cache(self._n_rows, max_len,
                                           device=self.device)
-            self.cache["pos"] = torch.zeros((n_slots,), dtype=torch.int32,
+            self.cache["pos"] = torch.zeros((self._n_rows,),
+                                            dtype=torch.int32,
                                             device=self.device)
+        #: each cache leaf's spec on the mesh (``None`` off a mesh)
+        self.cache_specs = None
+        if self._mp is not None:
+            self.cache_specs = self._mp.check_local(
+                self._full_cache(), self.cache, paged=paged)
         self._graphs = self._init_graphs(cuda_graphs)
 
         self._inflight: Dict[int, _Inflight] = {}
@@ -556,10 +647,10 @@ class ServeEngine:
         self._prefix_share = family != "moe" or self._padded
         if not self._prefix_share:
             self._match_tail = False
-        self._spec = self.model.cache_spec()
+        self._spec = self._full_model.cache_spec()
         # physical pages: pool blocks 1..n plus the id-0 trash page
         self.cache = self.model.init_paged_cache(
-            self.n_slots, self.n_blocks + 1, block_size, self._max_blocks,
+            self._n_rows, self.n_blocks + 1, block_size, self._max_blocks,
             device=self.device)
         self._prefix_hits = 0
         self._shared_block_hits = 0
@@ -575,6 +666,34 @@ class ServeEngine:
         self._fused_kv_bytes = 0
         self._kv_step_log: List[Tuple[int, int]] = []
 
+    def _full_cache(self):
+        """The whole mesh's cache as ``meta`` tensors (its specs' shapes)."""
+        meta = torch.device("meta")
+        if self.paged:
+            return self._full_model.init_paged_cache(
+                self.n_slots, self.n_blocks + 1, self.block_size,
+                self._max_blocks, device=meta)
+        cache = self._full_model.init_cache(self.n_slots, self.max_len,
+                                            device=meta)
+        cache["pos"] = torch.zeros((self.n_slots,), dtype=torch.int32,
+                                   device=meta)
+        return cache
+
+    @staticmethod
+    def _cpu_group():
+        """A process group that carries CPU tensors: the world's if it is
+        gloo, else a new gloo group."""
+        import torch.distributed as dist
+
+        if dist.get_backend() == "gloo":
+            return None
+        return dist.new_group(backend="gloo")
+
+    def _mesh_context(self):
+        if self._mp is None:
+            return contextlib.nullcontext()
+        return activate(self.mesh, self.rules, self._mp.shard)
+
     def _init_graphs(self, cuda_graphs: Optional[bool]
                      ) -> Optional[graphs.GraphCache]:
         if cuda_graphs is None:
@@ -582,6 +701,19 @@ class ServeEngine:
         elif cuda_graphs and not graphs.API.supports(self.device):
             raise ValueError(f"cuda_graphs=True needs a CUDA engine; this "
                              f"one runs on {self.device}")
+        if cuda_graphs and self._mp is not None:
+            import torch.distributed as dist
+
+            backend = dist.get_backend()
+            if backend != "nccl":
+                raise ValueError(
+                    f"cuda_graphs on a mesh needs collectives a CUDA graph "
+                    f"can capture (nccl); this mesh's process group is "
+                    f"{backend!r}: pass cuda_graphs=False")
+            if self._n_rows != self.n_slots:
+                raise ValueError(
+                    "cuda_graphs across a split slot axis are not ported "
+                    "(ROADMAP Queue 1 item 19): pass cuda_graphs=False")
         if not cuda_graphs:
             return None
         return graphs.GraphCache(
@@ -725,7 +857,7 @@ class ServeEngine:
             kv, _ = self.model.split_prefill_cache(pre)
             write_ids = self._write_ids(table, n_pref, kv["k"].shape[2] // bs)
             _paged_write(self.cache, kv, None, self._dev(write_ids),
-                         self._dev(row), slot, pre["pos"],
+                         self._dev(row), self._row(slot), pre["pos"],
                          kv_key=self._kv_key)
         else:
             # the prefill writes every logical block of max_len
@@ -753,7 +885,7 @@ class ServeEngine:
         if table.cow_spare is None:
             return
         src, dst = table.blocks[table.tail_idx], table.cow_spare
-        _cow_copy(self.cache, src, dst, slot, table.tail_idx,
+        _cow_copy(self.cache, src, dst, self._row(slot), table.tail_idx,
                   kv_key=self._kv_key)
         self._pool.free(src)
         table.blocks[table.tail_idx] = dst
@@ -767,7 +899,28 @@ class ServeEngine:
             self._pool.free(b)
         if table.cow_spare is not None:
             self._pool.free(table.cow_spare)
-        _clear_slot(self.cache, slot)
+        self._clear(slot)
+
+    def _row(self, slot):
+        """Slot ``slot``'s row in this rank's cache, or ``None`` where it
+        lives on another rank (a graph's device tensor passes through: a
+        graph never serves a split slot axis)."""
+        if isinstance(slot, torch.Tensor):
+            return slot
+        row = slot - self._lo
+        return row if 0 <= row < self._n_rows else None
+
+    def _install(self, pre, slot: int) -> None:
+        """:func:`_write_slot` where the slot lives on this rank."""
+        row = self._row(slot)
+        if row is not None:
+            _write_slot(self.cache, pre, row)
+
+    def _clear(self, slot: int) -> None:
+        """:func:`_clear_slot` where the slot lives on this rank."""
+        row = self._row(slot)
+        if row is not None:
+            _clear_slot(self.cache, row)
 
     def _full_prefill(self, prompt: np.ndarray, write_ids, row, slot: int
                       ) -> torch.Tensor:
@@ -817,8 +970,8 @@ class ServeEngine:
               results: List[RequestResult]) -> None:
         """Sample the first token from prefill logits and move the request
         into the decode set (or finish it on the spot)."""
-        first = int(req.sampler(
-            logits[:, -1], None if req.sampler.greedy else self._gen)[0])
+        first = int(self._from_lead(req.sampler(
+            logits[:, -1], None if req.sampler.greedy else self._gen))[0])
         t_first = self._now(self._t_start)
         metrics = RequestMetrics(arrival_s=req.arrival_s,
                                  admitted_s=admitted_s,
@@ -912,7 +1065,7 @@ class ServeEngine:
             if final:
                 row[: len(table.blocks)] = table.blocks
             _paged_write(self.cache, kv, state_final, self._dev(write_ids),
-                         self._dev(row), slot, p if final else 0,
+                         self._dev(row), self._row(slot), p if final else 0,
                          kv_key=self._kv_key)
             return
         pf.kv_parts.append(kv)
@@ -925,7 +1078,7 @@ class ServeEngine:
             pre = {self._kv_key: merged, "pos": p}
             if state_final is not None:
                 pre["ssm"] = state_final
-            _write_slot(self.cache, pre, slot)
+            self._install(pre, slot)
 
     def _prefill_tick(self, results: List[RequestResult]) -> None:
         """Advance the lowest-numbered prefilling slot by one chunk; the
@@ -947,7 +1100,7 @@ class ServeEngine:
             logits, pf.state = self.model.prefill_chunk(self.params, toks,
                                                         state=pf.state)
             if final:      # the carried state is the prefill cache
-                _write_slot(self.cache, pf.state, slot)
+                self._install(pf.state, slot)
         elif family == "hybrid":
             logits, out = self.model.prefill_chunk(
                 self.params, toks, state=pf.state,
@@ -979,7 +1132,11 @@ class ServeEngine:
         slot's row; paged: its cursor, its pool pages staying pinned under
         their refcounts) and revived bit for bit at its next admission. A
         mid-prefill request discards its progress and frees its pages: no
-        token was emitted yet, so it restarts from scratch."""
+        token was emitted yet, so it restarts from scratch. Not on a
+        mesh (its state would have to move between data ranks)."""
+        if self._mp is not None:
+            raise ValueError("preemption is not served on a mesh (ROADMAP "
+                             "Queue 1 item 19)")
         now = self._now(self._t_start)
         if slot in self._inflight:
             inf = self._inflight.pop(slot)
@@ -1073,9 +1230,35 @@ class ServeEngine:
         self.scheduler.release(inf.slot)
         self._inflight.pop(inf.slot, None)
 
+    def _from_lead(self, x: torch.Tensor, *, rows: bool = False
+                   ) -> torch.Tensor:
+        """Rank 0's ``x`` on every rank of a mesh (one sum all-reduce over
+        the world, which only the lead contributes to); ``rows``: ``x`` is
+        this rank's ``(n_rows, ...)`` rows of the slots, and the result
+        every slot's, each slot's rows from the lead rank of its data
+        index. The identity off a mesh."""
+        if self._mp is None:
+            return x
+        import torch.distributed as dist
+
+        mp = self._mp
+        pieces, idx = (mp.slot_ways, mp.slot_index) if rows else (1, 0)
+        buf = torch.zeros((pieces,) + tuple(x.shape), dtype=x.dtype,
+                          device=x.device)
+        if mp.lead if rows else dist.get_rank() == 0:
+            buf[idx] = x
+        collectives.all_reduce(buf)
+        return buf.reshape((-1,) + tuple(x.shape[1:])) if rows else buf[0]
+
+    def _local(self, a: np.ndarray) -> np.ndarray:
+        """This rank's rows of a per-slot host array."""
+        return a[self._lo:self._hi]
+
     def _sample(self, logits, temps, greedy):
-        return sample_batch(logits, self._dev(temps), self._dev(greedy),
-                            self._gen).cpu().numpy()
+        return self._from_lead(sample_batch(
+            logits, self._dev(self._local(temps)),
+            self._dev(self._local(greedy)), self._gen),
+            rows=True).cpu().numpy()
 
     def _count_step(self, hw: int, window: int) -> None:
         """The run counters of one decode or verify step of ``window`` rows
@@ -1116,10 +1299,13 @@ class ServeEngine:
     def _accept(self, logits, draft, temps, greedy):
         """The acceptance of one verify (:func:`repro_torch.serve.spec.
         verify_accept`) on the host: ``(out (n_slots, k+1), n_acc)``."""
-        out, n_acc = verify_accept(logits, self._dev(draft),
-                                   self._dev(temps), self._dev(greedy),
-                                   self._gen)
-        return out.cpu().numpy(), n_acc.cpu().numpy()
+        out, n_acc = verify_accept(
+            logits, self._dev(self._local(draft)),
+            self._dev(self._local(temps)), self._dev(self._local(greedy)),
+            self._gen)
+        both = self._from_lead(torch.cat([out, n_acc[:, None]], dim=1),
+                               rows=True).cpu().numpy()
+        return both[:, :-1], both[:, -1]
 
     def _spec_tick(self, results: List[RequestResult]) -> None:
         """One speculative tick: draft → verify → accept → commit.
@@ -1134,6 +1320,12 @@ class ServeEngine:
         histories = {slot: tuple(inf.request.prompt) + tuple(inf.generated)
                      for slot, inf in self._inflight.items()}
         proposals = self.drafter.propose(histories)
+        if self._mp is not None:     # rank 0's drafts on every rank
+            drafts = np.zeros((self.n_slots, k), np.int32)
+            for slot, d in proposals.items():
+                drafts[slot] = d
+            drafts = self._from_lead(self._dev(drafts)).cpu().numpy()
+            proposals = {slot: drafts[slot] for slot in proposals}
         toks = np.zeros((self.n_slots, k + 1), np.int32)
         temps = np.zeros((self.n_slots,), np.float32)
         greedy = np.ones((self.n_slots,), bool)
@@ -1148,7 +1340,8 @@ class ServeEngine:
         keep = np.zeros((self.n_slots,), np.int32)
         for slot in self._inflight:
             keep[slot] = n_acc[slot] + 1
-        self.model.commit_verified(self.cache, self._dev(keep), None)
+        self.model.commit_verified(self.cache, self._dev(self._local(keep)),
+                                   None)
         self._spec_ticks += 1
         self._spec_slot_steps += len(self._inflight)
         self._count_step(hw, k + 1)
@@ -1203,16 +1396,18 @@ class ServeEngine:
             self.params, {"tokens": tokens}, max_len=self.max_len,
             prompt_len=prompt_len)
         if not self.paged:
-            _write_slot(self.cache, pre, slot)
+            self._install(pre, slot)
             return logits
         kv, state = self.model.split_prefill_cache(pre)
-        _paged_write(self.cache, kv, state, write_ids, row, slot, pre["pos"],
-                     kv_key=self._kv_key)
+        _paged_write(self.cache, kv, state, write_ids, row, self._row(slot),
+                     pre["pos"], kv_key=self._kv_key)
         return logits
 
     def _decode(self, hw: int, toks: np.ndarray) -> torch.Tensor:
         """Logits ``(n_slots, 1, V)`` of one decode step (paged: over
-        ``hw`` live blocks): a graph's replay, or the eager step."""
+        ``hw`` live blocks): a graph's replay, or the eager step. On a
+        mesh: this rank's slots and slice of the vocabulary."""
+        toks = self._local(toks)
         if self._graphs is not None:
             return self._graphs.decode(hw, toks)
         return self._decode_body(self._dev(toks), hw)
@@ -1220,6 +1415,7 @@ class ServeEngine:
     def _verify(self, hw: int, toks: np.ndarray) -> torch.Tensor:
         """Logits ``(n_slots, k + 1, V)`` of one verify (paged: over ``hw``
         live blocks): a graph's replay, or the eager body."""
+        toks = self._local(toks)
         if self._graphs is not None:
             return self._graphs.verify(hw, toks)
         return self._verify_body(self._dev(toks), hw)
@@ -1266,15 +1462,15 @@ class ServeEngine:
         if self.paged:
             # copying page 0 onto itself and re-clearing an empty slot are
             # no-ops by construction
-            _cow_copy(self.cache, TRASH_BLOCK, TRASH_BLOCK, 0, 0,
+            _cow_copy(self.cache, TRASH_BLOCK, TRASH_BLOCK, self._row(0), 0,
                       kv_key=self._kv_key)
-            _clear_slot(self.cache, 0)
+            self._clear(0)
         buckets = self._hw_buckets() if self.paged else [0]
         greedy = np.ones((n,), bool)
         zeros = np.zeros((n,), np.float32)
         if self.drafter is not None:
             toks = np.zeros((n, self.spec_k + 1), np.int32)
-            keep0 = self._dev(np.zeros((n,), np.int32))
+            keep0 = self._dev(np.zeros((self._n_rows,), np.int32))
             for hw in buckets:
                 logits = self._verify(hw, toks)
                 self.model.commit_verified(self.cache, keep0, None)
@@ -1322,7 +1518,11 @@ class ServeEngine:
         request admitted after a reload prefills under the new weights
         alone. In-flight slots keep decoding, now against the new weights;
         callers that need every generation pinned to one weight version
-        (the replica router's rolling reload) drain the engine first."""
+        (the replica router's rolling reload) drain the engine first. On
+        a mesh ``params`` is the full tree, of which the engine keeps this
+        rank's pieces, as at construction."""
+        if self._mp is not None:
+            params = self._mp.local_params(params, self.device)
         old, new = tree_paths(self.params), tree_paths(params)
         if list(old) != list(new):
             raise ValueError(
@@ -1353,6 +1553,7 @@ class ServeEngine:
         self.params = params
 
     @torch.no_grad()
+    @_on_mesh
     def start_run(self, *, warmup: bool = False,
                   t_origin: Optional[float] = None) -> None:
         """Reset per-run counters and start the engine clock (optionally
@@ -1389,6 +1590,7 @@ class ServeEngine:
         self._t_start = self._clock() if t_origin is None else t_origin
 
     @torch.no_grad()
+    @_on_mesh
     def tick(self, results: List[RequestResult]) -> None:
         """One scheduling tick: (SLO: one preemption at most), admit what
         arrived, one prefill chunk, one decode or verify step. Appends
@@ -1450,6 +1652,23 @@ class ServeEngine:
                     f"{len(self._inflight)} requests still in flight")
         return self.finish_run(results)
 
+    def mesh_report(self) -> Optional[dict]:
+        """The mesh's axes and sizes, its process group's backend, the
+        family rules it serves by and this rank's place in it (``None``
+        off a mesh)."""
+        if self._mp is None:
+            return None
+        import torch.distributed as dist
+
+        mp = self._mp
+        return {"axes": dict(mp.sizes), "coords": dict(mp.coords),
+                "backend": dist.get_backend(), "ranks": dist.get_world_size(),
+                "slot_rows": [self._lo, self._hi],
+                "family_rules": self._full_model.cfg.family,
+                "split": {"heads": mp.shard.heads, "ff": mp.shard.ff,
+                          "experts": mp.shard.experts,
+                          "vocab": mp.shard.vocab}}
+
     def finish_run(self, results: List[RequestResult]
                    ) -> Tuple[List[RequestResult], dict]:
         """Price the completed requests and build the run report; the
@@ -1460,11 +1679,12 @@ class ServeEngine:
                 # every (k + 1)-token verify a request sat through is
                 # compute spent, accepted or not
                 r.metrics.moa_flops = spec_request_decode_cost(
-                    self.model.cfg, k=self.spec_k,
+                    self._full_model.cfg, k=self.spec_k,
                     tick_contexts=self._tick_contexts.get(r.uid, ()))
             else:
                 r.metrics.moa_flops = request_decode_cost(
-                    self.model.cfg, prompt_tokens=r.metrics.prompt_tokens,
+                    self._full_model.cfg,
+                    prompt_tokens=r.metrics.prompt_tokens,
                     new_tokens=r.metrics.new_tokens)
         report = aggregate(results, n_slots=self.n_slots,
                            decode_steps=self._steps,
@@ -1492,6 +1712,7 @@ class ServeEngine:
                 - self._draft_steps_start)
         report["device"] = (torch.cuda.get_device_name(self.device)
                             if self.device.type == "cuda" else "cpu")
+        report["mesh"] = self.mesh_report()
         report["cuda_graphs"] = self._graphs is not None
         report["graphs"] = (self._graphs.report()
                             if self._graphs is not None else None)

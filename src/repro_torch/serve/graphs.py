@@ -73,6 +73,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import time
 from typing import Callable, Dict, Optional, Sequence
 
@@ -246,12 +247,21 @@ class GraphCache:
 
     def _capture(self, key: tuple, body: Callable[[], torch.Tensor]
                  ) -> _Graph:
+        """Capture ``body`` with Python's cyclic garbage collector paused:
+        a collection during the capture could destroy another graph (an
+        engine dropped in a reference cycle, a fleet's killed replica),
+        and destroying a graph while a stream captures invalidates the
+        capture. ``torch.cuda.graph`` collects before it begins."""
         before = ops.launch_counts()
         t0 = time.perf_counter()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             replay = self._api.capture(body, stream=self._stream,
                                        pool=self._pool)
         finally:
+            if collecting:
+                gc.enable()
             after = ops.launch_counts()
             ops.reset_launch_counts()
             ops.add_launch_counts(before)

@@ -4,7 +4,10 @@ A :class:`Sampler` carries one request's policy; :func:`sample_batch`
 applies a mixed batch of policies in one call. Greedy is ``argmax`` (first
 index on ties, as ``jnp.argmax``); temperature sampling draws from a
 ``torch.Generator`` and so cannot match ``jax.random`` draw for draw — its
-bar is determinism under a seed.
+bar is determinism under a seed. On a mesh that splits the vocabulary the
+logits are this rank's slice: greedy takes the global argmax
+(:func:`repro_torch.parallel.collectives.vocab_argmax`) and a temperature
+row samples from its whole row (``vocab_gather``).
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+from repro_torch.parallel.collectives import vocab_argmax, vocab_gather
 
 __all__ = ["Sampler", "GREEDY", "sample_batch"]
 
@@ -39,11 +44,12 @@ class Sampler:
         """``logits (B, vocab)`` → ``(B,)`` int32 token ids; ``generator``
         is required unless greedy."""
         if self.greedy:
-            return torch.argmax(logits, dim=-1).to(torch.int32)
+            return vocab_argmax(logits).to(torch.int32)
         if generator is None:
             raise ValueError("non-greedy Sampler needs a torch.Generator")
         temp = torch.tensor(self.temperature, device=logits.device)
-        return _categorical(logits, temp, generator).to(torch.int32)
+        return _categorical(vocab_gather(logits), temp,
+                            generator).to(torch.int32)
 
 
 #: the default policy (argmax decode)
@@ -59,10 +65,11 @@ def sample_batch(logits: torch.Tensor, temperature: torch.Tensor,
     greedy rows take the argmax, the rest sample at their own temperature.
     An all-greedy batch draws nothing from ``generator``.
     """
-    greedy_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    greedy_tok = vocab_argmax(logits).to(torch.int32)
     greedy_mask = greedy_mask.to(logits.device)
     if bool(greedy_mask.all()):
         return greedy_tok
     temp = torch.clamp(temperature.to(logits.device), min=1e-6)[:, None]
-    sampled = _categorical(logits, temp, generator).to(torch.int32)
+    sampled = _categorical(vocab_gather(logits), temp,
+                           generator).to(torch.int32)
     return torch.where(greedy_mask, greedy_tok, sampled)

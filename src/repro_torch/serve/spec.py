@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.interop import tree_map
 from repro_torch.models.verify_common import SNAP_KEY
+from repro_torch.parallel.collectives import vocab_argmax, vocab_gather
 
 __all__ = ["Drafter", "NgramDrafter", "DraftModelDrafter", "OracleDrafter",
            "verify_accept", "resolve_drafter"]
@@ -63,12 +64,14 @@ def verify_accept(logits: torch.Tensor, draft: torch.Tensor,
     after a full window a bonus token from ``p``); an all-greedy batch draws
     nothing from ``generator``.
     """
-    B, T, V = logits.shape
     draft = draft.to(device=logits.device, dtype=torch.long)
     greedy = greedy.to(logits.device)
-    g = torch.argmax(logits, dim=-1).to(torch.int32)               # (B, T)
+    g = vocab_argmax(logits).to(torch.int32)                       # (B, T)
     acc = draft == g[:, :-1]
     sampled = not bool(greedy.all())
+    if sampled:
+        logits = vocab_gather(logits)          # whole rows on a mesh
+    B, T, V = logits.shape
     if sampled:
         temps = torch.clamp(temps.to(logits.device).float(), min=1e-6)
         lp = logits.float() / temps[:, None, None]
@@ -238,8 +241,8 @@ class DraftModelDrafter(Drafter):
             self.params, self.cache, self._dev(tf_toks))
         self.cache = self.model.commit_verified(cache, self._dev(keep), aux)
         self.draft_steps += n_tf
-        first = torch.argmax(logits[torch.arange(B, device=self.device),
-                                    self._dev(last)], dim=-1)
+        first = vocab_argmax(logits[torch.arange(B, device=self.device),
+                                    self._dev(last)])
         drafts = np.zeros((B, k), np.int32)
         drafts[:, 0] = first.cpu().numpy()
         # greedy rollout of the remaining k - 1 drafts on a throwaway copy
@@ -251,7 +254,7 @@ class DraftModelDrafter(Drafter):
             for j in range(1, k):
                 lg, work = self.model.decode_step(self.params, work,
                                                   cur[:, None])
-                cur = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)
+                cur = vocab_argmax(lg[:, -1]).to(torch.int32)
                 drafts[:, j] = cur.cpu().numpy()
                 self.draft_steps += 1
         for s in slots:

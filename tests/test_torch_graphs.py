@@ -618,3 +618,26 @@ def test_slo_and_chunks_keep_cache_addresses(models, recording, paged):
     assert rep["slo"]["prefill_chunk_count"] > 0
     for a, b in zip(want, got):
         np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+def test_capture_pauses_garbage_collection(monkeypatch):
+    """A capture runs with the cyclic garbage collector paused (a
+    collection that destroys another graph mid-capture invalidates it on
+    the card), and the collector is back on afterwards."""
+    import gc
+
+    seen = []
+
+    class Watching(RecordingGraphs):
+        def capture(self, body, *, stream, pool):
+            seen.append(gc.isenabled())
+            return body
+
+    monkeypatch.setattr(graphs, "API", Watching())
+    cache = graphs.GraphCache(lambda toks, hw: torch.zeros(1), None, None,
+                              n_slots=1, max_blocks=0, max_bucket=1,
+                              window=1, device=torch.device("cpu"))
+    assert gc.isenabled()
+    cache.decode(0, np.zeros((1, 1), np.int32))
+    assert seen == [False] and gc.isenabled()
+

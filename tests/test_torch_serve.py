@@ -173,8 +173,10 @@ def test_unported_engine_modes_raise(engines):
     _, _, tm, tp = engines["bf16"]
     base = dict(n_slots=2, max_len=32, device="cpu")
     assert not ServeEngine(tm, tp, **base).paged    # dense-slot: ported
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ServeEngine(tm, tp, paged=True, **base, mesh=object())
+    # mesh serving is ported; SLO scheduling on a mesh is not
+    with pytest.raises(ValueError, match="item 19"):
+        ServeEngine(tm, tp, paged=True, **base, mesh=object(),
+                    scheduling="slo")
     # speculative decoding, chunked prefill and SLO scheduling are ported
     for extra in ({"drafter": NgramDrafter(2)}, {"prefill_chunk_tokens": 16},
                   {"scheduling": "slo"}):

@@ -266,6 +266,6 @@ def test_ssm_and_hybrid_training_refused(arch):
 
 
 def test_mesh_refused():
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 18"):
         _loop(mesh_shape=(2, 4))
     _loop(mesh_shape=(1, 1))           # one device is no mesh
