@@ -15,8 +15,9 @@ Phases, in order; each prints JSON lines and any failure ends the run with
 a non-zero exit:
 
 1. build    — compile the CUDA kernels from ``src/repro_torch/kernels/
-              csrc`` with nvcc for sm_90a (one nvcc per source, all at
-              once); print the card's name and power limit.
+              csrc`` with nvcc for sm_90a (one nvcc per source, and one
+              per part of ``dot_moa.cu``, all at once); print the card's
+              name and power limit.
    rows     — ``scripts/row_invariance.py`` at 2 layers of llama3-8b
               (bf16): one slot's decode step against row 0 of a verify
               over the same tokens, op by op (paged, dense-slot, the
@@ -258,6 +259,33 @@ a non-zero exit:
               divergences, launches and peak memory by rank,
               ``unchecked_calls``, collective calls a tick. A failed rank
               fails the phase.
+   mesh_train — training on a device mesh (the kernels phase checks every
+              call key of its mesh runs: ``mesh_train_call_keys``). First a
+              (1, 1) mesh over NCCL in this process: llama3-8b at 2 layers,
+              8 x 512, two steps from seed 0 against the one-device train
+              step, losses and every leaf of the state bit for bit. Then,
+              for each run of ``MESH_TRAIN_RUNS`` (llama3-8b at full width
+              and 2 layers, 8 x 512, on (2, 1) FSDP and on (1, 2) TP;
+              moonshot-v1-16b-a3b at 2 layers, 4 x 256, on (1, 2) EP;
+              zamba2-1.2b at full depth, 8 x 512, on (2, 1) FSDP; the
+              reference's train state, bf16 compute) the one-device step
+              on the card (its gradients kept on the host, the card freed),
+              then two ranks spawned on the one card over gloo that place
+              the state by the train step's specs and take 2 counted
+              steps, the first's loss held within ``TRAIN_LOSS_TOL`` and
+              every gradient leaf it applied within ``TRAIN_GRAD_REL_TOL``
+              of the one-device step's (the MoE teacher-forced by its
+              expert choices, each own choice that differs at a
+              near-tie); last, a
+              checkpoint a smoke llama3-8b run wrote on (1, 2) restored
+              onto (2, 1), every rank's slices bit for bit against the
+              saved leaves. While the two ranks run, this process runs
+              the parity phases (phase 4: lines without a time, each
+              bit-for-bit or bounded), so their lines come first.
+              ``mesh_train`` lines: the bars' numbers, collective calls a
+              step by kind, wall ms a step (not a speed result; the
+              parity phases share the card and host), peak memory and
+              launches by rank, ``unchecked_calls``.
 4. parity   — the same engine at full width with 2 layers, once on the
               kernels (captured, each bucket at its first tick) and once
               on the plain PyTorch path (eager): float32 compute on the
@@ -317,7 +345,9 @@ key per counted run: ``serve/llama3-8b``, ``serve/llama3-8b-spec-paged``,
 ``encode/hubert-xlarge``, ``vlm/llava-next-34b``, ``train/hubert-xlarge``,
 ``train/llava-next-34b``, ``train/zamba2-1.2b``, ``train/mamba2-370m``,
 ``mesh/llama3-8b-tp2``, ``mesh/llama3-8b-dp2``, ``mesh/moonshot-ep2``,
-``mesh/zamba2-dp2`` (both ranks' launches), ``paper``; the
+``mesh/zamba2-dp2``, ``train-mesh/llama3-8b-fsdp2``,
+``train-mesh/llama3-8b-tp2``, ``train-mesh/moonshot-ep2``,
+``train-mesh/zamba2-fsdp2`` (both ranks' launches), ``paper``; the
 paged row also carries the served verify row), the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a GPU, or
 without the rest of the repository beside it, the script exits non-zero
@@ -370,7 +400,8 @@ KERNELS = {
     "dot_moa": Kernel("src/repro/kernels/dot_moa.py:108", "dot_moa",
                       ("dot_moa_stream", "dot_moa_wgmma", "dot_moa_tc",
                        "dot_moa_simt", "dot_moa_fold"),
-                      ("serve", "paper", "train", "encode", "vlm", "mesh")),
+                      ("serve", "paper", "train", "encode", "vlm", "mesh",
+                       "train-mesh")),
     "flash_attention": Kernel("src/repro/kernels/flash_attention.py:86",
                               "flash_attention",
                               ("flash_wgmma", "flash_simt"),
@@ -380,7 +411,7 @@ KERNELS = {
                               ("serve", "vlm", "mesh")),
     "moa_reduce": Kernel("src/repro/kernels/moa_reduce.py:47", "moa_reduce",
                          ("moa_reduce_kernel",),
-                         ("serve", "paper", "train", "mesh")),
+                         ("serve", "paper", "train", "mesh", "train-mesh")),
     "loa_reduce": Kernel("src/repro/kernels/loa_add.py:92", "loa_add",
                          ("loa_reduce_kernel",), ("paper",)),
     "loa_add": Kernel("src/repro/kernels/loa_add.py:48", "loa_add",
@@ -506,6 +537,27 @@ def bf16_ulp(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(max(x, 2.0 ** -126))) - 7)
 
 
+def device_events(torch, prof) -> dict:
+    """``{name: (device ms, count)}`` of the device events of a finished
+    ``torch.profiler`` session: ``key_averages()``'s device time and count
+    of each kernel, read from the profiler's own records. ``key_averages``
+    first builds a Python event of each record, which held most of a
+    profiled served run's wall time (moonshot-v1-16b-a3b: ~1.3 s a tick
+    against ticks of 50-400 ms host time)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda or getattr(e, "is_hidden_event",
+                                              lambda: False)():
+            continue
+        ms, n = out.get(e.name(), (0.0, 0))
+        # key_averages gives an event that ends on another thread no time
+        timed = not e.is_async() and e.start_thread_id() == e.end_thread_id()
+        out[e.name()] = (ms + (e.duration_ns() / 1e6 if timed else 0.0),
+                         n + 1)
+    return out
+
+
 class Timer:
     """Median device time of single launches, each after a read of 64 MiB
     that evicts the 50 MB L2 (the served model streams ~14 GB of weights
@@ -519,7 +571,6 @@ class Timer:
         self.torch = torch
         self.flush = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
         torch.cuda.synchronize()
-        cuda = torch.autograd.DeviceType.CUDA
         # the flush's kernels, as three profiler sessions saw them: a
         # session may lose events, and a flush kernel missed here would be
         # counted as the timed call's own
@@ -529,8 +580,7 @@ class Timer:
                                      ProfilerActivity.CUDA]) as prof:
                 self.evict()
                 torch.cuda.synchronize()
-            keys = {e.key for e in prof.key_averages()
-                    if e.device_type == cuda}
+            keys = set(device_events(torch, prof))
             self.flush_kernels |= keys
             seen += bool(keys)
             if seen == 3:
@@ -558,7 +608,6 @@ class Timer:
         torch = self.torch
         fn()
         torch.cuda.synchronize()
-        cuda = torch.autograd.DeviceType.CUDA
         symbols = KERNELS[kernel].symbols if kernel else ()
         # the profiler now and then returns no events, or only some: a
         # session whose flush or own kernels did not run a whole number of
@@ -570,28 +619,26 @@ class Timer:
                     self.evict()
                     fn()
                 torch.cuda.synchronize()
-            events = [e for e in prof.key_averages()
-                      if e.device_type == cuda]
-            own = [e for e in events
-                   if any(sym in e.key for sym in symbols)
-                   or not kernel and e.key not in self.flush_kernels]
-            whole = all(e.count % iters == 0 for e in events
-                        if e in own or e.key in self.flush_kernels)
+            events = device_events(torch, prof)
+            own = {k: v for k, v in events.items()
+                   if any(sym in k for sym in symbols)
+                   or not kernel and k not in self.flush_kernels}
+            whole = all(n % iters == 0 for k, (_, n) in events.items()
+                        if k in own or k in self.flush_kernels)
             if own and whole:
                 break
         else:
             raise AssertionError(
                 f"the profiler saw no whole set of {kernel or 'call'} "
                 f"kernels in six tries of {iters} calls; the last: "
-                f"{[(e.key[:60], e.count) for e in events]}")
+                f"{[(k[:60], n) for k, (_, n) in events.items()]}")
         self.kernels = {}
-        for e in own:
-            name = e.key[:100]
-            self.kernels[name] = (self.kernels.get(name, 0.0)
-                                  + e.device_time_total / 1e3 / iters)
-        self.foreign = sorted({e.key[:100] for e in events if e not in own
-                               and e.key not in self.flush_kernels})
-        return sum(e.device_time_total for e in own) / 1e3 / iters
+        for k, (ms, _) in own.items():
+            name = k[:100]
+            self.kernels[name] = self.kernels.get(name, 0.0) + ms / iters
+        self.foreign = sorted({k[:100] for k in events if k not in own
+                               and k not in self.flush_kernels})
+        return sum(ms for ms, _ in own.values()) / iters
 
     def __call__(self, fn, iters: int = 10) -> float:
         torch = self.torch
@@ -1712,10 +1759,11 @@ def profile_served(torch, engine, requests, label: str = "served",
     ``decode_long`` is named ``decode_long``. Each line also gives the
     device ms a tick by :func:`kernel_group` (``groups``) and the items of
     ``extra``. The profiler's own launch overhead is inside the host time;
-    its setup and read-out are not."""
+    its setup and read-out are not. CUDA activity only (as the train
+    phase's profiled step): the same kernel events, where recording the
+    CPU's ops too held most of a profiled run's host time."""
     from torch.profiler import ProfilerActivity, profile
 
-    cuda = torch.autograd.DeviceType.CUDA
     classes = {}
     engine.start_run()
     for r in requests:
@@ -1727,8 +1775,7 @@ def profile_served(torch, engine, requests, label: str = "served",
         hw = engine._live_blocks(1) if engine.paged else 0
         admissions = engine._admissions
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.monotonic()
             engine.tick(results)
             torch.cuda.synchronize()
@@ -1747,12 +1794,10 @@ def profile_served(torch, engine, requests, label: str = "served",
             c["live_blocks"].add(hw)
             c["live_slots"] += len(before)
         # kernel events only: a CPU op's device time repeats its kernels'
-        for e in prof.key_averages():
-            if e.device_type == cuda:
-                ms, n = c["kernels"].get(e.key, (0.0, 0))
-                c["kernels"][e.key] = (ms + e.device_time_total / 1e3,
-                                       n + e.count)
-                c["device_ms"] += e.device_time_total / 1e3
+        for key, (dms, dn) in device_events(torch, prof).items():
+            ms, n = c["kernels"].get(key, (0.0, 0))
+            c["kernels"][key] = (ms + dms, n + dn)
+            c["device_ms"] += dms
     engine.finish_run(results)
     for what, c in classes.items():
         n = c["ticks"]
@@ -1805,15 +1850,12 @@ def profile_prefill(torch, model, params, n_tokens: int = 512) -> None:
 
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         run()
         torch.cuda.synchronize()
         host_ms = (time.monotonic() - t0) * 1e3
-    cuda = torch.autograd.DeviceType.CUDA
-    kernels = {e.key: (e.device_time_total / 1e3, e.count)
-               for e in prof.key_averages() if e.device_type == cuda}
+    kernels = device_events(torch, prof)
     device_ms = sum(ms for ms, _ in kernels.values())
     flash = [(ms, n) for key, (ms, n) in kernels.items()
              if any(sym in key for sym in KERNELS["flash_attention"].symbols)]
@@ -3610,7 +3652,7 @@ def _routing(torch, moe_mod, ticks, forced=None):
     def recorded(*args, **kw):
         r = route(*args, **kw)
         log.append((ticks[0], r.expert_ids.cpu(), r.keep.cpu(),
-                    r.probs.cpu()))
+                    r.probs.detach().cpu()))
         if forced is None:
             return r
         ids = forced[len(log) - 1][1].to(r.expert_ids.device)
@@ -4136,6 +4178,34 @@ def _states_equal(torch, a, b) -> list:
             if not torch.equal(t.detach(), wb[path].detach().to(t.device))]
 
 
+#: the card's memory (bytes) left to spare beside a second train state and
+#: its run's working memory, for the first state to stay on the card
+KEEP_MARGIN = 8 << 30
+
+
+def _keep_state(torch, state) -> tuple:
+    """The determinism check's first end state, and where it is kept: on
+    the card (the same tensors) where a second state and the first run's
+    working memory fit beside it with ``KEEP_MARGIN`` to spare, else in
+    pinned host memory. A pageable copy there and back held most of the
+    check's time (llama3-8b at 4 layers, a 24.6 GB state: 20 s, 4.4 s of
+    it the 6 steps)."""
+    from repro_torch.interop import tree_leaves, tree_map
+
+    held = sum(t.numel() * t.element_size() for _, t in tree_leaves(state))
+    work = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if torch.cuda.mem_get_info()[0] - held - work > KEEP_MARGIN:
+        return state, "cuda"
+
+    def pinned(t):
+        return torch.empty_like(t, device="cpu",
+                                pin_memory=True).copy_(t.detach())
+
+    return tree_map(pinned, state), "pinned host"
+
+
 def _profiled_step(torch, model, state, batch, hyper) -> tuple:
     """One train step in two ``torch.profiler`` sessions, the gradients
     and then the optimizer: device ms by group (``dot_moa``, ``library
@@ -4147,26 +4217,23 @@ def _profiled_step(torch, model, state, batch, hyper) -> tuple:
 
     from repro_torch.launch import steps
 
-    cuda = torch.autograd.DeviceType.CUDA
     groups, calls = collections.Counter(), collections.Counter()
     torch.cuda.synchronize()
     t0 = time.monotonic()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         grads, metrics = steps.loss_and_grads(model, state["params"], batch)
         torch.cuda.synchronize()
-    for e in prof.key_averages():
-        if e.device_type == cuda:
-            groups[kernel_group(e.key)] += e.device_time_total / 1e3
-            calls[kernel_group(e.key)] += e.count
+    for key, (ms, n) in device_events(torch, prof).items():
+        groups[kernel_group(key)] += ms
+        calls[kernel_group(key)] += n
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         state, metrics = steps.apply_gradients(state, grads, metrics,
                                                hyper=hyper)
         torch.cuda.synchronize()
     host_ms = (time.monotonic() - t0) * 1e3
-    for e in prof.key_averages():
-        if e.device_type == cuda:
-            groups["optimizer"] += e.device_time_total / 1e3
-            calls["optimizer"] += e.count
+    for ms, n in device_events(torch, prof).values():
+        groups["optimizer"] += ms
+        calls["optimizer"] += n
     return state, {"groups_ms": dict(groups), "kernels": dict(calls),
                    "device_ms": sum(groups.values()),
                    "host_ms_profiled": host_ms}
@@ -4203,15 +4270,15 @@ def train_full_width(torch, arch: str) -> dict:
     patches). Kernel against plain on the first batch (a family that runs
     no kernel, the SSM: its gradients, every one finite); the same 3 steps
     twice from one init, bit for bit (losses and every leaf of the state:
-    the first run's end state is kept on the host, so that one state is on
-    the card at a time); then the counted run: ``steps`` steps, each timed
-    on the host clock between synchronisations, every loss finite, every
-    kernel launch at a type, shapes and options a kernels-phase row
-    checked (the SSM: none launched); then, but for the MoE, one
-    profiled step by group. Returns the counted run's launches."""
+    the first run's end state stays on the card where two states fit,
+    else in pinned host memory, :func:`_keep_state`); then the counted
+    run: ``steps`` steps, each timed on the host clock between
+    synchronisations, every loss finite, every kernel launch at a type,
+    shapes and options a kernels-phase row checked (the SSM: none
+    launched); then, but for the MoE, one profiled step by group. Returns
+    the counted run's launches."""
     from repro_torch.configs.registry import get_config
     from repro_torch.data import SyntheticLMData
-    from repro_torch.interop import tree_map
     from repro_torch.kernels import ops
     from repro_torch.launch import steps
     from repro_torch.models.api import build_model
@@ -4264,6 +4331,7 @@ def train_full_width(torch, arch: str) -> dict:
     step_fn = steps.build_train_step(model, hyper=hyper)
     # determinism: the same 3 steps from the same init, twice
     losses = []
+    torch.cuda.reset_peak_memory_stats()
     for i in range(2):
         if i:
             state = fresh()
@@ -4273,7 +4341,7 @@ def train_full_width(torch, arch: str) -> dict:
             got.append(float(m["loss"]))
         losses.append(got)
         if not i:
-            first = tree_map(lambda t: t.detach().cpu(), state)
+            first, kept = _keep_state(torch, state)
             del state
             gc.collect()
             torch.cuda.empty_cache()
@@ -4282,6 +4350,7 @@ def train_full_width(torch, arch: str) -> dict:
     gc.collect()
     train_emit({"what": f"{arch} determinism", "steps": 3, "losses": losses,
                 "losses_equal": losses[0] == losses[1],
+                "first_state_kept_on": kept,
                 "state_leaves_differing": differ})
     if losses[0] != losses[1] or differ:
         raise AssertionError(f"train {arch}: two runs of 3 steps differ: "
@@ -4828,13 +4897,16 @@ def mesh_call_keys() -> list:
     return sorted(set(keys))
 
 
-def check_call_keys(torch, keys, where: str) -> None:
+def check_call_keys(torch, keys, where: str, timer=None) -> None:
     """Each ``call_key`` of ``keys`` that no kernels row checked: the
     kernel against its plain version on random operands of the key's
     shapes and options, within the tolerance its kernels rows state
     (``dot_moa``: 1 bf16 ulp of max|ref| for a bf16 result, f32 relative
     1e-5; flash and paged attention: 1 bf16 ulp, f32 1e-5; ``moa_reduce``:
-    1e-4 + 1e-5 max|ref|); one ``kernels`` row each."""
+    1e-4 + 1e-5 max|ref|); one ``kernels`` row each. With ``timer`` (the
+    kernels phase's) each ``dot_moa`` and ``moa_reduce`` row also carries
+    the kernel's, the plain version's and the library call's times and the
+    bound, as the kernels phase's own rows do."""
     from repro_torch.kernels import dot_moa as dm
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moa_reduce as mr
@@ -4875,6 +4947,20 @@ def check_call_keys(torch, keys, where: str) -> None:
                      "out": str(got.dtype)[6:]}
             again = call_key("dot_moa", a, b, block_k=bk, approx_bits=l,
                              out_dtype=out)
+            n_b = math.prod(rest) if rest else 1
+            timing = dict(
+                run=lambda: dm.dot_moa_cuda(a, b, block_k=bk, approx_bits=l,
+                                            out_dtype=out),
+                plain=lambda: plain(a, b, block_k=bk, approx_bits=l,
+                                    out_dtype=out),
+                library=(lambda: torch.bmm(a, b)) if rest else (
+                    (lambda: torch.mm(a, b, out_dtype=out)) if out
+                    else (lambda: torch.matmul(a, b))),
+                library_name="torch.bmm" if rest else (
+                    "torch.mm(out_dtype=float32)" if out else "torch.matmul"),
+                bound=bound(n_b * ((m * k + k * n) * a.element_size()
+                                   + m * n * got.element_size()),
+                            2.0 * n_b * m * k * n, "bfloat16"))
         elif kernel == "flash_attention":
             _, _, B, Sq, H, D, Skv, Hk, causal = key
             q = randn(B, Sq, H, D, dtype=dt)
@@ -4917,15 +5003,34 @@ def check_call_keys(torch, keys, where: str) -> None:
             tol = 1e-4 + 1e-5 * float(want.abs().max())
             shape = {"n": n, "f": f, "block_n": bn, "aligned": aligned}
             again = call_key("moa_reduce", x, block_n=bn)
+            timing = dict(
+                run=lambda: mr.moa_reduce_cuda(x, block_n=bn),
+                plain=lambda: ref.moa_reduce_ref(x, block_n=bn),
+                library=lambda: torch.sum(x, dim=0, dtype=torch.float32),
+                library_name="torch.sum(x, 0) in f32",
+                bound=bound(x.numel() * x.element_size()
+                            + f * got.element_size(), float(x.numel()),
+                            "float32"))
         else:
             raise KeyError(kernel)
         torch.cuda.synchronize()
         if again != key:
             raise AssertionError(f"{where}: operands for {key} make the "
                                  f"call key {again}")
-        check({"kernel": kernel, "case": f"{key[1][6:]} {where}",
+        row = {"kernel": kernel, "case": f"{key[1][6:]} {where}",
                "shape": shape, "max_abs_err": err(got, want), "tol": tol,
-               "tol_reason": "the kernels rows' rule for this type"}, key)
+               "tol_reason": "the kernels rows' rule for this type"}
+        if timer is not None and kernel in ("dot_moa", "moa_reduce"):
+            t = timing
+            row.update({"kernel_ms": timer(t["run"]),
+                        "device_ms": timer.device(t["run"], kernel),
+                        **own_kernels(timer, kernel),
+                        "plain_ms": timer(t["plain"], 2),
+                        "library_ms": timer.device(t["library"]),
+                        "library": t["library_name"],
+                        "bound_ms": t["bound"][0],
+                        "bound_by": t["bound"][1]})
+        check(row, key)
 
 
 def _mesh_replay(torch, engine, logits_by_step, forced=None) -> None:
@@ -5362,8 +5467,8 @@ def mesh_phase(torch) -> dict:
     emit({"phase": "mesh", "what": "gloo collectives on CUDA tensors",
           "nvidia_smi": smi, "carries": ranks[0].pop("carries"),
           "rank1": ranks[1].pop("carries"),
-          "built_on": "all_reduce (sum; all_gather as a sum of zero-padded "
-                      "pieces) and broadcast (CPU tensors)"})
+          "built_on": "all_reduce (sum) and broadcast (all_gather as each "
+                      "rank's piece broadcast from it; CPU tensors)"})
     runs, failures = {}, []
     want = {"llama3-8b-dp2": SINGLE_DEVICE["llama3-8b"],
             "llama3-8b-tp2": SINGLE_DEVICE["llama3-8b"],
@@ -5448,6 +5553,507 @@ def mesh_phase(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# training on a device mesh
+# ---------------------------------------------------------------------------
+
+#: the mesh_train phase's runs: arch, depth, global batch and sequence (the
+#: train phase's and families phase's cells), the mesh (data, model). Two
+#: gloo ranks share the one card: FSDP moves every parameter through the
+#: host each step, so these hold results, not speed; llama3-8b is cut from
+#: the train phase's 4 layers to 2 so that the phase stays near 150 s
+#: (``PERF.md`` §6)
+MESH_TRAIN_RUNS = {
+    "llama3-8b-fsdp2": dict(arch="llama3-8b", layers=2, batch=8, seq=512,
+                            shape=(2, 1)),
+    "llama3-8b-tp2": dict(arch="llama3-8b", layers=2, batch=8, seq=512,
+                          shape=(1, 2)),
+    "moonshot-ep2": dict(arch="moonshot-v1-16b-a3b", layers=2, batch=4,
+                         seq=256, shape=(1, 2)),
+    "zamba2-fsdp2": dict(arch="zamba2-1.2b", layers=38, batch=8, seq=512,
+                         shape=(2, 1)),
+}
+#: the counted steps of each mesh run (the bars read the first; an FSDP2
+#: step is ~10 s of host traffic through gloo)
+MESH_TRAIN_STEPS = 2
+#: the (1, 1) NCCL mesh's run: llama3-8b at 2 layers, 8 x 512, 2 steps
+MESH_TRAIN_NCCL = dict(arch="llama3-8b", layers=2, batch=8, seq=512,
+                       steps=2)
+MESH_TRAIN_SPEED = ("not a speed result: two ranks share one card over "
+                    "gloo, which stages every collective through the host")
+
+
+def _mesh_train_cfg(run: dict):
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import steps
+
+    cfg = dataclasses.replace(get_config(run["arch"]),
+                              n_layers=run["layers"])
+    data = SyntheticLMData(
+        vocab=cfg.vocab, seq_len=run["seq"], global_batch=run["batch"],
+        seed=0, family="encoder" if cfg.family == "encoder" else "lm",
+        d_model=cfg.d_model, n_patches=cfg.n_patches)
+    return cfg, data, steps.TrainHyper(peak_lr=3e-4, warmup_steps=2,
+                                       total_steps=100)
+
+
+def mesh_train_call_keys() -> list:
+    """The ``call_key`` of every kernel launch of the mesh_train phase's
+    mesh runs (bf16; the one-device runs' are the train and families
+    phases'): llama3-8b on FSDP2 (4 x 512 tokens a rank, whole weights),
+    on TP2 (8 x 512, half the heads and ``ff``: ``wo`` and ``w_down``
+    row-parallel with f32 partials), moonshot-v1-16b-a3b on EP2 (1024
+    tokens, 8 heads and 32 experts a rank, the replicated router, the
+    top-6 combine), zamba2-1.2b's shared block on FSDP2 (2048 tokens)."""
+    bf = "torch.bfloat16"
+    keys = []
+
+    def dot(m, k, n, out=None, batch=()):
+        key = ("dot_moa", bf, m, k, n, min(2048, k), 0, *batch)
+        keys.append(key + ((out,) if out else ()))
+
+    for k, n in ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)):
+        dot(2048, k, n)
+    for k, n, out in ((4096, 2048, None), (4096, 512, None),
+                      (2048, 4096, "float32"), (4096, 7168, None),
+                      (7168, 4096, "float32")):
+        dot(4096, k, n, out)
+    dot(1024, 2048, 1024)
+    dot(1024, 1024, 2048, "float32")
+    dot(1024, 2048, 64, "float32")
+    cap = max(int(1024 * 6 / 64 * 1.25), 1)
+    dot(cap, 2048, 1408, batch=(32,))
+    dot(cap, 1408, 2048, batch=(32,))
+    keys.append(("moa_reduce", bf, 6, 1024 * 2048, 6, True))
+    for k, n in ((2048, 2048), (2048, 8192), (8192, 2048)):
+        dot(2048, k, n)
+    return sorted(set(keys))
+
+
+def mesh_train_one_device(torch, run: dict, out_dir: str) -> dict:
+    """The one-device step of ``run`` on the card (the train phase's: its
+    state from seed 0, the kernel route, an MoE's routing recorded): the
+    loss, and every gradient leaf written to ``out_dir`` (one ``.npy`` a
+    leaf, for the ranks to read their slices of); the state then freed."""
+    import numpy as np
+
+    from repro_torch.interop import tree_leaves
+    from repro_torch.launch import steps
+    from repro_torch.layers import moe as moe_mod
+    from repro_torch.models.api import build_model
+
+    cfg, data, hyper = _mesh_train_cfg(run)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    state = steps.init_train_state(build_model(cfg), hyper=hyper, seed=0,
+                                   device="cuda")
+    moe = cfg.family == "moe"
+    if moe:
+        log, undo = _routing(torch, moe_mod, [0])
+    try:
+        grads, metrics = steps.loss_and_grads(
+            build_model(cfg), state["params"], _cuda_batch(data, 0))
+        torch.cuda.synchronize()
+    finally:
+        if moe:
+            undo()
+    step_s = time.monotonic() - t0
+    os.makedirs(out_dir, exist_ok=True)
+    for path, g in tree_leaves(grads):
+        np.save(os.path.join(out_dir, path + ".npy"),
+                g.detach().float().cpu().numpy())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del state, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss": float(metrics["loss"]), "dir": out_dir, "peak_gb": peak,
+            "seconds": step_s,
+            "routing": [(t, ids.numpy(), keep.numpy(), probs.numpy())
+                        for t, ids, keep, probs in log] if moe else None}
+
+
+def _mesh_train_run(torch, rank: int, mesh, run: dict, want: dict,
+                    checked: set) -> dict:
+    """One run of ``MESH_TRAIN_RUNS`` on this rank: the state placed by
+    the train step's specs (every rank draws the whole from seed 0 and
+    keeps its shards), then ``MESH_TRAIN_STEPS`` counted steps of the
+    train step: the gradients the first applied (an MoE teacher-forced by
+    the one-device run's choices) held against the one-device run's slices
+    (each leaf's squared error and squared norm on this rank's piece);
+    losses, wall ms a step, collective calls by kind, launches and their
+    unchecked call keys, peak memory."""
+    import numpy as np
+
+    from repro_torch.interop import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.layers import moe as moe_mod
+    from repro_torch.models.api import build_model
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel.sharding import local_slices
+
+    cfg, data, hyper = _mesh_train_cfg(run)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    step = steps.build_train_step(model, hyper=hyper, mesh=mesh,
+                                  return_grads=True)
+    pl = step.placement
+    t0 = time.monotonic()
+    state = steps.init_train_state(model, hyper=hyper, seed=0,
+                                   device="cuda", placement=pl)
+    gc.collect()
+    torch.cuda.empty_cache()
+    init_s = time.monotonic() - t0
+
+    def batch(s):
+        return {k: v.cuda() for k, v in steps.local_batch(
+            data.batch_for_step(s), pl).items()}
+
+    def compare(grads) -> dict:
+        specs = dict(tree_leaves(pl.param_specs))
+        errs = {}
+        for path, g in tree_leaves(grads):
+            full = np.load(os.path.join(want["dir"], path + ".npy"),
+                           mmap_mode="r")
+            piece = torch.from_numpy(np.array(full[local_slices(
+                full.shape, specs[path], mesh, pl.coords)])).cuda()
+            d = g.detach().float() - piece
+            split = any(e is not None and pl.sizes[e] > 1
+                        for e in specs[path])
+            errs[path] = (float(torch.sum(d * d, dtype=torch.float64)),
+                          float(torch.sum(piece * piece,
+                                          dtype=torch.float64)), split)
+        return errs
+
+    moe = cfg.family == "moe"
+    plain = [(t, torch.from_numpy(ids), torch.from_numpy(keep),
+              torch.from_numpy(probs))
+             for t, ids, keep, probs in want["routing"] or ()]
+    ops.reset_launch_counts()
+    collectives.reset_counts()
+    wall, losses, routing = [], [], {}
+    with recorded_calls(ops, ["dot_moa", "moa_reduce"]) as calls:
+        for s in range(MESH_TRAIN_STEPS):
+            b = batch(s)
+            if s == 0 and moe:
+                log, undo = _routing(torch, moe_mod, [0], forced=plain)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                state, m, grads = step(state, b)
+                torch.cuda.synchronize()
+            finally:
+                if s == 0 and moe:
+                    undo()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+            if s == 0:
+                errs, not_finite = compare(grads), _not_finite(torch, grads)
+                if moe:
+                    diffs = _routing_differences(plain, log)
+                    routing = {"routing_calls": len(log),
+                               "own_choice_differences": len(diffs),
+                               **_route_drift(torch, plain, log, diffs)}
+            del grads
+    coll = collectives.counts()
+    out = {"loss": losses[0], "errs": errs, "not_finite": not_finite,
+           "losses": losses, "step_ms": wall, "init_s": init_s,
+           "collectives_per_step": {k: v / MESH_TRAIN_STEPS
+                                    for k, v in coll.items()},
+           "launches": ops.launch_counts(),
+           "unchecked_calls": sorted(calls - checked),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "split": {"data": pl.sizes["data"], **{
+               k: getattr(pl.shard, k) for k in (
+                   "heads", "kv_heads", "ff", "experts", "vocab")}},
+           "local_params": sum(t.numel() for _, t in tree_leaves(
+               state["params"])), **routing}
+    del state, step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_train_ckpt(torch, rank: int, meshes: dict, root: str) -> dict:
+    """A smoke llama3-8b (f32; two KV heads and a vocabulary of 256, so
+    that both split) trained 4 steps on (1, 2) with checkpoints, its
+    newest restored onto (2, 1): each rank's slices of every leaf against
+    the saved leaves, bit for bit."""
+    import io
+
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config, smoke_config
+    from repro_torch.interop import tree_leaves
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.parallel.sharding import local_slices
+
+    cfg = dataclasses.replace(smoke_config(get_config("llama3-8b")),
+                              param_dtype="float32", compute_dtype="float32",
+                              vocab=256, n_kv_heads=2)
+    with contextlib.redirect_stdout(io.StringIO()):
+        loop = TrainLoop(cfg, steps=4, global_batch=4, seq_len=32,
+                         ckpt_dir=root, save_every=2, device="cuda",
+                         mesh_shape=(1, 2), async_save=False,
+                         hyper=steps.TrainHyper(peak_lr=5e-3,
+                                                warmup_steps=2,
+                                                total_steps=4))
+        loop.run()
+    newest = loop.manager.latest_step()
+    npz = np.load(os.path.join(root, f"step_{newest}", "shard_0.npz"))
+    saved = {k.replace("\x1f", "/"): npz[k] for k in npz.files}
+    dp = meshes[(2, 1)]
+    pl = steps.train_placement(loop.model, dp)
+    template = loop._template()
+    specs = steps.state_specs(template, pl)
+    got, _ = loop.manager.restore(template, step=newest, device="cuda",
+                                  mesh=dp, specs=specs)
+    spec = dict(tree_leaves(specs))
+    coords = pl.coords
+    differ = [path for path, t in tree_leaves(got)
+              if not np.array_equal(t.cpu().numpy(), saved[
+                  path.replace(".", "/")][local_slices(
+                      saved[path.replace(".", "/")].shape, spec[path], dp,
+                      coords)])]
+    return {"step": newest, "leaves": len(spec), "differ": differ,
+            "on_cuda": all(t.is_cuda for _, t in tree_leaves(got))}
+
+
+def mesh_train_rank(rank: int, jobs: dict, checked: set, root: str) -> dict:
+    """One of the mesh_train phase's two ranks on the one card (a gloo
+    group carrying CUDA tensors): every run of ``jobs`` (label: the run
+    and the one-device results it is held to) on its mesh, then the
+    checkpoint written on (1, 2) and restored onto (2, 1)."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    meshes = {shape: make_mesh(shape, device="cuda")
+              for shape in ((2, 1), (1, 2))}
+    out = {}
+    for label, (run, want) in jobs.items():
+        t0 = time.monotonic()
+        out[label] = _mesh_train_run(torch, rank, meshes[run["shape"]], run,
+                                     want, checked)
+        print(f"mesh_train rank {rank}: {label} in "
+              f"{time.monotonic() - t0:.1f} s, steps "
+              f"{[round(t) for t in out[label]['step_ms']]} ms",
+              file=sys.stderr, flush=True)
+    out["ckpt"] = _mesh_train_ckpt(torch, rank, meshes,
+                                   os.path.join(root, "ckpt"))
+    return out
+
+
+def mesh_train_nccl(torch) -> dict:
+    """A (1, 1) mesh over NCCL in this process: llama3-8b at 2 layers,
+    the one-device train step's state and the mesh step's, each from seed
+    0 over ``MESH_TRAIN_NCCL["steps"]`` steps, compared leaf by leaf and
+    loss by loss, bit for bit."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import free_port, make_mesh
+    from repro_torch.models.api import build_model
+
+    run = MESH_TRAIN_NCCL
+    cfg, data, hyper = _mesh_train_cfg(run)
+    batches = [_cuda_batch(data, s) for s in range(run["steps"])]
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_model(cfg)
+    one = steps.init_train_state(build_model(cfg), hyper=hyper, seed=0,
+                                 device="cuda")
+    step = steps.build_train_step(model, hyper=hyper)
+    want = []
+    for b in batches:
+        one, m = step(one, b)
+        want.append(float(m["loss"]))
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+        rank=0, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        mesh = make_mesh((1, 1), device="cuda")
+        step = steps.build_train_step(model, hyper=hyper, mesh=mesh)
+        state = steps.init_train_state(model, hyper=hyper, seed=0,
+                                       device="cuda",
+                                       placement=step.placement)
+        got = []
+        for b in batches:
+            state, m = step(state, b)
+            got.append(float(m["loss"]))
+        differ = _states_equal(torch, state, one)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del state
+    finally:
+        dist.destroy_process_group()
+    del one, model, step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": got, "want": want, "state_leaves_differing": differ,
+            "peak_mem_gb": peak}
+
+
+def _beside_ranks(torch, ranks_fn, phases) -> tuple:
+    """``ranks_fn()`` (a blocking ``run_ranks`` call, whose ranks are
+    processes of their own) on a thread while ``phases`` run here one
+    after another; returns its result and its seconds. A phase that fails
+    fails at once: the ranks are daemon processes, ended at exit."""
+    import threading
+
+    box = {}
+
+    def target():
+        t0 = time.monotonic()
+        try:
+            box["ranks"] = ranks_fn()
+        except BaseException as e:     # re-raised on the caller's thread
+            box["error"] = e
+        box["seconds"] = time.monotonic() - t0
+
+    thread = threading.Thread(target=target, name="ranks", daemon=True)
+    thread.start()
+    for phase in phases:
+        phase(torch)
+    thread.join()
+    if "error" in box:
+        raise box["error"]
+    return box["ranks"], box["seconds"]
+
+
+def mesh_train_phase(torch, beside=()) -> dict:
+    """Training on a device mesh (module docstring): the (1, 1) NCCL mesh
+    bit for bit; then each run's one-device step on the card (freed), and
+    the two gloo ranks that hold the mesh runs to them, and the
+    checkpoint across meshes, while this process runs the phases
+    ``beside``. Fails on a failed rank, a run off its bar, a gradient not
+    finite, or a launch no kernels row checked. Returns the counted runs'
+    launches by run (both ranks' summed)."""
+    import tempfile
+
+    from repro_torch.launch.mesh import run_ranks
+
+    smi = nvidia_smi()
+    t0 = time.monotonic()
+    nccl = mesh_train_nccl(torch)
+    bad = nccl["losses"] != nccl["want"] or nccl["state_leaves_differing"]
+    emit({"phase": "mesh_train", "what": "llama3-8b (1, 1) nccl",
+          "mesh": "1x1", "backend": "nccl", "ranks": 1,
+          "n_layers": MESH_TRAIN_NCCL["layers"], "nvidia_smi": smi,
+          "steps": MESH_TRAIN_NCCL["steps"], "losses": nccl["losses"],
+          "one_device_losses": nccl["want"],
+          "state_leaves_differing": nccl["state_leaves_differing"][:10],
+          "peak_mem_gb": nccl["peak_mem_gb"],
+          "seconds": time.monotonic() - t0})
+    if bad:
+        raise AssertionError("mesh_train: the (1, 1) NCCL mesh's steps "
+                             "differ from the one-device steps")
+    failures, runs = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        wants, jobs = {}, {}
+        for label, run in MESH_TRAIN_RUNS.items():
+            key = (run["arch"], run["layers"], run["batch"], run["seq"])
+            if key not in wants:
+                wants[key] = mesh_train_one_device(
+                    torch, run, os.path.join(tmp, label))
+            jobs[label] = (run, wants[key])
+        gc.collect()
+        torch.cuda.empty_cache()
+        checked = set(CHECKED)
+        ranks, spawn_s = _beside_ranks(torch, lambda: run_ranks(
+            2, mesh_train_rank, jobs, checked, tmp, backend="gloo",
+            timeout_s=MESH_TIMEOUT_S, join_timeout_s=MESH_JOIN_S,
+            threads=0), beside)
+    for label, run in MESH_TRAIN_RUNS.items():
+        want = jobs[label][1]
+        per_rank = [r[label] for r in ranks]
+        r0 = per_rank[0]
+        errs = {}
+        for path, (d2, w2, split) in r0["errs"].items():
+            if split:
+                d2 += per_rank[1]["errs"][path][0]
+                w2 += per_rank[1]["errs"][path][1]
+            errs[path] = math.sqrt(d2) / max(math.sqrt(w2), 1e-30)
+        worst = max(errs, key=errs.get)
+        line = {"phase": "mesh_train", "what": label, "arch": run["arch"],
+                "mesh": "x".join(map(str, run["shape"])), "backend": "gloo",
+                "ranks": 2, "n_layers": run["layers"], "batch": run["batch"],
+                "seq": run["seq"], "nvidia_smi": smi,
+                "speed": MESH_TRAIN_SPEED, "spawn_s": spawn_s,
+                "one_device_loss": want["loss"], "loss": r0["loss"],
+                "loss_diff": abs(r0["loss"] - want["loss"]),
+                "loss_tol": TRAIN_LOSS_TOL, "worst_leaf": worst,
+                "worst_grad_rel_err": errs[worst],
+                "grad_rel_tol": TRAIN_GRAD_REL_TOL,
+                "grad_leaves_not_finite": sorted(
+                    {p for r in per_rank for p in r["not_finite"]}),
+                "losses": r0["losses"],
+                "losses_equal_on_ranks": all(r["losses"] == r0["losses"]
+                                             for r in per_rank),
+                "step_ms": [r["step_ms"] for r in per_rank],
+                "step_ms_median": statistics.median(r0["step_ms"]),
+                "init_s": [r["init_s"] for r in per_rank],
+                "collectives_per_step": r0["collectives_per_step"],
+                "peak_mem_gb": [r["peak_mem_gb"] for r in per_rank],
+                "one_device_peak_gb": want["peak_gb"],
+                "local_params": [r["local_params"] for r in per_rank],
+                "split": r0["split"],
+                "launches": [r["launches"] for r in per_rank],
+                "unchecked_calls": sorted(
+                    {k for r in per_rank for k in r["unchecked_calls"]}),
+                "grad_rel_errs": errs}
+        if "routing_calls" in r0:
+            line.update({k: [r[k] for r in per_rank] for k in (
+                "routing_calls", "own_choice_differences", "prob_rel_errs",
+                "prob_max_abs_diff", "past_near_tie")})
+            line["routing"] = "teacher-forced"
+        emit(line)
+        if line["loss_diff"] > TRAIN_LOSS_TOL \
+                or errs[worst] > TRAIN_GRAD_REL_TOL:
+            failures.append(f"{label}: loss {line['loss_diff']}, {worst} "
+                            f"{errs[worst]}")
+        if line["grad_leaves_not_finite"] or not all(
+                math.isfinite(x) for x in r0["losses"]):
+            failures.append(f"{label}: not finite")
+        if not line["losses_equal_on_ranks"]:
+            failures.append(f"{label}: the ranks' losses differ")
+        if any(not r.get("ok", True) for r in per_rank):
+            failures.append(f"{label}: expert choices past a near-tie "
+                            f"{[r['past_near_tie'] for r in per_rank]}")
+        launched = {k: sum(r["launches"][k] for r in per_rank)
+                    for k in r0["launches"]}
+        wanted = ["dot_moa"] + (["moa_reduce"] if run["arch"].startswith(
+            "moonshot") else [])
+        if any(not launched[k] for k in wanted) or any(
+                n and k not in wanted for k, n in launched.items()):
+            failures.append(f"{label}: launches {launched}")
+        if line["unchecked_calls"]:
+            failures.append(f"{label}: launches no kernels row checked "
+                            f"{line['unchecked_calls'][:5]}")
+        runs[f"train-mesh/{label}"] = launched
+    ck = [r["ckpt"] for r in ranks]
+    emit({"phase": "mesh_train", "what": "checkpoint (1, 2) -> (2, 1)",
+          "nvidia_smi": smi, "step": ck[0]["step"], "leaves": ck[0]["leaves"],
+          "differ": [c["differ"] for c in ck],
+          "on_cuda": [c["on_cuda"] for c in ck]})
+    if any(c["differ"] or not c["on_cuda"] for c in ck):
+        failures.append("checkpoint: restored slices differ from the saved "
+                        "leaves")
+    if failures:
+        raise AssertionError("mesh_train phase: " + "; ".join(failures))
+    return runs
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -5510,6 +6116,8 @@ def main() -> int:
     rows.update(paper_kernel_phase(torch, timer, parent))
     rows.update(moe_kernel_phase(torch, timer))
     check_call_keys(torch, mesh_call_keys(), "mesh shard shape")
+    check_call_keys(torch, mesh_train_call_keys(), "mesh train shard shape",
+                    timer)
     unembed = unembed_phase(torch, timer)
     emit({"phase": "kernels", "kernel": "dot_moa", "case": "host path",
           "iters": 1000, **host_path(torch)})
@@ -5530,10 +6138,10 @@ def main() -> int:
     runs.update(train_phase(torch))
     runs.update(families_phase(torch))
     runs.update(mesh_phase(torch))
-    parity_phase(torch)
-    zamba2_parity_phase(torch)
-    moe_parity_phase(torch)
-    spec_parity_phase(torch)
+    # the parity phases run beside the mesh_train ranks
+    runs.update(mesh_train_phase(torch, beside=(
+        parity_phase, zamba2_parity_phase, moe_parity_phase,
+        spec_parity_phase)))
     cli_phase(torch)
     runs["paper"] = paper_phase(torch)
 

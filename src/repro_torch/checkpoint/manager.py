@@ -18,8 +18,16 @@
 
 So the JAX package restores what the port saves and the other way round,
 bf16 included. ``restore(template, step=None, device=...)`` rebuilds the
-template's tree as tensors on ``device`` (where the reference takes
-``shardings``), each leaf cast to the template leaf's dtype.
+template's tree as tensors on ``device``, each leaf cast to the template
+leaf's dtype.
+
+**On a mesh** (``mesh=`` a ``DeviceMesh`` of this rank, ``specs=`` the
+tree's specs): ``save`` assembles each leaf whole from the ranks' pieces,
+one leaf at a time, and the lead rank (coordinate 0 on every axis) writes
+the files a one-device run would; ``restore`` gives each rank its own
+slices, each mapped from the stored (uncompressed) member and read alone —
+the counterpart of the reference's ``shardings=``, so a checkpoint restores
+onto another mesh than the one that wrote it (the elastic re-plan).
 """
 
 from __future__ import annotations
@@ -28,13 +36,17 @@ import json
 import os
 import re
 import shutil
+import struct
 import threading
+import zipfile
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.interop import tree_paths
+from repro_torch.interop import tree_get, tree_paths
+from repro_torch.parallel.collectives import gather_whole
+from repro_torch.parallel.sharding import local_slices
 
 __all__ = ["CheckpointManager"]
 
@@ -104,16 +116,26 @@ class CheckpointManager:
         self._async_error: Optional[BaseException] = None
 
     # ------------------------------------------------------------------ save
-    def save(self, step: int, tree, *, metadata: Optional[dict] = None):
+    def save(self, step: int, tree, *, metadata: Optional[dict] = None,
+             mesh=None, specs=None):
+        """Write ``tree`` as ``step``; on a mesh (``tree`` this rank's
+        pieces under ``specs``) every rank takes part in assembling the
+        leaves and the lead rank writes them."""
         self.wait()
         self._raise_pending()
-        self._save_blocking(step, self._snapshot(tree), metadata or {})
+        snap = self._snapshot(tree, mesh, specs)
+        if snap is not None:
+            self._save_blocking(step, snap, metadata or {})
 
-    def save_async(self, step: int, tree, *, metadata: Optional[dict] = None):
-        """Snapshot now (host memory), write in the background."""
+    def save_async(self, step: int, tree, *, metadata: Optional[dict] = None,
+                   mesh=None, specs=None):
+        """Snapshot now (host memory; on a mesh the leaves assembled on
+        every rank), write in the background (the lead rank's)."""
         self.wait()
         self._raise_pending()
-        snap = self._snapshot(tree)
+        snap = self._snapshot(tree, mesh, specs)
+        if snap is None:
+            return
         meta = dict(metadata or {})
 
         def worker():
@@ -135,14 +157,23 @@ class CheckpointManager:
             err, self._async_error = self._async_error, None
             raise RuntimeError("async checkpoint save failed") from err
 
-    def _snapshot(self, tree) -> Dict[str, Tuple[np.ndarray, str]]:
+    def _snapshot(self, tree, mesh=None, specs=None
+                  ) -> Optional[Dict[str, Tuple[np.ndarray, str]]]:
+        """The leaves this shard writes, on the host; on a mesh each leaf
+        assembled whole (every rank), kept by the lead rank alone (the
+        others get ``None``)."""
         flat = tree_paths(tree)
+        lead = mesh is None or all(c == 0 for c in mesh.get_coordinate())
         out = {}
         for i, (key, leaf) in enumerate(sorted(flat.items())):
             if i % self.n_shards != self.shard_id:
                 continue  # another host owns this leaf
-            out[key] = _to_host(leaf)
-        return out
+            if mesh is not None:
+                spec = tree_get(specs, key.split("/"))
+                leaf = gather_whole(leaf.detach(), spec, mesh)
+            if lead:
+                out[key] = _to_host(leaf)
+        return out if lead else None
 
     def _save_blocking(self, step: int, snap: Dict[str, Tuple[np.ndarray,
                                                               str]],
@@ -195,25 +226,32 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, template, *, step: Optional[int] = None,
-                device=None):
+                device=None, mesh=None, specs=None):
         """Restore into the structure of ``template`` (a nested dict of
         tensors or arrays): each leaf a tensor of the template leaf's dtype
         on ``device`` (default: the template leaf's device, else the CPU).
-        Returns ``(tree, metadata)``."""
+        On a mesh (``mesh`` a ``DeviceMesh`` of this rank, ``specs`` the
+        template's specs; ``template`` of the whole shapes) each leaf is
+        this rank's slices of it, read alone from the file. Returns
+        ``(tree, metadata)``."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
         ckpt_dir = os.path.join(self.directory, f"step_{step}")
-        arrays: Dict[str, torch.Tensor] = {}
+        arrays: Dict[str, Any] = {}
+        logical: Dict[str, str] = {}
         metadata = {}
         for shard in range(self.n_shards):
             shard_path = os.path.join(ckpt_dir, f"shard_{shard}.npz")
             try:
                 # eager member reads: a truncated zip member fails only when
                 # decompressed, so force it here where the error can name
-                # the file
-                npz = np.load(shard_path)
-                npz = {k: npz[k] for k in npz.files}
+                # the file; a mesh maps each member and reads its slices
+                if mesh is not None:
+                    npz = _mapped_members(shard_path)
+                else:
+                    npz = np.load(shard_path)
+                    npz = {k: npz[k] for k in npz.files}
             except FileNotFoundError:
                 raise
             except Exception as e:
@@ -234,21 +272,64 @@ class CheckpointManager:
             dtypes = manifest.get("dtypes", {})
             for k, arr in npz.items():
                 key = k.replace("\x1f", "/")
-                arrays[key] = _to_tensor(arr, dtypes.get(key,
-                                                         arr.dtype.name))
+                arrays[key] = arr
+                logical[key] = dtypes.get(key, arr.dtype.name)
 
         flat_template = tree_paths(template)
         missing = set(flat_template) - set(arrays)
         if missing:
             raise KeyError(f"checkpoint step_{step} missing keys: "
                            f"{sorted(missing)[:5]}...")
+        coords = None if mesh is None else dict(
+            zip(mesh.mesh_dim_names, mesh.get_coordinate()))
         restored = {}
         for key, tmpl in flat_template.items():
-            t = arrays[key]
+            arr = arrays[key]
+            if mesh is not None:
+                spec = tree_get(specs, key.split("/"))
+                arr = arr[local_slices(arr.shape, spec, mesh, coords)]
+            t = _to_tensor(arr, logical[key])
             if isinstance(tmpl, torch.Tensor):
                 t = t.to(dtype=tmpl.dtype)
                 target = device if device is not None else tmpl.device
+                if target is not None and torch.device(target).type \
+                        == "meta":
+                    target = "cpu"
             else:
                 target = device if device is not None else "cpu"
             restored[key] = t.to(target)
         return _unflatten(template, restored), metadata
+
+
+def _mapped_members(path: str) -> Dict[str, np.ndarray]:
+    """``{member name: array}`` of an ``np.savez`` file, each member's
+    array mapped from the file (its pages read only where sliced); a member
+    that is compressed, or truncated, fails here."""
+    out = {}
+    with zipfile.ZipFile(path) as zf, open(path, "rb") as f:
+        size = os.fstat(f.fileno()).st_size
+        for info in zf.infolist():
+            if info.compress_type != zipfile.ZIP_STORED:
+                raise ValueError(f"member {info.filename} is compressed")
+            f.seek(info.header_offset)
+            head = f.read(30)
+            name_len, extra_len = struct.unpack("<HH", head[26:30])
+            f.seek(info.header_offset + 30 + name_len + extra_len)
+            version = np.lib.format.read_magic(f)
+            read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                    else np.lib.format.read_array_header_2_0)
+            shape, fortran, dtype = read(f)
+            offset = f.tell()
+            n = int(np.prod(shape)) * dtype.itemsize
+            if offset + n > size:
+                raise ValueError(f"member {info.filename} is truncated")
+            name = info.filename[:-4] if info.filename.endswith(".npy") \
+                else info.filename
+            if n == 0 or not shape:
+                out[name] = np.frombuffer(f.read(n), dtype=dtype).reshape(
+                    shape)
+            else:
+                out[name] = np.memmap(path, dtype=dtype, mode="r",
+                                      offset=offset, shape=shape,
+                                      order="F" if fortran else "C")
+    return out

@@ -8,7 +8,9 @@
   draw for draw; what carries over is the process, the fields, keys,
   shapes and dtypes, and determinism under a seed.
 * **Host sharding** — each host takes its contiguous slice of the global
-  batch (:func:`host_shard`).
+  batch (:func:`host_shard`); a meshed trainer's data rank takes its rows
+  so, every rank building the same global batch
+  (:func:`repro_torch.launch.steps.local_batch`).
 * **Learnability** — tokens follow a noisy affine bigram process
   (``next = (a·prev + c) mod V`` with probability ``1 - noise``, the
   reference's map in the same int32 arithmetic), so a small model reduces

@@ -6,10 +6,15 @@ plain C interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o build/repro_torch_kernels/<name>-<hash>.so
 
+A library of ``PARTS`` (``dot_moa``: its kernels for each operand type,
+and its entry point) compiles as that many objects, ``-DDOT_MOA_PART=k``
+each, which are then linked into the library: its kernels are most of the
+build, and the parts compile at once.
+
 The file name carries a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads what is there. :func:`build` starts one
-``nvcc`` per missing library, all at once, and waits for all of them.
-Nothing is built or loaded when this module is imported.
+``nvcc`` per missing library or part, all at once, and waits for all of
+them. Nothing is built or loaded when this module is imported.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Sequence
@@ -37,6 +43,9 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: libraries built in parts: ``{name: number of parts}`` (the source's
+#: ``<NAME>_PART`` macro selects one; see csrc/dot_moa.cu)
+PARTS = {"dot_moa": 6}
 
 #: dtype codes of the C entry points (``enum DType`` in csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -57,19 +66,40 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(str(PARTS.get(name, 1)).encode())
     for src in sorted(_CSRC.glob("*.cuh")) + [_CSRC / f"{name}.cu"]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def _commands(name: str, out: Path) -> list:
+    """The ``nvcc`` commands that build library ``name`` into ``out``, in
+    two stages: the ones that run at once (one, or one a part, each
+    writing an object), then the link (none for a library in one part)."""
+    src = str(_CSRC / f"{name}.cu")
+    n = PARTS.get(name, 1)
+    if n == 1:
+        return [[[_nvcc(), *NVCC_FLAGS, f"-I{_CSRC}", "-o", str(out), src]],
+                []]
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [Path(f"{out}.{k}.o") for k in range(n)]
+    macro = f"-D{name.upper()}_PART"
+    return [[[_nvcc(), *flags, f"-I{_CSRC}", f"{macro}={k}", "-c", "-o",
+              str(obj), src] for k, obj in enumerate(objs)],
+            [[_nvcc(), "-shared", "-o", str(out), *map(str, objs)]]]
+
+
 def build(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
     """Compile every library in ``names`` that is not built yet, one
-    ``nvcc`` each, all in parallel. Returns ``{name: {"path", "seconds",
-    "cached", "log"}}`` (``log`` holds nvcc's output, with ptxas's register
-    and spill report). Raises with the log if a build fails."""
+    ``nvcc`` each (a library of ``PARTS`` one a part, then a link), all in
+    parallel. Returns ``{name: {"path", "seconds", "cached", "log"}}``
+    (``seconds`` from the start to the library's last step, ``log`` holds
+    nvcc's output, with ptxas's register and spill report). Raises with
+    the log if a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out, running = {}, {}
+    t0 = time.monotonic()
     for name in names:
         path = _library_path(name)
         if path.exists():
@@ -77,20 +107,43 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
                          "log": ""}
             continue
         tmp = path.with_suffix(f".tmp{os.getpid()}")
-        cmd = [_nvcc(), *NVCC_FLAGS, f"-I{_CSRC}", "-o", str(tmp),
-               str(_CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        running[name] = (proc, tmp, path, time.monotonic())
+        first, link = _commands(name, tmp)
+        procs = []
+        for cmd in first:
+            log = tempfile.TemporaryFile(mode="w+")
+            procs.append((subprocess.Popen(cmd, stdout=log,
+                                           stderr=subprocess.STDOUT,
+                                           text=True), log))
+        running[name] = (procs, link, tmp, path)
     failed = []
-    for name, (proc, tmp, path, t0) in running.items():
-        log, _ = proc.communicate()
-        out[name] = {"path": str(path), "seconds": time.monotonic() - t0,
-                     "cached": False, "log": log}
-        if proc.returncode != 0:
-            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
-            continue
-        os.replace(tmp, path)       # atomic: a reader never sees half a file
+    while running:
+        for name, (procs, link, tmp, path) in list(running.items()):
+            if any(p.poll() is None for p, _ in procs):
+                continue
+            del running[name]
+            logs = []
+            for p, f in procs:
+                f.seek(0)
+                logs.append(f.read())
+                f.close()
+            ok = all(p.returncode == 0 for p, _ in procs)
+            for cmd in link if ok else ():
+                r = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True)
+                logs.append(r.stdout)
+                ok = r.returncode == 0
+            log = "".join(logs)
+            out[name] = {"path": str(path), "seconds": time.monotonic() - t0,
+                         "cached": False, "log": log}
+            for obj in tmp.parent.glob(tmp.name + ".*.o"):
+                obj.unlink()
+            if not ok:
+                codes = [p.returncode for p, _ in procs]
+                failed.append(f"--- {name} (nvcc exits {codes})\n{log}")
+                continue
+            os.replace(tmp, path)   # atomic: a reader never sees half a file
+        if running:
+            time.sleep(0.2)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return out

@@ -296,7 +296,45 @@ cudaError_t run(int body, const Args& g) {
   return launch_fold<Acc, OutT>(g);
 }
 
+// Each operand type's kernels, one part of the library each. The library
+// builds in parts, one nvcc each, all at once (kernels/_build.py): part k
+// in 0..4 (-DDOT_MOA_PART=k) instantiates operand type k's kernels, part 5
+// holds the C entry point; without DOT_MOA_PART one file holds it all.
+cudaError_t run_f32(int body, const Args& g);
+cudaError_t run_bf16(int body, const Args& g);
+cudaError_t run_bf16_f32(int body, const Args& g);
+cudaError_t run_i8(int body, const Args& g);
+cudaError_t run_i32(int body, const Args& g);
+
+#ifdef DOT_MOA_PART
+#define DM_PART(k) (DOT_MOA_PART == (k))
+#else
+#define DM_PART(k) 1
+#endif
+
+#if DM_PART(0)
+cudaError_t run_f32(int body, const Args& g) { return run<float, float, float>(body, g); }
+#endif
+#if DM_PART(1)
+cudaError_t run_bf16(int body, const Args& g) {
+  return run<__nv_bfloat16, float, __nv_bfloat16>(body, g);
+}
+#endif
+#if DM_PART(2)
+cudaError_t run_bf16_f32(int body, const Args& g) {
+  return run<__nv_bfloat16, float, float>(body, g);
+}
+#endif
+#if DM_PART(3)
+cudaError_t run_i8(int body, const Args& g) { return run<int8_t, int, int>(body, g); }
+#endif
+#if DM_PART(4)
+cudaError_t run_i32(int body, const Args& g) { return run<int, int, int>(body, g); }
+#endif
+
 }  // namespace dm
+
+#if DM_PART(5)
 
 // C entry point. a (batch, M, K), b (batch, K, N), out (batch, M, N): each
 // member row-major and contiguous, on the current device, members s[0],
@@ -323,12 +361,11 @@ extern "C" int repro_dot_moa(const void* a, const void* b, void* out, void* ws, 
                p[9],  p[10], p[11], p[12], p[13], p[14], batch, s[0],    s[1], s[2],
                static_cast<cudaStream_t>(stream)};
   if (ws != nullptr && (g.sub <= 0 || g.splits <= 0)) return cudaErrorInvalidValue;
-  if (in_dtype == DT_F32 && out_dtype == DT_F32) return run<float, float, float>(body, g);
-  if (in_dtype == DT_BF16 && out_dtype == DT_BF16)
-    return run<__nv_bfloat16, float, __nv_bfloat16>(body, g);
-  if (in_dtype == DT_BF16 && out_dtype == DT_F32)
-    return run<__nv_bfloat16, float, float>(body, g);
-  if (in_dtype == DT_I8 && out_dtype == DT_I32) return run<int8_t, int, int>(body, g);
-  if (in_dtype == DT_I32 && out_dtype == DT_I32) return run<int, int, int>(body, g);
+  if (in_dtype == DT_F32 && out_dtype == DT_F32) return run_f32(body, g);
+  if (in_dtype == DT_BF16 && out_dtype == DT_BF16) return run_bf16(body, g);
+  if (in_dtype == DT_BF16 && out_dtype == DT_F32) return run_bf16_f32(body, g);
+  if (in_dtype == DT_I8 && out_dtype == DT_I32) return run_i8(body, g);
+  if (in_dtype == DT_I32 && out_dtype == DT_I32) return run_i32(body, g);
   return cudaErrorInvalidValue;
 }
+#endif

@@ -62,27 +62,35 @@ def mesh_axis_names(shape: Tuple[int, ...]) -> Tuple[str, ...]:
 
 
 def make_mesh(shape: Tuple[int, ...], axes: Optional[Tuple[str, ...]] = None,
-              *, device: str = "cuda"):
+              *, device: str = "cuda", ranks=None):
     """A ``DeviceMesh`` of ``shape`` with the reference's axis names over
     the ranks of the initialized process group (whose size must be
-    ``prod(shape)``; its backend is the mesh's). ``device`` is ``"cuda"``
-    or ``"cpu"``; on CUDA each rank's device is its rank modulo the
-    cards, so ranks may share a card (over a gloo group)."""
+    ``prod(shape)``; its backend is the mesh's), or over ``ranks`` of it
+    (``prod(shape)`` of them, in mesh order: a mesh for the ranks that
+    remain; every rank of the group makes the call, and on a rank outside
+    ``ranks`` the mesh's ``get_coordinate()`` is ``None``). ``device`` is
+    ``"cuda"`` or ``"cpu"``; on CUDA each rank's device is its rank modulo
+    the cards, so ranks may share a card (over a gloo group)."""
     import torch
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
     axes = tuple(axes) if axes is not None else mesh_axis_names(shape)
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialized process group "
                            "(run_ranks starts one)")
-    if dist.get_world_size() != math.prod(shape):
-        raise ValueError(f"mesh {shape} needs {math.prod(shape)} ranks, the "
-                         f"process group has {dist.get_world_size()}")
+    n = dist.get_world_size() if ranks is None else len(ranks)
+    if n != math.prod(shape):
+        have = "the process group has" if ranks is None else "given"
+        raise ValueError(f"mesh {shape} needs {math.prod(shape)} ranks, "
+                         f"{have} {n}")
     device = torch.device(device).type
     if device == "cuda":
         torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
-    return init_device_mesh(device, tuple(shape), mesh_dim_names=axes)
+    if ranks is None:
+        return init_device_mesh(device, tuple(shape), mesh_dim_names=axes)
+    return DeviceMesh(device, torch.tensor(list(ranks)).reshape(shape),
+                      mesh_dim_names=axes)
 
 
 def free_port() -> int:

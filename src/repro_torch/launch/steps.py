@@ -1,14 +1,12 @@
 """Train, prefill and decode steps, with sharding inference — the port of
 ``repro/launch/steps.py``.
 
-``infer_param_axes`` maps every parameter leaf to logical axis names by
-path + rank (the tables below); ``build_shardings`` turns logical names
-into specs (:mod:`repro_torch.parallel.sharding`) under the given rules,
-**dropping any axis that does not divide the dimension** (GQA kv=8 on a
-model=16 axis replicates rather than erroring) and optionally upgrading
-unsharded major dims to FSDP over the data axes (ZeRO-3). The serve
-engine places its parameters by them on a mesh; meshed training builds on
-the same tables.
+``infer_param_axes`` and ``build_shardings`` (logical axis names by
+parameter path, and the specs the rules give them, FSDP over the data
+axes optionally) live in :mod:`repro_torch.parallel.placement` and keep
+their names here; ``batch_specs`` and ``cache_specs`` are this module's.
+The serve engine places its parameters by them on a mesh; meshed training
+builds on the same tables.
 
 The train state is the reference's pytree: ``{"params", "opt": {"m", "v",
 "count"}, "step"[, "err"]}``, every leaf a tensor on one device; the
@@ -17,6 +15,26 @@ gradients with ``torch.autograd.grad`` and updates the state **in place**
 (:func:`repro_torch.optim.adamw_update`), the PyTorch form of the
 reference's ``donate_argnums=(0,)``: the state handed in is the state
 returned, one step on.
+
+**On a mesh** (``build_train_step(..., mesh=)``, inside one rank of
+:func:`repro_torch.launch.mesh.run_ranks`) the state is this rank's shards,
+placed as the reference's dry run places it (``build_shardings(state,
+state_axes(state), mesh, rules, fsdp=True)``, ``dryrun.py:211``) through a
+:class:`~repro_torch.parallel.placement.Placement` (its two adjustments: a
+lone KV head and the router replicate over ``model``) and the rank's
+:class:`~repro_torch.parallel.collectives.DataShard`; the batch is this
+rank's rows (``batch_specs``: ``batch`` over ``data``); ``heads``, ``ff``,
+``vocab`` and ``experts`` split over ``model`` (``DEFAULT_RULES``), the
+recurrent families refused a split ``model`` axis
+(:func:`~repro_torch.parallel.sharding.train_rules_for`). The step runs
+the rank's local model on its shards: FSDP gathers each parameter where it
+is read and reduce-scatters its gradient, the column and row ops make the
+tensor- and expert-parallel collectives under autograd
+(:mod:`repro_torch.parallel.collectives`), the leaves ``data`` does not
+split have their gradients summed over ``data``, and AdamW updates the
+local shards (the gradient norm over the ranks that hold different
+pieces). Each rank's loss is its share of the global batch's, so the sums
+are the global batch's gradients.
 """
 
 from __future__ import annotations
@@ -26,161 +44,29 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from repro_torch.interop import (tree_get, tree_leaves, tree_map,
-                                 tree_map_with_keys)
-from repro_torch.models.api import Model
+from repro_torch.data.pipeline import host_shard
+from repro_torch.interop import tree_leaves, tree_map, tree_map_with_keys
+from repro_torch.models.api import Model, build_model
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                compressed_gradients, cosine_schedule,
                                init_error_feedback)
-from repro_torch.parallel.sharding import (ShardingRules, logical_to_spec,
+from repro_torch.parallel import collectives
+from repro_torch.parallel.collectives import DataShard
+from repro_torch.parallel.placement import (
+    Placement, _dedupe_spec, _divisible_spec, build_shardings,
+    infer_param_axes)
+from repro_torch.parallel.sharding import (DEFAULT_RULES, ShardingRules,
+                                           activate, logical_to_spec,
                                            mesh_axis_sizes,
-                                           replicate_uneven_kv_heads)
+                                           replicate_uneven_kv_heads,
+                                           train_rules_for)
 
 __all__ = ["TrainHyper", "init_train_state", "loss_and_grads",
            "apply_gradients", "build_train_step", "build_prefill_step",
            "build_decode_step", "trainable", "infer_param_axes",
            "build_shardings", "batch_specs", "cache_specs", "rules_for",
-           "state_axes"]
-
-
-# ---------------------------------------------------------------------------
-# Logical axes by parameter path
-# ---------------------------------------------------------------------------
-
-_NAME_TABLE = {
-    # attention
-    "wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
-    "wv": ("embed", "kv_heads"), "wo": ("heads", "embed"),
-    "bq": ("heads",), "bk": ("kv_heads",), "bv": ("kv_heads",),
-    # dense mlp
-    "w_gate": ("embed", "ff"), "w_up": ("embed", "ff"),
-    "w_down": ("ff", "embed"),
-    "w_in": ("embed", "ff"), "b_in": ("ff",),
-    "w_out": ("ff", "embed"), "b_out": ("embed",),
-    # embedding
-    "table": ("vocab", "embed"), "unembed": ("vocab", "embed"),
-    "pos_embed": (None, "embed"), "mask_embed": ("embed",),
-    # moe
-    "router": ("embed", "experts"),
-    # mamba2
-    "in_proj": ("embed", "ssm_inner"), "out_proj": ("ssm_inner", "embed"),
-    "conv_w": (None, "ssm_inner"), "conv_b": ("ssm_inner",),
-    "a_log": ("ssm_heads",), "dt_bias": ("ssm_heads",),
-    "d_skip": ("ssm_heads",),
-    # norms / misc
-    "scale": ("norm",), "bias": ("norm",), "w": ("embed", "embed_out"),
-    "b": ("embed_out",),
-}
-
-_MOE_TABLE = {
-    "w_gate": ("experts", "embed", "ff"), "w_up": ("experts", "embed", "ff"),
-    "w_down": ("experts", "ff", "embed"),
-}
-
-_STACKED_KEYS = ("layers", "app_norms")
-
-
-def infer_param_axes(params):
-    """Tree of logical-axis tuples matching ``params``' structure."""
-    def one(keys, leaf):
-        name = keys[-1]
-        table = _MOE_TABLE if ("moe" in keys and name in _MOE_TABLE) \
-            else _NAME_TABLE
-        ndim = len(leaf.shape)
-        axes = table.get(name)
-        if axes is None:
-            axes = (None,) * ndim
-        if any(k in _STACKED_KEYS for k in keys):
-            axes = (None,) + tuple(axes)
-        axes = tuple(axes)[:ndim]
-        return axes + (None,) * (ndim - len(axes))
-
-    return tree_map_with_keys(one, params)
-
-
-def _dedupe_spec(spec) -> tuple:
-    """A mesh axis may shard at most one dim: first occurrence wins (e.g.
-    MoE expert weights map both 'experts' and 'ff' to 'model' — EP takes
-    priority, the ff dim replicates)."""
-    seen = set()
-    out = []
-    for entry in spec:
-        if entry is None:
-            out.append(None)
-            continue
-        axes = entry if isinstance(entry, tuple) else (entry,)
-        if any(a in seen for a in axes):
-            out.append(None)
-            continue
-        seen.update(axes)
-        out.append(entry)
-    return tuple(out)
-
-
-def _divisible_spec(shape, spec, mesh) -> tuple:
-    """Drop axes that don't evenly divide their dim (replicate instead)."""
-    sizes = mesh_axis_sizes(mesh)
-    out = []
-    for dim, entry in zip(shape, tuple(spec) + (None,) * (len(shape)
-                                                          - len(spec))):
-        if entry is None:
-            out.append(None)
-            continue
-        axes = entry if isinstance(entry, tuple) else (entry,)
-        total = 1
-        for a in axes:
-            total *= sizes[a]
-        out.append(entry if dim % total == 0 else None)
-    return tuple(out)
-
-
-def build_shardings(tree, axes_tree, mesh, rules: ShardingRules, *,
-                    fsdp: bool = False):
-    """Logical axes + rules → spec tree (divisibility-safe).
-
-    FSDP shards over ALL data-parallel mesh axes (the rules' ``fsdp``
-    entry, default ``(pod, data)`` — absent axes dropped), so optimizer
-    state halves again on the multi-pod mesh.
-    """
-    sizes = mesh_axis_sizes(mesh)
-    fsdp_entry = rules.lookup("fsdp")
-    if fsdp_entry is None:
-        fsdp_axes: tuple = ()
-    elif isinstance(fsdp_entry, str):
-        fsdp_axes = (fsdp_entry,)
-    else:
-        fsdp_axes = tuple(fsdp_entry)
-    fsdp_axes = tuple(a for a in fsdp_axes if a in sizes)
-    fsdp_size = 1
-    for a in fsdp_axes:
-        fsdp_size *= sizes[a]
-    fsdp_spec_entry = (fsdp_axes[0] if len(fsdp_axes) == 1 else fsdp_axes) \
-        if fsdp_axes else None
-
-    def one(leaf, axes):
-        shape = tuple(leaf.shape)
-        ndim = len(shape)
-        spec = _dedupe_spec(logical_to_spec(axes, rules, mesh))
-        spec = _divisible_spec(shape, spec, mesh)
-        if fsdp and ndim >= 2 and fsdp_axes:
-            entries = list(tuple(spec) + (None,) * (ndim - len(spec)))
-            flat_axes = [a for e in entries if e is not None
-                         for a in (e if isinstance(e, tuple) else (e,))]
-            if any(a in flat_axes for a in fsdp_axes):
-                return tuple(entries)
-            # never FSDP the scan (stacked-layer) axis: dim 0 of stacked
-            # leaves (axes was prepended with None and rank is >= 3)
-            start = 1 if (len(axes) and axes[0] is None and ndim >= 3) else 0
-            for i in range(start, ndim):
-                if entries[i] is None and shape[i] % fsdp_size == 0 \
-                        and shape[i] >= fsdp_size:
-                    entries[i] = fsdp_spec_entry
-                    break
-            spec = tuple(entries)
-        return spec
-
-    return tree_map_with_keys(
-        lambda keys, leaf: one(leaf, tree_get(axes_tree, keys)), tree)
+           "state_axes", "train_placement", "state_specs", "local_batch",
+           "split_axes"]
 
 
 # ---------------------------------------------------------------------------
@@ -286,14 +172,23 @@ def trainable(t: torch.Tensor) -> torch.Tensor:
 
 def init_train_state(model: Model, generator: Optional[torch.Generator]
                      = None, *, hyper: TrainHyper, seed: int = 0,
-                     device="cuda", params=None) -> dict:
+                     device="cuda", params=None, placement=None) -> dict:
     """A fresh train state: the parameters drawn by :meth:`Model.init`
     (from ``generator``, else a new one seeded with ``seed``, on
     ``device``), or ``params`` as given (e.g. the JAX package's through
     :func:`repro_torch.interop.from_numpy`); zero f32 moments, step 0.
     The parameter leaves require grad; drawn by ``Model.init`` they share
-    storage with the model's registered (serving) tree."""
-    if params is None:
+    storage with the model's registered (serving) tree. ``placement``
+    (:func:`train_placement`): this rank's shards of that state, the
+    whole parameters drawn by every rank alike from the seed (into a
+    model of their own, so that no whole tree outlives the call) and cut
+    by the specs."""
+    if placement is not None:
+        if params is None:
+            params = build_model(model.cfg).init(generator, seed=seed,
+                                                 device=device)
+        params = placement.local_params(params, device)
+    elif params is None:
         params = model.init(generator, seed=seed, device=device)
     params = tree_map(trainable, params)
     device = tree_leaves(params)[0][1].device
@@ -302,6 +197,58 @@ def init_train_state(model: Model, generator: Optional[torch.Generator]
     if hyper.compress_grads:
         state["err"] = init_error_feedback(params)
     return state
+
+
+def train_placement(model: Model, mesh, rules: Optional[ShardingRules]
+                    = None, *, fsdp: bool = True) -> Placement:
+    """The placement of ``model``'s train state on ``mesh`` (a
+    ``DeviceMesh`` of this rank) under ``rules`` (default
+    ``DEFAULT_RULES``, checked by :func:`train_rules_for`): the parameter
+    specs (FSDP over ``data`` with ``fsdp``), the rank's local model and
+    its :class:`~repro_torch.parallel.collectives.RankShard`, which on a
+    data axis of more than one rank carries the rank's
+    :class:`~repro_torch.parallel.collectives.DataShard` (its rows of the
+    batch, the group its gradients sum over, the FSDP-split leaves)."""
+    rules = train_rules_for(model.cfg, mesh, rules or DEFAULT_RULES)
+    placement = Placement(mesh, model, rules, fsdp=fsdp)
+    D = placement.sizes.get("data", 1)
+    if D > 1:
+        placement.shard = dataclasses.replace(placement.shard, data=DataShard(
+            group=mesh.get_group("data"), size=D,
+            rank=placement.coords.get("data", 0),
+            fsdp={path: spec.index("data")
+                  for path, spec in tree_leaves(placement.param_specs)
+                  if "data" in spec}))
+    return placement
+
+
+def state_specs(state: dict, placement) -> dict:
+    """The train state's specs on the placement's mesh: the moments (and
+    the error feedback) mirror the parameters, the counters replicate."""
+    p = placement.param_specs
+    out = {"params": p, "opt": {"m": p, "v": p, "count": ()}, "step": ()}
+    if "err" in state:
+        out["err"] = p
+    return out
+
+
+def local_batch(batch: dict, placement) -> dict:
+    """This rank's rows of the global ``batch`` (every rank builds the
+    same from ``(seed, step)``): ``batch_specs`` split dim 0 over
+    ``data``, each rank its contiguous rows
+    (:func:`repro_torch.data.pipeline.host_shard`). A batch whose rows do
+    not split over the data axis is refused."""
+    D = placement.sizes.get("data", 1)
+    if D == 1:
+        return batch
+    rows = {int(v.shape[0]) for v in batch.values()}
+    specs = batch_specs(batch, placement.mesh, placement.rules)
+    if len(rows) != 1 or any(not spec or spec[0] != "data"
+                             for spec in specs.values()):
+        raise ValueError(f"a global batch of {sorted(rows)} rows does not "
+                         f"split over a data axis of {D}: each data rank "
+                         "takes an equal share of the rows")
+    return host_shard(batch, placement.coords["data"], D)
 
 
 def _value_and_grad(model: Model, params, batch: dict):
@@ -332,23 +279,44 @@ def _accumulate_grads(model: Model, params, batch: dict, n_micro: int):
 
 
 def loss_and_grads(model: Model, params, batch: dict, *,
-                   microbatches: int = 1):
+                   microbatches: int = 1, placement=None):
     """The gradients of ``model.loss`` at ``params`` over ``batch`` (in
-    ``microbatches`` accumulated in f32 when above 1) and the metrics."""
+    ``microbatches`` accumulated in f32 when above 1) and the metrics.
+    ``placement``: ``params`` and ``batch`` are a mesh rank's shards and
+    rows, and ``model`` its local model; the gradients are the global
+    batch's, this rank's shards of them (inside the mesh's context)."""
     if microbatches > 1:
         grads, metrics = _accumulate_grads(model, params, batch,
                                            microbatches)
     else:
         grads, metrics = _value_and_grad(model, params, batch)
+    if placement is not None and placement.sizes.get("data", 1) > 1:
+        # the data-parallel sum of the leaves FSDP does not split (theirs
+        # was summed by the gathers' backward)
+        specs = dict(tree_leaves(placement.param_specs))
+        idx = [i for i, (path, _) in enumerate(tree_leaves(params))
+               if "data" not in specs[path]]
+        for i, g in zip(idx, collectives.grad_sum([grads[i] for i in idx])):
+            grads[i] = g
     it = iter(grads)
     return tree_map(lambda _: next(it), params), metrics
 
 
+def split_axes(placement) -> dict:
+    """``{path: axes}``: the mesh axes (of more than one rank) over which
+    each parameter's pieces differ."""
+    sizes = placement.sizes
+    return {path: tuple(e for e in spec if e is not None and sizes[e] > 1)
+            for path, spec in tree_leaves(placement.param_specs)}
+
+
 def apply_gradients(state: dict, grads, metrics: dict, *,
-                    hyper: TrainHyper) -> Tuple[dict, dict]:
+                    hyper: TrainHyper, splits=None) -> Tuple[dict, dict]:
     """The optimizer half of a train step, in place: int8 compression with
     error feedback (``hyper.compress_grads``), the cosine schedule's lr
-    and AdamW → ``(state one step on, metrics with grad_norm and lr)``."""
+    and AdamW → ``(state one step on, metrics with grad_norm and lr)``.
+    ``splits``: on a mesh, the axes each leaf's shards differ over (the
+    gradient norm's sums; inside the mesh's context)."""
     new_err = None
     if hyper.compress_grads:
         grads, new_err = compressed_gradients(grads, state["err"])
@@ -356,7 +324,8 @@ def apply_gradients(state: dict, grads, metrics: dict, *,
                          warmup_steps=hyper.warmup_steps,
                          total_steps=hyper.total_steps)
     new_params, new_opt, opt_metrics = adamw_update(
-        grads, state["opt"], state["params"], lr=lr, config=hyper.adamw)
+        grads, state["opt"], state["params"], lr=lr, config=hyper.adamw,
+        splits=splits)
     new_state = {"params": new_params, "opt": new_opt,
                  "step": state["step"] + 1}
     if new_err is not None:
@@ -364,16 +333,43 @@ def apply_gradients(state: dict, grads, metrics: dict, *,
     return new_state, {**metrics, **opt_metrics}
 
 
-def build_train_step(model: Model, *, hyper: TrainHyper) -> Callable:
+def build_train_step(model: Model, *, hyper: TrainHyper, mesh=None,
+                     rules: Optional[ShardingRules] = None,
+                     fsdp: bool = True, return_grads: bool = False) -> Callable:
     """``train_step(state, batch) -> (state, metrics)``; the state is
     updated in place (module docstring). The batch's tensors must be on
-    the state's device."""
+    the state's device.
 
-    def train_step(state: dict, batch: dict) -> Tuple[dict, dict]:
-        grads, metrics = loss_and_grads(model, state["params"], batch,
-                                        microbatches=hyper.microbatches)
-        return apply_gradients(state, grads, metrics, hyper=hyper)
+    ``mesh``: a ``DeviceMesh`` of this rank (:func:`repro_torch.launch.
+    mesh.make_mesh`): the state is this rank's shards (:func:`init_train_
+    state` with the step's ``placement``), the batch its rows
+    (:func:`local_batch`), and the metrics the global batch's on every
+    rank. ``fsdp=False`` keeps the parameters whole over ``data`` (their
+    gradients summed over it). The step carries its placement as
+    ``train_step.placement`` (``None`` off a mesh). ``return_grads``: the
+    step returns ``(state, metrics, grads)``, ``grads`` the gradients it
+    applied (the global batch's; on a mesh this rank's shards of them),
+    for holding one step against another."""
+    placement = None if mesh is None else train_placement(
+        model, mesh, rules, fsdp=fsdp)
 
+    def train_step(state: dict, batch: dict):
+        if placement is None:
+            grads, metrics = loss_and_grads(model, state["params"], batch,
+                                            microbatches=hyper.microbatches)
+            state, metrics = apply_gradients(state, grads, metrics,
+                                             hyper=hyper)
+        else:
+            with activate(mesh, placement.rules, placement.shard):
+                grads, metrics = loss_and_grads(
+                    placement.local_model, state["params"], batch,
+                    microbatches=hyper.microbatches, placement=placement)
+                state, metrics = apply_gradients(
+                    state, grads, metrics, hyper=hyper,
+                    splits=split_axes(placement))
+        return (state, metrics, grads) if return_grads else (state, metrics)
+
+    train_step.placement = placement
     return train_step
 
 

@@ -119,11 +119,12 @@ def full_attention(q, k, v, *, causal: bool, positions_q=None,
     return o.reshape(B, Sq, H, D).to(q.dtype)
 
 
-def _moa_dot(x, w, *, strategy, compute_dtype):
+def _moa_dot(x, w, *, strategy, compute_dtype, site=None):
     """Dense projection routed through the MOA engine (scope-aware)."""
     from repro_torch.layers.linear import project
 
-    return project({"w": w}, x, strategy=strategy, compute_dtype=compute_dtype)
+    return project({"w": w}, x, strategy=strategy,
+                   compute_dtype=compute_dtype, site=site)
 
 
 def _out_proj(o, wo, *, strategy, compute_dtype):
@@ -137,20 +138,29 @@ def _out_proj(o, wo, *, strategy, compute_dtype):
 
 def _project_qkv(params: Params, x, *, n_heads, n_kv_heads, head_dim,
                  compute_dtype, strategy=None):
+    """q, k, v of ``x`` (biases added where the arch has them). Where a
+    mesh splits the heads over ``model``, ``wq`` (and ``bq``) hold this
+    rank's q heads and ``x`` enters through the column op; K/V split with
+    them, or (one KV head the q heads share) replicate, and then ``k`` and
+    ``v`` enter the split attention through the column op."""
+    from repro_torch.parallel.collectives import column_input, split
+
     B, S, _ = x.shape
     x = x.to(compute_dtype)
 
-    def dot(w):
+    def dot(w, site):
         return _moa_dot(x, w.to(compute_dtype), strategy=strategy,
-                        compute_dtype=compute_dtype)
+                        compute_dtype=compute_dtype, site=site)
 
-    q = dot(params["wq"])
-    k = dot(params["wk"])
-    v = dot(params["wv"])
+    q = dot(params["wq"], "heads")
+    k = dot(params["wk"], "kv_heads")
+    v = dot(params["wv"], "kv_heads")
     if "bq" in params:
         q = q + params["bq"].to(compute_dtype)
         k = k + params["bk"].to(compute_dtype)
         v = v + params["bv"].to(compute_dtype)
+    if split("heads") and not split("kv_heads"):
+        k, v = column_input(k, "heads"), column_input(v, "heads")
     q = q.reshape(B, S, n_heads, head_dim)
     k = k.reshape(B, S, n_kv_heads, head_dim)
     v = v.reshape(B, S, n_kv_heads, head_dim)

@@ -3,16 +3,19 @@
 
 On a mesh that splits ``vocab`` over ``model`` each rank holds rows ``[lo,
 hi)`` of the table: the lookup is masked to them and summed over the
-ranks, and the unembedding produces this rank's slice of the logits
-(:func:`repro_torch.parallel.collectives.vocab_argmax` and
-``vocab_gather`` read them)."""
+ranks (whose backward, the identity, scatters each rank's rows' gradient
+into its own rows), and the unembedding produces this rank's slice of the
+logits from its input through the column op
+(:func:`repro_torch.parallel.collectives.vocab_argmax`, ``vocab_gather``
+and the vocab-parallel loss read them)."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.layers.common import Params, truncated_normal_init
-from repro_torch.parallel.collectives import reduce_partial, split
+from repro_torch.parallel.collectives import (column_input,
+                                              reduce_partial, split)
 
 __all__ = ["init_embedding", "embed", "unembed"]
 
@@ -73,9 +76,11 @@ def unembed(params: Params, x: torch.Tensor, *,
     bf16 contraction is one bf16 product with f32 output (``aten::mm.dtype``:
     the table is read once in bf16, never copied to f32; differentiable
     through :class:`_Unembed`); CPU tensors, which have no kernel for that
-    overload, and f32 compute take the f32 product of the same operands."""
+    overload, and f32 compute take the f32 product of the same operands.
+    Vocab-split over ``model``: this rank's rows of the vocabulary, ``x``
+    through the column op."""
     table = params.get("unembed", params["table"]).to(compute_dtype)
-    x = x.to(compute_dtype)
+    x = column_input(x.to(compute_dtype), "vocab")
     if x.is_cuda and compute_dtype == torch.bfloat16:
         out = _Unembed.apply(x.reshape(-1, x.shape[-1]), table)
         return out.reshape(*x.shape[:-1], table.shape[0])

@@ -2,9 +2,12 @@
 
 Every dense contraction goes through :func:`project`, which schedules its K
 reduction per a :mod:`repro_torch.moa` strategy; on a CUDA tensor the
-default ``auto`` backend runs the ``dot_moa`` kernel. A row-parallel
-projection on a mesh (:func:`project_rows`) sums the ranks' f32 partial
-products before its one cast.
+default ``auto`` backend runs the ``dot_moa`` kernel. On a mesh a
+column-parallel projection (``site`` split over ``model``) takes its
+replicated input through :func:`~repro_torch.parallel.collectives.
+column_input` (its backward sums the ranks' partial input gradients), and
+a row-parallel one (:func:`project_rows`) sums the ranks' f32 partial
+products before its one cast (the sum's backward is the identity).
 """
 
 from __future__ import annotations
@@ -14,21 +17,27 @@ import torch
 from repro_torch.kernels.ref import matmul_accum
 from repro_torch.layers.common import Params
 from repro_torch.moa import active_strategy
-from repro_torch.parallel.collectives import reduce_partial, split
+from repro_torch.parallel.collectives import (column_input,
+                                              reduce_partial, split)
 
 __all__ = ["project", "project_rows"]
 
 
 def project(params: Params, x: torch.Tensor, *, strategy=None,
-            compute_dtype=torch.bfloat16) -> torch.Tensor:
+            compute_dtype=torch.bfloat16, site: str = None) -> torch.Tensor:
     """``x @ w (+ b)`` with the contraction scheduled per ``strategy``.
 
     ``x: (..., d_in)``; weights are cast to ``compute_dtype`` at use (a
     no-op when they are stored in it); accumulation is f32.
     ``strategy=None`` (and no active scope) is the plain one-shot matmul.
+    ``site`` (``"heads"``, ``"kv_heads"``, ``"ff"``): where the active mesh
+    splits it over ``model``, ``w`` holds this rank's columns and ``x``
+    enters through the column op.
     """
     w = params["w"].to(compute_dtype)
     x = x.to(compute_dtype)
+    if site is not None:
+        x = column_input(x, site)
     strat = active_strategy(strategy)
     if strat is None:
         y = matmul_accum(x, w, torch.float32).to(compute_dtype)

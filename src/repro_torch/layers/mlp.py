@@ -22,9 +22,9 @@ def swiglu(params: Params, x: torch.Tensor, *, strategy=None,
     ``ff`` over ``model``, ``w_gate`` / ``w_up`` are column-parallel (this
     rank's ``ff`` columns) and ``w_down`` row-parallel."""
     g = project({"w": params["w_gate"]}, x, strategy=strategy,
-                compute_dtype=compute_dtype)
+                compute_dtype=compute_dtype, site="ff")
     u = project({"w": params["w_up"]}, x, strategy=strategy,
-                compute_dtype=compute_dtype)
+                compute_dtype=compute_dtype, site="ff")
     h = silu_f32(g, out_dtype=compute_dtype) * u
     return project_rows({"w": params["w_down"]}, h, site="ff",
                         strategy=strategy, compute_dtype=compute_dtype)
@@ -48,10 +48,13 @@ def init_gelu_mlp(generator: torch.Generator, d_model: int, d_ff: int,
 def gelu_mlp(params: Params, x: torch.Tensor, *, strategy=None,
              compute_dtype=torch.bfloat16) -> torch.Tensor:
     """``gelu(x @ w_in + b_in) @ w_out + b_out``: the GELU in f32 with the
-    tanh approximation (``jax.nn.gelu``'s default)."""
+    tanh approximation (``jax.nn.gelu``'s default); on a mesh that splits
+    ``ff`` over ``model``, ``w_in`` / ``b_in`` are column-parallel and
+    ``w_out`` row-parallel, ``b_out`` added once after the sum."""
     h = project({"w": params["w_in"], "b": params["b_in"]}, x,
-                strategy=strategy, compute_dtype=compute_dtype)
+                strategy=strategy, compute_dtype=compute_dtype, site="ff")
     h = torch.nn.functional.gelu(h.float(), approximate="tanh") \
         .to(compute_dtype)
-    return project({"w": params["w_out"], "b": params["b_out"]}, h,
-                   strategy=strategy, compute_dtype=compute_dtype)
+    return project_rows({"w": params["w_out"], "b": params["b_out"]}, h,
+                        site="ff", strategy=strategy,
+                        compute_dtype=compute_dtype)

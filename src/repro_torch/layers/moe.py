@@ -16,7 +16,14 @@ router and the routing stay replicated, so every rank picks the same
 experts; each rank runs the batched contractions of its own ``E / M``
 experts, combines the top-k choices that landed on them (the others as
 exact zeros) and the f32 partial combines are summed over the ranks
-before the one cast.
+before the one cast. Under autograd the dispatched tokens and the gates
+enter the split computation through the column op, so their gradients sum
+the ranks' partial ones, and the combine's sum is the row op. On a data
+axis each rank routes its own rows: its groups are the global batch's
+(``G`` from the global token count, a whole number of groups a rank), or
+any, where no choice can be dropped (the dropless regime); and the
+load-balance loss reads the global batch's ``density`` and mean
+``probs``, summed over ``data`` as GSPMD computes them.
 
 Where PyTorch differs from JAX, the port pins the reference's semantics:
 
@@ -37,7 +44,9 @@ import torch
 from repro_torch.layers.common import Params, dense_init
 from repro_torch.layers.numerics import silu_f32
 from repro_torch.moa import active_strategy
-from repro_torch.parallel.collectives import reduce_partial, split
+from repro_torch.parallel.collectives import (column_input,
+                                              reduce_partial, split)
+from repro_torch.parallel.sharding import active_shard
 
 __all__ = ["Routing", "init_moe", "route", "moe_forward"]
 
@@ -101,9 +110,8 @@ def moe_forward(params: Params, x: torch.Tensor, *, n_experts: int,
     active scope keeps plain f32 products and ``torch.sum``."""
     B, S, d = x.shape
     T = B * S
-    G = max(T // group_size, 1)
-    while T % G:
-        G -= 1
+    G = _groups(T, group_size, n_experts=n_experts, top_k=top_k,
+                capacity_factor=capacity_factor)
     tg = T // G
     xt = x.reshape(G, tg, d).to(compute_dtype)
     strat = active_strategy(strategy)
@@ -134,14 +142,18 @@ def moe_forward(params: Params, x: torch.Tensor, *, n_experts: int,
     # a fixed order (repeat_interleave's adds them with atomics on CUDA)
     xrep = xt[:, :, None].expand(G, tg, top_k, d).reshape(G, tg * top_k, d)
     contrib = torch.where(keep, xrep, torch.zeros_like(xrep))
+    experts = split("experts")
+    if experts:                      # dispatched to this rank's experts
+        contrib = column_input(contrib, "experts")
     g_idx = torch.arange(G, device=x.device)[:, None]
     dest = ((g_idx * n_experts + flat_ids) * C + safe_slot).reshape(-1)
     buf = torch.zeros((G * n_experts * C, d), dtype=compute_dtype,
                       device=x.device)
     buf.index_add_(0, dest, contrib.reshape(-1, d))
     buf = buf.reshape(G, n_experts, C, d)
-    experts = split("experts")
+    gates_k = r.gates
     if experts:                      # this rank's experts only
+        gates_k = column_input(gates_k, "experts")
         lo, hi = experts
         buf = buf[:, lo:hi].contiguous()
         mine = (flat_ids >= lo) & (flat_ids < hi)
@@ -158,7 +170,7 @@ def moe_forward(params: Params, x: torch.Tensor, *, n_experts: int,
     # combine: the token-side MOA over the k gate-weighted expert rows
     gathered = out_buf.reshape(-1, d)[dest].reshape(G, tg * top_k, d)
     gathered = torch.where(keep, gathered, torch.zeros_like(gathered))
-    weighted = gathered * r.gates.reshape(G, tg * top_k, 1).to(compute_dtype)
+    weighted = gathered * gates_k.reshape(G, tg * top_k, 1).to(compute_dtype)
     weighted = weighted.reshape(G, tg, top_k, d)
     if experts:                      # f32 partials, summed over ranks
         part = weighted.float().sum(dim=2) if strat is None \
@@ -169,8 +181,45 @@ def moe_forward(params: Params, x: torch.Tensor, *, n_experts: int,
     else:
         y = strat.sum(weighted, axis=2).to(compute_dtype)
 
-    # Switch-style load-balance auxiliary loss
-    density = torch.nn.functional.one_hot(
-        r.expert_ids[..., 0], n_experts).float().mean(dim=(0, 1))
-    aux = n_experts * torch.sum(density * r.probs.mean(dim=(0, 1)))
+    # Switch-style load-balance auxiliary loss, over the global batch
+    n_tok = T * _data_size()
+    density = reduce_partial(torch.nn.functional.one_hot(
+        r.expert_ids[..., 0], n_experts).float().sum(dim=(0, 1)),
+        "data") / n_tok
+    mean_probs = reduce_partial(r.probs.sum(dim=(0, 1)), "data") / n_tok
+    aux = n_experts * torch.sum(density * mean_probs)
     return y.reshape(B, S, d), aux
+
+
+def _data_size() -> int:
+    shard = active_shard()
+    return 1 if shard is None or shard.data is None else shard.data.size
+
+
+def _groups(T: int, group_size: int, *, n_experts: int, top_k: int,
+            capacity_factor: float) -> int:
+    """How many capacity groups this rank's ``T`` tokens form: those of one
+    device over the global batch (``T`` times the data ranks), of which
+    each rank holds a whole number; else, in the dropless regime (no
+    choice dropped however the tokens group), as one device would group
+    ``T`` tokens. A capacity-limited MoE whose groups would straddle data
+    ranks is refused."""
+    def groups(n):
+        g = max(n // group_size, 1)
+        while n % g:
+            g -= 1
+        return g
+
+    D = _data_size()
+    g_all = groups(T * D)
+    if D == 1:
+        return g_all
+    if g_all % D == 0:
+        return g_all // D
+    if capacity_factor >= n_experts / max(top_k, 1):
+        return groups(T)
+    raise ValueError(
+        f"a capacity-limited MoE ({capacity_factor=}) over a data axis of "
+        f"{D}: the global batch's {T * D} tokens form {g_all} capacity "
+        f"group(s), which do not split into whole groups a rank; use a "
+        f"global batch of a multiple of {D} groups of {group_size} tokens")

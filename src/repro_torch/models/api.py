@@ -27,6 +27,7 @@ from repro_torch.device import resolve_device
 from repro_torch.layers.common import Params
 from repro_torch.models import (losses, mamba2, moe_transformer,
                                 transformer, zamba2)
+from repro_torch.parallel.collectives import fsdp_params
 
 __all__ = ["CacheSpec", "Model", "build_model"]
 
@@ -140,8 +141,11 @@ class Model(nn.Module):
     # ---- forward ----------------------------------------------------------
     def forward_with_aux(self, params: Params, batch: dict):
         """``(logits, aux)``: the MoE router's load-balance loss beside the
-        logits (``None`` for the other families)."""
-        out = self._mod.forward(params, batch, self.cfg)
+        logits (``None`` for the other families). Under FSDP ``params``
+        are this rank's slices, gathered where they are read
+        (:func:`repro_torch.parallel.collectives.fsdp_params`; each layer
+        its own, :func:`~repro_torch.parallel.collectives.fsdp_layer`)."""
+        out = self._mod.forward(fsdp_params(params), batch, self.cfg)
         return out if isinstance(out, tuple) else (out, None)
 
     def forward(self, params: Params, batch: dict):
@@ -157,7 +161,10 @@ class Model(nn.Module):
         (``metrics["aux_loss"]``); the encoder's masked-prediction loss of
         ``frames`` against ``targets`` at the frames ``mask`` marks.
         ``metrics`` also has ``tokens`` and ``accuracy``, each a 0-d f32
-        tensor."""
+        tensor. On a mesh (this model the local one of a rank: its heads,
+        ``ff`` and experts; ``batch`` this rank's rows) ``loss`` is this
+        rank's share of the global batch's, and ``metrics`` are the global
+        batch's (:mod:`repro_torch.models.losses`)."""
         logits, aux = self.forward_with_aux(params, batch)
         if self.cfg.family == "encoder":
             loss, metrics = losses.masked_lm_loss(
@@ -169,8 +176,9 @@ class Model(nn.Module):
                 impl=self.cfg.loss_impl)
         if aux is not None:
             loss = loss + 0.01 * aux
-            metrics = dict(metrics, aux_loss=aux)
-        return loss, dict(metrics, loss=loss)
+            metrics = dict(metrics, aux_loss=aux,
+                           loss=metrics["loss"] + 0.01 * aux.detach())
+        return loss, metrics
 
     # ---- serving ----------------------------------------------------------
     @property

@@ -25,6 +25,7 @@ from repro_torch.layers.ssd import (conv_tail, init_mamba2_block,
                                     mamba2_forward)
 from repro_torch.models import verify_common
 from repro_torch.models.transformer import layer, layers, remat
+from repro_torch.parallel.collectives import fsdp_layer
 
 __all__ = ["init_params", "init_layers", "layer_forward", "block",
            "layer_decode", "forward", "init_cache", "prefill", "prefill_chunk",
@@ -97,7 +98,9 @@ def layer_forward(cfg: ModelConfig, lyr: Params, h, initial_state=None):
 
 
 def block(cfg: ModelConfig, lyr: Params, h):
-    """One layer of the training forward: ``h + mamba2(rms(h))``."""
+    """One layer of the training forward: ``h + mamba2(rms(h))`` (under
+    FSDP on the layer's gathered weights)."""
+    lyr = fsdp_layer(lyr)
     y, _ = mamba2_forward(lyr["mixer"], rms_norm(lyr["norm"], h),
                           ssd_chunk=cfg.ssd_chunk, **_ssm_kw(cfg))
     return h + y

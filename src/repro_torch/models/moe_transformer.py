@@ -24,6 +24,7 @@ from repro_torch.layers.common import Params, rms_norm
 from repro_torch.layers.embedding import unembed
 from repro_torch.layers.moe import init_moe, moe_forward
 from repro_torch.models import transformer as dense
+from repro_torch.parallel.collectives import fsdp_layer
 
 __all__ = ["init_params", "moe_mlp", "forward", "init_cache",
            "init_paged_cache", "prefill", "prefill_suffix", "decode_step",
@@ -75,7 +76,9 @@ def moe_mlp(cfg: ModelConfig, lyr: Params, h):
 
 
 def _block(cfg: ModelConfig, lyr: Params, h, positions):
-    """One layer: attention, then the experts → ``(h, aux)``."""
+    """One layer: attention, then the experts → ``(h, aux)`` (under FSDP
+    on the layer's gathered weights)."""
+    lyr = fsdp_layer(lyr)
     q, k, v = dense._layer_qkv(cfg, lyr, h, positions)
     h = dense._attn_out(cfg, lyr, h, dense._train_attention(cfg, q, k, v))
     m, aux = _moe(cfg, lyr, h)

@@ -49,6 +49,9 @@ from repro_torch.layers.common import Params, dense_init, rms_norm
 from repro_torch.layers.embedding import embed, init_embedding, unembed
 from repro_torch.layers.mlp import gelu_mlp, init_gelu_mlp, swiglu
 from repro_torch.layers.rope import apply_rope
+from repro_torch.parallel.collectives import fsdp_layer
+from repro_torch.parallel.sharding import (activate, active_context,
+                                           active_shard)
 
 __all__ = [
     "init_params", "layer", "layers", "remat", "embed_inputs", "forward",
@@ -238,6 +241,11 @@ def _save_products(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+def _in_context(context, shard, fn, *args):
+    with activate(*context, shard):
+        return fn(*args)
+
+
 def remat(cfg: ModelConfig, fn, *args):
     """``fn(*args)`` under ``cfg.remat`` where autograd records it (the
     reference's ``_remat`` of a scanned layer): ``"none"`` saves every
@@ -249,6 +257,11 @@ def remat(cfg: ModelConfig, fn, *args):
 
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn(*args)
+    shard = active_shard()
+    if shard is not None:
+        # the backward's recompute may run on autograd's device thread,
+        # which does not see this thread's mesh context: carry it along
+        fn = functools.partial(_in_context, active_context(), shard, fn)
     if cfg.remat == "dots":
         return checkpoint.checkpoint(
             fn, *args, use_reentrant=False,
@@ -261,7 +274,8 @@ def remat(cfg: ModelConfig, fn, *args):
 def _block(cfg: ModelConfig, lyr: Params, h, positions,
            attention=_train_attention):
     """One layer of the forward: ``h += attn(rms(h)); h +=
-    mlp(rms(h))``."""
+    mlp(rms(h))`` (under FSDP on the layer's gathered weights)."""
+    lyr = fsdp_layer(lyr)
     q, k, v = _layer_qkv(cfg, lyr, h, positions)
     return _mlp(cfg, lyr, _attn_out(cfg, lyr, h, attention(cfg, q, k, v)))
 

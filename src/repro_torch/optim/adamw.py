@@ -7,6 +7,11 @@ moments into the given tensors, under ``torch.no_grad()``, and returns
 those trees. That is the PyTorch form of the reference's
 ``donate_argnums=(0,)``: at full width the state is 16 bytes a parameter,
 and a second copy of it would not fit beside the first.
+
+On a mesh every leaf is this rank's shard: the update is elementwise, so it
+runs on the shards as they are; only the gradient norm sums over the ranks
+that hold different pieces of a leaf (``splits``), and the clip then scales
+every shard alike.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch.interop import tree_leaves, tree_map
+from repro_torch.parallel.collectives import reduce_partial
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm"]
 
@@ -43,21 +49,40 @@ def adamw_init(params) -> dict:
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt(Σ‖g‖²) in f32."""
-    leaves = [torch.sum(torch.square(g.float())) for _, g in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+def global_norm(tree, splits=None) -> torch.Tensor:
+    """sqrt(Σ‖g‖²) in f32. ``splits``: ``{path: axes}`` of the leaves
+    that are this rank's pieces, ``axes`` the mesh axes (``"data"``,
+    ``"model"``) their pieces differ over: each leaf's sum of squares is
+    summed over those axes' ranks and only those, so a replicated leaf
+    counts once (inside the mesh's context,
+    :func:`repro_torch.parallel.sharding.activate`)."""
+    squares = [(path, torch.sum(torch.square(g.float())))
+               for path, g in tree_leaves(tree)]
+    if not splits or not any(splits.values()):
+        return torch.sqrt(torch.sum(torch.stack([s for _, s in squares])))
+    by = {(): [], ("data",): [], ("model",): [], ("data", "model"): []}
+    for path, sq in squares:
+        axes = splits.get(path, ())
+        by[tuple(a for a in ("data", "model") if a in axes)].append(sq)
+    zero = squares[0][1].new_zeros(())
+    part = {k: torch.sum(torch.stack(v)) if v else zero
+            for k, v in by.items()}
+    data = reduce_partial(torch.stack([part[("data",)],
+                                       part[("data", "model")]]), "data")
+    model = reduce_partial(torch.stack([part[("model",)], data[1]]), "model")
+    return torch.sqrt(part[()] + data[0] + model[0] + model[1])
 
 
 @torch.no_grad()
 def adamw_update(grads, opt_state: dict, params, *, lr,
-                 config: AdamWConfig = AdamWConfig()) -> Tuple[Any, dict,
-                                                               dict]:
+                 config: AdamWConfig = AdamWConfig(),
+                 splits=None) -> Tuple[Any, dict, dict]:
     """One AdamW step → ``(params, opt_state, metrics)``: the parameters
     and the moments are updated in place (see the module docstring); the
-    count is a new 0-d tensor."""
+    count is a new 0-d tensor. ``splits``: a mesh's shards
+    (:func:`global_norm`)."""
     count = opt_state["count"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, splits)
     scale = None
     if config.clip_norm is not None:
         scale = torch.clamp(config.clip_norm / torch.clamp(gnorm, min=1e-9),

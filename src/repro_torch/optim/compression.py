@@ -6,24 +6,32 @@ carried to the next step, so the compressed trajectory converges to the
 uncompressed fixed point.
 
     comp, err = compressed_gradients(grads, err)   # quantize + feedback
+
+On a mesh each leaf is this rank's shard of the global (summed) gradient:
+its ``amax`` is the whole leaf's, the maximum over the ranks' shards
+(:func:`repro_torch.parallel.collectives.axis_max`), so the int8 values
+equal one device's.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+from typing import Tuple
 
 import torch
 
-from repro_torch.interop import tree_map
+from repro_torch.interop import tree_leaves, tree_map, tree_map_with_keys
+from repro_torch.parallel.collectives import axis_max
 
 __all__ = ["compress_int8", "decompress_int8", "init_error_feedback",
            "compressed_gradients"]
 
 
-def compress_int8(x) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric per-tensor int8 quantization → ``(q, scale)``."""
+def compress_int8(x, amax=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-tensor int8 quantization → ``(q, scale)``; ``amax``:
+    the whole tensor's ``max |x|`` where ``x`` is a shard of it."""
     x32 = x.float()
-    amax = torch.max(torch.abs(x32))
+    if amax is None:
+        amax = torch.max(torch.abs(x32))
     scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
     q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -42,12 +50,17 @@ def compressed_gradients(grads, error_feedback):
     """Quantize each gradient tensor with error feedback → ``(dequantized
     grads, new error feedback)``: the dequantized values are what a
     compressed all-reduce would deliver; the residue ``g - deq`` feeds
-    forward."""
-    if isinstance(grads, Mapping):
-        pairs = {k: compressed_gradients(g, error_feedback[k])
-                 for k, g in grads.items()}
-        return ({k: p[0] for k, p in pairs.items()},
-                {k: p[1] for k, p in pairs.items()})
-    g32 = grads.float() + error_feedback
-    deq = decompress_int8(*compress_int8(g32))
-    return deq.to(grads.dtype), g32 - deq
+    forward. On a mesh (inside its context) each leaf's scale is the whole
+    leaf's, from one gather of every leaf's ``amax`` a mesh axis (the
+    maximum over identical replicas is their value)."""
+    err = dict(tree_leaves(error_feedback))
+    g32 = {path: g.float() + err[path] for path, g in tree_leaves(grads)}
+    amax = torch.stack([torch.max(torch.abs(x)) for x in g32.values()])
+    amax = axis_max(axis_max(amax, "data"), "model")
+    deq = {path: decompress_int8(*compress_int8(x, a))
+           for (path, x), a in zip(g32.items(), amax.unbind(0))}
+    return (tree_map_with_keys(
+                lambda keys, g: deq[".".join(keys)].to(g.dtype), grads),
+            tree_map_with_keys(
+                lambda keys, g: g32[".".join(keys)] - deq[".".join(keys)],
+                grads))

@@ -2,44 +2,71 @@
 
 The reference pins layouts inside the model with ``constrain`` and lets
 GSPMD insert the communication. The port runs each rank's local shards and
-communicates where a split contraction needs it, Megatron-style:
+communicates where a split contraction needs it, Megatron-style, in
+conjugate pairs that autograd sees (so a train step's backward makes the
+transposed collective of each forward one):
 
 * **column-parallel** projections (``wq``/``wk``/``wv``, ``w_gate``/
-  ``w_up``) need nothing: each rank computes its own heads or ``ff``
-  columns;
+  ``w_up``, the unembedding) take a replicated input through
+  :func:`column_input`: the identity forward, and in the backward the sum
+  over ``model`` of the ranks' partial input gradients;
 * **row-parallel** projections (``wo``, ``w_down``) produce f32 partial
-  products that :func:`reduce_partial` all-reduces over ``model`` before
-  the one cast to the compute type (:func:`repro_torch.layers.linear.
-  project_rows`);
-* the **vocab-parallel** embedding looks up its own rows and all-reduces
+  products that :func:`reduce_partial` sums over ``model`` before the one
+  cast to the compute type (:func:`repro_torch.layers.linear.
+  project_rows`); its backward is the identity;
+* the **vocab-parallel** embedding looks up its own rows and sums them
   (:func:`repro_torch.layers.embedding.embed`); the unembedding's logits
   stay local: :func:`vocab_argmax` picks the global argmax with the
   single-device tie break (the lowest index), :func:`vocab_gather`
-  assembles whole rows where a temperature row samples;
-* **expert parallelism** runs each rank's ``E / M`` experts and
-  all-reduces the partial top-k combine (:mod:`repro_torch.layers.moe`).
+  assembles whole rows, and the loss reduces them where they lie
+  (:mod:`repro_torch.models.losses`);
+* **expert parallelism** runs each rank's ``E / M`` experts and sums the
+  partial top-k combine (:mod:`repro_torch.layers.moe`);
+* **FSDP** (ZeRO-3) keeps a parameter split over ``data`` and gathers it
+  where it is used (:func:`fsdp_params`, :func:`fsdp_layer`): the gather
+  forward, and in the backward the sum over ``data`` of the ranks'
+  gradients, of which each keeps its own slice (:func:`reduce_scatter`);
+* the **data-parallel** gradient sum (:func:`grad_sum`) for the leaves
+  that ``data`` does not split.
 
-Every device collective is a sum all-reduce (:func:`all_gather` is a sum of
-zero-padded pieces): the one collective a gloo group carries for CUDA
-tensors besides broadcast, so two ranks can share one card, where NCCL
-refuses. Adding exact zeros leaves every value as it was, so the composed
-gather is exact. Outside an active context (:func:`repro_torch.parallel.
-sharding.activate`) every function here is the identity or the plain
-single-device operation.
+Every device collective is a sum all-reduce or a broadcast
+(:func:`all_gather` broadcasts each rank's piece from it, a maximum is
+taken locally over gathered values): the collectives a gloo group carries
+for CUDA tensors, so two ranks can share one card, where NCCL refuses. A
+broadcast copies bits, so the composed gather is exact. Outside an active
+context (:func:`repro_torch.parallel.sharding.activate`) every function
+here is the identity or the plain single-device operation.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Mapping, Optional, Tuple
 
 import torch
 
-from repro_torch.parallel.sharding import active_shard
+from repro_torch.interop import tree_map_with_keys
+from repro_torch.parallel.sharding import active_shard, mesh_axis_sizes
 
-__all__ = ["RankShard", "split", "reduce_partial", "all_gather",
-           "all_reduce", "broadcast", "vocab_argmax", "vocab_gather",
+__all__ = ["DataShard", "RankShard", "split", "reduce_partial", "column_input",
+           "all_gather", "all_reduce", "broadcast", "axis_max",
+           "fsdp_gather", "fsdp_params", "fsdp_layer", "gather_model",
+           "gather_whole", "grad_sum", "reduce_scatter", "vocab_argmax",
+           "vocab_gather",
            "counts", "reset_counts"]
+
+
+@dataclasses.dataclass(frozen=True)
+class DataShard:
+    """A training rank's place on the ``data`` axis: the group its batch
+    statistics and gradients sum over, its size and this rank's index (its
+    rows of the batch), and ``fsdp``: ``{parameter path: dim}`` of the
+    leaves split over ``data``."""
+
+    group: object = None
+    size: int = 1
+    rank: int = 0
+    fsdp: Optional[Mapping[str, int]] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,22 +74,34 @@ class RankShard:
     """One rank's piece of a model on a mesh: which contractions are split
     over the ``model`` axis and the process group they reduce over.
 
-    ``heads``: the attention's q heads (and K/V heads where they divide)
-    are this rank's; ``ff``: the dense MLP's ``ff`` columns are;
-    ``experts`` / ``vocab``: this rank's ``[lo, hi)`` of the experts and
-    of the vocabulary (``None``: all of them)."""
+    ``heads``: the attention's q heads are this rank's; ``kv_heads``: so
+    are its K/V heads (else they replicate beside split q heads); ``ff``:
+    the MLP's ``ff`` columns are; ``experts`` / ``vocab``: this rank's
+    ``[lo, hi)`` of the experts and of the vocabulary (``None``: all of
+    them); ``data``: a training rank's :class:`DataShard` (``None``
+    serving, where each rank's slots are its own)."""
 
     group: object = None
     size: int = 1
     rank: int = 0
     heads: bool = False
+    kv_heads: bool = False
     ff: bool = False
     experts: Optional[Tuple[int, int]] = None
     vocab: Optional[Tuple[int, int]] = None
+    data: Optional[DataShard] = None
 
 
-#: collective calls by kind since :func:`reset_counts`
-_COUNTS = {"all_reduce": 0, "broadcast": 0}
+#: calls since :func:`reset_counts`: ``all_reduce`` and ``broadcast`` are
+#: the device collectives; the others count the operations built on them,
+#: by kind (``row_sum``: the forward sums of :func:`reduce_partial`;
+#: ``column_grad``: the backward sums of :func:`column_input`;
+#: ``fsdp_gather`` / ``fsdp_scatter``: FSDP's gathers and the reduce-
+#: scatters of their backward; ``grad_sum``: data-parallel gradient sums;
+#: ``gather``: whole-row gathers; ``max``: maxima over ranks)
+_COUNTS = {"all_reduce": 0, "broadcast": 0, "row_sum": 0, "column_grad": 0,
+           "fsdp_gather": 0, "fsdp_scatter": 0, "grad_sum": 0, "gather": 0,
+           "max": 0}
 
 
 def counts() -> dict:
@@ -75,13 +114,27 @@ def reset_counts() -> None:
 
 
 def split(site: str):
-    """The active shard's split of ``site`` (``"heads"``, ``"ff"``:
-    bool; ``"experts"``, ``"vocab"``: ``(lo, hi)`` or ``None``), or a
-    falsy value outside a context or on a one-rank model axis."""
+    """The active shard's split of ``site`` (``"heads"``, ``"kv_heads"``,
+    ``"ff"``: bool; ``"experts"``, ``"vocab"``: ``(lo, hi)`` or ``None``),
+    or a falsy value outside a context or on a one-rank model axis."""
     shard = active_shard()
     if shard is None or shard.size == 1:
         return None
     return getattr(shard, site)
+
+
+def _axis(axis: str):
+    """``(group, size, rank)`` of the active shard's ``"model"`` or
+    ``"data"`` axis; ``(None, 1, 0)`` outside a context."""
+    shard = active_shard()
+    if shard is None:
+        return None, 1, 0
+    if axis == "model":
+        return shard.group, shard.size, shard.rank
+    if axis == "data":
+        d = shard.data
+        return (None, 1, 0) if d is None else (d.group, d.size, d.rank)
+    raise ValueError(f"unknown axis {axis!r}")
 
 
 def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
@@ -102,33 +155,241 @@ def broadcast(x: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
     return x
 
 
-def reduce_partial(x: torch.Tensor) -> torch.Tensor:
-    """Sum the ``model`` ranks' partial results ``x`` (f32) in place."""
-    shard = active_shard()
-    if shard is None or shard.size == 1:
+def _f32_sum(g: torch.Tensor, group) -> torch.Tensor:
+    """The f32 sum of ``g`` over ``group``, on a new tensor."""
+    g32 = g.float()
+    g32 = g32.clone() if g32 is g else g32.contiguous()
+    return all_reduce(g32, group)
+
+
+class _RowSum(torch.autograd.Function):
+    """Forward: the sum over the group's ranks. Backward: the identity
+    (every rank's cotangent is already the whole sum's)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ColumnInput(torch.autograd.Function):
+    """Forward: the identity. Backward: the f32 sum over the group of the
+    ranks' partial cotangents, cast back once."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        _COUNTS["column_grad"] += 1
+        return _f32_sum(g, ctx.group).to(g.dtype), None
+
+
+def reduce_partial(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+    """Sum the ranks' partial results ``x`` over ``axis`` (``"model"``:
+    the row-parallel sum; ``"data"``: a batch statistic's). Under autograd
+    its backward is the identity; otherwise the sum is taken in place."""
+    group, size, _ = _axis(axis)
+    if size == 1:
         return x
-    return all_reduce(x, shard.group)
+    _COUNTS["row_sum"] += 1
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _RowSum.apply(x, group)
+    return all_reduce(x, group)
+
+
+def column_input(x: torch.Tensor, site: str) -> torch.Tensor:
+    """A replicated ``x`` entering computation split over ``model`` at
+    ``site`` (:func:`split`): the identity forward, and a backward that
+    sums the ranks' partial cotangents. ``x`` itself elsewhere."""
+    if not split(site) or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _ColumnInput.apply(x, active_shard().group)
 
 
 def all_gather(x: torch.Tensor, dim: int, group, size: int,
                rank: int) -> torch.Tensor:
     """``size`` ranks' ``x`` (equal shapes) concatenated along ``dim`` in
-    rank order: each rank fills its piece of a zero buffer, and one sum
-    all-reduce assembles them."""
-    buf = torch.zeros((size,) + tuple(x.shape), dtype=x.dtype,
+    rank order: each rank's piece broadcast from it into its row of one
+    buffer (a copy of its bits; each rank sends only its own piece, half
+    the bytes a sum all-reduce of the zero-padded buffer moves at two
+    ranks)."""
+    import torch.distributed as dist
+
+    buf = torch.empty((size,) + tuple(x.shape), dtype=x.dtype,
                       device=x.device)
     buf[rank] = x
-    all_reduce(buf, group)
+    for r in range(size):
+        src = r if group is None else dist.get_global_rank(group, r)
+        broadcast(buf[r], src=src, group=group)
     return torch.cat(buf.unbind(0), dim=dim)
+
+
+def reduce_scatter(g: torch.Tensor, dim: int, group, size: int,
+                   rank: int) -> torch.Tensor:
+    """This rank's piece (along ``dim``, ``size`` equal pieces in rank
+    order) of the f32 sum of ``g`` over the group, cast back to ``g``'s
+    dtype. At two ranks each sends the other the other's piece (half the
+    bytes of a sum all-reduce; a sum of two is the same in either order);
+    else the sum all-reduce, then the slice."""
+    import torch.distributed as dist
+
+    n = g.shape[dim] // size
+    if size != 2:
+        return _f32_sum(g, group).to(g.dtype).narrow(
+            dim, rank * n, n).contiguous()
+    g32 = g.float()
+    mine = g32.narrow(dim, rank * n, n).contiguous()
+    theirs = g32.narrow(dim, (1 - rank) * n, n).contiguous()
+    got = torch.empty_like(mine)
+    for r in range(2):
+        src = r if group is None else dist.get_global_rank(group, r)
+        broadcast(theirs if r == rank else got, src=src, group=group)
+    return (mine + got).to(g.dtype)
+
+
+def axis_max(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+    """The elementwise maximum of ``x`` over ``axis``'s ranks (no
+    gradient): the ranks' values gathered, the maximum taken locally."""
+    group, size, rank = _axis(axis)
+    x = x.detach()
+    if size == 1:
+        return x
+    _COUNTS["max"] += 1
+    return all_gather(x[None], 0, group, size, rank).amax(dim=0)
+
+
+class _Gather(torch.autograd.Function):
+    """Forward: :func:`all_gather` along ``dim``. Backward: this rank's
+    slice of the cotangent, summed over the group first where the
+    consumers of the whole tensor are split among the ranks (FSDP: each
+    data rank's gradient covers its own rows of the batch)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, size, rank, summed):
+        ctx.dim, ctx.group, ctx.size, ctx.rank = dim, group, size, rank
+        ctx.summed, ctx.n = summed, x.shape[dim]
+        return all_gather(x, dim, group, size, rank)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.summed:
+            _COUNTS["fsdp_scatter"] += 1
+            return (reduce_scatter(g, ctx.dim, ctx.group, ctx.size,
+                                   ctx.rank), None, None, None, None, None)
+        piece = g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n).contiguous()
+        return piece, None, None, None, None, None
+
+
+def gather_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``x`` split over ``model`` along ``dim``, whole on every rank; the
+    backward keeps this rank's slice (what follows the gather runs
+    replicated, so its cotangent is already whole)."""
+    group, size, rank = _axis("model")
+    if size == 1:
+        return x
+    _COUNTS["gather"] += 1
+    dim = dim % x.dim()
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Gather.apply(x, dim, group, size, rank, False)
+    return all_gather(x, dim, group, size, rank)
+
+
+def fsdp_gather(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """A parameter split over ``data`` along ``dim``, whole over ``data``:
+    FSDP's gather, whose backward sums the data ranks' gradients and keeps
+    this rank's slice (a reduce-scatter)."""
+    group, size, rank = _axis("data")
+    if size == 1:
+        return t
+    _COUNTS["fsdp_gather"] += 1
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _Gather.apply(t, dim, group, size, rank, True)
+    return all_gather(t, dim, group, size, rank)
+
+
+def _fsdp_dims():
+    shard = active_shard()
+    if shard is None or shard.data is None or shard.data.size == 1:
+        return None
+    return shard.data.fsdp or None
+
+
+def fsdp_params(params):
+    """The parameter tree a model's forward reads under FSDP: every leaf
+    split over ``data`` gathered whole, but the stacked layers' (under
+    ``"layers"``) split along a dim other than the layer axis, which each
+    layer gathers as it runs (:func:`fsdp_layer`), so only one layer's
+    weights are whole at a time. ``params`` itself off a data axis."""
+    dims = _fsdp_dims()
+    if dims is None:
+        return params
+
+    def one(path, t):
+        dim = dims.get(path)
+        if dim is None or (path.startswith("layers.") and dim > 0):
+            return t
+        return fsdp_gather(t, dim)
+
+    return tree_map_with_keys(lambda keys, t: one(".".join(keys), t), params)
+
+
+def fsdp_layer(lyr, prefix: str = "layers"):
+    """One layer's views of the stacked ``prefix`` leaves (a tree of
+    :func:`repro_torch.models.transformer.layers`), whole: each leaf that
+    FSDP splits along a dim other than the layer axis gathered."""
+    dims = _fsdp_dims()
+    if dims is None:
+        return lyr
+
+    def one(path, t):
+        dim = dims.get(path)
+        return t if dim is None or dim == 0 else fsdp_gather(t, dim - 1)
+
+    return tree_map_with_keys(
+        lambda keys, t: one(".".join((prefix,) + keys), t), lyr)
+
+
+def grad_sum(grads: list) -> list:
+    """The data-parallel gradient sum: each of ``grads`` summed over the
+    ``data`` ranks in f32, in one all-reduce of their concatenation; the
+    sums are f32. ``grads`` itself off a data axis."""
+    group, size, _ = _axis("data")
+    if size == 1 or not grads:
+        return grads
+    _COUNTS["grad_sum"] += 1
+    flat = torch.cat([g.float().reshape(-1) for g in grads])
+    all_reduce(flat, group)
+    return [piece.view(g.shape) for piece, g in zip(
+        flat.split([g.numel() for g in grads]), grads)]
+
+
+def gather_whole(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The whole of a leaf of which ``t`` is this rank's piece under
+    ``spec`` on ``mesh`` (a ``DeviceMesh``), on every rank of the mesh:
+    gathered along each split dim over its axis's group."""
+    sizes = mesh_axis_sizes(mesh)
+    coords = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    for dim, entry in enumerate(spec):
+        if entry is None or sizes[entry] == 1:
+            continue
+        _COUNTS["gather"] += 1
+        t = all_gather(t, dim, mesh.get_group(entry), sizes[entry],
+                       coords[entry])
+    return t
 
 
 def vocab_gather(logits: torch.Tensor) -> torch.Tensor:
     """Whole-vocabulary logits from this rank's vocab-parallel slice (the
     identity where the vocabulary is not split)."""
-    shard = active_shard()
     if not split("vocab"):
         return logits
-    return all_gather(logits, -1, shard.group, shard.size, shard.rank)
+    return gather_model(logits, -1)
 
 
 def vocab_argmax(logits: torch.Tensor) -> torch.Tensor:

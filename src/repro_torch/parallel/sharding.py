@@ -50,8 +50,8 @@ from repro_torch.interop import tree_map, tree_map_with_keys
 __all__ = ["ShardingRules", "DEFAULT_RULES", "activate", "active_context",
            "constraint_spec", "logical_to_spec", "param_shardings",
            "replicate_uneven_kv_heads", "serve_rules_for",
-           "serve_cache_shardings", "mesh_axis_sizes", "placements",
-           "local_shard", "local_shape"]
+           "train_rules_for", "serve_cache_shardings", "mesh_axis_sizes",
+           "placements", "local_shard", "local_shape", "local_slices"]
 
 def mesh_axis_sizes(mesh) -> Dict[str, int]:
     """``{axis name: size}`` of a ``DeviceMesh`` or of a mesh-shaped
@@ -236,6 +236,34 @@ def serve_rules_for(family: str,
     return base
 
 
+def train_rules_for(cfg, mesh,
+                    base: ShardingRules = DEFAULT_RULES) -> ShardingRules:
+    """Training rules for ``cfg`` on ``mesh``: ``base`` (the reference's
+    train step places its state by ``DEFAULT_RULES``), the cache head axis
+    replicated where the model axis does not divide the KV heads.
+
+    Refused, each with its reason: a mesh with axes other than ``data``
+    and ``model`` (the port's trainer reduces over one data group), and a
+    split ``model`` axis for the recurrent families, whose SSD layer the
+    rules would split over ``ssm_heads`` / ``ssm_inner``: the port trains
+    them data-parallel (FSDP over ``data``) only."""
+    sizes = mesh_axis_sizes(mesh)
+    extra = sorted(set(sizes) - {"data", "model"})
+    if extra:
+        raise ValueError(f"the port trains on (data, model) meshes; this "
+                         f"one also has {extra} (a pod axis is an outer "
+                         "data axis the trainer does not reduce over)")
+    M = sizes.get("model", 1)
+    if cfg.family in ("ssm", "hybrid") and M > 1:
+        raise ValueError(
+            f"a model axis of {M} would split the {cfg.family} family's SSD "
+            "layer (ssm_heads, ssm_inner): the port trains the recurrent "
+            "families data-parallel only, FSDP over data; tensor "
+            "parallelism of the SSD layer in training is ROADMAP Queue 1 "
+            "item 21")
+    return replicate_uneven_kv_heads(base, cfg.n_kv_heads, mesh)
+
+
 def replicate_uneven_kv_heads(rules: ShardingRules, n_kv_heads: int,
                               mesh) -> ShardingRules:
     """Replicate ``kv_heads_cache`` when its mesh axes do not divide
@@ -366,6 +394,10 @@ def _slices(shape, spec, mesh, coords: Dict[str, int]):
         n = dim // ways
         out.append(slice(idx * n, (idx + 1) * n))
     return tuple(out)
+
+
+#: this rank's ``slice`` of each dim of a ``shape`` tensor under ``spec``
+local_slices = _slices
 
 
 def local_shape(shape, spec, mesh, coords: Dict[str, int]) -> tuple:

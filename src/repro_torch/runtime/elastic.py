@@ -4,7 +4,11 @@
 Policy: keep the model axis fixed if possible (its degree is dictated by
 memory per device), shrink the data axis; fall back to shrinking the model
 axis when too few devices remain. The serve CLI's ``--replicas -1`` plans
-the replica count from ``torch.cuda.device_count()``.
+the replica count from ``torch.cuda.device_count()``; a meshed trainer's
+restart plans its mesh for the ranks that remain and restores its
+checkpoint onto it (``CheckpointManager.restore(mesh=, specs=)``, each rank
+its own slices), in :meth:`repro_torch.launch.train.TrainLoop.
+restore_state`.
 """
 
 from __future__ import annotations

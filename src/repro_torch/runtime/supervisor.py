@@ -1,14 +1,17 @@
 """Restart supervisor: a checkpoint-restore training loop with a retry
 budget — the port of ``repro/runtime/supervisor.py``.
 
-  run → SimulatedFailure → restore the latest checkpoint → resume at the
-  step after it.
+  run → SimulatedFailure → restore the latest checkpoint → re-plan the
+  mesh for the surviving devices (elastic) → resume at the step after it.
 
 The training function is handed ``(start_step, restored_state)`` and
 checkpoints through the manager; the data pipeline's determinism by step
 (:mod:`repro_torch.data.pipeline`) makes the resumed run bit-identical to
-an uninterrupted one. Re-planning the mesh for the surviving devices
-(elastic) comes after meshed training, ROADMAP Queue 1 item 18.
+an uninterrupted one on the same mesh. The re-plan lives in the
+``restore_fn`` (:meth:`repro_torch.launch.train.TrainLoop.restore_state`):
+it plans a mesh for the ranks that remain
+(:func:`repro_torch.runtime.elastic.plan_mesh_shape`) and restores the
+checkpoint's slices onto it.
 """
 
 from __future__ import annotations

@@ -266,6 +266,9 @@ def test_ssm_and_hybrid_training_refused(arch):
 
 
 def test_mesh_refused():
-    with pytest.raises(NotImplementedError, match="item 18"):
+    """A mesh trains inside the ranks :func:`repro_torch.launch.mesh.
+    run_ranks` starts (``tests/test_torch_mesh_train.py``); outside one it
+    is refused by name, and a one-device mesh there is one device."""
+    with pytest.raises(RuntimeError, match="run_ranks starts one"):
         _loop(mesh_shape=(2, 4))
-    _loop(mesh_shape=(1, 1))           # one device is no mesh
+    assert _loop(mesh_shape=(1, 1)).mesh is None
