@@ -148,6 +148,21 @@ a non-zero exit:
               line: kills, deaths detected, requeues, requeue latency,
               reloads, revival capture seconds, tok/s against the
               failure-free fleet, memory.
+   audit    — the cost audit of the same llama3-8b's served ticks at
+              ``repro_torch.analysis.targets.AUDIT_SHAPE`` (2 slots,
+              max_len 32, window 4, pages of 8, 16-token prompts): the
+              prefill (flash kernel), ``paged_decode`` and
+              ``paged_verify`` (the gather route) and their ``_fused``
+              twins (the paged kernel), ``dot_moa`` in every projection.
+              Each eager body runs once under the cost audit's trace and
+              kernel recorder: its product FLOPs must be within
+              ``FLOPS_RTOL`` of ``serve_target_cost`` and its gathered KV
+              bytes within ``KV_BYTES_RTOL``, and the recorded calls of
+              each kernel must equal its launch count's rise over the same
+              body (no launch unpriced); then once more under
+              ``torch.cuda.set_sync_debug_mode("error")`` (any device sync
+              fails). Every launch's call key is then held against the
+              plain version. One ``audit`` line a target and a summary.
    Then moonshot-v1-16b-a3b at full width and depth (bf16 weights
               from the port's initializer, seed 0, after llama3-8b is
               freed; capacity factor 1.25, so exact-length prefills) in
@@ -2773,6 +2788,101 @@ def fleet_phase(torch, llama3) -> dict:
             f"differs from seed 0's tokens for {same_as_seed0}; seed 1 "
             f"changed {len(changed)} requests")
     return launches
+
+
+#: the served ticks the audit phase holds to the cost model
+AUDIT_PHASES = ("prefill", "paged_decode", "paged_verify",
+                "paged_decode_fused", "paged_verify_fused")
+#: kernels each audited tick must launch (besides ``dot_moa``)
+AUDIT_KERNELS = {"prefill": "flash_attention",
+                 "paged_decode_fused": "paged_attention",
+                 "paged_verify_fused": "paged_attention"}
+
+
+def audit_phase(torch, llama3) -> dict:
+    """The static cost audit of llama3-8b's served ticks at full width on
+    the card (the served model's bf16 parameters, all 32 layers), at
+    ``AUDIT_SHAPE``. Per target: the eager body once under the cost
+    audit (product FLOPs from the aten trace plus the kernel recorder's
+    contract prices; gathered KV bytes), reconciled against
+    ``serve_target_cost``; the recorder's calls of each kernel against the
+    rise of ``ops.launch_counts()`` over the body; the body once more
+    under ``torch.cuda.set_sync_debug_mode("error")``. Then every launch's
+    call key is checked against the plain version. Raises on a drift past
+    tolerance, an unpriced or missing launch, or a sync."""
+    from repro_torch.analysis import cost_audit
+    from repro_torch.analysis.targets import AUDIT_SHAPE, build_family_targets
+    from repro_torch.kernels import ops
+
+    cfg, model, params, _ = llama3
+    smi = nvidia_smi()
+    t_phase = time.monotonic()
+    targets = build_family_targets("dense", device="cuda", model=model,
+                                   params=params, phases=AUDIT_PHASES,
+                                   **AUDIT_SHAPE)
+    if sorted(cost_audit.target_phase(t.name) for t in targets) != \
+            sorted(AUDIT_PHASES):
+        raise AssertionError(f"audit: targets {[t.name for t in targets]}")
+    failures, lines = [], {}
+    with recorded_calls(ops, ("dot_moa", "flash_attention",
+                              "paged_attention")) as keys:
+        for t in targets:
+            phase = cost_audit.target_phase(t.name)
+            t0 = time.monotonic()
+            before = ops.launch_counts()
+            cost = cost_audit.count_target(t)
+            torch.cuda.synchronize()
+            after = ops.launch_counts()
+            launched = {k: after[k] - before[k] for k in after}
+            analytic = cost_audit.analytic_cost(cfg, phase, AUDIT_SHAPE)
+            drift, dv = cost_audit.reconcile_target(t, cost, analytic)
+            args = t.make_args()
+            torch.cuda.synchronize()
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(torch.no_grad())
+                if t.context is not None:
+                    stack.enter_context(t.context())
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    t.fn(*args)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            line = {"phase": "audit", "target": t.name, "arch": cfg.name,
+                    "layers": cfg.n_layers, "shape": AUDIT_SHAPE,
+                    "nvidia_smi": smi,
+                    "flops": cost.flops, "analytic_flops": analytic["flops"],
+                    "kernel_flops": cost.kernel_flops,
+                    "aten_flops": cost.flops - cost.kernel_flops,
+                    "kv_gather_bytes": cost.kv_gather_bytes,
+                    "analytic_kv_gather_bytes":
+                        analytic.get("kv_gather_bytes"),
+                    "drift": drift, "flops_rtol": cost_audit.FLOPS_RTOL,
+                    "kv_bytes_rtol": cost_audit.KV_BYTES_RTOL,
+                    "kernel_calls": cost.kernel_calls, "launches": launched,
+                    "pallas_stream_bytes": cost.pallas_stream_bytes,
+                    "peak_bytes": cost.peak_bytes,
+                    "max_trip_count": cost.max_trip_count,
+                    "sync_debug": "error, no sync",
+                    "seconds": time.monotonic() - t0}
+            emit(line)
+            lines[t.name] = line
+            failures += [v.format() for v in dv]
+            if launched != cost.kernel_calls:
+                failures.append(f"{t.name}: launches {launched} but the "
+                                f"recorder priced {cost.kernel_calls}")
+            want = AUDIT_KERNELS.get(phase)
+            if not launched["dot_moa"] or (want and not launched[want]):
+                failures.append(f"{t.name}: launches {launched}")
+    check_call_keys(torch, sorted(keys), "audit shape")
+    emit({"phase": "audit", "what": "summary", "targets": len(targets),
+          "call_keys": len(keys), "nvidia_smi": smi,
+          "worst_flops_drift": max(abs(l["drift"]["flops"])
+                                   for l in lines.values()),
+          "seconds": time.monotonic() - t_phase})
+    if failures:
+        raise AssertionError("audit phase: " + "; ".join(failures))
+    return lines
 
 
 def _leaves(tree):
@@ -6130,6 +6240,7 @@ def main() -> int:
     runs.update(spec_phase(torch, llama3))
     runs["serve/llama3-8b-slo"] = slo_phase(torch, llama3)
     runs["serve/llama3-8b-fleet"] = fleet_phase(torch, llama3)
+    audit_phase(torch, llama3)
     del llama3
     gc.collect()
     torch.cuda.empty_cache()

@@ -18,7 +18,8 @@ import torch
 from repro_torch.device import as_dtype
 from repro_torch.moa import MOAStrategy, resolve
 
-__all__ = ["ModelConfig", "MOA_SITES", "ATTN_BACKEND_CHOICES"]
+__all__ = ["ModelConfig", "MOA_SITES", "ATTN_BACKEND_CHOICES", "ShapeSpec",
+           "SHAPES", "shape_applicable"]
 
 #: call sites that consult a per-site MOA override in ``moa_overrides``
 MOA_SITES = ("attention", "mlp", "moe")
@@ -160,3 +161,30 @@ class ModelConfig:
             shared = d * (hd + 2 * kvd) + hd * d + 3 * d * self.d_ff
             return emb + L * ssm + shared
         return emb + L * (attn + mlp + ssm + moe)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    phase: str                  # train | prefill | decode
+
+
+#: the assignment's four cell shapes (the reference's ``SHAPES``)
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """The assignment's skip rules: ``(applicable, why not)``."""
+    if cfg.family == "encoder" and shape.phase == "decode":
+        return False, "encoder-only arch has no decode step"
+    if shape.name == "long_500k" and cfg.family not in ("ssm", "hybrid"):
+        return False, ("pure full-attention arch: O(S^2) at 524k infeasible; "
+                       "run only for SSM/hybrid per assignment")
+    return True, ""

@@ -3,15 +3,17 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, List
 
 from repro_torch.configs import (hubert_xlarge, llama3_8b, llama3_405b,
                                  llama4_maverick_400b_a17b, llava_next_34b,
                                  mamba2_370m, moonshot_v1_16b_a3b,
                                  qwen1_5_32b, yi_34b, zamba2_1_2b)
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeSpec,
+                                      shape_applicable)
 
-__all__ = ["ARCHS", "get_config", "smoke_config"]
+__all__ = ["ARCHS", "get_config", "list_archs", "smoke_config",
+           "valid_cells", "SHAPES", "ShapeSpec"]
 
 ARCHS: Dict[str, ModelConfig] = {
     c.name: c
@@ -34,6 +36,10 @@ def get_config(name: str) -> ModelConfig:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")
     return ARCHS[name]
+
+
+def list_archs() -> List[str]:
+    return sorted(ARCHS)
 
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
@@ -70,3 +76,14 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
         name=cfg.name + "-smoke",
     )
     return dataclasses.replace(cfg, **updates)
+
+
+def valid_cells():
+    """All ``(arch, shape name, applicable, why not)`` cells under the
+    assignment's skip rules."""
+    cells = []
+    for arch, cfg in sorted(ARCHS.items()):
+        for sname, shape in SHAPES.items():
+            ok, why = shape_applicable(cfg, shape)
+            cells.append((arch, sname, ok, why))
+    return cells

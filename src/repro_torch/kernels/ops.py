@@ -4,10 +4,22 @@
 Dispatch follows the tensor, never a fallback: a CPU tensor runs the plain
 PyTorch version (:mod:`repro_torch.kernels.ref`); a CUDA tensor launches the
 hand-written CUDA kernel or raises (the kernels are built for ``sm_90a``).
+
+A :class:`KernelRecorder`, off by default (:func:`recording`), prices each
+entry point's calls by the kernel's contract: ``dot_moa`` ``2·m·k·n`` (times
+E batched), ``flash_attention`` the full ``Sq × Skv`` rectangle (``4·B·Sq·
+Skv·H·D``: masked blocks are computed, as the cost model counts them),
+``paged_attention`` the whole block table's width (``4·B·T·n_blocks·bs·H·
+D``), the reductions and ``loa_add`` none (no product); and each call's
+operand bytes. A kernel is opaque to a trace of aten ops on the card, so
+while a recorded call runs its plain version's own aten ops are marked
+(``inside``) and a CPU trace counts what a card trace counts. Off, it
+costs one global read a call.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -21,12 +33,92 @@ from repro_torch.kernels.paged_attention import paged_attention_cuda
 
 __all__ = ["dot_moa", "flash_attention", "paged_attention", "moa_reduce",
            "loa_add", "loa_reduce", "launch_counts", "reset_launch_counts",
-           "add_launch_counts"]
+           "add_launch_counts", "KernelRecorder", "recording", "interpret",
+           "interpreting"]
 
 _WRAPPERS = {"dot_moa": dot_moa_cuda, "flash_attention": flash_attention_cuda,
              "paged_attention": paged_attention_cuda,
              "moa_reduce": moa_reduce_cuda, "loa_add": loa_add_cuda,
              "loa_reduce": loa_reduce_cuda}
+
+
+#: while set, the kernel routes resolve on CPU tensors too (:func:`interpret`)
+_INTERPRET = False
+
+
+@contextlib.contextmanager
+def interpret():
+    """The port's interpret mode, for audits and tests on the CPU: while
+    the block runs, ``attn_backend="kernel"`` and an MOA strategy's
+    ``backend="kernel"`` take CPU tensors too, and so reach these entry
+    points, which run the kernels' plain versions there (as a Pallas
+    kernel runs in interpret mode on the CPU)."""
+    global _INTERPRET
+    saved, _INTERPRET = _INTERPRET, True
+    try:
+        yield
+    finally:
+        _INTERPRET = saved
+
+
+def interpreting() -> bool:
+    """Whether :func:`interpret` is active."""
+    return _INTERPRET
+
+
+class KernelRecorder:
+    """What the kernel entry points were asked for while installed:
+    ``calls`` and ``flops`` per entry point, ``stream_bytes`` (every
+    call's operand bytes), and ``inside`` (> 0 while a recorded call
+    runs, so a trace of aten ops can leave its interior out)."""
+
+    def __init__(self):
+        self.calls = {name: 0 for name in _WRAPPERS}
+        self.flops = {name: 0.0 for name in _WRAPPERS}
+        self.stream_bytes = 0.0
+        self.inside = 0
+
+    def total_flops(self) -> float:
+        return float(sum(self.flops.values()))
+
+
+#: the installed recorder (``None``: off)
+_RECORDER: Optional[KernelRecorder] = None
+
+
+@contextlib.contextmanager
+def recording(recorder: Optional[KernelRecorder] = None):
+    """Install ``recorder`` (a new one by default) while the block runs
+    and yield it."""
+    global _RECORDER
+    rec = recorder if recorder is not None else KernelRecorder()
+    saved, _RECORDER = _RECORDER, rec
+    try:
+        yield rec
+    finally:
+        _RECORDER = saved
+
+
+def _nbytes(*tensors) -> float:
+    return float(sum(t.numel() * t.element_size() for t in tensors
+                     if t is not None))
+
+
+def _recorded(name: str, flops: float, operands, fn, *args, **kwargs):
+    """Record one call of entry point ``name``, then run it with the
+    recorder lifted (its plain version's aten ops marked ``inside``)."""
+    global _RECORDER
+    rec = _RECORDER
+    rec.calls[name] += 1
+    rec.flops[name] += float(flops)
+    rec.stream_bytes += _nbytes(*operands)
+    _RECORDER = None
+    rec.inside += 1
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        rec.inside -= 1
+        _RECORDER = rec
 
 
 def _on_cpu(x: torch.Tensor, what: str, *operands) -> bool:
@@ -54,6 +146,12 @@ def dot_moa(a, b, *, block_k: int = 512, approx_bits: int = 0,
     """K-blocked matmul with serialized-MOA contraction ``(m,k)@(k,n)``,
     or, for 3-D operands, ``(E,m,k)@(E,k,n)`` member by member (one launch
     on the card)."""
+    if _RECORDER is not None:
+        *batch, m, k = a.shape
+        e = batch[0] if batch else 1
+        return _recorded("dot_moa", 2.0 * e * m * k * b.shape[-1], (a, b),
+                         dot_moa, a, b, block_k=block_k,
+                         approx_bits=approx_bits, out_dtype=out_dtype)
     if _on_cpu(a, "dot_moa", b):
         fn = ref.dot_moa_batched_ref if a.dim() == 3 else ref.dot_moa_ref
         return fn(a, b, block_k=block_k, approx_bits=approx_bits,
@@ -68,6 +166,11 @@ def flash_attention(q, k, v, *, causal: bool = True, q_chunk: int = 256,
     ``(B, Skv, Hk, D)``. ``q_chunk``/``kv_chunk`` are the plain version's
     chunk sizes (they shape only its float reassociation); the kernel's
     tiles are fixed in its source."""
+    if _RECORDER is not None:
+        B, Sq, H, D = q.shape
+        return _recorded("flash_attention", 4.0 * B * Sq * k.shape[1] * H * D,
+                         (q, k, v), flash_attention, q, k, v, causal=causal,
+                         q_chunk=q_chunk, kv_chunk=kv_chunk)
     if _on_cpu(q, "flash_attention", k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        q_chunk=q_chunk, kv_chunk=kv_chunk)
@@ -78,6 +181,15 @@ def paged_attention(q, k_pool, v_pool, block_tables, start, *, k_scale=None,
                     v_scale=None, dequant_dtype=torch.bfloat16):
     """Paged flash attention ``(B, T, H, D)`` over a block-table KV pool
     (int8 pools dequantized through ``dequant_dtype``)."""
+    if _RECORDER is not None:
+        B, T, H, D = q.shape
+        width = block_tables.shape[1] * k_pool.shape[1]
+        return _recorded("paged_attention", 4.0 * B * T * width * H * D,
+                         (q, k_pool, v_pool, block_tables, start, k_scale,
+                          v_scale),
+                         paged_attention, q, k_pool, v_pool, block_tables,
+                         start, k_scale=k_scale, v_scale=v_scale,
+                         dequant_dtype=dequant_dtype)
     if _on_cpu(q, "paged_attention", k_pool, v_pool, k_scale, v_scale):
         return ref.paged_attention_ref(q, k_pool, v_pool, block_tables, start,
                                        k_scale=k_scale, v_scale=v_scale,
@@ -90,6 +202,9 @@ def paged_attention(q, k_pool, v_pool, block_tables, start, *, k_scale=None,
 def moa_reduce(x, *, block_n: int = 512):
     """Blocked MOA reduction ``(n, f) → (f,)``: f32 accumulation for float
     operands, int32 for integer ones."""
+    if _RECORDER is not None:
+        return _recorded("moa_reduce", 0.0, (x,), moa_reduce, x,
+                         block_n=block_n)
     if _on_cpu(x, "moa_reduce"):
         return ref.moa_reduce_ref(x, block_n=block_n)
     return moa_reduce_cuda(x.contiguous(), block_n=block_n)
@@ -98,6 +213,9 @@ def moa_reduce(x, *, block_n: int = 512):
 def loa_add(x, y, *, approx_bits: int, width: int = 8):
     """Element-wise LOA addition on int32 containers (``width`` is carried
     by the operand values, as in the reference)."""
+    if _RECORDER is not None:
+        return _recorded("loa_add", 0.0, (x, y), loa_add, x, y,
+                         approx_bits=approx_bits, width=width)
     del width
     if x.shape != y.shape:
         raise ValueError(f"shape mismatch {tuple(x.shape)} vs "
@@ -112,6 +230,10 @@ def loa_add(x, y, *, approx_bits: int, width: int = 8):
 def loa_reduce(x, *, approx_bits: int, width: int = 8, block_n: int = 256):
     """Approximate serialized MOA ``(n, f) → (f,)`` int32; ``n`` must be a
     multiple of ``block_n``."""
+    if _RECORDER is not None:
+        return _recorded("loa_reduce", 0.0, (x,), loa_reduce, x,
+                         approx_bits=approx_bits, width=width,
+                         block_n=block_n)
     del width
     if _on_cpu(x, "loa_reduce"):
         return ref.loa_reduce_ref(x, approx_bits=approx_bits, block_n=block_n)

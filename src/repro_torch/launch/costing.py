@@ -11,21 +11,99 @@ Each contraction site scales its FLOPs by its MOA strategy's
 ``cost(n)["flops"]`` over the exact ``2n - 1`` (:func:`_moa_flops_multiplier`):
 tree and serial price at 1.0x, the LOA's ~6 ops an add inflate the total.
 The result is arithmetic on the config, device-free, and equals the
-reference's for the same config. What this leaves for later (the dry-run
-cell model) is ROADMAP Queue 1 item 14.
+reference's for the same config.
+
+The cell model: :func:`estimate_cell` prices one (arch, shape, mesh) cell
+per device — FLOPs, first-order HBM bytes and ring-collective wire bytes
+(``2·B·(k−1)/k`` an all-reduce, ``B·(k−1)/k`` an all-gather or
+reduce-scatter, for a per-device buffer of ``B`` bytes over a group of
+``k``) — and :func:`serve_target_cost` prices one serve-path audit target
+(``repro_torch.analysis``), keyed the way its targets are built. Neither
+holds a device constant: they count work, not time.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, Optional
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeSpec
 
 __all__ = ["forward_flops", "request_decode_cost", "kv_bytes_per_token",
            "spec_request_decode_cost", "expected_accepted_len",
            "spec_decode_cost", "spec_break_even_accept",
-           "prefill_chunk_guidance"]
+           "prefill_chunk_guidance", "MeshMeta", "CellCost",
+           "estimate_cell", "kv_resident_bytes", "serve_target_cost",
+           "NONCONTRACTION_COMPONENTS", "SERVE_PHASES", "ring_all_reduce",
+           "ring_all_gather", "ring_reduce_scatter", "all_to_all"]
+
+BF16 = 2
+F32 = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshMeta:
+    """A cell's mesh: ``pod × data × model`` devices, and the layout
+    levers the cell model prices."""
+
+    pod: int
+    data: int
+    model: int
+    fsdp: bool = True
+    compress_grads: bool = False    # int8 gradient all-reduce (+err state)
+    attn_cp: bool = False           # context-parallel attention: a2a layout
+                                    # swap replaces the attn-out all-reduce
+    kv_dim_shard: bool = False      # shard cache head_dim over model when
+                                    # kv_heads doesn't divide it
+
+    @property
+    def chips(self) -> int:
+        return self.pod * self.data * self.model
+
+    @property
+    def dp(self) -> int:
+        return self.pod * self.data
+
+    def kv_shard_ways(self, cfg: ModelConfig) -> int:
+        """How many ways the KV cache actually shards (divisibility)."""
+        ways = self.dp if cfg.n_kv_heads else self.chips
+        if not cfg.n_kv_heads:
+            return ways
+        if cfg.n_kv_heads % self.model == 0:
+            return self.dp * self.model
+        if self.kv_dim_shard and cfg.head_dim % self.model == 0:
+            return self.dp * self.model
+        return self.dp  # kv heads replicated over the model axis
+
+
+@dataclasses.dataclass
+class CellCost:
+    flops: float                  # per device
+    hbm_bytes: float              # per device
+    collective_bytes: float       # per device (wire)
+    components: Dict[str, float]  # named breakdown (global FLOPs)
+    bytes_components: Dict[str, float]
+    collective_components: Dict[str, float]
+
+
+# ---- ring-collective wire models (bytes per device) ------------------------
+
+
+def ring_all_reduce(buf_bytes: float, k: int) -> float:
+    return 0.0 if k <= 1 else 2.0 * buf_bytes * (k - 1) / k
+
+
+def ring_all_gather(full_bytes: float, k: int) -> float:
+    """Gathering shards into ``full_bytes`` per device."""
+    return 0.0 if k <= 1 else full_bytes * (k - 1) / k
+
+
+ring_reduce_scatter = ring_all_gather
+
+
+def all_to_all(buf_bytes: float, k: int) -> float:
+    return 0.0 if k <= 1 else buf_bytes * (k - 1) / k
 
 
 def _attn_layer_flops(cfg: ModelConfig, T: float,
@@ -299,3 +377,248 @@ def spec_break_even_accept(cfg: ModelConfig, *, k: int, s_attn: float,
         else:
             lo = mid
     return hi
+
+
+# ---------------------------------------------------------------------------
+# serve-path audit targets
+# ---------------------------------------------------------------------------
+
+#: components of :func:`forward_flops` computed without a matrix product
+#: (the depthwise conv is a shift-multiply-sum), so the static contraction
+#: count cannot see them; :func:`serve_target_cost` leaves them out
+NONCONTRACTION_COMPONENTS = ("ssm_conv",)
+
+#: the serve-path phases ``repro_torch.analysis.targets`` builds per
+#: family; the keying below tracks ``build_family_targets`` exactly
+SERVE_PHASES = (
+    "prefill", "decode", "verify", "prefill_chunk",
+    "paged_decode", "paged_decode_hw", "paged_decode_fused",
+    "paged_verify", "paged_verify_fused", "paged_suffix_prefill",
+)
+
+
+def _ssd_conv_hist_flops(cfg: ModelConfig, batch: float) -> float:
+    """A layer's FLOPs of the conv-history recompute in a serve prefill:
+    the last ``d_conv - 1`` input positions of each sequence are projected
+    again to seed the decode cache's rolling conv window — work the plain
+    training forward does not do."""
+    d_in_proj = (2 * cfg.d_inner + 2 * cfg.n_groups * cfg.d_state
+                 + cfg.n_ssm_heads)
+    return 2.0 * batch * (cfg.d_conv - 1) * cfg.d_model * d_in_proj
+
+
+def serve_target_cost(cfg: ModelConfig, phase: str, *, slots: int,
+                      max_len: int, window: int, block_size: int,
+                      prefill_len: int) -> Dict[str, float]:
+    """Analytic cost of one serve-path audit target, keyed the way
+    ``repro_torch.analysis.targets`` shapes it (``AUDIT_SHAPE``).
+
+    Returns ``{"flops", "components"}`` and, for the paged phases,
+    ``"kv_gather_bytes"``. ``flops`` counts matrix products only
+    (:data:`NONCONTRACTION_COMPONENTS` left out), plus the conv-history
+    recompute (``ssm_conv_hist``) of a recurrent family's prefill-like
+    phases. ``kv_gather_bytes`` prices the gathered KV stream: the whole
+    resident window a decode or verify pass (``slots × s_kv ×
+    kv_bytes_per_token``), once a pass but for the hybrid's sequential
+    verify (once a verify step), and 0 on the kernel route, which walks the
+    pool in place (its operands are the audit's ``pallas_stream_bytes``,
+    recorded, not reconciled).
+    """
+    if phase not in SERVE_PHASES:
+        raise ValueError(f"unknown serve phase {phase!r}; "
+                         f"expected one of {SERVE_PHASES}")
+    hw = max((max_len // block_size) // 2, 1)   # the targets' half window
+    batch = None                                # conv-hist rebuild batch
+    if phase == "prefill":
+        tokens, s_attn, decode = slots * prefill_len, prefill_len, False
+        logits_tokens, batch = slots, slots     # last-position logits
+    elif phase in ("decode", "paged_decode", "paged_decode_fused"):
+        tokens, s_attn, decode = slots, max_len, True
+        logits_tokens = slots
+    elif phase == "paged_decode_hw":
+        tokens, s_attn, decode = slots, hw * block_size, True
+        logits_tokens = slots
+    elif phase in ("verify", "paged_verify", "paged_verify_fused"):
+        tokens, s_attn, decode = slots * window, max_len, True
+        logits_tokens = slots * window
+    else:  # prefill_chunk / paged_suffix_prefill: one sequence, a chunk
+        #    attending its own tokens plus an equal-length prior context
+        tokens, s_attn, decode = prefill_len, 2 * prefill_len, False
+        logits_tokens, batch = 1, 1
+    comp = forward_flops(cfg, tokens=float(tokens), s_attn=float(s_attn),
+                         decode=decode)
+    comp["logits"] = 2.0 * logits_tokens * cfg.d_model * cfg.vocab
+    for key in NONCONTRACTION_COMPONENTS:
+        comp.pop(key, None)
+    if batch is not None and cfg.family in ("ssm", "hybrid"):
+        comp["ssm_conv_hist"] = cfg.n_layers * _ssd_conv_hist_flops(
+            cfg, float(batch))
+    out: Dict[str, float] = {"flops": float(sum(comp.values()))}
+    if phase.startswith("paged_"):
+        kvbpt = kv_bytes_per_token(cfg)
+        if phase == "paged_decode":
+            kv = slots * max_len * kvbpt
+        elif phase == "paged_decode_hw":
+            kv = slots * hw * block_size * kvbpt
+        elif phase == "paged_verify":
+            steps = window if cfg.family == "hybrid" else 1
+            kv = slots * max_len * kvbpt * steps
+        else:
+            # the suffix prefill takes its prefix K/V as a dense operand
+            # (gathered by the engine before the call); the kernel route
+            # walks the pool in place
+            kv = 0.0
+        out["kv_gather_bytes"] = float(kv)
+    out["components"] = comp  # type: ignore[assignment]
+    return out
+
+
+def kv_resident_bytes(cfg: ModelConfig, *, n_blocks_in_use: int,
+                      block_size: int) -> float:
+    """Bytes the paged KV cache holds resident: the blocks in use, not the
+    dense layout's ``n_slots · max_len`` reservation."""
+    return n_blocks_in_use * block_size * kv_bytes_per_token(cfg)
+
+
+# ---------------------------------------------------------------------------
+# the cell model
+# ---------------------------------------------------------------------------
+
+
+def _train_multiplier(cfg: ModelConfig) -> float:
+    """fwd=1, bwd=2, remat recompute: full≈+1, dots≈+0.5, none=+0."""
+    return {"full": 4.0, "dots": 3.5, "none": 3.0}[cfg.remat]
+
+
+def estimate_cell(cfg: ModelConfig, shape: ShapeSpec, mesh: MeshMeta, *,
+                  resident_kv_tokens: Optional[float] = None) -> CellCost:
+    """Per-device cost of one cell: ``cfg`` at ``shape`` on ``mesh``.
+
+    ``resident_kv_tokens``: the KV tokens a decode cell's cache actually
+    holds (paged serving: blocks in use × block size); by default the
+    dense layout's whole ``B × S`` reservation.
+    """
+    B, S = shape.global_batch, shape.seq_len
+    phase = shape.phase
+    decode = phase == "decode"
+    tokens = float(B) if decode else float(B * S)
+    s_attn = float(S)
+
+    comp = forward_flops(cfg, tokens=tokens, s_attn=s_attn, decode=decode)
+    fwd = sum(comp.values())
+    if phase == "train":
+        mult = _train_multiplier(cfg)
+        total_flops = (fwd - comp["logits"]) * mult + comp["logits"] * 3.0
+    else:
+        total_flops = fwd
+
+    # ---- HBM bytes (first-order) -------------------------------------------
+    pbytes_f32 = cfg.param_count() * F32
+    pbytes_bf16 = cfg.param_count() * BF16
+    chips = mesh.chips
+    bcomp: Dict[str, float] = {}
+    T_dev = tokens / max(mesh.dp, 1)
+    d = cfg.d_model
+    if phase == "train":
+        # weights ×2 (fwd+bwd reads), grad write, adam m/v r+w, param r+w
+        bcomp["params_opt"] = (2 * pbytes_bf16 + 8 * pbytes_f32) / chips
+        if mesh.compress_grads:
+            bcomp["error_feedback"] = 2 * pbytes_f32 / chips
+        # residual + ~8 intermediates per layer, fwd write + bwd read, ×2 remat
+        act_mult = {"full": 1.0, "dots": 1.5, "none": 2.0}[cfg.remat]
+        bcomp["activations"] = (cfg.n_layers * T_dev * d * BF16
+                                * 8 * 2 * act_mult) / mesh.model
+        # flash KV re-read: KV streamed once per q-chunk
+        if cfg.family in ("dense", "vlm", "moe", "encoder"):
+            nq = max(S // cfg.q_chunk, 1)
+            kv_b = tokens * cfg.n_kv_heads * cfg.head_dim * 2 * BF16
+            bcomp["kv_stream"] = (cfg.n_layers * nq * kv_b) / chips
+        bcomp["logits"] = 3 * T_dev * cfg.vocab * F32 / mesh.model
+    elif phase == "prefill":
+        bcomp["params"] = pbytes_bf16 / chips
+        bcomp["activations"] = (cfg.n_layers * T_dev * d * BF16 * 8) \
+            / mesh.model
+        if cfg.family in ("dense", "vlm", "moe"):
+            nq = max(S // cfg.q_chunk, 1)
+            kv_b = tokens * cfg.n_kv_heads * cfg.head_dim * 2 * BF16
+            bcomp["kv_stream"] = (cfg.n_layers * nq * kv_b) / chips
+            bcomp["kv_cache_write"] = (cfg.n_layers * tokens * cfg.n_kv_heads
+                                       * cfg.head_dim * 2 * BF16) / chips
+    else:  # decode
+        bcomp["params"] = pbytes_bf16 / chips
+        kv_ways = mesh.kv_shard_ways(cfg)
+        kv_tokens = float(B * S) if resident_kv_tokens is None \
+            else float(resident_kv_tokens)
+        if cfg.family in ("dense", "vlm", "moe", "hybrid"):
+            bcomp["kv_cache_read"] = \
+                kv_bytes_per_token(cfg) * kv_tokens / kv_ways
+        if cfg.family in ("ssm", "hybrid"):
+            ssm_state = (cfg.n_layers * B * cfg.n_ssm_heads * cfg.headdim
+                         * cfg.d_state * F32)
+            bcomp["ssm_state"] = 2 * ssm_state / chips
+
+    # ---- collective wire bytes ----------------------------------------------
+    ccomp: Dict[str, float] = {}
+    tp = mesh.model
+    n_attn = cfg.n_layers if cfg.family not in ("ssm", "hybrid") else \
+        (cfg.n_layers // cfg.attn_every if cfg.attn_every else 0)
+
+    def block_ar_count() -> float:
+        """Activation all-reduces a forward pass: one a sharded-output
+        block (attention out, dense MLP down); an MoE layer's combine is
+        its all-to-all (charged apart), and context-parallel attention
+        swaps the attention's for a layout all-to-all."""
+        attn_ar = 0 if mesh.attn_cp else n_attn
+        if cfg.family == "moe":
+            return attn_ar
+        if cfg.family == "ssm":
+            return cfg.n_layers  # ssm out_proj AR
+        if cfg.family == "hybrid":
+            return cfg.n_layers + attn_ar + n_attn  # mamba + shared mlp
+        return attn_ar + cfg.n_layers  # attn + mlp per layer
+
+    if phase == "train":
+        grad_shard = pbytes_f32 / tp          # per model-shard gradient bytes
+        grad_elem = 1.0 if mesh.compress_grads else 1.0 * F32
+        ccomp["grad_reduce"] = ring_all_reduce(
+            grad_shard * (grad_elem / F32), mesh.dp)
+        if mesh.fsdp:
+            # weights gathered over data axis fwd+bwd (bf16 compute copies)
+            ccomp["fsdp_allgather"] = 2 * ring_all_gather(
+                pbytes_bf16 / tp, mesh.data)
+        act = T_dev * d * BF16
+        ccomp["tp_activations"] = 2 * block_ar_count() * ring_all_reduce(
+            act, tp)
+        if mesh.attn_cp:
+            # layout swap: each device exchanges only its activation shard
+            ccomp["attn_cp_a2a"] = 2 * 2 * n_attn * all_to_all(act / tp, tp)
+        if cfg.loss_impl == "gather":
+            ccomp["logits_gather"] = ring_all_gather(
+                T_dev * cfg.vocab * F32, tp) * 3  # fwd + bwd scatter
+        else:
+            ccomp["vocab_parallel_ce"] = ring_all_reduce(T_dev * F32 * 2, tp)
+        if cfg.family == "moe":
+            ccomp["moe_all_to_all"] = 2 * 2 * cfg.n_layers * all_to_all(
+                T_dev * cfg.top_k * d * BF16, tp)
+    else:
+        act = (tokens / max(mesh.dp, 1)) * d * BF16
+        ccomp["tp_activations"] = block_ar_count() * ring_all_reduce(act, tp)
+        if mesh.attn_cp:
+            ccomp["attn_cp_a2a"] = 2 * n_attn * all_to_all(act / tp, tp)
+        if cfg.family == "moe":
+            ccomp["moe_all_to_all"] = 2 * cfg.n_layers * all_to_all(
+                (tokens / max(mesh.dp, 1)) * cfg.top_k * d * BF16, tp)
+        if decode and shape.global_batch < mesh.dp:
+            # SP decode: split-K softmax combine over the data axis
+            stats = cfg.n_heads * 2 * F32 * B
+            ccomp["sp_softmax_combine"] = n_attn * ring_all_reduce(
+                stats, mesh.data)
+
+    return CellCost(
+        flops=total_flops / chips,
+        hbm_bytes=sum(bcomp.values()),
+        collective_bytes=sum(ccomp.values()),
+        components=comp,
+        bytes_components=bcomp,
+        collective_components=ccomp,
+    )

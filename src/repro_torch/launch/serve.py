@@ -1,6 +1,7 @@
 """Serving CLI of the port: the continuous-batching engine, dense-slot or
-over a paged KV pool (``--paged``), driven by a synthetic Poisson workload
-(the engine half of ``repro/launch/serve.py``).
+over a paged KV pool (``--paged``), driven by a synthetic Poisson workload,
+or the static batch path (``--static``, :func:`serve_batch`: one joint
+prefill, then lockstep decode) — the port of ``repro/launch/serve.py``.
 
   python -m repro_torch.launch.serve --arch llama3-8b --paged \
       --param-dtype bfloat16 --requests 8 --slots 4
@@ -24,6 +25,8 @@ over a paged KV pool (``--paged``), driven by a synthetic Poisson workload
       --smoke --device cpu --mesh 1x2 [--paged]
   python -m repro_torch.launch.serve --arch llama3-8b --paged \
       --param-dtype bfloat16 --mesh 1x2 --dist-backend gloo --eager
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+      --smoke --device cpu --static --batch 4 --prompt-len 24 --gen-len 8
 
 Runs on the GPU unless ``--device cpu`` is given. mamba2-370m (the SSM
 family) has no K/V cache, so ``--paged`` is refused for it; the SSM and
@@ -63,6 +66,12 @@ and which reloads its weights through a checkpoint saved at
 request is lost, a reload drops a request or never completes, or a greedy
 token differs from the failure-free fleet's. ``--replicas -1`` plans the
 count from the visible GPUs (:func:`repro_torch.runtime.plan_replicas`).
+
+``--static`` serves ``--batch`` random prompts of ``--prompt-len`` tokens
+together through :func:`serve_batch` (no engine, no slots: the fast path
+when every request starts at once) and prints the prefill time, the decode
+ms a token and tok/s; a VLM, whose prefill needs a patch batch, is
+refused.
 """
 
 from __future__ import annotations
@@ -85,7 +94,57 @@ from repro_torch.serve import (GREEDY, Sampler, ServeEngine, StepClock,
                                resolve_drafter)
 from repro_torch.serve.engine import fit_max_len
 
-__all__ = ["main"]
+__all__ = ["serve_batch", "main"]
+
+
+@torch.no_grad()
+def serve_batch(model, params, prompts: dict, *, gen_len: int,
+                max_len: int, sampler: Sampler = GREEDY, rng=None):
+    """Static-batch serving: one joint prefill of ``prompts`` (``tokens
+    (B, S)``), then ``gen_len`` lockstep decode steps against its cache,
+    written in place.
+
+    ``sampler`` is the next-token policy of the whole batch; ``rng`` (a
+    ``torch.Generator`` on the model's device) is required unless it is
+    greedy. Returns ``(tokens (B, gen_len) int32, timings)``: seconds,
+    ``per_token_ms`` in milliseconds. On the GPU ``max_len`` must be a
+    multiple of 16 where the kernel walks the dense cache
+    (:func:`repro_torch.serve.engine.fit_max_len`)."""
+    if not sampler.greedy and rng is None:
+        raise ValueError("non-greedy sampler needs a torch.Generator")
+
+    def sync(t):
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+
+    def next_tok(lg):
+        return sampler(lg[:, -1], rng)[:, None]
+
+    t0 = time.monotonic()
+    logits, cache = model.prefill(params, prompts, max_len=max_len)
+    # the decode steps advance one 0-d cursor on the device
+    cache["pos"] = torch.as_tensor(cache["pos"], dtype=torch.int32,
+                                   device=logits.device)
+    sync(logits)
+    t_prefill = time.monotonic() - t0
+
+    B = logits.shape[0]
+    out_tokens = []
+    tok = next_tok(logits)
+    t0 = time.monotonic()
+    for _ in range(gen_len):
+        out_tokens.append(tok)
+        logits, cache = model.decode_step(params, cache, tok)
+        tok = next_tok(logits)
+    sync(tok)
+    t_decode = time.monotonic() - t0
+    tokens = torch.cat(out_tokens, dim=1).to(torch.int32)
+    return tokens, {
+        "prefill_s": t_prefill,
+        "decode_s": t_decode,
+        "decode_tok_per_s": B * gen_len / max(t_decode, 1e-9),
+        "per_token_ms": 1e3 * t_decode / max(gen_len, 1),
+    }
 
 
 def _build(args):
@@ -107,6 +166,36 @@ def _build(args):
 
 def _sampler(args) -> Sampler:
     return GREEDY if args.greedy else Sampler(args.temperature)
+
+
+def _run_static(args):
+    device = resolve_device(args.device)
+    cfg, model = _build(args)
+    if cfg.family == "vlm":
+        raise SystemExit("--static: a VLM's prefill needs a patch batch")
+    params = model.init(seed=args.seed, device=device)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    prompts = {"tokens": torch.randint(
+        0, cfg.vocab, (args.batch, args.prompt_len), generator=gen,
+        device=device, dtype=torch.int32)}
+    max_len = fit_max_len(args.prompt_len + args.gen_len + 1,
+                          attn_backend=args.attn_backend or cfg.attn_backend,
+                          device=device)
+    if args.attn_backend:
+        model = build_model(dataclasses.replace(
+            cfg, attn_backend=args.attn_backend))
+    ops.reset_launch_counts()
+    tokens, stats = serve_batch(model, params, prompts,
+                                gen_len=args.gen_len, max_len=max_len,
+                                sampler=_sampler(args), rng=gen)
+    print(f"[serve] arch={cfg.name} layers={cfg.n_layers} device={device} "
+          f"batch={args.batch} prompt={args.prompt_len} gen={args.gen_len} "
+          f"max_len={max_len}")
+    print(f"[serve] prefill={stats['prefill_s']*1e3:.0f}ms "
+          f"decode={stats['per_token_ms']:.1f}ms/tok "
+          f"throughput={stats['decode_tok_per_s']:.1f} tok/s "
+          f"launches={ops.launch_counts()}")
+    print(f"[serve] sample: {tokens[0, :16].tolist()}")
 
 
 def _run_engine(args, mesh=None, say=print):
@@ -389,10 +478,15 @@ def _run_mesh(args) -> None:
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Serve a registry arch through the port's "
-                    "continuous-batching engine")
+                    "continuous-batching engine, or --static lockstep batch")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced CPU-runnable config")
+    ap.add_argument("--static", action="store_true",
+                    help="static-batch serve_batch path: one joint "
+                         "prefill, then lockstep decode")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="[--static] batch size")
     ap.add_argument("--layers", type=int, default=0,
                     help="override n_layers (depth only; 0 = the config's)")
     ap.add_argument("--param-dtype", default="",
@@ -503,6 +597,8 @@ def main(argv=None):
             torch.cuda.device_count() if device.type == "cuda" else 1)
     if args.replicas:
         _run_replicas(args)
+    elif args.static:
+        _run_static(args)
     else:
         _run_engine(args)
 

@@ -60,14 +60,17 @@ flash_attention = flash_attention_ref
 def resolve_attn_backend(backend: str, device) -> str:
     """Resolve the attention backend knob for tensors on ``device``:
     ``"auto"`` is the kernel on CUDA and the plain version on the CPU;
-    ``"kernel"`` on the CPU raises (there is no kernel to run there)."""
+    ``"kernel"`` on the CPU raises (there is no kernel to run there), but
+    under :func:`repro_torch.kernels.ops.interpret`, where the kernel
+    entry points run their plain versions."""
     device = torch.device(device)
     if backend == "auto":
         return "kernel" if device.type == "cuda" else "torch"
     if backend not in ATTN_BACKENDS:
         raise ValueError(f"unknown attn backend {backend!r}; expected "
                          f"'auto' or one of {ATTN_BACKENDS}")
-    if backend == "kernel" and device.type != "cuda":
+    if backend == "kernel" and device.type != "cuda" \
+            and not ops.interpreting():
         raise ValueError("attn_backend='kernel' needs CUDA tensors; a CPU "
                          "tensor takes 'auto' or 'torch'")
     return backend

@@ -78,6 +78,13 @@ class Routing(NamedTuple):
     capacity: int
 
 
+def _one_hot(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(ids, n)`` (int64) without its range check, which reads
+    the ids back to the host on the CPU (the ids are top-k indices, in
+    range by construction)."""
+    return (ids[..., None] == torch.arange(n, device=ids.device)).long()
+
+
 def route(router_logits: torch.Tensor, *, n_experts: int, top_k: int,
           capacity_factor: float) -> Routing:
     """Top-k routing and per-group capacity ranks of ``router_logits (G,
@@ -92,7 +99,7 @@ def route(router_logits: torch.Tensor, *, n_experts: int, top_k: int,
     # truncated as Python truncates: at 4 decode slots, 1 row an expert
     capacity = max(int(tg * top_k / n_experts * capacity_factor), 1)
     flat_ids = expert_ids.reshape(G, tg * top_k)          # token-major
-    onehot = torch.nn.functional.one_hot(flat_ids, n_experts)
+    onehot = _one_hot(flat_ids, n_experts)
     ranks = torch.cumsum(onehot, dim=1) - onehot
     slot = (ranks * onehot).sum(-1)
     return Routing(probs, gates, expert_ids, slot, slot < capacity, capacity)
@@ -183,7 +190,7 @@ def moe_forward(params: Params, x: torch.Tensor, *, n_experts: int,
 
     # Switch-style load-balance auxiliary loss, over the global batch
     n_tok = T * _data_size()
-    density = reduce_partial(torch.nn.functional.one_hot(
+    density = reduce_partial(_one_hot(
         r.expert_ids[..., 0], n_experts).float().sum(dim=(0, 1)),
         "data") / n_tok
     mean_probs = reduce_partial(r.probs.sum(dim=(0, 1)), "data") / n_tok

@@ -4,8 +4,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["NEG_INF", "f32_upcast", "silu_f32", "softplus_f32", "sum_f32",
-           "kv_scale_zeros"]
+__all__ = ["NEG_INF", "f32_upcast", "accum_upcast", "silu_f32",
+           "softplus_f32", "sum_f32", "kv_scale_zeros"]
 
 #: finite masking sentinel: keeps exp() well-defined on all-masked rows
 NEG_INF = -1e30
@@ -14,6 +14,11 @@ NEG_INF = -1e30
 def f32_upcast(x: torch.Tensor) -> torch.Tensor:
     """Upcast to f32 ahead of an accumulation / normalization / softmax."""
     return x.float()
+
+
+def accum_upcast(x: torch.Tensor, accum_dtype) -> torch.Tensor:
+    """Upcast an MOA operand to its accumulator dtype (usually f32)."""
+    return x.to(accum_dtype)
 
 
 def silu_f32(x: torch.Tensor, *, out_dtype=None) -> torch.Tensor:

@@ -294,8 +294,10 @@ def mamba2_decode(params: Params, x, state: Params, *, d_state: int,
     bh = f32_upcast(_to_heads(b, n_groups, hpg))               # (B, H, N)
     ch = f32_upcast(_to_heads(c, n_groups, hpg))
 
+    # the outer product dB·x as a K = 1 product (one rounding a term, as
+    # the broadcast multiply it equals), the reference's einsum
     h = state["h"] * dA[..., None, None] \
-        + (dt[..., None] * xh)[..., None] * bh[:, :, None, :]
+        + torch.matmul((dt[..., None] * xh)[..., None], bh[:, :, None, :])
     y = torch.matmul(h, ch[..., None])[..., 0] \
         + xh * params["d_skip"][None, :, None]
 

@@ -19,6 +19,7 @@ import torch
 from repro_torch.device import is_integer
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import matmul_accum
+from repro_torch.layers.numerics import accum_upcast
 
 __all__ = ["tree_sum", "serial_sum", "chunked_matmul", "kernel_dot",
            "kernel_sum"]
@@ -32,7 +33,7 @@ __all__ = ["tree_sum", "serial_sum", "chunked_matmul", "kernel_dot",
 def tree_sum(x: torch.Tensor, accum_dtype) -> torch.Tensor:
     """Explicit balanced binary adder tree over axis 0 (odd leftovers pass
     through), fixing the float reassociation order to the tree's."""
-    x = x.to(accum_dtype)
+    x = accum_upcast(x, accum_dtype)
     while x.shape[0] > 1:
         m = x.shape[0]
         half = m // 2
@@ -50,7 +51,8 @@ def serial_sum(x: torch.Tensor, chunk: int, accum_dtype) -> torch.Tensor:
     chunk = min(chunk, n)
     acc = torch.zeros(x.shape[1:], dtype=accum_dtype, device=x.device)
     for start in range(0, n, chunk):
-        acc = acc + torch.sum(x[start:start + chunk].to(accum_dtype), dim=0,
+        acc = acc + torch.sum(accum_upcast(x[start:start + chunk],
+                                           accum_dtype), dim=0,
                               dtype=accum_dtype)
     return acc
 

@@ -24,6 +24,7 @@ from typing import Any, ClassVar, Dict, Optional
 import torch
 
 from repro_torch.device import as_dtype, is_integer
+from repro_torch.kernels import ops
 
 __all__ = ["MOAStrategy", "BACKENDS", "resolved_backend"]
 
@@ -34,7 +35,7 @@ def resolved_backend(backend: str, x: torch.Tensor) -> str:
     """``"kernel"`` or ``"torch"`` for an operand on ``x.device``."""
     if backend == "auto":
         return "kernel" if x.is_cuda else "torch"
-    if backend == "kernel" and not x.is_cuda:
+    if backend == "kernel" and not x.is_cuda and not ops.interpreting():
         raise ValueError(
             "backend='kernel' needs CUDA tensors; a CPU tensor takes "
             "backend='auto' or 'torch'")

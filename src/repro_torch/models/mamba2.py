@@ -27,9 +27,20 @@ from repro_torch.models import verify_common
 from repro_torch.models.transformer import layer, layers, remat
 from repro_torch.parallel.collectives import fsdp_layer
 
-__all__ = ["init_params", "init_layers", "layer_forward", "block",
+__all__ = ["SERVE_AUDIT",
+           "init_params", "init_layers", "layer_forward", "block",
            "layer_decode", "forward", "init_cache", "prefill", "prefill_chunk",
            "decode_step", "verify_step", "commit_verified"]
+
+#: the serve-path surface the static audits enumerate (the reference's
+#: ``SERVE_AUDIT``; ``repro_torch.analysis.targets``)
+SERVE_AUDIT = {
+    "phases": ("prefill", "decode", "verify", "commit"),
+    "paged": False,
+    "kv_key": None,
+    "suffix_prefill": False,
+    "prefill_chunk": True,
+}
 
 
 def init_layers(cfg: ModelConfig, generator: torch.Generator, device

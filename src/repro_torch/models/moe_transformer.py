@@ -26,10 +26,20 @@ from repro_torch.layers.moe import init_moe, moe_forward
 from repro_torch.models import transformer as dense
 from repro_torch.parallel.collectives import fsdp_layer
 
-__all__ = ["init_params", "moe_mlp", "forward", "init_cache",
+__all__ = ["SERVE_AUDIT",
+           "init_params", "moe_mlp", "forward", "init_cache",
            "init_paged_cache", "prefill", "prefill_suffix", "decode_step",
            "paged_decode_step", "verify_step", "paged_verify_step",
            "commit_verified"]
+
+#: the serve-path surface the static audits enumerate (the reference's
+#: ``SERVE_AUDIT``; ``repro_torch.analysis.targets``)
+SERVE_AUDIT = {
+    "phases": ("prefill", "decode", "verify", "commit"),
+    "paged": True,
+    "kv_key": "layers",
+    "suffix_prefill": True,
+}
 
 init_cache = dense.init_cache
 init_paged_cache = dense.init_paged_cache

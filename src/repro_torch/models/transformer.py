@@ -54,12 +54,22 @@ from repro_torch.parallel.sharding import (activate, active_context,
                                            active_shard)
 
 __all__ = [
+    "SERVE_AUDIT",
     "init_params", "layer", "layers", "remat", "embed_inputs", "forward",
     "encode",
     "init_cache", "init_paged_cache", "prefill", "prefill_suffix",
     "decode_step", "paged_decode_step", "verify_impl", "verify_step", "paged_verify_step",
     "commit_verified",
 ]
+
+#: the serve-path surface the static audits enumerate (the reference's
+#: ``SERVE_AUDIT``; ``repro_torch.analysis.targets``)
+SERVE_AUDIT = {
+    "phases": ("prefill", "decode", "verify", "commit"),
+    "paged": True,
+    "kv_key": "layers",
+    "suffix_prefill": True,
+}
 
 #: ``mlp(cfg, layer params, h) -> h + mlp(rms(h))``
 MLP = Callable

@@ -43,10 +43,21 @@ from repro_torch.models import verify_common
 from repro_torch.models.transformer import (_pad_seq, _train_attention,
                                             layer, layers, remat)
 
-__all__ = ["init_params", "forward", "init_cache", "init_paged_cache",
+__all__ = ["SERVE_AUDIT",
+           "init_params", "forward", "init_cache", "init_paged_cache",
            "prefill", "prefill_chunk", "decode_step", "paged_decode_step",
            "verify_step", "paged_verify_step", "commit_verified",
            "n_applications"]
+
+#: the serve-path surface the static audits enumerate (the reference's
+#: ``SERVE_AUDIT``; ``repro_torch.analysis.targets``)
+SERVE_AUDIT = {
+    "phases": ("prefill", "decode", "verify", "commit"),
+    "paged": True,
+    "kv_key": "kv",
+    "suffix_prefill": False,
+    "prefill_chunk": True,
+}
 
 
 def n_applications(cfg: ModelConfig) -> int:

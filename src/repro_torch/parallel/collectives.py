@@ -40,8 +40,9 @@ here is the identity or the plain single-device operation.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Mapping, Optional, Tuple
+from typing import Callable, Mapping, Optional, Tuple
 
 import torch
 
@@ -53,7 +54,7 @@ __all__ = ["DataShard", "RankShard", "split", "reduce_partial", "column_input",
            "fsdp_gather", "fsdp_params", "fsdp_layer", "gather_model",
            "gather_whole", "grad_sum", "reduce_scatter", "vocab_argmax",
            "vocab_gather",
-           "counts", "reset_counts"]
+           "counts", "reset_counts", "observing"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +103,34 @@ class RankShard:
 _COUNTS = {"all_reduce": 0, "broadcast": 0, "row_sum": 0, "column_grad": 0,
            "fsdp_gather": 0, "fsdp_scatter": 0, "grad_sum": 0, "gather": 0,
            "max": 0}
+
+
+#: called ``(kind, axis)`` at each collective the model runs, while one
+#: observes (:func:`observing`); ``None`` off
+_OBSERVER: Optional[Callable[[str, str], None]] = None
+
+
+def _count(kind: str, axis: str) -> None:
+    _COUNTS[kind] += 1
+    _observe(kind, axis)
+
+
+def _observe(kind: str, axis: str) -> None:
+    if _OBSERVER is not None:
+        _OBSERVER(kind, axis)
+
+
+@contextlib.contextmanager
+def observing(observer: Callable[[str, str], None]):
+    """Call ``observer(kind, axis)`` at each collective run while the
+    block runs (``kind`` a :func:`counts` key, ``axis`` the mesh axis it
+    reduces or gathers over)."""
+    global _OBSERVER
+    saved, _OBSERVER = _OBSERVER, observer
+    try:
+        yield
+    finally:
+        _OBSERVER = saved
 
 
 def counts() -> dict:
@@ -197,7 +226,7 @@ def reduce_partial(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
     group, size, _ = _axis(axis)
     if size == 1:
         return x
-    _COUNTS["row_sum"] += 1
+    _count("row_sum", axis)
     if torch.is_grad_enabled() and x.requires_grad:
         return _RowSum.apply(x, group)
     return all_reduce(x, group)
@@ -260,7 +289,7 @@ def axis_max(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
     x = x.detach()
     if size == 1:
         return x
-    _COUNTS["max"] += 1
+    _count("max", axis)
     return all_gather(x[None], 0, group, size, rank).amax(dim=0)
 
 
@@ -293,7 +322,7 @@ def gather_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     group, size, rank = _axis("model")
     if size == 1:
         return x
-    _COUNTS["gather"] += 1
+    _count("gather", "model")
     dim = dim % x.dim()
     if torch.is_grad_enabled() and x.requires_grad:
         return _Gather.apply(x, dim, group, size, rank, False)
@@ -307,7 +336,7 @@ def fsdp_gather(t: torch.Tensor, dim: int) -> torch.Tensor:
     group, size, rank = _axis("data")
     if size == 1:
         return t
-    _COUNTS["fsdp_gather"] += 1
+    _count("fsdp_gather", "data")
     if torch.is_grad_enabled() and t.requires_grad:
         return _Gather.apply(t, dim, group, size, rank, True)
     return all_gather(t, dim, group, size, rank)
@@ -362,7 +391,7 @@ def grad_sum(grads: list) -> list:
     group, size, _ = _axis("data")
     if size == 1 or not grads:
         return grads
-    _COUNTS["grad_sum"] += 1
+    _count("grad_sum", "data")
     flat = torch.cat([g.float().reshape(-1) for g in grads])
     all_reduce(flat, group)
     return [piece.view(g.shape) for piece, g in zip(
@@ -378,7 +407,7 @@ def gather_whole(t: torch.Tensor, spec, mesh) -> torch.Tensor:
     for dim, entry in enumerate(spec):
         if entry is None or sizes[entry] == 1:
             continue
-        _COUNTS["gather"] += 1
+        _count("gather", entry)
         t = all_gather(t, dim, mesh.get_group(entry), sizes[entry],
                        coords[entry])
     return t
@@ -402,6 +431,7 @@ def vocab_argmax(logits: torch.Tensor) -> torch.Tensor:
     if not rng:
         return torch.argmax(logits, dim=-1)
     idx = torch.argmax(logits, dim=-1)
+    _observe("argmax", "model")
     val = logits.float().gather(-1, idx[..., None])[..., 0]
     both = torch.stack([val.double(), (idx + rng[0]).double()])
     both = all_gather(both[None], 0, shard.group, shard.size, shard.rank)

@@ -1255,9 +1255,10 @@ class ServeEngine:
         return a[self._lo:self._hi]
 
     def _sample(self, logits, temps, greedy):
+        greedy = self._local(greedy)
         return self._from_lead(sample_batch(
-            logits, self._dev(self._local(temps)),
-            self._dev(self._local(greedy)), self._gen),
+            logits, self._dev(self._local(temps)), self._dev(greedy),
+            self._gen, all_greedy=bool(greedy.all())),
             rows=True).cpu().numpy()
 
     def _count_step(self, hw: int, window: int) -> None:
@@ -1299,10 +1300,11 @@ class ServeEngine:
     def _accept(self, logits, draft, temps, greedy):
         """The acceptance of one verify (:func:`repro_torch.serve.spec.
         verify_accept`) on the host: ``(out (n_slots, k+1), n_acc)``."""
+        greedy = self._local(greedy)
         out, n_acc = verify_accept(
             logits, self._dev(self._local(draft)),
-            self._dev(self._local(temps)), self._dev(self._local(greedy)),
-            self._gen)
+            self._dev(self._local(temps)), self._dev(greedy), self._gen,
+            all_greedy=bool(greedy.all()))
         both = self._from_lead(torch.cat([out, n_acc[:, None]], dim=1),
                                rows=True).cpu().numpy()
         return both[:, :-1], both[:, -1]

@@ -58,16 +58,21 @@ GREEDY = Sampler(0.0)
 
 def sample_batch(logits: torch.Tensor, temperature: torch.Tensor,
                  greedy_mask: torch.Tensor,
-                 generator: Optional[torch.Generator]) -> torch.Tensor:
+                 generator: Optional[torch.Generator], *,
+                 all_greedy: Optional[bool] = None) -> torch.Tensor:
     """Per-row mixed sampling: ``logits (B, vocab)`` → ``(B,)`` int32.
 
     ``temperature (B,)`` and ``greedy_mask (B,)`` carry each slot's policy;
     greedy rows take the argmax, the rest sample at their own temperature.
-    An all-greedy batch draws nothing from ``generator``.
+    An all-greedy batch draws nothing from ``generator``. ``all_greedy``:
+    whether every row is greedy, where the caller knows it from its host
+    state (``None``: read from ``greedy_mask``, a device sync on CUDA).
     """
     greedy_tok = vocab_argmax(logits).to(torch.int32)
     greedy_mask = greedy_mask.to(logits.device)
-    if bool(greedy_mask.all()):
+    if all_greedy is None:
+        all_greedy = bool(greedy_mask.all())
+    if all_greedy:
         return greedy_tok
     temp = torch.clamp(temperature.to(logits.device), min=1e-6)[:, None]
     sampled = _categorical(vocab_gather(logits), temp,

@@ -47,7 +47,8 @@ __all__ = ["Drafter", "NgramDrafter", "DraftModelDrafter", "OracleDrafter",
 
 def verify_accept(logits: torch.Tensor, draft: torch.Tensor,
                   temps: torch.Tensor, greedy: torch.Tensor,
-                  generator: Optional[torch.Generator]):
+                  generator: Optional[torch.Generator], *,
+                  all_greedy: Optional[bool] = None):
     """Mixed-policy acceptance over one verify window.
 
     ``logits (B, T, V)`` are the verify pass's per-position target logits
@@ -62,13 +63,16 @@ def verify_accept(logits: torch.Tensor, draft: torch.Tensor,
     sampling against the deterministic proposal (accept ``d`` with
     probability ``p(d)``; on rejection sample from ``p`` with ``d`` zeroed,
     after a full window a bonus token from ``p``); an all-greedy batch draws
-    nothing from ``generator``.
+    nothing from ``generator``. ``all_greedy``: whether every row is
+    greedy, where the caller knows it from its host state (``None``: read
+    from ``greedy``, a device sync on CUDA).
     """
     draft = draft.to(device=logits.device, dtype=torch.long)
     greedy = greedy.to(logits.device)
     g = vocab_argmax(logits).to(torch.int32)                       # (B, T)
     acc = draft == g[:, :-1]
-    sampled = not bool(greedy.all())
+    sampled = not (bool(greedy.all()) if all_greedy is None
+                   else all_greedy)
     if sampled:
         logits = vocab_gather(logits)          # whole rows on a mesh
     B, T, V = logits.shape
@@ -250,13 +254,15 @@ class DraftModelDrafter(Drafter):
         if k > 1:
             work = {key: tree_map(torch.clone, tree)
                     for key, tree in self.cache.items() if key != SNAP_KEY}
-            cur = first.to(torch.int32)
+            cur, rolled = first.to(torch.int32), []
             for j in range(1, k):
                 lg, work = self.model.decode_step(self.params, work,
                                                   cur[:, None])
                 cur = vocab_argmax(lg[:, -1]).to(torch.int32)
-                drafts[:, j] = cur.cpu().numpy()
+                rolled.append(cur)
                 self.draft_steps += 1
+            # one copy to the host for the whole rollout
+            drafts[:, 1:] = torch.stack(rolled, dim=1).cpu().numpy()
         for s in slots:
             self._consumed[s] = len(hists[s])
         return {s: drafts[s].tolist() for s in slots}
