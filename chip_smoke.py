@@ -337,6 +337,27 @@ a non-zero exit:
               must finish with ``max_len`` rounded up to whole 16-token
               pages (``cli`` lines); then the train CLI (the smoke
               llama3-8b, 20 steps, a failure at step 7 survived).
+   dryrun   — the multi-pod dry run (``repro_torch.launch.dryrun``) of
+              llama3-8b's ``train_4k``, ``prefill_32k`` and
+              ``decode_32k`` cells on the 16 × 16 production mesh: rank
+              0 of each traced on ``meta`` tensors over a fake process
+              group of 256 ranks, in a process of its own started after
+              the build (no card); then, each cell whose predicted peak
+              is under ``DRYRUN_PEAK_MAX``, the same rank run on the card
+              over a fake group whose collectives move nothing, at full
+              depth (parameters drawn whole from seed 0, cut to the
+              rank's shards; the decode cache of zeros at its last
+              position): once under the same trace, timed (the serving
+              cells once more, timed alone). Fails on
+              kernel calls, launches or product FLOPs other than the
+              trace's, and on a measured peak (above the cell's start)
+              outside ``DRYRUN_PEAK_RATIO`` of the predicted one; every
+              call key of its launches is then checked against the plain
+              version (the kernels phase already holds the paged
+              kernel's head-offset read at the decode cell's shard shape,
+              ``dryrun_call_keys``). ``dryrun`` lines: calls, FLOPs,
+              peaks and their ratio, the step's device ms against the
+              roofline's compute + memory, the trace's seconds.
 5. paper    — the paper path, ``repro_torch.launch.paper_repro``, on the
               card: Table 1, Fig. 4 (serial ``moa_reduce``), Fig. 5 (LOA
               MRED, ``loa_add``, the LOA MOA through ``loa_reduce``) and the
@@ -362,7 +383,9 @@ key per counted run: ``serve/llama3-8b``, ``serve/llama3-8b-spec-paged``,
 ``mesh/llama3-8b-tp2``, ``mesh/llama3-8b-dp2``, ``mesh/moonshot-ep2``,
 ``mesh/zamba2-dp2``, ``train-mesh/llama3-8b-fsdp2``,
 ``train-mesh/llama3-8b-tp2``, ``train-mesh/moonshot-ep2``,
-``train-mesh/zamba2-fsdp2`` (both ranks' launches), ``paper``; the
+``train-mesh/zamba2-fsdp2`` (both ranks' launches),
+``dryrun/llama3-8b-train_4k``, ``dryrun/llama3-8b-prefill_32k``,
+``dryrun/llama3-8b-decode_32k`` (rank 0 of each cell), ``paper``; the
 paged row also carries the served verify row), the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a GPU, or
 without the rest of the repository beside it, the script exits non-zero
@@ -416,14 +439,14 @@ KERNELS = {
                       ("dot_moa_stream", "dot_moa_wgmma", "dot_moa_tc",
                        "dot_moa_simt", "dot_moa_fold"),
                       ("serve", "paper", "train", "encode", "vlm", "mesh",
-                       "train-mesh")),
+                       "train-mesh", "dryrun")),
     "flash_attention": Kernel("src/repro/kernels/flash_attention.py:86",
                               "flash_attention",
                               ("flash_wgmma", "flash_simt"),
-                              ("serve", "encode", "vlm", "mesh")),
+                              ("serve", "encode", "vlm", "mesh", "dryrun")),
     "paged_attention": Kernel("src/repro/kernels/paged_attention.py:119",
                               "paged_attention", ("paged_split",),
-                              ("serve", "vlm", "mesh")),
+                              ("serve", "vlm", "mesh", "dryrun")),
     "moa_reduce": Kernel("src/repro/kernels/moa_reduce.py:47", "moa_reduce",
                          ("moa_reduce_kernel",),
                          ("serve", "paper", "train", "mesh", "train-mesh")),
@@ -573,6 +596,11 @@ def device_events(torch, prof) -> dict:
     return out
 
 
+def _memop(name: str) -> bool:
+    """A profiler's Memset / Memcpy record rather than a kernel's."""
+    return name.startswith(("Memset", "Memcpy"))
+
+
 class Timer:
     """Median device time of single launches, each after a read of 64 MiB
     that evicts the 50 MB L2 (the served model streams ~14 GB of weights
@@ -605,8 +633,10 @@ class Timer:
                                  "three of six sessions")
         #: what the last :meth:`device` call saw launched: the kernel's own
         #: CUDA functions with the device ms of each per call, and any other
-        #: (neither the kernel's nor the flush's)
-        self.kernels, self.foreign = {}, []
+        #: (neither the kernel's nor the flush's); and the device ms per
+        #: call of its memsets and copies (``Memset`` / ``Memcpy`` events,
+        #: the flush's among them), which the session check leaves out
+        self.kernels, self.foreign, self.memops = {}, [], {}
 
     def evict(self) -> None:
         self.flush.max()
@@ -626,7 +656,10 @@ class Timer:
         symbols = KERNELS[kernel].symbols if kernel else ()
         # the profiler now and then returns no events, or only some: a
         # session whose flush or own kernels did not run a whole number of
-        # times per call lost events, and is taken again
+        # times per call lost events, and is taken again. Only kernels
+        # count there: a lost Memset or Memcpy record (a workspace's
+        # tickets zeroed, a copy) says nothing of the kernels' events, and
+        # their device time is reported apart (``memops``)
         for _ in range(6):
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -639,7 +672,8 @@ class Timer:
                    if any(sym in k for sym in symbols)
                    or not kernel and k not in self.flush_kernels}
             whole = all(n % iters == 0 for k, (_, n) in events.items()
-                        if k in own or k in self.flush_kernels)
+                        if (k in own or k in self.flush_kernels)
+                        and not _memop(k))
             if own and whole:
                 break
         else:
@@ -653,6 +687,8 @@ class Timer:
             self.kernels[name] = self.kernels.get(name, 0.0) + ms / iters
         self.foreign = sorted({k[:100] for k in events if k not in own
                                and k not in self.flush_kernels})
+        self.memops = {k[:100]: ms / iters for k, (ms, _) in events.items()
+                       if _memop(k)}
         return sum(ms for ms, _ in own.values()) / iters
 
     def __call__(self, fn, iters: int = 10) -> float:
@@ -726,16 +762,21 @@ def call_key(kernel: str, x, *rest, **kw) -> tuple:
     attention: q's type and shape, the KV length and heads, the mask;
     paged attention: q's type and shape, the pool's type, page size and
     heads, the table's width and the dequantization type (its plan reads
-    no cursor)."""
+    no cursor), and where it reads a few of the pool's KV heads, the first
+    and their count."""
     if kernel == "flash_attention":
         k = rest[0]
         return (kernel, str(x.dtype), *x.shape, k.shape[1], k.shape[2],
                 bool(kw.get("causal", True)))
     if kernel == "paged_attention":
         pool, tables = rest[0], rest[2]
-        return (kernel, str(x.dtype), *x.shape, str(pool.dtype),
-                *pool.shape[1:3], tables.shape[1],
-                str(kw.get("dequant_dtype")))
+        key = (kernel, str(x.dtype), *x.shape, str(pool.dtype),
+               *pool.shape[1:3], tables.shape[1],
+               str(kw.get("dequant_dtype")))
+        first, count = kw.get("kv_start", 0), kw.get("kv_count")
+        if first or (count is not None and count != pool.shape[2]):
+            key += (first, pool.shape[2] - first if count is None else count)
+        return key
     if kernel == "dot_moa":
         *batch, m, k = x.shape
         n = rest[0].shape[-1]
@@ -834,7 +875,10 @@ def own_kernels(timer, kernel: str) -> dict:
     if timer.foreign:
         raise AssertionError(f"{kernel} launched {timer.foreign}, which are "
                              f"not its own kernels {KERNELS[kernel].symbols}")
-    return {"device_kernels": timer.kernels}
+    out = {"device_kernels": timer.kernels}
+    if timer.memops:
+        out["device_memops"] = timer.memops
+    return out
 
 
 def host_path(torch, iters: int = 1000) -> dict:
@@ -2883,6 +2927,234 @@ def audit_phase(torch, llama3) -> dict:
     if failures:
         raise AssertionError("audit phase: " + "; ".join(failures))
     return lines
+
+
+#: llama3-8b's production cells the dryrun phase traces and runs on the
+#: card as rank 0 of the 16 × 16 mesh, and the largest predicted peak a
+#: card run may have (80 GB cards)
+DRYRUN_ARCH = "llama3-8b"
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+DRYRUN_PEAK_MAX = 70e9
+#: the measured peak over the predicted one must lie within these
+DRYRUN_PEAK_RATIO = (0.85, 1.25)
+
+
+def start_dryrun_traces():
+    """Start the dry run's CLI (``python -m repro_torch.launch.dryrun``)
+    on the dryrun phase's cells, one after the other in a shell of their
+    own (``meta`` tensors, no card: ``CUDA_VISIBLE_DEVICES`` empty),
+    beside the phases before it; returns the process, which writes a
+    record a cell into a temporary directory. Stopped at exit if
+    unread."""
+    import atexit
+    import shlex
+    import tempfile
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.join(HERE, "src")]
+                   + ([os.environ["PYTHONPATH"]]
+                      if os.environ.get("PYTHONPATH") else [])))
+    out_dir = tempfile.TemporaryDirectory()
+    log = tempfile.TemporaryFile(mode="w+")
+    cli = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           DRYRUN_ARCH, "--mesh", "single", "--out", out_dir.name]
+    proc = subprocess.Popen(
+        ["sh", "-c", " && ".join(shlex.join(cli + ["--shape", s])
+                                 for s in DRYRUN_SHAPES)],
+        stdout=log, stderr=subprocess.STDOUT, env=env, text=True)
+    proc.out_dir, proc.log = out_dir, log
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def dryrun_traces(proc, timeout_s: float = 600.0) -> dict:
+    """The records :func:`start_dryrun_traces` wrote, by shape (raises if
+    a cell failed)."""
+    try:
+        proc.wait(timeout=timeout_s)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    proc.log.seek(0)
+    text = proc.log.read()
+    if proc.returncode != 0:
+        raise AssertionError(f"dryrun: the traces failed ({proc.returncode})"
+                             f":\n{text[-3000:]}")
+    emit({"phase": "dryrun", "what": "traces", "status": text.splitlines()})
+    with proc.out_dir:
+        return {s: json.load(open(os.path.join(
+            proc.out_dir.name, f"{DRYRUN_ARCH}__{s}__single.json")))
+            for s in DRYRUN_SHAPES}
+
+
+def dryrun_call_keys() -> list:
+    """The ``call_key`` of every launch the dryrun phase's card runs make
+    (rank 0 of llama3-8b's cells on 16 × 16, bf16 compute): ``dot_moa`` at
+    the shard shapes (q 2 heads, k and v every KV head, o and down
+    row-parallel with f32 partials, gate and up 1/16 of ``ff``) at the
+    decode's 8 rows and the prefill's and train step's 65 536; the flash
+    kernel at the prefill's 2 × 32 768 tokens of 2 q heads and their KV
+    head; the paged kernel's head-offset read at the decode's shard shape
+    (8 slots, the dense cache's 8 KV heads of which one is read, 2048
+    pages of 16): rank 0's (head 0) and the last rank's (head 7)."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(DRYRUN_ARCH)
+    M, D = 16, 16
+    bf = "torch.bfloat16"
+    d, hd = cfg.d_model, cfg.head_dim
+    q, kv, ff = cfg.n_heads * hd // M, cfg.n_kv_heads * hd, cfg.d_ff // M
+    decode = SHAPES["decode_32k"]
+    prefill = SHAPES["prefill_32k"]
+    keys = []
+    for m in (decode.global_batch // D,
+              prefill.global_batch // D * prefill.seq_len):
+        for k, n, out in ((d, q, None), (d, kv, None), (d, ff, None),
+                          (q, d, "float32"), (ff, d, "float32")):
+            keys.append(("dot_moa", bf, m, k, n, min(2048, k), 0)
+                        + ((out,) if out else ()))
+    S = prefill.seq_len
+    keys.append(("flash_attention", bf, prefill.global_batch // D, S,
+                 cfg.n_heads // M, hd, S, 1, True))
+    keys += [("paged_attention", bf, decode.global_batch // D, 1,
+              cfg.n_heads // M, hd, bf, 16, cfg.n_kv_heads,
+              decode.seq_len // 16, bf, first, 1) for first in (0, 7)]
+    return keys
+
+
+def dryrun_phase(torch, proc) -> dict:
+    """The multi-pod dry run (``repro_torch.launch.dryrun``) of llama3-8b's
+    three cells on the 16 × 16 mesh, read from :func:`start_dryrun_traces`,
+    and rank 0 of each run for real on the card over a fake group of 256
+    ranks (its collectives move nothing; the values are not the point):
+    parameters drawn whole at full depth from seed 0 and cut to the rank's
+    shards, then its rows of a batch from the same generator (decode: a
+    zero cache at its last position). Each cell whose predicted peak is
+    under ``DRYRUN_PEAK_MAX`` runs once under the same trace (kernel calls
+    by entry point, product FLOPs, launches); the serving cells once more,
+    timed alone with CUDA events (``step_device_ms``, held to the
+    roofline). The train step is not run again (its ~900 000 eager ops
+    would take the phase past its minute on a slow host): its line gives
+    the CUDA-event span of its traced run, the trace's host cost inside
+    it (``traced_step_wall_ms``, not held to the roofline);
+    the card's peak above the cell's start is held to the predicted one
+    (``DRYRUN_PEAK_RATIO``), the calls, launches and FLOPs to the trace's
+    exactly. A ``dryrun`` line a cell; its launches by run."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world, make_production_mesh
+
+    smi = nvidia_smi()
+    t_phase = time.monotonic()
+    traces = dryrun_traces(proc)
+    waited = time.monotonic() - t_phase
+    failures, runs = [], {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    with recorded_calls(ops, ("dot_moa", "flash_attention",
+                              "paged_attention")) as keys:
+        for name in DRYRUN_SHAPES:
+            rec, shape = traces[name], SHAPES[name]
+            cfg = dryrun.serving_config(get_config(DRYRUN_ARCH), shape)
+            roof = rec["roofline"]
+            line = {"phase": "dryrun", "arch": DRYRUN_ARCH, "cell": name,
+                    "mesh": rec["mesh"], "rank": rec["rank"],
+                    "nvidia_smi": smi, "trace_s": rec["trace_s"],
+                    "predicted_peak_gb": rec["memory"]["peak_bytes"] / 1e9,
+                    "traced_kernel_calls": rec["cost_traced"]["kernel_calls"],
+                    "traced_product_flops":
+                        rec["cost_traced"]["product_flops"],
+                    "traced_flops": rec["cost_traced"]["flops_per_device"],
+                    "analytic_flops": rec["cost_analytic"]["flops_per_device"],
+                    "collectives": rec["collectives_census"],
+                    "roofline_ms": 1e3 * (roof["compute_s"]
+                                          + roof["memory_s"]),
+                    "roofline": roof}
+            if rec["memory"]["peak_bytes"] >= DRYRUN_PEAK_MAX:
+                line["card"] = (f"not run: the predicted peak is over "
+                                f"{DRYRUN_PEAK_MAX / 1e9:.0f} GB")
+                emit(line)
+                continue
+            t0 = time.monotonic()
+            with fake_world(256, 0):
+                mesh = make_production_mesh(device="cuda")
+                base = torch.cuda.memory_allocated()
+                gen = torch.Generator(device="cuda").manual_seed(0)
+                cell = dryrun.build_cell(cfg, shape, mesh, device="cuda",
+                                         generator=gen)
+                gc.collect()
+                torch.cuda.synchronize()
+                init_s = time.monotonic() - t0
+                torch.cuda.reset_peak_memory_stats()
+                ops.reset_launch_counts()
+                train = shape.phase == "train"
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                count = dryrun.trace_step(cell.fn, cell.args, grad=train,
+                                          memory=False)
+                end.record()
+                torch.cuda.synchronize()
+                launches = ops.launch_counts()
+                peak = torch.cuda.max_memory_allocated() - base
+                if not train:      # a second run, timed alone
+                    if shape.phase == "decode":
+                        cell.args[1]["pos"].fill_(shape.seq_len - 1)
+                    with torch.no_grad():
+                        start.record()
+                        out = cell.fn(*cell.args)
+                        end.record()
+                        del out
+                    torch.cuda.synchronize()
+                step_ms = start.elapsed_time(end)
+                del cell
+            gc.collect()
+            torch.cuda.empty_cache()
+            runs[f"dryrun/{DRYRUN_ARCH}-{name}"] = launches
+            ratio = peak / rec["memory"]["peak_bytes"]
+            line.update({
+                "card_kernel_calls": count.kernel_calls,
+                "launches": {k: v for k, v in launches.items() if v},
+                "card_product_flops": count.product_flops,
+                "card_flops": count.flops,
+                "measured_peak_gb": peak / 1e9, "peak_ratio": ratio,
+                "peak_ratio_bounds": list(DRYRUN_PEAK_RATIO),
+                **({"traced_step_wall_ms": step_ms} if train else {
+                    "step_device_ms": step_ms,
+                    "step_over_roofline": step_ms / line["roofline_ms"]}),
+                "init_s": init_s, "seconds": time.monotonic() - t0})
+            emit(line)
+            if count.kernel_calls != rec["cost_traced"]["kernel_calls"] \
+                    or line["launches"] != count.kernel_calls:
+                failures.append(f"{name}: card calls {count.kernel_calls}, "
+                                f"launches {line['launches']}, traced "
+                                f"{rec['cost_traced']['kernel_calls']}")
+            if count.product_flops != rec["cost_traced"]["product_flops"] \
+                    or count.flops != rec["cost_traced"]["flops_per_device"]:
+                failures.append(f"{name}: card FLOPs {count.product_flops} / "
+                                f"{count.flops}, traced "
+                                f"{rec['cost_traced']['product_flops']} / "
+                                f"{rec['cost_traced']['flops_per_device']}")
+            if not DRYRUN_PEAK_RATIO[0] <= ratio <= DRYRUN_PEAK_RATIO[1]:
+                failures.append(f"{name}: measured peak {peak / 1e9:.3f} GB "
+                                f"over predicted "
+                                f"{rec['memory']['peak_bytes'] / 1e9:.3f} GB "
+                                f"is {ratio:.3f}")
+    check_call_keys(torch, sorted(keys), "dryrun shard shape")
+    emit({"phase": "dryrun", "what": "summary", "nvidia_smi": smi,
+          "cells": len(DRYRUN_SHAPES), "run_on_card": len(runs),
+          "call_keys": len(keys),
+          "traces_s": sum(r["trace_s"] for r in traces.values()),
+          "waited_for_traces_s": waited,
+          "seconds": time.monotonic() - t_phase})
+    if failures:
+        raise AssertionError("dryrun phase: " + "; ".join(failures))
+    return runs
 
 
 def _leaves(tree):
@@ -5083,7 +5355,8 @@ def check_call_keys(torch, keys, where: str, timer=None) -> None:
             shape = {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "Hk": Hk, "D": D}
             again = call_key("flash_attention", q, k, v, causal=causal)
         elif kernel == "paged_attention":
-            _, _, B, T, H, D, _, bs, Hk, width, _ = key
+            _, _, B, T, H, D, _, bs, Hk, width, _, *kv = key
+            heads = dict(zip(("kv_start", "kv_count"), kv))
             n_phys = 1 + B * width
             starts = torch.randint(0, width * bs - T + 1, (B,), device=dev,
                                    generator=g, dtype=torch.int32)
@@ -5096,14 +5369,14 @@ def check_call_keys(torch, keys, where: str, timer=None) -> None:
             kp, vp = randn(n_phys, bs, Hk, D, dtype=dt), \
                 randn(n_phys, bs, Hk, D, dtype=dt)
             got = pa.paged_attention_cuda(q, kp, vp, tables, starts,
-                                          dequant_dtype=dt)
+                                          dequant_dtype=dt, **heads)
             want = ref.paged_attention_ref(q, kp, vp, tables, starts,
-                                           dequant_dtype=dt)
+                                           dequant_dtype=dt, **heads)
             tol = tol_for(dt, want)
             shape = {"B": B, "T": T, "H": H, "Hk": Hk, "D": D, "bs": bs,
-                     "n_blocks": width, "start": starts.tolist()}
+                     "n_blocks": width, "start": starts.tolist(), **heads}
             again = call_key("paged_attention", q, kp, vp, tables, starts,
-                             dequant_dtype=dt)
+                             dequant_dtype=dt, **heads)
         elif kernel == "moa_reduce":
             _, _, n, f, bn, aligned = key
             x = randn(n * f + 8, dtype=dt)
@@ -6211,6 +6484,8 @@ def main() -> int:
                              "ptxas": ptxas_report(b["log"])}
                       for name, b in built.items()}})
 
+    # the dry run's traces need no card: they run beside the phases
+    traces = start_dryrun_traces()
     parent = {}
     if args.parent:
         t0 = time.monotonic()
@@ -6228,6 +6503,7 @@ def main() -> int:
     check_call_keys(torch, mesh_call_keys(), "mesh shard shape")
     check_call_keys(torch, mesh_train_call_keys(), "mesh train shard shape",
                     timer)
+    check_call_keys(torch, dryrun_call_keys(), "dryrun shard shape")
     unembed = unembed_phase(torch, timer)
     emit({"phase": "kernels", "kernel": "dot_moa", "case": "host path",
           "iters": 1000, **host_path(torch)})
@@ -6254,6 +6530,7 @@ def main() -> int:
         parity_phase, zamba2_parity_phase, moe_parity_phase,
         spec_parity_phase)))
     cli_phase(torch)
+    runs.update(dryrun_phase(torch, traces))
     runs["paper"] = paper_phase(torch)
 
     # each kernel's launches are those of the runs of its first path (the

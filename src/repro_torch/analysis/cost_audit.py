@@ -24,7 +24,9 @@ scanned verify) runs its real number of times, and counts:
 * ``pallas_stream_bytes`` — the operand bytes of every kernel entry-point
   call (what the kernels read; recorded, not reconciled);
 * ``peak_bytes`` — peak live bytes by weakref liveness: the arguments,
-  plus every op output's storage while a tensor holds it;
+  plus every op output's storage until the storage is released (a weak
+  reference to the storage itself, so what autograd holds stays
+  counted);
 * ``loops`` — ``scans`` is 0 (nothing is traced, so no loop is counted
   once: each runs its real count), ``pallas_grids`` the kernel entry-point
   calls (each a grid launched on the card), ``max_trip_count`` the most
@@ -54,7 +56,8 @@ from repro_torch.analysis.graph_audit import (AuditTarget, _tensors,
                                               kv_leaves, op_site, run_target)
 from repro_torch.analysis.report import Violation
 
-__all__ = ["StaticCost", "LoopRecord", "cost_target", "count_target",
+__all__ = ["StaticCost", "LoopRecord", "Liveness", "storage_key",
+           "product_flops", "cost_target", "count_target",
            "reconcile_target", "cost_audit_targets", "target_phase",
            "FLOPS_RTOL", "KV_BYTES_RTOL", "DRIFT_PHASES"]
 
@@ -137,35 +140,33 @@ def product_flops(name: str, args, result) -> float:
     return 2.0 * max(_numel(out), 1) * k
 
 
-class _Liveness:
-    """Live bytes by storage: a storage counts from the first tensor that
-    holds it until the last such tensor dies."""
+def storage_key(t: torch.Tensor) -> int:
+    """An identity of ``t``'s storage that its views share (also on
+    ``meta``, where every data pointer is 0)."""
+    return t.untyped_storage()._cdata
+
+
+class Liveness:
+    """Live bytes by storage: a storage counts from the first time a
+    tensor of it is held until the storage is released (a weak reference
+    to the storage itself: what autograd saves stays counted)."""
 
     def __init__(self):
-        self.live: Dict[int, List[Any]] = {}     # ptr → [bytes, holders]
+        self.live: Dict[int, float] = {}         # storage → bytes
         self.now = self.peak = 0.0
 
     def hold(self, t: torch.Tensor) -> None:
         st = t.untyped_storage()
-        ptr = st.data_ptr()
-        if ptr == 0:
+        key = st._cdata
+        if key in self.live:
             return
-        entry = self.live.get(ptr)
-        if entry is None:
-            entry = self.live[ptr] = [float(st.nbytes()), 0]
-            self.now += entry[0]
-            self.peak = max(self.peak, self.now)
-        entry[1] += 1
-        weakref.finalize(t, self._drop, ptr)
+        n = self.live[key] = float(st.nbytes())
+        self.now += n
+        self.peak = max(self.peak, self.now)
+        weakref.finalize(st, self._drop, key)
 
-    def _drop(self, ptr: int) -> None:
-        entry = self.live.get(ptr)
-        if entry is None:
-            return
-        entry[1] -= 1
-        if entry[1] == 0:
-            self.now -= entry[0]
-            del self.live[ptr]
+    def _drop(self, key: int) -> None:
+        self.now -= self.live.pop(key, 0.0)
 
 
 def count_target(target: AuditTarget) -> StaticCost:
@@ -174,10 +175,9 @@ def count_target(target: AuditTarget) -> StaticCost:
     args = target.make_args()
     kv_storage = {t.untyped_storage().data_ptr()
                   for t in kv_leaves(target, args)}
-    live = _Liveness()
+    live = Liveness()
     arg_tensors = _tensors(args)
-    cost.arg_bytes = float(sum({t.untyped_storage().data_ptr():
-                                t.untyped_storage().nbytes()
+    cost.arg_bytes = float(sum({storage_key(t): t.untyped_storage().nbytes()
                                 for t in arg_tensors}.values()))
     for t in arg_tensors:
         live.hold(t)

@@ -12,13 +12,14 @@ the real site attribution.
 
 from __future__ import annotations
 
-import contextlib
+import functools
 import textwrap
 from typing import Callable, Dict, Tuple
 
 import torch
 
 from repro_torch.analysis.graph_audit import AuditTarget
+from repro_torch.launch.mesh import fake_world
 from repro_torch.parallel import collectives
 from repro_torch.parallel.collectives import RankShard
 
@@ -124,24 +125,6 @@ def bad_model_spec() -> AuditTarget:
                        mesh=_mesh(), specs={"params.w": (None, "model")})
 
 
-@contextlib.contextmanager
-def _fake_group(world: int = 2):
-    """A process group of ``world`` ranks whose collectives do nothing
-    (torch's fake backend: one process, no transport)."""
-    import torch.distributed as dist
-    from torch.testing._internal.distributed.fake_pg import FakeStore
-
-    owned = not dist.is_initialized()
-    if owned:
-        dist.init_process_group("fake", store=FakeStore(), rank=0,
-                                world_size=world)
-    try:
-        yield
-    finally:
-        if owned:
-            dist.destroy_process_group()
-
-
 def bad_model_collective() -> AuditTarget:
     """A row-parallel sum over ``model`` on a bitwise-reproducible (ssm)
     family → determinism."""
@@ -152,7 +135,7 @@ def bad_model_collective() -> AuditTarget:
     return AuditTarget(name="fixture/model-collective", family="ssm", fn=fn,
                        make_args=lambda: (_bf16_44(),), mesh=_mesh(),
                        shard=RankShard(group=None, size=2, rank=0),
-                       specs={}, context=_fake_group)
+                       specs={}, context=functools.partial(fake_world, 2))
 
 
 def bad_missing_spec() -> AuditTarget:

@@ -280,7 +280,7 @@ def audit_target(target: AuditTarget) -> List[Violation]:
             if tuple(t.shape) in kv_shapes:
                 copies.append((_storage(t), op_site(), name))
 
-    def on_collective(kind, axis):
+    def on_collective(kind, axis, nbytes):
         if reproducible and axis == "model":
             flag("determinism", f"model-axis collective {kind} on a "
                  "bitwise-reproducible family", kind)

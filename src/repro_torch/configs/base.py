@@ -162,6 +162,18 @@ class ModelConfig:
             return emb + L * ssm + shared
         return emb + L * (attn + mlp + ssm + moe)
 
+    def active_param_count(self) -> int:
+        """Active parameters a token (MoE: only routed experts)."""
+        if self.family != "moe":
+            return self.param_count()
+        d, L = self.d_model, self.n_layers
+        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
+        hd = self.n_heads * self.head_dim
+        kvd = self.n_kv_heads * self.head_dim
+        attn = d * (hd + 2 * kvd) + hd * d
+        active_moe = self.top_k * 3 * d * self.d_ff + d * self.n_experts
+        return emb + L * (attn + active_moe)
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:

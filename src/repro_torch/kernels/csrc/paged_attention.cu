@@ -98,6 +98,7 @@ struct Params {
   float* ws;
   unsigned* tickets;
   int B, T, H, Hk, D, bs, n_blocks, R, n_rt;
+  int hk_pool, kv0;  // the pool's KV heads (its head stride), the first read
   int splits, pages, warps, stages, cp_bytes, q_bf16, dequant;
   float sm_scale;
   int slot_bytes, off_q, off_p, off_w;
@@ -284,14 +285,14 @@ __global__ void __launch_bounds__(128, 3) paged_split(const Params p) {
   // (32 / cpr, 32 % cpr) with a carry.
   const int cpb = p.cp_bytes, cpr = row_bytes / cpb, n_chunks = bs * cpr;
   const int dr = 32 / cpr, dc = 32 % cpr;
-  const size_t pool_row = (size_t)p.Hk * row_bytes;
+  const size_t pool_row = (size_t)p.hk_pool * row_bytes;
   const int r_lane = lane / cpr, c_lane = lane - r_lane * cpr;
   const size_t src_lane = r_lane * pool_row + c_lane * cpb;
   const int dst_lane = r_lane * row_bytes + c_lane * cpb;
   auto fetch = [&](int i, int slot) {
     const int page = p.tables[(size_t)b * p.n_blocks + j0 + w + i * W];
     unsigned char* dst = ring + slot * p.slot_bytes;
-    const size_t base = ((size_t)page * bs * p.Hk + h) * row_bytes;
+    const size_t base = ((size_t)page * bs * p.hk_pool + p.kv0 + h) * row_bytes;
     const unsigned char* ks = p.k_pool + base;
     const unsigned char* vs = p.v_pool + base;
     if (dc == 0 && cpb == 16) {
@@ -320,7 +321,7 @@ __global__ void __launch_bounds__(128, 3) paged_split(const Params p) {
     if constexpr (sizeof(TP) == 1) {
       float* sc = reinterpret_cast<float*>(dst + 2 * kv_bytes);
       for (int e = lane; e < bs; e += 32) {
-        const size_t so = ((size_t)page * bs + e) * p.Hk + h;
+        const size_t so = ((size_t)page * bs + e) * p.hk_pool + p.kv0 + h;
         cp_async4(sc + e, p.k_scale + so, 4);
         cp_async4(sc + bs + e, p.v_scale + so, 4);
       }
@@ -582,7 +583,9 @@ cudaError_t dispatch_rows(int rows, const Params& p, int smem, cudaStream_t st) 
 // partials) and tickets (zeroed) are the wrapper's, null when splits == 1.
 // ints: B, T, H, Hk, D, bs, n_blocks, q_dtype, pool_dtype, dequant_dtype,
 // splits, pages, warps, stages, rows (4), cp_bytes, smem -- the plan's; the
-// shared memory is recomputed here and a mismatch refuses the call.
+// shared memory is recomputed here and a mismatch refuses the call -- then
+// hk_pool, kv0: the pools hold hk_pool heads a position (their stride), of
+// which the Hk from kv0 on are read.
 extern "C" int repro_paged_attention(const void* q, const void* k_pool, const void* v_pool,
                                      const void* k_scale, const void* v_scale,
                                      const void* tables, const void* start, void* out, void* ws,
@@ -606,12 +609,14 @@ extern "C" int repro_paged_attention(const void* q, const void* k_pool, const vo
   const int rows = n[14];
   p.cp_bytes = n[15];
   const int smem = n[16];
+  p.hk_pool = n[17];
+  p.kv0 = n[18];
   p.sm_scale = sm_scale;
   if (p.B <= 0 || p.T <= 0 || p.bs <= 0 || p.n_blocks <= 0 || p.Hk <= 0 || p.H % p.Hk ||
       p.D <= 0 || p.D % 4 || p.D > D_MAX || rows != RT || p.splits <= 0 ||
       p.pages <= 0 ||
       p.splits > MAX_SPLITS || p.warps < 1 || p.warps > 4 || p.stages < 2 || p.stages > 4 ||
-      (p.cp_bytes != 16 && p.cp_bytes != 4))
+      (p.cp_bytes != 16 && p.cp_bytes != 4) || p.kv0 < 0 || p.kv0 + p.Hk > p.hk_pool)
     return cudaErrorInvalidValue;
   if ((pool_dtype == DT_I8) != (k_scale != nullptr)) return cudaErrorInvalidValue;
   if (p.splits > 1 && (ws == nullptr || tickets == nullptr)) return cudaErrorInvalidValue;

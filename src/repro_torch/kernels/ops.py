@@ -15,6 +15,12 @@ operand bytes. A kernel is opaque to a trace of aten ops on the card, so
 while a recorded call runs its plain version's own aten ops are marked
 (``inside``) and a CPU trace counts what a card trace counts. Off, it
 costs one global read a call.
+
+A ``meta`` tensor stands for one on the card (the dry run,
+:mod:`repro_torch.launch.dryrun`): an entry point given one is recorded
+and priced as on the card, and returns an empty ``meta`` output of the
+kernel's shape and dtype, running neither the kernel nor its plain
+version.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.device import as_dtype, is_integer
 from repro_torch.kernels import ref
 from repro_torch.kernels.dot_moa import dot_moa_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -34,7 +41,7 @@ from repro_torch.kernels.paged_attention import paged_attention_cuda
 __all__ = ["dot_moa", "flash_attention", "paged_attention", "moa_reduce",
            "loa_add", "loa_reduce", "launch_counts", "reset_launch_counts",
            "add_launch_counts", "KernelRecorder", "recording", "interpret",
-           "interpreting"]
+           "interpreting", "on_card"]
 
 _WRAPPERS = {"dot_moa": dot_moa_cuda, "flash_attention": flash_attention_cuda,
              "paged_attention": paged_attention_cuda,
@@ -121,15 +128,17 @@ def _recorded(name: str, flops: float, operands, fn, *args, **kwargs):
         _RECORDER = rec
 
 
-def _on_cpu(x: torch.Tensor, what: str, *operands) -> bool:
-    """Whether ``x`` takes the plain version (a CPU tensor); a CUDA tensor
-    takes the kernel, which has no backward: where autograd would record
-    the call on ``x`` or ``operands``, raise rather than return an output
-    that drops the gradient (the autograd paths wrap the kernels in their
-    own ``autograd.Function``, inside which nothing is recorded)."""
-    if x.device.type == "cpu":
-        return True
-    if not x.is_cuda:
+def _route(x: torch.Tensor, what: str, *operands) -> str:
+    """``"cpu"`` (the plain version), ``"meta"`` (the shapes alone) or
+    ``"cuda"`` (the kernel) for ``x``. The kernel has no backward: where
+    autograd would record a CUDA or ``meta`` call on ``x`` or
+    ``operands``, raise rather than return an output that drops the
+    gradient (the autograd paths wrap the kernels in their own
+    ``autograd.Function``, inside which nothing is recorded)."""
+    kind = x.device.type
+    if kind == "cpu":
+        return kind
+    if kind not in ("cuda", "meta"):
         raise ValueError(f"{what}: no kernel for device {x.device}")
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x,) + operands):
@@ -138,7 +147,18 @@ def _on_cpu(x: torch.Tensor, what: str, *operands) -> bool:
             "requires grad; call it under torch.no_grad() or through the "
             "MOA backends' autograd path (the causal forward attends "
             "through the plain versions)")
-    return False
+    return kind
+
+
+def on_card(x) -> bool:
+    """Whether a tensor (or a device) takes the kernel routes: CUDA, or
+    ``meta`` standing for it."""
+    dev = x.device if isinstance(x, torch.Tensor) else torch.device(x)
+    return dev.type in ("cuda", "meta")
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
 
 
 def dot_moa(a, b, *, block_k: int = 512, approx_bits: int = 0,
@@ -152,10 +172,15 @@ def dot_moa(a, b, *, block_k: int = 512, approx_bits: int = 0,
         return _recorded("dot_moa", 2.0 * e * m * k * b.shape[-1], (a, b),
                          dot_moa, a, b, block_k=block_k,
                          approx_bits=approx_bits, out_dtype=out_dtype)
-    if _on_cpu(a, "dot_moa", b):
+    route = _route(a, "dot_moa", b)
+    if route == "cpu":
         fn = ref.dot_moa_batched_ref if a.dim() == 3 else ref.dot_moa_ref
         return fn(a, b, block_k=block_k, approx_bits=approx_bits,
                   out_dtype=out_dtype)
+    if route == "meta":
+        dtype = as_dtype(out_dtype) if out_dtype is not None else (
+            torch.int32 if is_integer(a.dtype) else a.dtype)
+        return _meta(tuple(a.shape[:-1]) + (b.shape[-1],), dtype)
     return dot_moa_cuda(a, b, block_k=block_k, approx_bits=approx_bits,
                         out_dtype=out_dtype)
 
@@ -171,16 +196,23 @@ def flash_attention(q, k, v, *, causal: bool = True, q_chunk: int = 256,
         return _recorded("flash_attention", 4.0 * B * Sq * k.shape[1] * H * D,
                          (q, k, v), flash_attention, q, k, v, causal=causal,
                          q_chunk=q_chunk, kv_chunk=kv_chunk)
-    if _on_cpu(q, "flash_attention", k, v):
+    route = _route(q, "flash_attention", k, v)
+    if route == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        q_chunk=q_chunk, kv_chunk=kv_chunk)
+    if route == "meta":
+        return _meta(q.shape, q.dtype)
     return flash_attention_cuda(q, k, v, causal=causal)
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, start, *, k_scale=None,
-                    v_scale=None, dequant_dtype=torch.bfloat16):
+                    v_scale=None, dequant_dtype=torch.bfloat16,
+                    kv_start: int = 0, kv_count: Optional[int] = None):
     """Paged flash attention ``(B, T, H, D)`` over a block-table KV pool
-    (int8 pools dequantized through ``dequant_dtype``)."""
+    (int8 pools dequantized through ``dequant_dtype``), reading the pool's
+    KV heads ``kv_start .. kv_start + kv_count - 1`` (default: all of
+    them) in place: the H query heads attend those in groups of ``H /
+    kv_count``."""
     if _RECORDER is not None:
         B, T, H, D = q.shape
         width = block_tables.shape[1] * k_pool.shape[1]
@@ -189,14 +221,20 @@ def paged_attention(q, k_pool, v_pool, block_tables, start, *, k_scale=None,
                           v_scale),
                          paged_attention, q, k_pool, v_pool, block_tables,
                          start, k_scale=k_scale, v_scale=v_scale,
-                         dequant_dtype=dequant_dtype)
-    if _on_cpu(q, "paged_attention", k_pool, v_pool, k_scale, v_scale):
+                         dequant_dtype=dequant_dtype, kv_start=kv_start,
+                         kv_count=kv_count)
+    route = _route(q, "paged_attention", k_pool, v_pool, k_scale, v_scale)
+    if route == "cpu":
         return ref.paged_attention_ref(q, k_pool, v_pool, block_tables, start,
                                        k_scale=k_scale, v_scale=v_scale,
-                                       dequant_dtype=dequant_dtype)
+                                       dequant_dtype=dequant_dtype,
+                                       kv_start=kv_start, kv_count=kv_count)
+    if route == "meta":
+        return _meta(q.shape, q.dtype)
     return paged_attention_cuda(q, k_pool, v_pool, block_tables, start,
                                 k_scale=k_scale, v_scale=v_scale,
-                                dequant_dtype=dequant_dtype)
+                                dequant_dtype=dequant_dtype,
+                                kv_start=kv_start, kv_count=kv_count)
 
 
 def moa_reduce(x, *, block_n: int = 512):
@@ -205,8 +243,12 @@ def moa_reduce(x, *, block_n: int = 512):
     if _RECORDER is not None:
         return _recorded("moa_reduce", 0.0, (x,), moa_reduce, x,
                          block_n=block_n)
-    if _on_cpu(x, "moa_reduce"):
+    route = _route(x, "moa_reduce")
+    if route == "cpu":
         return ref.moa_reduce_ref(x, block_n=block_n)
+    if route == "meta":
+        return _meta(x.shape[1:], torch.int32 if is_integer(x.dtype)
+                     else torch.float32)
     return moa_reduce_cuda(x.contiguous(), block_n=block_n)
 
 
@@ -220,8 +262,11 @@ def loa_add(x, y, *, approx_bits: int, width: int = 8):
     if x.shape != y.shape:
         raise ValueError(f"shape mismatch {tuple(x.shape)} vs "
                          f"{tuple(y.shape)}")
-    if _on_cpu(x, "loa_add"):
+    route = _route(x, "loa_add")
+    if route == "cpu":
         return ref.loa_add_ref(x, y, approx_bits=approx_bits)
+    if route == "meta":
+        return _meta(x.shape, torch.int32)
     return loa_add_cuda(x.to(torch.int32).contiguous(),
                         y.to(torch.int32).contiguous(),
                         approx_bits=approx_bits)
@@ -235,8 +280,11 @@ def loa_reduce(x, *, approx_bits: int, width: int = 8, block_n: int = 256):
                          approx_bits=approx_bits, width=width,
                          block_n=block_n)
     del width
-    if _on_cpu(x, "loa_reduce"):
+    route = _route(x, "loa_reduce")
+    if route == "cpu":
         return ref.loa_reduce_ref(x, approx_bits=approx_bits, block_n=block_n)
+    if route == "meta":
+        return _meta(x.shape[1:], torch.int32)
     return loa_reduce_cuda(x.to(torch.int32).contiguous(),
                            approx_bits=approx_bits, block_n=block_n)
 

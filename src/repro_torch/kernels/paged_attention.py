@@ -204,17 +204,18 @@ def _fn():
 
 @functools.lru_cache(maxsize=1024)
 def _launch(B, T, H, Hk, D, bs, n_blocks, q_dtype, pool_dtype, dequant_dtype,
-            aligned16):
+            aligned16, hk_pool, kv_start):
     """The plan of a call and the C entry's ints for it (built once per
     signature). ``aligned16``: both pools' data pointers are 16-byte
     aligned, so rows of a multiple of 16 bytes are copied 16 bytes at a
-    time (else 4)."""
+    time (else 4). ``Hk`` KV heads are read from ``kv_start`` on, of the
+    pool's ``hk_pool`` (its head stride)."""
     p = plan(B, T, H, Hk, D, bs, n_blocks, pool_dtype)
     cp = 16 if aligned16 and D * pool_dtype.itemsize % 16 == 0 else 4
     codes = _build.DTYPE_CODES
     ints = (B, T, H, Hk, D, bs, n_blocks, codes[q_dtype], codes[pool_dtype],
             codes[dequant_dtype], p.splits, p.pages, p.warps, p.stages,
-            p.rows, cp, p.smem)
+            p.rows, cp, p.smem, hk_pool, kv_start)
     return p, (ctypes.c_int * len(ints))(*ints)
 
 
@@ -223,17 +224,26 @@ def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                          start: torch.Tensor, *,
                          k_scale: Optional[torch.Tensor] = None,
                          v_scale: Optional[torch.Tensor] = None,
-                         dequant_dtype: torch.dtype = torch.bfloat16
+                         dequant_dtype: torch.dtype = torch.bfloat16,
+                         kv_start: int = 0, kv_count: Optional[int] = None
                          ) -> torch.Tensor:
-    """``q (B, T, H, D)``; pools ``(n_phys, bs, Hk, D)`` (f32/bf16/int8);
-    scales ``(n_phys, bs, Hk)`` f32 for an int8 pool; tables
-    ``(B, n_blocks)`` int32; ``start (B,)`` int32 → ``(B, T, H, D)``."""
+    """``q (B, T, H, D)``; pools ``(n_phys, bs, Hk_pool, D)``
+    (f32/bf16/int8); scales ``(n_phys, bs, Hk_pool)`` f32 for an int8
+    pool; tables ``(B, n_blocks)`` int32; ``start (B,)`` int32 → ``(B, T,
+    H, D)``. The kernel reads KV heads ``kv_start .. kv_start + Hk - 1``
+    of the pools in place (``Hk = kv_count``, default every head from
+    ``kv_start`` on; ``H`` a multiple of it): a rank whose q heads attend
+    a few of a replicated pool's heads reads those alone, without a
+    copy."""
     _build.check_device(q, "paged_attention")
     B, T, H, D = q.shape
-    n_phys, bs, Hk, Dp = k_pool.shape
-    if v_pool.shape != k_pool.shape or Dp != D or H % Hk:
+    n_phys, bs, hk_pool, Dp = k_pool.shape
+    Hk = hk_pool - kv_start if kv_count is None else kv_count
+    if v_pool.shape != k_pool.shape or Dp != D or Hk < 1 or kv_start < 0 \
+            or kv_start + Hk > hk_pool or H % Hk:
         raise ValueError(f"paged_attention: q {tuple(q.shape)} does not match "
-                         f"pools {tuple(k_pool.shape)}/{tuple(v_pool.shape)}")
+                         f"pools {tuple(k_pool.shape)}/{tuple(v_pool.shape)} "
+                         f"read at KV heads [{kv_start}, {kv_start + Hk})")
     if block_tables.dim() != 2 or block_tables.shape[0] != B \
             or tuple(start.shape) != (B,):
         raise ValueError("paged_attention: tables must be (B, n_blocks) and "
@@ -272,7 +282,8 @@ def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         return out
     k_ptr, v_ptr = k_pool.data_ptr(), v_pool.data_ptr()
     p, ints = _launch(B, T, H, Hk, D, bs, n_blocks, q.dtype, k_pool.dtype,
-                      dequant_dtype, k_ptr % 16 == 0 and v_ptr % 16 == 0)
+                      dequant_dtype, k_ptr % 16 == 0 and v_ptr % 16 == 0,
+                      hk_pool, kv_start)
     index = q.device.index
     stream = torch._C._cuda_getCurrentRawStream(index)
     ws = tickets = None

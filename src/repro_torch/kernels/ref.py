@@ -231,18 +231,24 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, q_chunk: int = 256,
 
 def paged_attention_ref(q, k_pool, v_pool, block_tables, start, *,
                         k_scale=None, v_scale=None,
-                        dequant_dtype=torch.bfloat16):
+                        dequant_dtype=torch.bfloat16, kv_start: int = 0,
+                        kv_count: Optional[int] = None):
     """Paged attention as the gather path computes it:
     :func:`~repro_torch.layers.attention.gather_paged_kv` over the table
     (dequantizing an int8 pool to ``dequant_dtype``) followed by
     :func:`~repro_torch.layers.attention.full_attention` with slot ``b``'s
-    ``T`` queries at positions ``start[b] .. start[b]+T-1``, causal."""
+    ``T`` queries at positions ``start[b] .. start[b]+T-1``, causal; the
+    pool's KV heads ``kv_start .. kv_start + kv_count - 1`` (default: all
+    of them)."""
     from repro_torch.layers import attention   # layers import the kernels
 
     B, T = q.shape[:2]
-    pool = {"k": k_pool, "v": v_pool}
+    heads = slice(kv_start, None if kv_count is None
+                  else kv_start + kv_count)
+    pool = {"k": k_pool[:, :, heads], "v": v_pool[:, :, heads]}
     if k_scale is not None:
-        pool["k_scale"], pool["v_scale"] = k_scale, v_scale
+        pool["k_scale"] = k_scale[:, :, heads]
+        pool["v_scale"] = v_scale[:, :, heads]
     k, v = attention.gather_paged_kv(pool, block_tables, dequant_dtype)
     pos_q = start.long()[:, None] + torch.arange(T, device=q.device)[None]
     return attention.full_attention(q, k, v, causal=True, positions_q=pos_q)

@@ -14,12 +14,20 @@ explicit timeout, and the launcher has one for the whole run, so a rank
 that fails or diverges fails the run instead of hanging it: the first
 failure is raised in the launching process and every other rank is
 stopped. :func:`make_mesh` then builds the ``DeviceMesh`` inside a rank.
-The reference's production meshes (``make_production_mesh``, a 16 × 16
-TPU pod) have no counterpart yet: they come with the dry run.
+
+The production meshes are the reference's: :data:`SINGLE_POD` (16 × 16,
+``(data, model)``) and :data:`MULTI_POD` (2 × 16 × 16, ``(pod, data,
+model)``). :func:`make_production_mesh` builds either over the
+initialized process group; :func:`fake_world` gives one process such a
+group of 256 or 512 ranks whose collectives move nothing (torch's ``fake``
+backend), in which it stands as one rank: the dry run
+(:mod:`repro_torch.launch.dryrun`) traces that rank's step, and the card
+runs it for real.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import math
 import queue
@@ -29,7 +37,13 @@ import traceback
 from typing import Callable, Optional, Tuple
 
 __all__ = ["parse_mesh", "mesh_axis_names", "make_mesh", "run_ranks",
-           "free_port", "INIT_TIMEOUT_S"]
+           "free_port", "INIT_TIMEOUT_S", "SINGLE_POD", "MULTI_POD",
+           "make_production_mesh", "fake_world"]
+
+#: the reference's production meshes: one pod of 16 × 16 devices
+#: ``(data, model)``, and two of them ``(pod, data, model)``
+SINGLE_POD = (16, 16)
+MULTI_POD = (2, 16, 16)
 
 #: seconds a rank waits for the others at the rendezvous and in each
 #: collective before it fails
@@ -91,6 +105,37 @@ def make_mesh(shape: Tuple[int, ...], axes: Optional[Tuple[str, ...]] = None,
         return init_device_mesh(device, tuple(shape), mesh_dim_names=axes)
     return DeviceMesh(device, torch.tensor(list(ranks)).reshape(shape),
                       mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda"):
+    """The reference's production mesh (:data:`SINGLE_POD` or, with
+    ``multi_pod``, :data:`MULTI_POD`) with its axis names, over the
+    initialized process group of 256 or 512 ranks (:func:`fake_world`
+    gives one process such a group)."""
+    return make_mesh(MULTI_POD if multi_pod else SINGLE_POD, device=device)
+
+
+@contextlib.contextmanager
+def fake_world(n: int, rank: int = 0):
+    """A process group of ``n`` ranks in which this one process stands as
+    rank ``rank``: torch's ``fake`` backend, whose collectives return at
+    once and move nothing (no transport, no other process). Meshes and
+    their subgroups build over it as over a real group. Raises where a
+    process group is already initialized."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group is already "
+                           "initialized in this process")
+    if not 0 <= rank < n:
+        raise ValueError(f"fake_world: rank {rank} outside a world of {n}")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def free_port() -> int:

@@ -6,7 +6,7 @@ parameter path, and the specs the rules give them, FSDP over the data
 axes optionally) live in :mod:`repro_torch.parallel.placement` and keep
 their names here; ``batch_specs`` and ``cache_specs`` are this module's.
 The serve engine places its parameters by them on a mesh; meshed training
-builds on the same tables.
+and the meshed prefill and decode steps build on the same tables.
 
 The train state is the reference's pytree: ``{"params", "opt": {"m", "v",
 "count"}, "step"[, "err"]}``, every leaf a tensor on one device; the
@@ -20,10 +20,13 @@ returned, one step on.
 :func:`repro_torch.launch.mesh.run_ranks`) the state is this rank's shards,
 placed as the reference's dry run places it (``build_shardings(state,
 state_axes(state), mesh, rules, fsdp=True)``, ``dryrun.py:211``) through a
-:class:`~repro_torch.parallel.placement.Placement` (its two adjustments: a
-lone KV head and the router replicate over ``model``) and the rank's
-:class:`~repro_torch.parallel.collectives.DataShard`; the batch is this
-rank's rows (``batch_specs``: ``batch`` over ``data``); ``heads``, ``ff``,
+:class:`~repro_torch.parallel.placement.Placement` (its adjustments: KV
+heads the model axis does not divide, the attention where it does not
+divide the q heads, and the router replicate over ``model``) and the
+rank's :class:`~repro_torch.parallel.collectives.DataShard`; the batch is
+this rank's rows (``batch_specs``: ``batch`` over ``data``, or over
+``(pod, data)`` as one flattened axis, ``pod`` major, where the mesh has a
+pod axis); ``heads``, ``ff``,
 ``vocab`` and ``experts`` split over ``model`` (``DEFAULT_RULES``), the
 recurrent families refused a split ``model`` axis
 (:func:`~repro_torch.parallel.sharding.train_rules_for`). The step runs
@@ -35,6 +38,15 @@ split have their gradients summed over ``data``, and AdamW updates the
 local shards (the gradient norm over the ranks that hold different
 pieces). Each rank's loss is its share of the global batch's, so the sums
 are the global batch's gradients.
+
+**Prefill and decode on a mesh** (``build_prefill_step(..., mesh=)``,
+``build_decode_step(mesh=)``) place the parameters as the reference's dry
+run does (``build_shardings(params, infer_param_axes(params), mesh, rules,
+fsdp=False)``, ``dryrun.py:217-243``) through a :class:`~repro_torch.
+parallel.placement.Placement`, the batch and the cache by ``batch_specs``
+/ ``cache_specs`` under the same rules (the dry run's ``rules_for(cfg,
+shape, mesh, DEFAULT_RULES)``), and run the rank's local model on its
+shards inside the mesh's context.
 """
 
 from __future__ import annotations
@@ -53,8 +65,8 @@ from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
 from repro_torch.parallel import collectives
 from repro_torch.parallel.collectives import DataShard
 from repro_torch.parallel.placement import (
-    Placement, _dedupe_spec, _divisible_spec, build_shardings,
-    infer_param_axes)
+    DATA_AXES, Placement, _data_entry, _dedupe_spec, _divisible_spec,
+    build_shardings, infer_param_axes)
 from repro_torch.parallel.sharding import (DEFAULT_RULES, ShardingRules,
                                            activate, logical_to_spec,
                                            mesh_axis_sizes,
@@ -66,7 +78,7 @@ __all__ = ["TrainHyper", "init_train_state", "loss_and_grads",
            "build_decode_step", "trainable", "infer_param_axes",
            "build_shardings", "batch_specs", "cache_specs", "rules_for",
            "state_axes", "train_placement", "state_specs", "local_batch",
-           "split_axes"]
+           "split_axes", "data_layout"]
 
 
 # ---------------------------------------------------------------------------
@@ -211,15 +223,32 @@ def train_placement(model: Model, mesh, rules: Optional[ShardingRules]
     batch, the group its gradients sum over, the FSDP-split leaves)."""
     rules = train_rules_for(model.cfg, mesh, rules or DEFAULT_RULES)
     placement = Placement(mesh, model, rules, fsdp=fsdp)
-    D = placement.sizes.get("data", 1)
+    axes, D, idx = data_layout(placement)
     if D > 1:
+        group = mesh.get_group(axes[0]) if len(axes) == 1 \
+            else mesh[axes]._flatten().get_group()
+        fsdp_dims = {}
+        for path, spec in tree_leaves(placement.param_specs):
+            dims = [i for i, e in enumerate(spec)
+                    if e is not None and _data_entry(e)]
+            if dims:
+                fsdp_dims[path] = dims[0]
         placement.shard = dataclasses.replace(placement.shard, data=DataShard(
-            group=mesh.get_group("data"), size=D,
-            rank=placement.coords.get("data", 0),
-            fsdp={path: spec.index("data")
-                  for path, spec in tree_leaves(placement.param_specs)
-                  if "data" in spec}))
+            group=group, size=D, rank=idx, fsdp=fsdp_dims))
     return placement
+
+
+def data_layout(placement) -> Tuple[tuple, int, int]:
+    """``(axes, size, index)``: the data axes of the placement's mesh
+    (``pod``, ``data``, those it has), the number of ranks along them, and
+    this rank's index among those (``pod`` major): the group a training
+    rank's batch splits over and its gradients sum over."""
+    axes = tuple(a for a in DATA_AXES if a in placement.sizes)
+    size, idx = 1, 0
+    for a in axes:
+        size *= placement.sizes[a]
+        idx = idx * placement.sizes[a] + placement.coords[a]
+    return axes, size, idx
 
 
 def state_specs(state: dict, placement) -> dict:
@@ -234,21 +263,22 @@ def state_specs(state: dict, placement) -> dict:
 
 def local_batch(batch: dict, placement) -> dict:
     """This rank's rows of the global ``batch`` (every rank builds the
-    same from ``(seed, step)``): ``batch_specs`` split dim 0 over
-    ``data``, each rank its contiguous rows
+    same from ``(seed, step)``): ``batch_specs`` split dim 0 over the data
+    axes (:func:`data_layout`), each rank its contiguous rows
     (:func:`repro_torch.data.pipeline.host_shard`). A batch whose rows do
-    not split over the data axis is refused."""
-    D = placement.sizes.get("data", 1)
+    not split over the data axes is refused."""
+    axes, D, idx = data_layout(placement)
     if D == 1:
         return batch
+    want = axes[0] if len(axes) == 1 else axes
     rows = {int(v.shape[0]) for v in batch.values()}
     specs = batch_specs(batch, placement.mesh, placement.rules)
-    if len(rows) != 1 or any(not spec or spec[0] != "data"
+    if len(rows) != 1 or any(not spec or spec[0] != want
                              for spec in specs.values()):
         raise ValueError(f"a global batch of {sorted(rows)} rows does not "
                          f"split over a data axis of {D}: each data rank "
                          "takes an equal share of the rows")
-    return host_shard(batch, placement.coords["data"], D)
+    return host_shard(batch, idx, D)
 
 
 def _value_and_grad(model: Model, params, batch: dict):
@@ -290,12 +320,13 @@ def loss_and_grads(model: Model, params, batch: dict, *,
                                            microbatches)
     else:
         grads, metrics = _value_and_grad(model, params, batch)
-    if placement is not None and placement.sizes.get("data", 1) > 1:
+    if placement is not None and data_layout(placement)[1] > 1:
         # the data-parallel sum of the leaves FSDP does not split (theirs
         # was summed by the gathers' backward)
         specs = dict(tree_leaves(placement.param_specs))
         idx = [i for i, (path, _) in enumerate(tree_leaves(params))
-               if "data" not in specs[path]]
+               if not any(e is not None and _data_entry(e)
+                          for e in specs[path])]
         for i, g in zip(idx, collectives.grad_sum([grads[i] for i in idx])):
             grads[i] = g
     it = iter(grads)
@@ -303,10 +334,19 @@ def loss_and_grads(model: Model, params, batch: dict, *,
 
 
 def split_axes(placement) -> dict:
-    """``{path: axes}``: the mesh axes (of more than one rank) over which
-    each parameter's pieces differ."""
+    """``{path: axes}``: the axes (of more than one rank) over which each
+    parameter's pieces differ: ``"model"``, and ``"data"`` for the data
+    axes (``data``, or ``(pod, data)`` flattened)."""
     sizes = placement.sizes
-    return {path: tuple(e for e in spec if e is not None and sizes[e] > 1)
+
+    def ways(e) -> int:
+        n = 1
+        for a in (e if isinstance(e, tuple) else (e,)):
+            n *= sizes[a]
+        return n
+
+    return {path: tuple("data" if _data_entry(e) else e for e in spec
+                        if e is not None and ways(e) > 1)
             for path, spec in tree_leaves(placement.param_specs)}
 
 
@@ -373,18 +413,45 @@ def build_train_step(model: Model, *, hyper: TrainHyper, mesh=None,
     return train_step
 
 
-def build_prefill_step(model: Model, *, max_len: int) -> Callable:
-    """``model.prefill`` at ``max_len``: an alias kept under the
-    reference's name (which jits it); the port's engine calls the model."""
-    def prefill_step(params, batch):
-        return model.prefill(params, batch, max_len=max_len)
+def build_prefill_step(model: Model, *, max_len: int, mesh=None,
+                       rules: Optional[ShardingRules] = None) -> Callable:
+    """``prefill_step(params, batch) -> (logits, cache)``: ``model.prefill``
+    at ``max_len``. ``mesh``: the parameters are this rank's shards (a
+    :class:`~repro_torch.parallel.placement.Placement` under ``rules``,
+    default ``DEFAULT_RULES``; ``placement.local_params`` cuts them), the
+    batch its rows (``batch_specs`` under the placement's rules), and the
+    step runs the rank's local model in the mesh's context: the logits
+    are this rank's rows (its vocabulary slice where the vocabulary
+    splits), the cache its rows and KV heads. The step carries its
+    placement as ``prefill_step.placement`` (``None`` off a mesh)."""
+    placement = None if mesh is None else Placement(
+        mesh, model, rules or DEFAULT_RULES)
 
+    def prefill_step(params, batch):
+        if placement is None:
+            return model.prefill(params, batch, max_len=max_len)
+        with activate(mesh, placement.rules, placement.shard):
+            return placement.local_model.prefill(params, batch,
+                                                 max_len=max_len)
+
+    prefill_step.placement = placement
     return prefill_step
 
 
-def build_decode_step(model: Model) -> Callable:
-    """``model.decode_step``: an alias kept under the reference's name."""
-    def decode_step(params, cache, tokens):
-        return model.decode_step(params, cache, tokens)
+def build_decode_step(model: Model, *, mesh=None,
+                      rules: Optional[ShardingRules] = None) -> Callable:
+    """``decode_step(params, cache, tokens) -> (logits, cache)``:
+    ``model.decode_step``, the cache updated in place. ``mesh``: as
+    :func:`build_prefill_step`, the cache this rank's rows and KV heads
+    (``cache_specs`` under the placement's rules)."""
+    placement = None if mesh is None else Placement(
+        mesh, model, rules or DEFAULT_RULES)
 
+    def decode_step(params, cache, tokens):
+        if placement is None:
+            return model.decode_step(params, cache, tokens)
+        with activate(mesh, placement.rules, placement.shard):
+            return placement.local_model.decode_step(params, cache, tokens)
+
+    decode_step.placement = placement
     return decode_step

@@ -115,7 +115,7 @@ class TrainLoop:
         self.placement = self._step_fn.placement
         if self.placement is not None:
             self.lead = self.placement.lead
-            D = self.placement.sizes.get("data", 1)
+            D = steps_lib.data_layout(self.placement)[1]
             if self.global_batch % D:
                 raise ValueError(
                     f"a global batch of {self.global_batch} rows does not "

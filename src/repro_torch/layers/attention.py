@@ -25,6 +25,13 @@ scatter is dropped or its target repeats, the port pins what JAX does:
 Every layer of a step writes at the same places: the targets are found
 once a step (:func:`paged_write_targets`, :func:`verify_write_targets`,
 :func:`paged_verify_targets`) and handed to each layer.
+
+On a mesh that splits the q heads over ``model`` but not the KV heads
+(fewer KV heads than the axis, or a count it does not divide), every rank
+computes and caches every KV head, and its q heads attend the KV heads of
+their groups alone (:func:`rank_kv_heads`): the plain paths through a view,
+the flash kernel through a contiguous copy of the fresh K/V, the paged
+kernel by reading those heads of the cache in place.
 """
 
 from __future__ import annotations
@@ -46,7 +53,7 @@ __all__ = [
     "last_of_equal", "paged_verify_targets", "paged_write_targets",
     "prefill_attention", "quantize_kv", "dequantize_kv",
     "resolve_attn_backend", "verify_write_targets", "dense_attention",
-    "DENSE_PAGE",
+    "DENSE_PAGE", "rank_kv_heads", "rank_kv",
 ]
 
 #: resolved ``attn_backend`` values: plain PyTorch or the CUDA kernels
@@ -59,21 +66,43 @@ flash_attention = flash_attention_ref
 
 def resolve_attn_backend(backend: str, device) -> str:
     """Resolve the attention backend knob for tensors on ``device``:
-    ``"auto"`` is the kernel on CUDA and the plain version on the CPU;
+    ``"auto"`` is the kernel on CUDA (and on ``meta``, the card's stand-in
+    in the dry run) and the plain version on the CPU;
     ``"kernel"`` on the CPU raises (there is no kernel to run there), but
     under :func:`repro_torch.kernels.ops.interpret`, where the kernel
     entry points run their plain versions."""
-    device = torch.device(device)
+    card = ops.on_card(device)
     if backend == "auto":
-        return "kernel" if device.type == "cuda" else "torch"
+        return "kernel" if card else "torch"
     if backend not in ATTN_BACKENDS:
         raise ValueError(f"unknown attn backend {backend!r}; expected "
                          f"'auto' or one of {ATTN_BACKENDS}")
-    if backend == "kernel" and device.type != "cuda" \
-            and not ops.interpreting():
+    if backend == "kernel" and not card and not ops.interpreting():
         raise ValueError("attn_backend='kernel' needs CUDA tensors; a CPU "
                          "tensor takes 'auto' or 'torch'")
     return backend
+
+
+def rank_kv_heads() -> Optional[Tuple[int, int]]:
+    """``(first, count)`` of the KV heads this rank's q heads attend, where
+    the active mesh splits the q heads over ``model`` and replicates the
+    KV heads (:class:`repro_torch.parallel.collectives.RankShard`'s
+    ``kv_slice``); ``None`` elsewhere (every KV head)."""
+    from repro_torch.parallel.collectives import split
+
+    rng = split("kv_slice")
+    return None if not rng else (rng[0], rng[1] - rng[0])
+
+
+def rank_kv(t: torch.Tensor) -> torch.Tensor:
+    """This rank's KV heads (:func:`rank_kv_heads`) of ``t``, whose dim 2
+    is the KV heads (fresh K/V ``(B, S, Hk, D)``, a dense-slot cache
+    ``(B, max_len, Hk, D)``, a pool ``(n, bs, Hk, D)``, their scales): a
+    view, ``t`` itself where the rank attends every head."""
+    heads = rank_kv_heads()
+    if heads is None or (heads[0] == 0 and heads[1] == t.shape[2]):
+        return t
+    return t.narrow(2, heads[0], heads[1])
 
 
 def prefill_attention(q, k, v, *, causal: bool = True, q_chunk: int = 256,
@@ -144,8 +173,10 @@ def _project_qkv(params: Params, x, *, n_heads, n_kv_heads, head_dim,
     """q, k, v of ``x`` (biases added where the arch has them). Where a
     mesh splits the heads over ``model``, ``wq`` (and ``bq``) hold this
     rank's q heads and ``x`` enters through the column op; K/V split with
-    them, or (one KV head the q heads share) replicate, and then ``k`` and
-    ``v`` enter the split attention through the column op."""
+    them, or replicate (KV heads the model axis does not divide: every
+    rank computes all of them, and its q heads attend those of their
+    groups, :func:`rank_kv_heads`), and then ``k`` and ``v`` enter the
+    split attention through the column op."""
     from repro_torch.parallel.collectives import column_input, split
 
     B, S, _ = x.shape
@@ -305,18 +336,28 @@ def attention_decode(params: Params, x, cache: Params, pos, *, n_heads: int,
     if resolve_attn_backend(backend, x.device) == "kernel":
         o = dense_attention(q, cache, pos, compute_dtype=compute_dtype)
     else:
-        if "k_scale" in cache:
-            k_cache = dequantize_kv(cache["k"], cache["k_scale"],
-                                    compute_dtype)
-            v_cache = dequantize_kv(cache["v"], cache["v_scale"],
-                                    compute_dtype)
-        else:
-            k_cache, v_cache = cache["k"], cache["v"]
+        k_cache, v_cache = _dense_kv(cache, compute_dtype)
         o = full_attention(q, k_cache, v_cache, causal=False, kv_len=pos + 1)
     o = o.reshape(B, 1, n_heads * head_dim)
     y = _out_proj(o, params["wo"].to(compute_dtype), strategy=strategy,
                   compute_dtype=compute_dtype)
     return y, cache
+
+
+def _dense_kv(cache: Params, compute_dtype):
+    """This rank's KV heads of a dense-slot cache (:func:`rank_kv`),
+    dequantized for an int8 cache."""
+    if "k_scale" in cache:
+        return (dequantize_kv(rank_kv(cache["k"]), rank_kv(cache["k_scale"]),
+                              compute_dtype),
+                dequantize_kv(rank_kv(cache["v"]), rank_kv(cache["v_scale"]),
+                              compute_dtype))
+    return rank_kv(cache["k"]), rank_kv(cache["v"])
+
+
+def _rank_pool(pool: Params) -> Params:
+    """The pool's leaves narrowed to this rank's KV heads (views)."""
+    return {name: rank_kv(t) for name, t in pool.items()}
 
 
 def _paged_attention_fused(q, pool: Params, block_tables, start, *,
@@ -327,12 +368,14 @@ def _paged_attention_fused(q, pool: Params, block_tables, start, *,
     ``compute_dtype`` — the dtype the gather path materializes — so both
     backends see bit-equal KV. The whole table goes in (no live-block
     cut): the split is planned for its width, so a row's arithmetic does
-    not depend on the live-block bucket."""
+    not depend on the live-block bucket. The kernel reads this rank's KV
+    heads (:func:`rank_kv_heads`) of the pool in place."""
+    heads = rank_kv_heads() or (0, None)
     return ops.paged_attention(
         q, pool["k"], pool["v"], block_tables.contiguous(),
         start.to(torch.int32).contiguous(),
         k_scale=pool.get("k_scale"), v_scale=pool.get("v_scale"),
-        dequant_dtype=compute_dtype)
+        dequant_dtype=compute_dtype, kv_start=heads[0], kv_count=heads[1])
 
 
 #: tokens a page when the paged-attention kernel walks a dense-slot cache
@@ -445,7 +488,8 @@ def attention_decode_paged(params: Params, x, pool: Params, block_tables,
         o = _paged_attention_fused(q, pool, block_tables, cur,
                                    compute_dtype=compute_dtype)
     else:
-        k_cache, v_cache = gather_paged_kv(pool, block_tables, compute_dtype,
+        k_cache, v_cache = gather_paged_kv(_rank_pool(pool), block_tables,
+                                           compute_dtype,
                                            live_blocks=live_blocks)
         o = full_attention(q, k_cache, v_cache, causal=False, kv_len=cur + 1)
     o = o.reshape(B, 1, n_heads * head_dim)
@@ -532,13 +576,7 @@ def attention_verify(params: Params, x, cache: Params, pos, targets, *,
         o = dense_attention(q, cache, pos_q[:, 0],
                             compute_dtype=compute_dtype)
     else:
-        if quantized:
-            k_cache = dequantize_kv(cache["k"], cache["k_scale"],
-                                    compute_dtype)
-            v_cache = dequantize_kv(cache["v"], cache["v_scale"],
-                                    compute_dtype)
-        else:
-            k_cache, v_cache = cache["k"], cache["v"]
+        k_cache, v_cache = _dense_kv(cache, compute_dtype)
         o = full_attention(q, k_cache, v_cache, causal=True,
                            positions_q=pos_q)
     o = o.reshape(B, T, n_heads * head_dim)
@@ -595,7 +633,8 @@ def attention_verify_paged(params: Params, x, pool: Params, block_tables,
         o = _paged_attention_fused(q, pool, block_tables, pos_q[:, 0],
                                    compute_dtype=compute_dtype)
     else:
-        k_cache, v_cache = gather_paged_kv(pool, block_tables, compute_dtype,
+        k_cache, v_cache = gather_paged_kv(_rank_pool(pool), block_tables,
+                                           compute_dtype,
                                            live_blocks=live_blocks)
         o = full_attention(q, k_cache, v_cache, causal=True,
                            positions_q=pos_q)

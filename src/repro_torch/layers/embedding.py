@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.ops import on_card
 from repro_torch.layers.common import Params, truncated_normal_init
 from repro_torch.parallel.collectives import (column_input,
                                               reduce_partial, split)
@@ -76,12 +77,13 @@ def unembed(params: Params, x: torch.Tensor, *,
     bf16 contraction is one bf16 product with f32 output (``aten::mm.dtype``:
     the table is read once in bf16, never copied to f32; differentiable
     through :class:`_Unembed`); CPU tensors, which have no kernel for that
-    overload, and f32 compute take the f32 product of the same operands.
+    overload, and f32 compute take the f32 product of the same operands
+    (a ``meta`` tensor, the card's stand-in, takes the CUDA product).
     Vocab-split over ``model``: this rank's rows of the vocabulary, ``x``
     through the column op."""
     table = params.get("unembed", params["table"]).to(compute_dtype)
     x = column_input(x.to(compute_dtype), "vocab")
-    if x.is_cuda and compute_dtype == torch.bfloat16:
+    if on_card(x) and compute_dtype == torch.bfloat16:
         out = _Unembed.apply(x.reshape(-1, x.shape[-1]), table)
         return out.reshape(*x.shape[:-1], table.shape[0])
     return torch.matmul(x.float(), table.float().t())

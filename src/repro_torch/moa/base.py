@@ -11,8 +11,8 @@ string (``"serial?chunk=512"``) parsed back by :func:`repro_torch.moa.resolve`.
   on any device (the reference; on the GPU the only way to run it);
 * ``"kernel"`` — the hand-written CUDA kernels of :mod:`repro_torch.kernels`;
   a CPU tensor raises;
-* ``"auto"`` — the kernel for a CUDA tensor, the plain schedule for a CPU
-  tensor.
+* ``"auto"`` — the kernel for a CUDA tensor (or a ``meta`` one, the
+  card's stand-in in the dry run), the plain schedule for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -34,8 +34,9 @@ BACKENDS = ("auto", "torch", "kernel")
 def resolved_backend(backend: str, x: torch.Tensor) -> str:
     """``"kernel"`` or ``"torch"`` for an operand on ``x.device``."""
     if backend == "auto":
-        return "kernel" if x.is_cuda else "torch"
-    if backend == "kernel" and not x.is_cuda and not ops.interpreting():
+        return "kernel" if ops.on_card(x) else "torch"
+    if backend == "kernel" and not ops.on_card(x) \
+            and not ops.interpreting():
         raise ValueError(
             "backend='kernel' needs CUDA tensors; a CPU tensor takes "
             "backend='auto' or 'torch'")

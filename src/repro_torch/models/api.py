@@ -17,12 +17,12 @@ that require grad (:func:`repro_torch.launch.steps.init_train_state`).
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional, Union
+from typing import Any, Dict, Mapping, Optional, Union
 
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.device import resolve_device
 from repro_torch.layers.common import Params
 from repro_torch.models import (losses, mamba2, moe_transformer,
@@ -398,6 +398,78 @@ class Model(nn.Module):
         1; 0 for idle slots), in place; a recurrent family also restores
         each slot's state from the snapshot ``aux`` holds at ``keep``."""
         return self._mod.commit_verified(cache, keep, aux, self.cfg)
+
+    # ---- shapes -----------------------------------------------------------
+    def _token_split(self, seq_len: int):
+        """``(patch prefix, text)`` of a VLM sequence of ``seq_len``
+        positions (at most half of it patches); ``(0, seq_len)`` for the
+        other families."""
+        if self.cfg.family == "vlm":
+            n_patches = min(self.cfg.n_patches, seq_len // 2)
+            return n_patches, seq_len - n_patches
+        return 0, seq_len
+
+    def input_specs(self, shape: ShapeSpec) -> Dict[str, Any]:
+        """The batch of ``shape``'s phase as ``meta`` tensors (the
+        reference's ``ShapeDtypeStruct`` stand-ins: no memory). A decode
+        shape gives one token a sequence and the dense-slot cache of
+        ``shape.seq_len`` positions (:meth:`init_cache`); the encoder's
+        frames and the VLM's patches are bf16, as the reference's."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        meta = torch.device("meta")
+
+        def sds(dims, dtype):
+            return torch.empty(dims, dtype=dtype, device=meta)
+
+        if shape.phase == "decode":
+            return {"tokens": sds((B, 1), torch.int32),
+                    "cache": self.init_cache(B, S, device=meta)}
+        if cfg.family == "encoder":
+            specs = {"frames": sds((B, S, cfg.d_model), torch.bfloat16),
+                     "mask": sds((B, S), torch.bool)}
+            if shape.phase == "train":
+                specs["targets"] = sds((B, S), torch.int32)
+            return specs
+        n_patches, s_text = self._token_split(S)
+        specs = {"tokens": sds((B, s_text), torch.int32)}
+        if n_patches:
+            specs["patches"] = sds((B, n_patches, cfg.d_model),
+                                   torch.bfloat16)
+        if shape.phase == "train":
+            specs["labels"] = sds((B, s_text), torch.int32)
+        return specs
+
+    def make_batch(self, generator: torch.Generator, shape: ShapeSpec, *,
+                   batch_override: Optional[int] = None,
+                   seq_override: Optional[int] = None) -> Dict[str, Any]:
+        """A random batch of ``shape``'s phase (training and prefill
+        inputs; the reference's smoke batch) drawn from ``generator``, on
+        its device: tokens, labels and targets uniform over the
+        vocabulary, frames and patches ``0.02 · N(0, 1)`` in f32, the
+        encoder's mask Bernoulli(0.35)."""
+        cfg = self.cfg
+        B = batch_override or shape.global_batch
+        S = seq_override or shape.seq_len
+        kw = dict(generator=generator, device=generator.device)
+
+        def tokens(*dims):
+            return torch.randint(0, cfg.vocab, dims, dtype=torch.int32, **kw)
+
+        if cfg.family == "encoder":
+            out = {"frames": 0.02 * torch.randn((B, S, cfg.d_model), **kw),
+                   "mask": torch.rand((B, S), **kw) < 0.35}
+            if shape.phase == "train":
+                out["targets"] = tokens(B, S)
+            return out
+        n_patches, s_text = self._token_split(S)
+        out = {"tokens": tokens(B, s_text)}
+        if n_patches:
+            out["patches"] = 0.02 * torch.randn((B, n_patches, cfg.d_model),
+                                                **kw)
+        if shape.phase == "train":
+            out["labels"] = tokens(B, s_text)
+        return out
 
 
 def build_model(cfg: ModelConfig) -> Model:

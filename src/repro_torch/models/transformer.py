@@ -149,7 +149,9 @@ def layer(stacked: Params, i: int) -> Params:
 def _attention(cfg: ModelConfig, q, k, v):
     """Softmax·V over a whole prompt (``cfg.attn_impl``; causal but for
     the encoder) for the serving functions and the encoder's encode: the
-    flash kernel on the ``kernel`` backend."""
+    flash kernel on the ``kernel`` backend. On a mesh that replicates the
+    KV heads beside split q heads, the rank's KV heads alone."""
+    k, v = attn_lib.rank_kv(k), attn_lib.rank_kv(v)
     if cfg.attn_impl == "full":
         return attn_lib.full_attention(q, k, v, causal=cfg.is_causal)
     return attn_lib.prefill_attention(q, k, v, causal=cfg.is_causal,
@@ -162,7 +164,8 @@ def _train_attention(cfg: ModelConfig, q, k, v):
     """The training forward's softmax·V (``cfg.attn_impl``; causal but for
     the encoder), as the reference's ``attention_forward``: the plain
     chunked twin or the one-shot scores, never a kernel (the kernel has no
-    backward)."""
+    backward); the rank's KV heads alone, as :func:`_attention`."""
+    k, v = attn_lib.rank_kv(k), attn_lib.rank_kv(v)
     if cfg.attn_impl == "full":
         return attn_lib.full_attention(q, k, v, causal=cfg.is_causal)
     return attn_lib.flash_attention(q, k, v, causal=cfg.is_causal,
@@ -445,7 +448,8 @@ def prefill_suffix(params: Params, batch: dict, cfg: ModelConfig, *,
         q, k, v = _layer_qkv(cfg, lyr, h, positions_q)
         k_full = torch.cat([prefix["k"][i].to(cfg.cdtype), k], dim=1)
         v_full = torch.cat([prefix["v"][i].to(cfg.cdtype), v], dim=1)
-        o = attn_lib.full_attention(q, k_full, v_full, causal=True,
+        o = attn_lib.full_attention(q, attn_lib.rank_kv(k_full),
+                                    attn_lib.rank_kv(v_full), causal=True,
                                     positions_q=positions_q,
                                     positions_kv=positions_kv)
         h = mlp(cfg, lyr, _attn_out(cfg, lyr, h, o))

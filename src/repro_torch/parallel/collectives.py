@@ -29,11 +29,12 @@ transposed collective of each forward one):
 * the **data-parallel** gradient sum (:func:`grad_sum`) for the leaves
   that ``data`` does not split.
 
-Every device collective is a sum all-reduce or a broadcast
-(:func:`all_gather` broadcasts each rank's piece from it, a maximum is
-taken locally over gathered values): the collectives a gloo group carries
-for CUDA tensors, so two ranks can share one card, where NCCL refuses. A
-broadcast copies bits, so the composed gather is exact. Outside an active
+Every device collective is a sum all-reduce, a broadcast or an
+all-to-all (:func:`all_gather` broadcasts each rank's piece from it, a
+maximum is taken locally over gathered values): the collectives a gloo
+group carries for CUDA tensors, so two ranks can share one card, where
+NCCL refuses. A broadcast and an all-to-all copy bits, so the composed
+gather and :func:`grad_sum`'s ordered sum are exact. Outside an active
 context (:func:`repro_torch.parallel.sharding.activate`) every function
 here is the identity or the plain single-device operation.
 """
@@ -54,7 +55,7 @@ __all__ = ["DataShard", "RankShard", "split", "reduce_partial", "column_input",
            "fsdp_gather", "fsdp_params", "fsdp_layer", "gather_model",
            "gather_whole", "grad_sum", "reduce_scatter", "vocab_argmax",
            "vocab_gather",
-           "counts", "reset_counts", "observing"]
+           "counts", "reset_counts", "observing", "CENSUS_KIND"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,7 +77,9 @@ class RankShard:
     over the ``model`` axis and the process group they reduce over.
 
     ``heads``: the attention's q heads are this rank's; ``kv_heads``: so
-    are its K/V heads (else they replicate beside split q heads); ``ff``:
+    are its K/V heads (else they replicate beside split q heads, and
+    ``kv_slice`` is the ``[lo, hi)`` of them that this rank's q heads
+    attend); ``ff``:
     the MLP's ``ff`` columns are; ``experts`` / ``vocab``: this rank's
     ``[lo, hi)`` of the experts and of the vocabulary (``None``: all of
     them); ``data``: a training rank's :class:`DataShard` (``None``
@@ -87,44 +90,59 @@ class RankShard:
     rank: int = 0
     heads: bool = False
     kv_heads: bool = False
+    kv_slice: Optional[Tuple[int, int]] = None
     ff: bool = False
     experts: Optional[Tuple[int, int]] = None
     vocab: Optional[Tuple[int, int]] = None
     data: Optional[DataShard] = None
 
 
-#: calls since :func:`reset_counts`: ``all_reduce`` and ``broadcast`` are
-#: the device collectives; the others count the operations built on them,
+#: calls since :func:`reset_counts`: ``all_reduce``, ``broadcast`` and
+#: ``all_to_all`` are the device collectives; the others count the operations built on them,
 #: by kind (``row_sum``: the forward sums of :func:`reduce_partial`;
 #: ``column_grad``: the backward sums of :func:`column_input`;
 #: ``fsdp_gather`` / ``fsdp_scatter``: FSDP's gathers and the reduce-
 #: scatters of their backward; ``grad_sum``: data-parallel gradient sums;
 #: ``gather``: whole-row gathers; ``max``: maxima over ranks)
-_COUNTS = {"all_reduce": 0, "broadcast": 0, "row_sum": 0, "column_grad": 0,
-           "fsdp_gather": 0, "fsdp_scatter": 0, "grad_sum": 0, "gather": 0,
-           "max": 0}
+_COUNTS = {"all_reduce": 0, "broadcast": 0, "all_to_all": 0, "row_sum": 0,
+           "column_grad": 0, "fsdp_gather": 0, "fsdp_scatter": 0,
+           "grad_sum": 0, "gather": 0, "max": 0}
 
 
-#: called ``(kind, axis)`` at each collective the model runs, while one
-#: observes (:func:`observing`); ``None`` off
-_OBSERVER: Optional[Callable[[str, str], None]] = None
+#: the collective each observed kind is, by the reference's census names
+#: (``repro/launch/dryrun.py``'s ``collective_census``)
+CENSUS_KIND = {"row_sum": "all-reduce", "column_grad": "all-reduce",
+               "grad_sum": "all-reduce", "fsdp_gather": "all-gather",
+               "gather": "all-gather", "max": "all-gather",
+               "argmax": "all-gather",
+               "fsdp_scatter": "reduce-scatter"}
+
+#: called ``(kind, axis, nbytes)`` at each collective the model runs,
+#: while one observes (:func:`observing`); ``None`` off
+_OBSERVER: Optional[Callable[[str, str, float], None]] = None
 
 
-def _count(kind: str, axis: str) -> None:
+def _count(kind: str, axis: str, nbytes: float) -> None:
     _COUNTS[kind] += 1
-    _observe(kind, axis)
+    _observe(kind, axis, nbytes)
 
 
-def _observe(kind: str, axis: str) -> None:
+def _observe(kind: str, axis: str, nbytes: float) -> None:
     if _OBSERVER is not None:
-        _OBSERVER(kind, axis)
+        _OBSERVER(kind, axis, float(nbytes))
+
+
+def _bytes(x: torch.Tensor, itemsize: Optional[int] = None) -> float:
+    return float(x.numel() * (itemsize or x.element_size()))
 
 
 @contextlib.contextmanager
-def observing(observer: Callable[[str, str], None]):
-    """Call ``observer(kind, axis)`` at each collective run while the
-    block runs (``kind`` a :func:`counts` key, ``axis`` the mesh axis it
-    reduces or gathers over)."""
+def observing(observer: Callable[[str, str, float], None]):
+    """Call ``observer(kind, axis, nbytes)`` at each collective run while
+    the block runs (``kind`` a :func:`counts` key or ``"argmax"``, its
+    collective :data:`CENSUS_KIND`; ``axis`` the mesh axis it reduces or
+    gathers over; ``nbytes`` its buffer: the summed tensor of a sum, the
+    gathered whole of a gather, the operand of a reduce-scatter)."""
     global _OBSERVER
     saved, _OBSERVER = _OBSERVER, observer
     try:
@@ -144,7 +162,8 @@ def reset_counts() -> None:
 
 def split(site: str):
     """The active shard's split of ``site`` (``"heads"``, ``"kv_heads"``,
-    ``"ff"``: bool; ``"experts"``, ``"vocab"``: ``(lo, hi)`` or ``None``),
+    ``"ff"``: bool; ``"experts"``, ``"vocab"``, ``"kv_slice"``: ``(lo,
+    hi)`` or ``None``),
     or a falsy value outside a context or on a one-rank model axis."""
     shard = active_shard()
     if shard is None or shard.size == 1:
@@ -173,6 +192,18 @@ def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
     _COUNTS["all_reduce"] += 1
     dist.all_reduce(x, group=group)
     return x
+
+
+def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Row ``r`` of ``x`` (one row a rank of ``group``) sent to rank
+    ``r``: row ``r`` of the result is what rank ``r`` sent this rank,
+    counted."""
+    import torch.distributed as dist
+
+    _COUNTS["all_to_all"] += 1
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.contiguous(), group=group)
+    return out
 
 
 def broadcast(x: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
@@ -215,7 +246,7 @@ class _ColumnInput(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        _COUNTS["column_grad"] += 1
+        _count("column_grad", "model", _bytes(g, 4))
         return _f32_sum(g, ctx.group).to(g.dtype), None
 
 
@@ -226,7 +257,7 @@ def reduce_partial(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
     group, size, _ = _axis(axis)
     if size == 1:
         return x
-    _count("row_sum", axis)
+    _count("row_sum", axis, _bytes(x))
     if torch.is_grad_enabled() and x.requires_grad:
         return _RowSum.apply(x, group)
     return all_reduce(x, group)
@@ -289,7 +320,7 @@ def axis_max(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
     x = x.detach()
     if size == 1:
         return x
-    _count("max", axis)
+    _count("max", axis, _bytes(x) * size)
     return all_gather(x[None], 0, group, size, rank).amax(dim=0)
 
 
@@ -302,13 +333,14 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group, size, rank, summed):
         ctx.dim, ctx.group, ctx.size, ctx.rank = dim, group, size, rank
+        ctx.axis = "data" if summed else "model"
         ctx.summed, ctx.n = summed, x.shape[dim]
         return all_gather(x, dim, group, size, rank)
 
     @staticmethod
     def backward(ctx, g):
         if ctx.summed:
-            _COUNTS["fsdp_scatter"] += 1
+            _count("fsdp_scatter", ctx.axis, _bytes(g, 4))
             return (reduce_scatter(g, ctx.dim, ctx.group, ctx.size,
                                    ctx.rank), None, None, None, None, None)
         piece = g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n).contiguous()
@@ -322,7 +354,7 @@ def gather_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     group, size, rank = _axis("model")
     if size == 1:
         return x
-    _count("gather", "model")
+    _count("gather", "model", _bytes(x) * size)
     dim = dim % x.dim()
     if torch.is_grad_enabled() and x.requires_grad:
         return _Gather.apply(x, dim, group, size, rank, False)
@@ -336,7 +368,7 @@ def fsdp_gather(t: torch.Tensor, dim: int) -> torch.Tensor:
     group, size, rank = _axis("data")
     if size == 1:
         return t
-    _count("fsdp_gather", "data")
+    _count("fsdp_gather", "data", _bytes(t) * size)
     if torch.is_grad_enabled() and t.requires_grad:
         return _Gather.apply(t, dim, group, size, rank, True)
     return all_gather(t, dim, group, size, rank)
@@ -386,14 +418,29 @@ def fsdp_layer(lyr, prefix: str = "layers"):
 
 def grad_sum(grads: list) -> list:
     """The data-parallel gradient sum: each of ``grads`` summed over the
-    ``data`` ranks in f32, in one all-reduce of their concatenation; the
-    sums are f32. ``grads`` itself off a data axis."""
-    group, size, _ = _axis("data")
+    ``data`` ranks in f32, as one buffer of their concatenation; the sums
+    are f32. ``grads`` itself off a data axis. An ordered reduce-scatter
+    then a gather: the buffer in ``size`` chunks, chunk ``r`` of every
+    rank sent to rank ``r`` (:func:`all_to_all`), which adds them in rank
+    order, the order in which one device accumulates the same rows as
+    microbatches, so that plain data parallelism over any number of ranks
+    is that step bit for bit (a ring's sum would associate the terms
+    otherwise); then every rank's summed chunk gathered. It moves and
+    holds what a sum all-reduce does."""
+    group, size, rank = _axis("data")
     if size == 1 or not grads:
         return grads
-    _count("grad_sum", "data")
     flat = torch.cat([g.float().reshape(-1) for g in grads])
-    all_reduce(flat, group)
+    _COUNTS["grad_sum"] += 1
+    _observe("grad_sum", "data", _bytes(flat))
+    n = flat.numel()
+    chunk = -(-n // size)
+    chunks = torch.nn.functional.pad(flat, (0, chunk * size - n))
+    got = all_to_all(chunks.view(size, chunk), group)
+    mine = got[0].clone()
+    for r in range(1, size):
+        mine += got[r]
+    flat = all_gather(mine, 0, group, size, rank)[:n]
     return [piece.view(g.shape) for piece, g in zip(
         flat.split([g.numel() for g in grads]), grads)]
 
@@ -401,15 +448,22 @@ def grad_sum(grads: list) -> list:
 def gather_whole(t: torch.Tensor, spec, mesh) -> torch.Tensor:
     """The whole of a leaf of which ``t`` is this rank's piece under
     ``spec`` on ``mesh`` (a ``DeviceMesh``), on every rank of the mesh:
-    gathered along each split dim over its axis's group."""
+    gathered along each split dim over its axis's group (a dim split over
+    several axes, the first major, over their flattened group)."""
     sizes = mesh_axis_sizes(mesh)
     coords = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
     for dim, entry in enumerate(spec):
-        if entry is None or sizes[entry] == 1:
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        size, idx = 1, 0
+        for a in axes if entry is not None else ():
+            size, idx = size * sizes[a], idx * sizes[a] + coords[a]
+        if size == 1:
             continue
-        _count("gather", entry)
-        t = all_gather(t, dim, mesh.get_group(entry), sizes[entry],
-                       coords[entry])
+        group = mesh.get_group(axes[0]) if len(axes) == 1 \
+            else mesh[axes]._flatten().get_group()
+        _count("gather", axes[0] if len(axes) == 1 else "data",
+               _bytes(t) * size)
+        t = all_gather(t, dim, group, size, idx)
     return t
 
 
@@ -431,7 +485,7 @@ def vocab_argmax(logits: torch.Tensor) -> torch.Tensor:
     if not rng:
         return torch.argmax(logits, dim=-1)
     idx = torch.argmax(logits, dim=-1)
-    _observe("argmax", "model")
+    _observe("argmax", "model", 16.0 * idx.numel() * shard.size)
     val = logits.float().gather(-1, idx[..., None])[..., 0]
     both = torch.stack([val.double(), (idx + rng[0]).double()])
     both = all_gather(both[None], 0, shard.group, shard.size, shard.rank)

@@ -14,14 +14,24 @@ reference's ``repro/launch/steps.py`` functions (re-exported by
 from them the model this rank runs (its configuration with the local head
 and ``ff`` counts) and the
 :class:`~repro_torch.parallel.collectives.RankShard` its layers reduce
-over. Two adjustments make GSPMD's layout runnable as local shards, each
-only where it changes nothing for the divisible case:
+over. Three adjustments make GSPMD's layout runnable as local shards,
+each only where it changes nothing for the divisible case:
 
 * the K/V projections replicate where the cache's KV heads do (GQA kv
-  heads fewer than the model axis: the flattened ``wk`` divides, its
-  heads do not), so every rank computes the one KV head its q heads
-  share; an uneven split of more than one KV head is refused;
+  heads fewer than the model axis, or a count it does not divide: the
+  flattened ``wk`` divides, its heads do not), so every rank computes
+  every KV head and its q heads attend those of their groups (the
+  shard's ``kv_slice``; refused where a rank's q heads would straddle
+  groups unevenly: neither of the rank's q-head count and the group size
+  divides the other);
+* the attention replicates where the model axis does not divide the q
+  heads (40 or 56 heads on 16: GSPMD splits the flattened projection
+  mid-head, which has no local-shard form); the MLP, the experts and the
+  vocabulary still split;
 * the router replicates, so every rank routes every token alike.
+
+A training rank's parameters may also split over the data axes (FSDP):
+``data``, or ``(pod, data)`` as one flattened axis, ``pod`` major.
 
 Serving places its slots on top of it
 (:class:`repro_torch.serve.mesh.MeshPlacement`); the meshed trainer adds a
@@ -200,6 +210,12 @@ _SPLIT_OK = {"wq", "wk", "wv", "wo", "bq", "bk", "bv", "w_gate", "w_up",
 #: the families whose attention and MLP can split over ``model``
 _TP_FAMILIES = ("dense", "moe", "encoder", "vlm")
 
+#: the attention's weights
+_ATTN = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+
+#: the data axes, in mesh order (FSDP and the batch split over them)
+DATA_AXES = ("pod", "data")
+
 
 def _has(spec, axis: str) -> bool:
     return any(e == axis or (isinstance(e, tuple) and axis in e)
@@ -209,6 +225,22 @@ def _has(spec, axis: str) -> bool:
 def _unsplit(spec, axis: str) -> tuple:
     """``spec`` with ``axis`` replicated (its other axes kept)."""
     return tuple(None if e == axis else e for e in spec)
+
+
+def kv_slice(n_heads: int, n_kv_heads: int, ways: int,
+             rank: int) -> tuple:
+    """``[lo, hi)`` of the KV heads that q heads ``[rank·H/ways, (rank+1)·
+    H/ways)`` attend (GQA group ``G = H / Hk``: q head ``h`` attends KV
+    head ``h // G``)."""
+    per, group = n_heads // ways, n_heads // n_kv_heads
+    return (rank * per // group, ((rank + 1) * per - 1) // group + 1)
+
+
+def _data_entry(entry) -> bool:
+    """Whether a spec entry splits over data axes alone, in mesh order
+    (``"data"``, ``"pod"`` or ``("pod", "data")``)."""
+    axes = entry if isinstance(entry, tuple) else (entry,)
+    return axes == tuple(a for a in DATA_AXES if a in axes)
 
 
 class Placement:
@@ -231,6 +263,9 @@ class Placement:
         self.full_shapes = tree_map_with_keys(lambda _, t: tuple(t.shape), meta)
         self.rule_specs = build_shardings(meta, infer_param_axes(meta), mesh,
                                           self.rules, fsdp=fsdp)
+        #: the attention replicates over ``model`` (the q heads do not
+        #: divide), a layout of the port's, not the rules'
+        self.attention_replicated = False
         self.param_specs = self._runnable(cfg)
         M = self.sizes.get("model", 1)
         shard = dict(group=mesh.get_group("model") if M > 1 else None,
@@ -249,6 +284,9 @@ class Placement:
                 if split(attn["wk"]):
                     shard["kv_heads"] = True
                     local["n_kv_heads"] = cfg.n_kv_heads // M
+                else:
+                    shard["kv_slice"] = kv_slice(cfg.n_heads, cfg.n_kv_heads,
+                                                 M, shard["rank"])
             mlp = specs["layers"].get("mlp", {})
             first = mlp.get("w_gate", mlp.get("w_in"))
             if first is not None and split(first):
@@ -272,16 +310,15 @@ class Placement:
         module docstring; refuses what the layers cannot run."""
         specs = tree_map(lambda spec: spec, self.rule_specs)   # a copy
         M = self.sizes.get("model", 1)
-        allowed = ("model", "data") if self.fsdp else ("model",)
+        allowed = "model and the data axes" if self.fsdp else "model"
         for path, spec in tree_leaves(specs):
             keys = path.split(".")
             for e in spec:
-                axes = e if isinstance(e, tuple) else (e,)
-                if e is not None and (len(axes) != 1
-                                      or axes[0] not in allowed):
+                if e is not None and e != "model" and not (
+                        self.fsdp and _data_entry(e)):
                     raise ValueError(
                         f"parameter {path} splits over {e}: the port shards "
-                        f"parameters over {' and '.join(allowed)} alone")
+                        f"parameters over {allowed} alone")
             if M == 1 or not _has(spec, "model"):
                 continue
             if cfg.family in ("ssm", "hybrid"):
@@ -304,15 +341,18 @@ class Placement:
             kv_cache if isinstance(kv_cache, tuple) else (kv_cache,)) \
             and cfg.n_kv_heads % M == 0
         if heads and cfg.n_heads % M:
-            raise ValueError(f"{cfg.n_heads} heads do not split over a "
-                             f"model axis of {M}")
+            for name in _ATTN:
+                if name in attn:
+                    attn[name] = _unsplit(attn[name], "model")
+            heads, self.attention_replicated = False, True
         if heads and not kv_split:
-            if cfg.n_kv_heads != 1:
+            per, group = cfg.n_heads // M, cfg.n_heads // cfg.n_kv_heads
+            if per % group and group % per:
                 raise ValueError(
                     f"{cfg.n_kv_heads} KV heads replicate over a model axis "
-                    f"of {M} while the q heads split: each rank would need "
-                    "a different slice of the KV heads; use a model axis "
-                    "that divides the KV heads (ROADMAP Queue 1 item 19)")
+                    f"of {M} while the q heads split {per} a rank, in "
+                    f"groups of {group}: a rank's q heads would straddle "
+                    "KV-head groups unevenly")
             for name in ("wk", "wv", "bk", "bv"):
                 if name in attn:
                     attn[name] = _unsplit(attn[name], "model")

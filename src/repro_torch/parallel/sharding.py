@@ -242,17 +242,18 @@ def train_rules_for(cfg, mesh,
     train step places its state by ``DEFAULT_RULES``), the cache head axis
     replicated where the model axis does not divide the KV heads.
 
-    Refused, each with its reason: a mesh with axes other than ``data``
-    and ``model`` (the port's trainer reduces over one data group), and a
-    split ``model`` axis for the recurrent families, whose SSD layer the
-    rules would split over ``ssm_heads`` / ``ssm_inner``: the port trains
-    them data-parallel (FSDP over ``data``) only."""
+    A ``pod`` axis is an outer data axis: ``batch`` and ``fsdp`` go over
+    ``(pod, data)`` (``DEFAULT_RULES``), which the trainer reduces over as
+    one flattened group. Refused, each with its reason: a mesh with axes
+    other than ``pod``, ``data`` and ``model``, and a split ``model`` axis
+    for the recurrent families, whose SSD layer the rules would split over
+    ``ssm_heads`` / ``ssm_inner``: the port trains them data-parallel
+    (FSDP over the data axes) only."""
     sizes = mesh_axis_sizes(mesh)
-    extra = sorted(set(sizes) - {"data", "model"})
+    extra = sorted(set(sizes) - {"pod", "data", "model"})
     if extra:
-        raise ValueError(f"the port trains on (data, model) meshes; this "
-                         f"one also has {extra} (a pod axis is an outer "
-                         "data axis the trainer does not reduce over)")
+        raise ValueError(f"the port trains on (pod, data, model) meshes; "
+                         f"this one also has {extra}")
     M = sizes.get("model", 1)
     if cfg.family in ("ssm", "hybrid") and M > 1:
         raise ValueError(

@@ -289,8 +289,10 @@ def test_refusals(tp, dp, what):
 
 def test_refusal_without_ranks():
     """The rules refuse a split model axis for the SSD layer before any
-    rank starts (a stand-in mesh of the reference's shape), and a pod
-    axis."""
+    rank starts (a stand-in mesh of the reference's shape), and an axis
+    other than pod, data and model; a pod axis is an outer data axis
+    (``batch`` and ``fsdp`` over ``(pod, data)``), taken since the pod
+    axis trains."""
     class Stand:
         def __init__(self, names, shape):
             self.axis_names = names
@@ -301,9 +303,12 @@ def test_refusal_without_ranks():
         train_rules_for(cfg, Stand(("data", "model"), (1, 2)))
     assert train_rules_for(cfg, Stand(("data", "model"), (2, 1))) \
         is DEFAULT_RULES
+    assert train_rules_for(ranks.case_config("llama3"),
+                           Stand(("pod", "data", "model"), (2, 1, 1))) \
+        is DEFAULT_RULES
     with pytest.raises(ValueError, match="pod"):
         train_rules_for(ranks.case_config("llama3"),
-                        Stand(("pod", "data", "model"), (2, 1, 1)))
+                        Stand(("pod", "expert", "model"), (2, 1, 1)))
 
 
 @pytest.mark.parametrize("remat", ["full", "dots"])
